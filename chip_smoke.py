@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Smoke run of quiver_tpu_torch on one CUDA card, at Reddit size.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``quiver_tpu_torch/csrc`` (at first
+use, with nvcc), then:
+
+1. prints the card's name and power limit and the torch/CUDA versions;
+2. builds the kernels and prints the build time;
+3. kernel phase: on a Reddit-sized graph, holds each kernel against its
+   plain PyTorch version on the card at the main path's shapes, exactly,
+   and times kernel, plain version and library call with CUDA events;
+4. serving phase: RequestBatcher(mode="Device") -> InferenceServer_Debug
+   -> GraphSAGE 602 -> 256 -> 41 with fanouts [25, 10] and seeded random
+   weights; warms every bucket, serves 64 requests of 1..512 ids from 4
+   client threads, checks every answer, recomputes served passes directly,
+   checks one pass against the plain versions on the CPU, and checks that
+   both kernels' launch counters rose while serving; then splits one
+   bucket-2048 pass into sampling, lookup and model with CUDA events and
+   lists its device time by kernel with ``torch.profiler``;
+5. prints one ``{"kernels": [...]}`` line, the card line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check exits non-zero.  Without a CUDA card it exits 2 and
+prints no result.
+
+The graph has PyG Reddit's 232,965 nodes and asks ``synthetic_csr``
+(lognormal degrees) for its 114,615,892 edges; flooring each node's
+degree leaves 114,499,636, 0.1% fewer.  The JAX package's
+``synthetic_reddit`` asks for a tenth of the edges; this run uses the
+published count, so indices alone are ~458 MB on the card.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import queue
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+N_NODES = 232_965
+N_EDGES = 114_615_892
+DIM, HIDDEN, CLASSES = 602, 256, 41
+FANOUTS = [25, 10]
+SEED = 0
+DEV = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+N_CLIENTS, PER_CLIENT, MAX_IDS = 4, 16, 512
+CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32, CPU vs card summation order
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
+    """Median device milliseconds of ``fn`` over ``reps`` runs, each
+    bracketed by CUDA events."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def seeded_model(torch, qt):
+    """GraphSAGE 602 -> 256 -> 41, weights uniform in +-1/sqrt(fan_in)
+    from a seeded generator."""
+    model = qt.GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=2, dropout=0.5)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            conv = model.convs[int(name.split(".")[1])]
+            fan_in = (conv.lin_self if "lin_self" in name
+                      else conv.lin_nbr).in_features
+            bound = 1.0 / fan_in ** 0.5
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
+    return model
+
+
+def kernel_phase(torch, qt, topo, feature, b1, b2):
+    """Each kernel against its plain version at the main path's shapes
+    (one bucket-2048 pass); returns the kernel records."""
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    rng = np.random.default_rng(SEED + 1)
+    kw = rng.integers(0, 2**32, size=(2, 2), dtype=np.uint32)
+
+    # B1 at hop 1 (2048 seeds, k=25) and hop 2 (53,248 seeds, k=10, with
+    # the pipeline's masked slots), the inputs the pipeline gives it
+    seeds = torch.from_numpy(
+        rng.integers(0, N_NODES, 2048).astype(np.int32)).to(dev)
+    m1 = torch.ones(2048, dtype=torch.bool, device=dev)
+    h1 = b1.window_sample(ip, ix, seeds, FANOUTS[0], int(kw[0, 0]),
+                          int(kw[0, 1]), m1)
+    s2 = torch.cat([seeds, torch.where(h1.mask, h1.nbrs,
+                                       torch.zeros_like(h1.nbrs)).reshape(-1)])
+    m2 = torch.cat([m1, h1.mask.reshape(-1)])
+    check(s2.shape[0] == 53_248, f"hop-2 frontier {s2.shape[0]}")
+    check(not bool(m2.all()), "hop 2 has no masked seeds")
+    b1_cases = []
+    hop2 = None
+    for hop, (s, m, k, (k0, k1)) in enumerate(
+            [(seeds, m1, FANOUTS[0], kw[0]), (s2, m2, FANOUTS[1], kw[1])], 1):
+        k0, k1 = int(k0), int(k1)
+        got = b1.window_sample(ip, ix, s, k, k0, k1, m)
+        want = b1.window_sample_plain(ip, ix, s, k, k0, k1, m)
+        torch.cuda.synchronize()
+        err = 0
+        for name, a, b in zip(("nbrs", "mask", "counts", "eid"), got, want):
+            check(torch.equal(a, b), f"B1 hop {hop}: {name} differs from "
+                  "the plain version")
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                               .abs().max()))
+        hop2 = got
+        drawn = int(got.counts.sum())
+        B = s.shape[0]
+        # inputs read once (seeds, mask, two indptr words, one index per
+        # draw), outputs written once (nbrs, mask, eid per slot, counts)
+        nbytes = B * (4 + 1 + 8 + 4) + drawn * 4 + B * k * (4 + 1 + 4)
+        b1_cases.append(dict(
+            shape=f"hop {hop}: B={B}, k={k}", max_abs_err=float(err),
+            ms=cuda_ms(torch, lambda: b1.window_sample(ip, ix, s, k, k0, k1,
+                                                       m)),
+            plain_ms=cuda_ms(torch, lambda: b1.window_sample_plain(
+                ip, ix, s, k, k0, k1, m)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, draws=drawn))
+        print(f"B1 hop {hop}: B={B} k={k} exact; {json.dumps(b1_cases[-1])}",
+              flush=True)
+
+    # B2 at the lookup of that pass: 585,728 frontier rows of width 602
+    n_id = torch.cat([s2, torch.where(
+        hop2.mask, hop2.nbrs, torch.zeros_like(hop2.nbrs)).reshape(-1)])
+    check(n_id.shape[0] == 585_728, f"frontier {n_id.shape[0]}")
+    order = torch.from_numpy(feature.feature_order.astype(np.int32)).to(dev)
+    idx = order[n_id.to(torch.int64)]  # what lookup_device hands B2
+    distinct = int(torch.unique(idx).shape[0])
+    b2_cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        table = feature.hot if dtype == torch.float32 else \
+            feature.hot.to(dtype)
+        got = b2.gather_rows(table, idx)
+        want = b2.gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"B2 {dtype} differs from index_select")
+        row = DIM * table.element_size()
+        nbytes = distinct * row + idx.shape[0] * (4 + row)
+        b2_cases.append(dict(
+            shape=f"M={idx.shape[0]}, D={DIM}, {str(dtype)[6:]}",
+            vector_bytes=b2.vector_bytes(row, table.data_ptr(),
+                                         got.data_ptr()),
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            ms=cuda_ms(torch, lambda: b2.gather_rows(table, idx)),
+            plain_ms=cuda_ms(torch, lambda: b2.gather_rows_plain(table, idx)),
+            library_ms=cuda_ms(torch,
+                               lambda: torch.index_select(table, 0, idx)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, distinct_rows=distinct))
+        print(f"B2 {dtype}: exact; {json.dumps(b2_cases[-1])}", flush=True)
+        del got, want, table
+
+    def total(cases, key):
+        return float(sum(c[key] for c in cases))
+
+    return [
+        dict(name="window_sample", route="cuda", source=b1.SOURCE,
+             replaces=b1.REPLACES,
+             max_abs_err=max(c["max_abs_err"] for c in b1_cases),
+             ms=total(b1_cases, "ms"), plain_ms=total(b1_cases, "plain_ms"),
+             bound_ms=total(b1_cases, "bound_ms"), bound_by="bytes",
+             library_ms=None, cases=b1_cases),
+        dict(name="gather_rows", route="cuda", source=b2.SOURCE,
+             replaces=b2.REPLACES,
+             max_abs_err=max(c["max_abs_err"] for c in b2_cases),
+             ms=b2_cases[0]["ms"], plain_ms=b2_cases[0]["plain_ms"],
+             bound_ms=b2_cases[0]["bound_ms"], bound_by="bytes",
+             library_ms=b2_cases[0]["library_ms"], cases=b2_cases),
+    ]
+
+
+def stage_times(torch, server):
+    """CUDA-event split of one bucket-2048 pass: sampling, feature
+    lookup, model (median of 5)."""
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    s = server.sampler
+    ip, ix = s.csr_topo.to_device(s.device)
+    ids = np.random.default_rng(SEED + 2).integers(0, N_NODES, 2048)
+    out = {"sample": [], "lookup": [], "model": [], "pass_wall": []}
+    with torch.inference_mode():
+        for _ in range(7):
+            kw = server.draw_key_words()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            seeds = s.seed_tensor(ids)
+            n_id, _, _, blocks, _ = run_pipeline("none", ip, ix, seeds, kw,
+                                                 s.sizes)
+            ev[1].record()
+            x = server.feature.lookup_device(n_id)
+            ev[2].record()
+            y = server.model(x, blocks)
+            ev[3].record()
+            y.cpu()
+            out["pass_wall"].append((time.perf_counter() - t0) * 1e3)
+            out["sample"].append(ev[0].elapsed_time(ev[1]))
+            out["lookup"].append(ev[1].elapsed_time(ev[2]))
+            out["model"].append(ev[2].elapsed_time(ev[3]))
+    return {k: float(np.median(v[2:])) for k, v in out.items()}
+
+
+def device_profile(torch, server, pass_wall_ms: float) -> dict:
+    """One bucket-2048 fused forward under ``torch.profiler``: device time
+    by kernel or copy (top 8), and the card's busy share of the unprofiled
+    pass wall time from :func:`stage_times` (one stream, so device events
+    do not overlap and their sum is the busy time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = np.random.default_rng(SEED + 4).integers(0, N_NODES, 2048)
+    kw = server.draw_key_words()
+    server.fused_forward(ids, kw).cpu()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        server.fused_forward(ids, kw).cpu()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    busy_ms = sum(by_name.values()) / 1e3
+    if busy_ms == 0:
+        return {"device_ms": "not measured: the profiler saw no device "
+                             "events"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ms=busy_ms, busy_share=busy_ms / pass_wall_ms,
+                top=[dict(name=n[:100], ms=t / 1e3) for n, t in top])
+
+
+def serving_phase(torch, qt, topo, feat, feature, b1, b2):
+    """Serve 64 requests through the port's full-width slice; returns the
+    launch counts of the served run and a summary."""
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+    model = seeded_model(torch, qt)
+    model_cpu = copy.deepcopy(model)
+    streams = [queue.Queue() for _ in range(N_CLIENTS)]
+    results: "queue.Queue" = queue.Queue()
+    rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
+    server = qt.InferenceServer_Debug(sampler, feature, model,
+                                      rb.device_batched_queue,
+                                      result_queue=results, seed=SEED)
+    t0 = time.perf_counter()
+    server.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    print(f"warmup of {len(server.BUCKETS)} buckets: {warmup_s:.3f} s",
+          flush=True)
+    server.pass_log.clear()
+
+    rng = np.random.default_rng(SEED + 3)
+    plans = [[rng.integers(0, N_NODES, int(n)) for n in
+              rng.integers(1, MAX_IDS + 1, PER_CLIENT)]
+             for _ in range(N_CLIENTS)]
+    sent = {}
+
+    def client(c):
+        # bursts of four, so the device lane finds requests to coalesce
+        for seq, ids in enumerate(plans[c]):
+            req = qt.ServingRequest(ids=ids, client=c, seq=seq)
+            sent[(c, seq)] = req
+            streams[c].put(req)
+            if seq % 4 == 3:
+                time.sleep(0.02)
+
+    torch.cuda.reset_peak_memory_stats()
+    b1.window_sample.launches = 0
+    b2.gather_rows.launches = 0
+    rb.start()
+    server.start()
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(c,))
+               for c in range(N_CLIENTS)]
+    for t in clients:
+        t.start()
+    answers = {}
+    try:
+        for _ in range(N_CLIENTS * PER_CLIENT):
+            req, out = results.get(timeout=300)
+            check(not isinstance(out, Exception), f"request failed: {out!r}")
+            answers[(req.client, req.seq)] = out
+    finally:
+        served_s = time.perf_counter() - t0
+        launches = {"window_sample": b1.window_sample.launches,
+                    "gather_rows": b2.gather_rows.launches}
+        for t in clients:
+            t.join(timeout=30)
+        leaked = rb.stop() + server.stop()
+    check(not leaked and not any(t.is_alive() for t in clients),
+          "serving threads did not stop")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    stats = server.stats()
+    passes = list(server.pass_log)
+    print(f"served {len(answers)} requests in {served_s:.3f} s over "
+          f"{len(passes)} passes; launches while serving: "
+          f"{json.dumps(launches)}; peak device memory {peak_gb:.2f} GiB",
+          flush=True)
+    print("stats " + json.dumps(stats), flush=True)
+
+    check(len(answers) == N_CLIENTS * PER_CLIENT, "missing answers")
+    for key, out in answers.items():
+        check(out.shape == (len(sent[key].ids), CLASSES),
+              f"answer {key} has shape {out.shape}")
+        check(np.isfinite(out).all(), f"answer {key} is not finite")
+    check(stats["count"] == len(answers), "stats count")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched while serving")
+
+    # recompute served passes directly from their recorded padded ids and
+    # key words: a coalesced one, a chunked or top-bucket one, the first
+    coalesced = [p for p in passes if len(p[0]) > 1]
+    check(coalesced, "no pass coalesced requests")
+    picks = {id(p): p for p in (coalesced[0], passes[0],
+                                max(passes, key=lambda p: len(p[1][0][0])))}
+    top = server.BUCKETS[-1]
+    for members, chunks in picks.values():
+        total_ids = sum(len(sent[m].ids) for m in members)
+        direct = np.concatenate([
+            server.fused_forward(p, kw)[:min(top, total_ids - top * i)]
+            .cpu().numpy() for i, (p, kw) in enumerate(chunks)])
+        off = 0
+        for m in members:
+            n = len(sent[m].ids)
+            check(np.array_equal(answers[m], direct[off: off + n]),
+                  f"answer {m} differs from the direct forward of its pass")
+            off += n
+    print(f"recomputed {len(picks)} served passes (sizes "
+          f"{[len(c[0][0]) for _, c in picks.values()]}, "
+          f"{max(len(m) for m, _ in picks.values())} requests coalesced): "
+          "answers equal", flush=True)
+
+    # one small pass against the plain versions on the CPU
+    sampler_cpu = qt.GraphSageSampler(topo, FANOUTS, device="cpu")
+    feature_cpu = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                             device="cpu").from_cpu_tensor(feat)
+    check(np.array_equal(feature_cpu.feature_order, feature.feature_order),
+          "feature order differs between card and CPU")
+    ref = qt.InferenceServer(sampler_cpu, feature_cpu, model_cpu, None)
+    padded = server._pad_ids(rng.integers(0, N_NODES, 50))
+    kw = server.draw_key_words()
+    n_card = sampler.sample(padded, key_words=kw).n_id.cpu()
+    n_cpu = sampler_cpu.sample(padded, key_words=kw).n_id
+    check(torch.equal(n_card, n_cpu), "card frontier differs from the CPU's")
+    y_card = server.fused_forward(padded, kw).cpu()
+    y_cpu = ref.fused_forward(padded, kw)
+    err = float((y_card - y_cpu).abs().max())
+    check(torch.allclose(y_card, y_cpu, **CPU_TOL),
+          f"card logits differ from the CPU's by {err}")
+    print(f"CPU reference pass (bucket {len(padded)}, frontier "
+          f"{n_cpu.shape[0]}): frontier equal, logits max abs err {err:.3e}",
+          flush=True)
+
+    stages = stage_times(torch, server)
+    print("bucket-2048 pass split (ms, median of 5) " + json.dumps(stages),
+          flush=True)
+    prof = device_profile(torch, server, stages["pass_wall"])
+    print("bucket-2048 pass on the card (torch.profiler) " + json.dumps(prof),
+          flush=True)
+    return launches, dict(stats=stats, warmup_s=warmup_s, served_s=served_s,
+                          passes=len(passes), peak_gib=peak_gb,
+                          stages_ms=stages, device_profile=prof)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        import quiver_tpu_torch as qt
+    except ImportError as e:
+        print(f"chip_smoke: quiver_tpu_torch not importable: {e}",
+              file=sys.stderr)
+        return 2
+    from quiver_tpu_torch.ops.cuda import KERNELS, build
+    from quiver_tpu_torch.ops.cuda import gather_rows as b2
+    from quiver_tpu_torch.ops.cuda import window_sample as b1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
+
+    t0 = time.perf_counter()
+    build.build_all(KERNELS)
+    print(f"built {list(KERNELS)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for name in KERNELS:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    indptr, indices = qt.synthetic_csr(N_NODES, N_EDGES, seed=SEED)
+    topo = qt.CSRTopo(indptr=indptr, indices=indices)
+    feat = np.random.default_rng(SEED).standard_normal(
+        (N_NODES, DIM), dtype=np.float32)
+    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                         device=DEV).from_cpu_tensor(feat)
+    topo.to_device(DEV)
+    torch.cuda.synchronize()
+    print(f"graph {topo!r}, features {feature!r}: set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    kernels = kernel_phase(torch, qt, topo, feature, b1, b2)
+    launches, summary = serving_phase(torch, qt, topo, feat, feature, b1,
+                                      b2)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print("summary " + json.dumps(summary), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {card_line()}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,5 @@
+from .convert import sage_params_from_flax
+from .layers import SAGEConv
+from .sage import GraphSAGE
+
+__all__ = ["GraphSAGE", "SAGEConv", "sage_params_from_flax"]

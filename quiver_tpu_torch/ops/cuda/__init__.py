@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the port and their wrappers.
+
+``KERNELS`` names each kernel's library, built from ``csrc/<name>.cu``.
+"""
+
+KERNELS = ("window_sample", "gather_rows")
+
+__all__ = ["KERNELS"]

@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
+``build/quiver_tpu_torch/lib<name>-<hash>.so`` beside the package, then
+loaded with ``ctypes``.  The hash is the source's, so an edited kernel is
+never served from a stale library.  Builds happen at first use;
+:func:`build_all` starts one ``nvcc`` per source at once and waits for
+all.  Importing this module needs no ``nvcc``.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch; the
+wrappers raise through :func:`check` when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "check"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "quiver_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # the sampling hop must reproduce fp32 products and quotients exactly:
+    # no fused multiply-add contraction, IEEE division
+    "-fmad=false", "-prec-div=true", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit to build the kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes()
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    log = open(out.with_suffix(".log"), "w")
+    try:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    except OSError:
+        log.close()
+        raise
+    return proc, log, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, _, tmp, out = job
+    rc = proc.wait()
+    if rc != 0:
+        raise RuntimeError(
+            f"nvcc failed on {name}.cu (rc {rc}):\n"
+            + out.with_suffix(".log").read_text())
+    os.replace(tmp, out)
+
+
+def build_all(names: Sequence[str]) -> List[Path]:
+    """Compile every named kernel that is not built yet, in parallel."""
+    with _lock:
+        jobs = []
+        try:
+            for n in names:
+                jobs.append((n, _start(n)))
+            for n, job in jobs:
+                _finish(n, job)
+        finally:
+            # a failed build stops the others: no nvcc outlives the call
+            for _, job in jobs:
+                if job is None:
+                    continue
+                proc, log = job[0], job[1]
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+    return [_lib_path(n) for n in names]
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the last build of ``name`` (register and
+    shared-memory use per kernel, from ``-Xptxas -v``)."""
+    p = _lib_path(name).with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``fn`` of kernel library ``name``, built at first
+    use, with its argument types set and an ``int`` result."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build_all([name])[0]
+        with _lock:
+            lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
+    f = getattr(lib, fn)
+    f.argtypes = list(argtypes)
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

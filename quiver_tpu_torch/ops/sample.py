@@ -1,0 +1,162 @@
+"""Neighbour sampling (counterpart of ``quiver_tpu/ops/sample.py``).
+
+One hop returns dense ``[B, k]`` neighbour blocks with a validity mask, as
+in the JAX package.  Slot ``j`` of seed ``b`` draws uniformly from stratum
+``[floor(j*deg/k), floor((j+1)*deg/k))`` with a counter-hash uniform at
+counter ``b*k + j``, keyed by the folded key words ``(k0, k1)``.  The hash
+is integer arithmetic and the stratum bounds are correctly rounded fp32,
+so every draw equals the JAX package's ``sample_rng="hash"`` draw bit for
+bit.  The port has this one RNG; JAX's threefry ``sample_rng="key"`` has
+no counterpart.
+
+On the card a hop is one launch of kernel B1
+(``ops/cuda/window_sample.py``); on the CPU it runs :func:`sample_hop_plain`,
+which is also the kernel's reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+__all__ = ["sample_neighbors", "sample_hop_plain", "SampleOut", "to_ragged",
+           "key_words_pair"]
+
+
+class SampleOut(NamedTuple):
+    """Dense one-hop sample: ``nbrs[b, j]`` valid where ``mask[b, j]``."""
+
+    nbrs: torch.Tensor    # [B, k] int32 global neighbour ids (-1 where ~mask)
+    mask: torch.Tensor    # [B, k] bool
+    counts: torch.Tensor  # [B] int32 = min(degree, k), 0 for masked seeds
+    eid: Optional[torch.Tensor] = None  # [B, k] int32 edge positions (-1 pad)
+
+
+# counter-hash constants: the same words as the JAX package and the CUDA
+# kernel (csrc/window_sample.cu); draws match only while all three agree
+HASH_PHI = 0x9E3779B9
+HASH_MUL1 = 0x85EBCA6B
+HASH_MUL2 = 0xC2B2AE35
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Low 32 bits of ``x * c`` for int64 ``x`` in ``[0, 2**32)``.
+
+    The multiplier is split into 16-bit halves so no partial product
+    exceeds 2**48: a plain int64 ``x * c`` can pass 2**63 and wrap the
+    sign before the mask is applied."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 32-bit finalizer on uint32 values held in int64 (PyTorch
+    has no ``>>`` for uint32 on the CPU)."""
+    x = _mul32(x ^ (x >> 16), HASH_MUL1)
+    x = _mul32(x ^ (x >> 13), HASH_MUL2)
+    return x ^ (x >> 16)
+
+
+def _hash_uniform(k0: int, k1: int, shape, device=None) -> torch.Tensor:
+    """Counter-hash uniforms in ``[0, 1)``, fp32, at counters
+    ``0 .. prod(shape)-1`` in row-major order."""
+    n = 1
+    for s in shape:
+        n *= s
+    x = torch.arange(n, dtype=torch.int64, device=device) & _M32
+    x = _mul32(x, HASH_PHI)
+    x = _fmix32(x ^ k0)
+    x = _fmix32(x ^ k1)
+    # x >> 8 < 2**24 converts exactly; the scale is a power of two
+    return ((x >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
+
+
+def _stratified_positions(u: torch.Tensor, deg: torch.Tensor,
+                          k: int) -> torch.Tensor:
+    """In-window draw positions ``[B, k]`` from uniforms ``u``.
+
+    The divisor is a tensor on ``u``'s device, not a Python number: CUDA
+    PyTorch turns division by a host scalar into a multiply by its
+    reciprocal, which is off by one ulp often enough to move a draw."""
+    j = torch.arange(k, dtype=torch.int32, device=u.device)[None, :]
+    degf = deg.to(torch.float32)[:, None]
+    kf = torch.tensor(float(k), dtype=torch.float32, device=u.device)
+    lo = torch.floor(j.to(torch.float32) * degf / kf)
+    hi = torch.floor((j + 1).to(torch.float32) * degf / kf)
+    strat = lo + torch.floor(u * torch.clamp_min(hi - lo, 1.0))
+    pos = torch.where(deg[:, None] <= k, j, strat.to(torch.int32))
+    return torch.minimum(pos, torch.clamp_min(deg[:, None] - 1, 0))
+
+
+def sample_hop_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                     seeds: torch.Tensor, k: int, k0: int, k1: int,
+                     seed_mask: Optional[torch.Tensor] = None) -> SampleOut:
+    """One sampling hop in plain PyTorch: the reference for kernel B1.
+
+    Reads of ``indptr``/``indices`` are clipped to the (padded) tables,
+    as the JAX gathers clip."""
+    seeds = seeds.to(torch.int32)
+    m = indptr.shape[0]
+    s64 = seeds.to(torch.int64)
+    start = indptr[s64.clamp(0, m - 1)]
+    end = indptr[(s64 + 1).clamp(0, m - 1)]
+    deg = end - start
+    if seed_mask is not None:
+        deg = torch.where(seed_mask, deg, torch.zeros_like(deg))
+    counts = torch.clamp_max(deg, k).to(torch.int32)
+    j = torch.arange(k, dtype=torch.int32, device=seeds.device)[None, :]
+    u = _hash_uniform(k0, k1, (seeds.shape[0], k), device=seeds.device)
+    pos = _stratified_positions(u, deg, k)
+    mask = j < counts[:, None]
+    idx = start[:, None] + pos
+    nbrs = indices[idx.to(torch.int64).clamp(0, indices.shape[0] - 1)]
+    neg = torch.full_like(idx, -1)
+    return SampleOut(nbrs=torch.where(mask, nbrs, neg), mask=mask,
+                     counts=counts, eid=torch.where(mask, idx, neg))
+
+
+def key_words_pair(key_words) -> Tuple[int, int]:
+    """``(k0, k1)`` as Python ints from any two-word uint32 container."""
+    w = np.asarray(key_words, dtype=np.uint32).reshape(-1)
+    if w.shape[0] != 2:
+        raise ValueError(f"need two uint32 key words, got {w.shape[0]}")
+    return int(w[0]), int(w[1])
+
+
+def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
+                     seeds: torch.Tensor, k: int, key_words,
+                     seed_mask: Optional[torch.Tensor] = None,
+                     device=None) -> SampleOut:
+    """Sample up to ``k`` distinct neighbours per seed from a CSR graph.
+
+    Args:
+      indptr / indices: int32 CSR tables, 128-padded
+        (:meth:`CSRTopo.to_device`).
+      seeds: ``[B]`` node ids; where ``seed_mask`` is False a seed counts
+        as degree 0.
+      k: fanout.
+      key_words: the two folded uint32 key words ``(k0, k1)``.
+      device: where the hop runs (``None``: the card).
+
+    ``deg <= k`` returns every neighbour in CSR order; ``deg > k`` returns
+    k distinct neighbours, one per stratum.
+    """
+    from .cuda.window_sample import window_sample
+
+    dev = resolve_device(device)
+    k0, k1 = key_words_pair(key_words)
+    if seed_mask is not None:
+        seed_mask = seed_mask.to(dev)
+    return window_sample(indptr.to(dev), indices.to(dev),
+                         seeds.to(dev, torch.int32), k, k0, k1, seed_mask)
+
+
+def to_ragged(out: SampleOut) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense ``[B, k]`` -> (flat neighbours, counts): neighbours of seed b
+    occupy ``flat[offset[b] : offset[b] + counts[b]]``."""
+    return out.nbrs[out.mask], out.counts

@@ -36,8 +36,10 @@ setup(
         "TPU-native graph-learning data layer: neighbor sampling, cached "
         "feature store, distributed feature exchange, GNN serving"
     ),
-    packages=find_packages(include=["quiver_tpu", "quiver_tpu.*"]),
-    package_data={"quiver_tpu.cpp": ["csrc/*.cpp", "*.so"]},
+    packages=find_packages(include=["quiver_tpu", "quiver_tpu.*",
+                                    "quiver_tpu_torch", "quiver_tpu_torch.*"]),
+    package_data={"quiver_tpu.cpp": ["csrc/*.cpp", "*.so"],
+                  "quiver_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
     cmdclass={"build_py": BuildWithNative},

@@ -1,0 +1,79 @@
+"""The port stands alone: it imports no JAX and nothing of ``quiver_tpu``,
+and its entry points default to the CUDA card, raising where there is
+none instead of running on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import quiver_tpu_torch as qt
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN or top == "quiver_tpu"
+
+
+def _port_files():
+    files = sorted((ROOT / "quiver_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, quiver_tpu_torch, quiver_tpu_torch.ops.cuda.build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu']; "
+            "print(bad)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_forbidden_imports_in_source():
+    assert (ROOT / "chip_smoke.py").exists()
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}:{node.lineno} {n}" for n in names
+                    if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_forbidden_matcher():
+    assert _forbidden("quiver_tpu") and _forbidden("quiver_tpu.ops.sample")
+    assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert not _forbidden("quiver_tpu_torch.ops")
+    assert not _forbidden("quiver_tpu_torch")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = qt.CSRTopo(indptr=np.array([0, 1, 2]), indices=np.array([1, 0]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.GraphSageSampler(topo, [2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.Feature()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        topo.to_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.sample_neighbors(torch.zeros(128, dtype=torch.int32),
+                            torch.zeros(128, dtype=torch.int32),
+                            torch.zeros(2, dtype=torch.int32), 2, (1, 2))
