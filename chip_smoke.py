@@ -4,22 +4,43 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``quiver_tpu_torch/csrc`` (at first
-use, with nvcc), then:
+use, with nvcc, one process per source, all at once), then:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the kernels and prints the build time;
-3. kernel phase: on a Reddit-sized graph, holds each kernel against its
-   plain PyTorch version on the card at the main path's shapes, exactly,
-   and times kernel, plain version and library call with CUDA events;
-4. serving phase: RequestBatcher(mode="Device") -> InferenceServer_Debug
-   -> GraphSAGE 602 -> 256 -> 41 with fanouts [25, 10] and seeded random
-   weights; warms every bucket, serves 64 requests of 1..512 ids from 4
-   client threads, checks every answer, recomputes served passes directly,
+3. kernel phase: on a Reddit-sized graph, holds kernels B1 and B2 against
+   their plain PyTorch versions on the card at the main path's shapes,
+   exactly, and times kernel, plain version and library call with CUDA
+   events;
+4. serving phase (slice 1, the whole table on the card):
+   RequestBatcher(mode="Device") -> InferenceServer_Debug -> GraphSAGE
+   602 -> 256 -> 41 with fanouts [25, 10] and seeded random weights;
+   warms every bucket, serves 64 requests of 1..512 ids from 4 client
+   threads, checks every answer, recomputes served passes directly,
    checks one pass against the plain versions on the CPU, and checks that
    both kernels' launch counters rose while serving; then splits one
    bucket-2048 pass into sampling, lookup and model with CUDA events and
    lists its device time by kernel with ``torch.profiler``;
-5. prints one ``{"kernels": [...]}`` line, the card line, and last
+5. B5 kernel phase (slice 2, the budgeted feature store): the feature
+   under the reference's ``device_cache_size="200M"`` in degree order,
+   paged, with a pool of every host page; stages the frontier of one
+   bucket-2048 pass (the first stage faults every page it touches), holds
+   kernel B5 against its plain version in fp32 and bf16, exactly, and
+   times kernel, plain version and library call;
+6. budgeted serving phase: the same 64-request plan through the unfused
+   lane over that feature; checks every answer, recomputes three passes
+   (rows bitwise equal to the source, logits equal to the full-cache
+   server's fused forward within CPU_TOL), and checks that B5 launched
+   while serving;
+7. fallback and overlay phase: one bucket-2048 gather under the default
+   page pool (it overflows: the staged merge serves it), and repeated
+   gathers with paging off (the overlay serves hits); rows bitwise equal
+   to the source;
+8. splits one budgeted bucket-2048 pass into sampling, the read-back of
+   ``n_id``, the host stage (plan and faults), the gather and the model,
+   lists its device time by kernel with ``torch.profiler`` and its host
+   time by function with cProfile;
+9. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 2 and
@@ -53,6 +74,9 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 N_CLIENTS, PER_CLIENT, MAX_IDS = 4, 16, 512
 CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32, CPU vs card summation order
+# the budget of examples/ogbn_products_sage.py and of the reference's
+# serving example: 87,091 of Reddit's 602-wide fp32 rows
+HOT_BUDGET = "200M"
 
 
 def fail(msg: str):
@@ -102,6 +126,14 @@ def seeded_model(torch, qt):
             bound = 1.0 / fan_in ** 0.5
             p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
     return model
+
+
+def frontier_of(torch, qt, topo, n_seeds: int, seed: int):
+    """Host ``n_id`` of one padded pass of ``n_seeds`` random seeds."""
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=seed)
+    ids = np.random.default_rng(seed).integers(0, N_NODES, n_seeds)
+    with torch.inference_mode():
+        return sampler.sample(ids).n_id.cpu().numpy()
 
 
 def kernel_phase(torch, qt, topo, feature, b1, b2):
@@ -235,21 +267,22 @@ def stage_times(torch, server):
     return {k: float(np.median(v[2:])) for k, v in out.items()}
 
 
-def device_profile(torch, server, pass_wall_ms: float) -> dict:
-    """One bucket-2048 fused forward under ``torch.profiler``: device time
-    by kernel or copy (top 8), and the card's busy share of the unprofiled
-    pass wall time from :func:`stage_times` (one stream, so device events
-    do not overlap and their sum is the busy time)."""
+def device_profile(torch, forward, pass_wall_ms: float, seed: int) -> dict:
+    """One bucket-2048 pass ``forward(ids, key_words)`` under
+    ``torch.profiler``: device time by kernel or copy (top 8), and the
+    card's busy share of the unprofiled pass wall time (one stream, so
+    device events do not overlap and their sum is the busy time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ids = np.random.default_rng(SEED + 4).integers(0, N_NODES, 2048)
-    kw = server.draw_key_words()
-    server.fused_forward(ids, kw).cpu()
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, N_NODES, 2048)
+    kw = rng.integers(0, 2**32, size=(len(FANOUTS), 2), dtype=np.uint32)
+    forward(ids, kw).cpu()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        server.fused_forward(ids, kw).cpu()
+        forward(ids, kw).cpu()
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -263,12 +296,22 @@ def device_profile(torch, server, pass_wall_ms: float) -> dict:
                 top=[dict(name=n[:100], ms=t / 1e3) for n, t in top])
 
 
-def serving_phase(torch, qt, topo, feat, feature, b1, b2):
-    """Serve 64 requests through the port's full-width slice; returns the
-    launch counts of the served run and a summary."""
-    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
-    model = seeded_model(torch, qt)
-    model_cpu = copy.deepcopy(model)
+def request_plan():
+    """The 64 requests both serving phases send, and the generator that
+    drew them."""
+    rng = np.random.default_rng(SEED + 3)
+    plans = [[rng.integers(0, N_NODES, int(n)) for n in
+              rng.integers(1, MAX_IDS + 1, PER_CLIENT)]
+             for _ in range(N_CLIENTS)]
+    return rng, plans
+
+
+def serve(torch, qt, sampler, feature, model, kernels):
+    """Warm every bucket, then serve the request plan from N_CLIENTS
+    threads through RequestBatcher(mode="Device") and
+    InferenceServer_Debug, with each kernel's launch count set to 0 just
+    before and read just after.  Checks every answer; returns the server,
+    the answers, the requests sent, the launches and a summary."""
     streams = [queue.Queue() for _ in range(N_CLIENTS)]
     results: "queue.Queue" = queue.Queue()
     rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
@@ -282,11 +325,7 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
     print(f"warmup of {len(server.BUCKETS)} buckets: {warmup_s:.3f} s",
           flush=True)
     server.pass_log.clear()
-
-    rng = np.random.default_rng(SEED + 3)
-    plans = [[rng.integers(0, N_NODES, int(n)) for n in
-              rng.integers(1, MAX_IDS + 1, PER_CLIENT)]
-             for _ in range(N_CLIENTS)]
+    rng, plans = request_plan()
     sent = {}
 
     def client(c):
@@ -299,8 +338,8 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
                 time.sleep(0.02)
 
     torch.cuda.reset_peak_memory_stats()
-    b1.window_sample.launches = 0
-    b2.gather_rows.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     rb.start()
     server.start()
     t0 = time.perf_counter()
@@ -316,8 +355,7 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
             answers[(req.client, req.seq)] = out
     finally:
         served_s = time.perf_counter() - t0
-        launches = {"window_sample": b1.window_sample.launches,
-                    "gather_rows": b2.gather_rows.launches}
+        launches = {name: fn.launches for name, fn in kernels.items()}
         for t in clients:
             t.join(timeout=30)
         leaked = rb.stop() + server.stop()
@@ -340,15 +378,39 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
     check(stats["count"] == len(answers), "stats count")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched while serving")
+    summary = dict(stats=stats, warmup_s=warmup_s, served_s=served_s,
+                   passes=len(passes), peak_gib=peak_gb)
+    return server, answers, sent, launches, rng, summary
+
+
+def picked_passes(server):
+    """Three served passes to recompute: a coalesced one, the one with the
+    largest chunk, and the first (or, where those coincide, the next)."""
+    passes = list(server.pass_log)
+    coalesced = [p for p in passes if len(p[0]) > 1]
+    check(coalesced, "no pass coalesced requests")
+    check(len(passes) >= 3, f"only {len(passes)} passes served")
+    picks = {id(p): p for p in (
+        coalesced[0], max(passes, key=lambda p: len(p[1][0][0])),
+        *passes)}
+    return list(picks.values())[:3]
+
+
+def serving_phase(torch, qt, topo, feat, feature, b1, b2):
+    """Serve 64 requests through the port's full-width slice; returns the
+    launch counts of the served run and a summary."""
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+    model = seeded_model(torch, qt)
+    model_cpu = copy.deepcopy(model)
+    server, answers, sent, launches, rng, summary = serve(
+        torch, qt, sampler, feature, model,
+        {"window_sample": b1.window_sample, "gather_rows": b2.gather_rows})
 
     # recompute served passes directly from their recorded padded ids and
     # key words: a coalesced one, a chunked or top-bucket one, the first
-    coalesced = [p for p in passes if len(p[0]) > 1]
-    check(coalesced, "no pass coalesced requests")
-    picks = {id(p): p for p in (coalesced[0], passes[0],
-                                max(passes, key=lambda p: len(p[1][0][0])))}
+    picks = picked_passes(server)
     top = server.BUCKETS[-1]
-    for members, chunks in picks.values():
+    for members, chunks in picks:
         total_ids = sum(len(sent[m].ids) for m in members)
         direct = np.concatenate([
             server.fused_forward(p, kw)[:min(top, total_ids - top * i)]
@@ -360,8 +422,8 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
                   f"answer {m} differs from the direct forward of its pass")
             off += n
     print(f"recomputed {len(picks)} served passes (sizes "
-          f"{[len(c[0][0]) for _, c in picks.values()]}, "
-          f"{max(len(m) for m, _ in picks.values())} requests coalesced): "
+          f"{[len(c[0][0]) for _, c in picks]}, "
+          f"{max(len(m) for m, _ in picks)} requests coalesced): "
           "answers equal", flush=True)
 
     # one small pass against the plain versions on the CPU
@@ -388,12 +450,261 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
     stages = stage_times(torch, server)
     print("bucket-2048 pass split (ms, median of 5) " + json.dumps(stages),
           flush=True)
-    prof = device_profile(torch, server, stages["pass_wall"])
+    prof = device_profile(torch, server.fused_forward, stages["pass_wall"],
+                          SEED + 4)
     print("bucket-2048 pass on the card (torch.profiler) " + json.dumps(prof),
           flush=True)
-    return launches, dict(stats=stats, warmup_s=warmup_s, served_s=served_s,
-                          passes=len(passes), peak_gib=peak_gb,
-                          stages_ms=stages, device_profile=prof)
+    summary.update(stages_ms=stages, device_profile=prof)
+    return launches, summary
+
+
+# -- slice 2: the budgeted feature store --------------------------------------
+
+def budgeted_feature(qt, topo, feat, pool_pages=None, paged=True):
+    """``Feature(device_cache_size=HOT_BUDGET, csr_topo=topo)`` on the card,
+    paged with ``pool_pages`` (``None``: the default pool) or not paged."""
+    f = qt.Feature(device_cache_size=HOT_BUDGET, csr_topo=topo,
+                   device=DEV).from_cpu_tensor(feat)
+    check(0 < f.cache_count < N_NODES, f"budget holds {f.cache_count} rows")
+    check(f.cold.is_pinned(), "the cold tail is not in pinned memory")
+    if paged:
+        f.enable_paging(pool_pages=pool_pages)
+    return f
+
+
+def b5_phase(torch, qt, topo, feat, feature, src, b5):
+    """Kernel B5 against its plain version at the shapes of one budgeted
+    bucket-2048 pass; returns the kernel record and the pass's ``n_id``."""
+    dev = torch.device(DEV)
+    store = feature.paged
+    t = store.table
+    check(t.pool_pages == t.n_host_pages, "the pool must hold every page")
+    n_id = frontier_of(torch, qt, topo, 2048, SEED + 5)
+    check(n_id.shape[0] == 585_728, f"frontier {n_id.shape[0]}")
+    idx = feature.feature_order[n_id]
+    host = {}
+    for name in ("first stage (faults)", "second stage (hits)"):
+        before = feature.stats()["counters"].get(
+            "feature_page_faults_total", 0)
+        with feature._plock:
+            t0 = time.perf_counter()
+            plan = store.stage(idx)
+            ms = (time.perf_counter() - t0) * 1e3
+        host[name] = dict(ms=ms, faults=feature.stats()["counters"].get(
+            "feature_page_faults_total", 0) - before)
+        check(plan is not None, f"{name}: the pool overflowed")
+    check(host["first stage (faults)"]["faults"] > 0, "no page faulted")
+    check(host["second stage (hits)"]["faults"] == 0, "hits re-faulted")
+    print(f"budgeted feature {feature!r}, {store!r}: cold rows "
+          f"{int((idx >= feature.cache_count).sum())} of {len(idx)}; host "
+          f"stage {json.dumps(host)}", flush=True)
+    _, blk_pages, blk_np, row_lp, row_off, rank, B = plan
+    plan_d = [torch.from_numpy(a).to(dev)
+              for a in (blk_pages, row_lp, row_off, rank)]
+    R = t.page_rows
+    flat = (plan_d[0].long()[(plan_d[3].long() // store.block) * store.ppb
+                             + plan_d[1].long()[plan_d[3].long()]] * R
+            + plan_d[2].long()[plan_d[3].long()])  # library input, untimed
+    distinct = int(torch.unique(flat).shape[0])
+    want_rows = src[torch.from_numpy(n_id).to(dev).long()]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        frames = store.frames if dtype == torch.float32 else \
+            store.frames.to(dtype)
+        got = b5.page_gather(frames, *plan_d, store.block, store.ppb)
+        want = b5.page_gather_plain(frames, *plan_d, store.block, store.ppb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"B5 {dtype} differs from the plain "
+              "version")
+        check(torch.equal(got, want_rows.to(dtype)),
+              f"B5 {dtype} rows differ from the source")
+        row = DIM * frames.element_size()
+        # distinct rows read, rows written, and per output row its rank,
+        # row_lp and row_off entries; each block's page list entries
+        nbytes = (distinct + B) * row + B * 3 * 4 + int(blk_np.sum()) * 4
+        view = frames.view(-1, DIM)
+        cases.append(dict(
+            shape=f"B={B}, frames={tuple(frames.shape)}, {str(dtype)[6:]}",
+            vector_bytes=b5.vector_bytes(row, frames.data_ptr(),
+                                         got.data_ptr()),
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            ms=cuda_ms(torch, lambda: b5.page_gather(
+                frames, *plan_d, store.block, store.ppb)),
+            plain_ms=cuda_ms(torch, lambda: b5.page_gather_plain(
+                frames, *plan_d, store.block, store.ppb)),
+            library_ms=cuda_ms(torch, lambda: view.index_select(0, flat)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, distinct_rows=distinct))
+        print(f"B5 {dtype}: exact; {json.dumps(cases[-1])}", flush=True)
+        del got, want, frames, view
+    return dict(name="page_gather", route="cuda", source=b5.SOURCE,
+                replaces=b5.REPLACES,
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+                bound_ms=cases[0]["bound_ms"], bound_by="bytes",
+                library_ms=cases[0]["library_ms"], cases=cases,
+                host_stage_ms=host), n_id
+
+
+def budgeted_serving_phase(torch, qt, topo, feature, full_feature, src,
+                           b1, b5):
+    """The slice-1 request plan through the unfused lane over the budgeted
+    paged feature; returns the server, the launches of the served run and
+    a summary."""
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+    model = seeded_model(torch, qt)
+    before = dict(feature.stats()["counters"])
+    server, answers, sent, launches, _, summary = serve(
+        torch, qt, sampler, feature, model,
+        {"window_sample": b1.window_sample, "page_gather": b5.page_gather})
+    check(not server._fused, "a budgeted feature took the fused lane")
+    check(feature.cold_cache is not None, "the server left the overlay off")
+    counters = feature.stats()["counters"]
+    moved = {k: v - before.get(k, 0) for k, v in counters.items()
+             if v != before.get(k, 0)}
+    print("feature counters over warmup and serving "
+          + json.dumps(moved), flush=True)
+    check(moved.get("feature_page_fallback_total", 0) == 0,
+          "a served pass fell back: the pool must hold every page")
+
+    ref = qt.InferenceServer(sampler, full_feature, seeded_model(torch, qt),
+                             None)
+    check(ref._fused, "the full-cache reference is not fused")
+    picks = picked_passes(server)
+    top = server.BUCKETS[-1]
+    err = 0.0
+    for members, chunks in picks:
+        total_ids = sum(len(sent[m].ids) for m in members)
+        direct = []
+        for i, (p, kw) in enumerate(chunks):
+            with torch.inference_mode():
+                batch = sampler.sample(p, key_words=kw)
+                x = feature[batch.n_id.cpu().numpy()]
+                check(torch.equal(x, src[batch.n_id.long()]),
+                      "budgeted rows differ from the source")
+                y = server.model(x, batch.layers)
+            y_ref = ref.fused_forward(p, kw)
+            err = max(err, float((y - y_ref).abs().max()))
+            check(torch.allclose(y, y_ref, **CPU_TOL),
+                  f"budgeted logits differ from the full-cache ones by {err}")
+            direct.append(y[:min(top, total_ids - top * i)].cpu().numpy())
+        direct = np.concatenate(direct)
+        off = 0
+        for m in members:
+            n = len(sent[m].ids)
+            check(np.array_equal(answers[m], direct[off: off + n]),
+                  f"answer {m} differs from the direct forward of its pass")
+            off += n
+    print(f"recomputed {len(picks)} budgeted passes (sizes "
+          f"{[len(c[0][0]) for _, c in picks]}): rows equal the source, "
+          f"logits within {err:.3e} of the full-cache server", flush=True)
+    summary.update(feature_counters=moved, logits_max_abs_err=err)
+    return server, launches, summary
+
+
+def fallback_overlay_phase(torch, qt, topo, feat, src, n_id):
+    """The default page pool overflows on a bucket-2048 frontier (the
+    staged merge serves it); with paging off, the overlay serves repeated
+    gathers.  Rows bitwise equal to the source; returns a summary."""
+    dev = torch.device(DEV)
+    f = budgeted_feature(qt, topo, feat)
+    t = f.paged.table
+    check(t.pool_pages == max(8, t.n_host_pages // 4),
+          f"default pool {t.pool_pages}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = f[n_id]
+    torch.cuda.synchronize()
+    staged_ms = (time.perf_counter() - t0) * 1e3
+    check(f.paged.fallbacks == 1, "the default pool did not overflow")
+    check(torch.equal(rows, src[torch.from_numpy(n_id).to(dev).long()]),
+          "fallback rows differ from the source")
+    out = dict(default_pool_pages=t.pool_pages, host_pages=t.n_host_pages,
+               staged_gather_ms=staged_ms,
+               counters=f.stats()["counters"])
+    del f, rows
+
+    f = budgeted_feature(qt, topo, feat, paged=False).enable_cold_cache()
+    small = frontier_of(torch, qt, topo, 256, SEED + 6)
+    want = src[torch.from_numpy(small).to(dev).long()]
+    for _ in range(3):
+        check(torch.equal(f[small], want), "overlay rows differ from the "
+              "source")
+    st = f.stats()["cold_cache"]
+    check(st["hits"] > 0 and st["misses"] > 0, f"overlay stats {st}")
+    out["overlay"] = dict(rows=len(small), **st)
+    print("fallback and overlay " + json.dumps(out), flush=True)
+    return out
+
+
+def budgeted_stage_times(torch, server) -> dict:
+    """Split of one budgeted bucket-2048 pass (median of 5): sampling by
+    CUDA events; the read-back of ``n_id`` and the host stage (feature
+    order, plan and faults) by the host clock; the gather (plan copy and
+    B5) and the model by CUDA events; and the pass as the server runs it
+    (``unfused_forward`` and the answer's read-back) by the host clock."""
+    feature, store = server.feature, server.feature.paged
+    rng = np.random.default_rng(SEED + 7)
+    ids = rng.integers(0, N_NODES, 2048)
+    keys = ("sample", "readback", "host_stage", "gather", "model",
+            "pass_split_wall", "pass_wall")
+    out = {k: [] for k in keys}
+    with torch.inference_mode():
+        for _ in range(7):
+            kw = server.draw_key_words()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            batch = server.sampler.sample(ids, key_words=kw)
+            ev[1].record()
+            ev[1].synchronize()
+            t1 = time.perf_counter()
+            n_id = batch.n_id.cpu().numpy()
+            t2 = time.perf_counter()
+            with feature._plock:
+                plan = store.stage(feature.feature_order[n_id])
+                t3 = time.perf_counter()
+                ev[2].record()
+                x = store.finish(plan)
+            ev[3].record()
+            y = server.model(x, batch.layers)
+            ev[4].record()
+            y.cpu()
+            t4 = time.perf_counter()
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            server.unfused_forward(ids, kw).cpu()
+            out["pass_wall"].append((time.perf_counter() - t5) * 1e3)
+            out["sample"].append(ev[0].elapsed_time(ev[1]))
+            out["readback"].append((t2 - t1) * 1e3)
+            out["host_stage"].append((t3 - t2) * 1e3)
+            out["gather"].append(ev[2].elapsed_time(ev[3]))
+            out["model"].append(ev[3].elapsed_time(ev[4]))
+            out["pass_split_wall"].append((t4 - t0) * 1e3)
+    return {k: float(np.median(v[2:])) for k, v in out.items()}
+
+
+def host_profile(torch, forward, seed: int, top: int = 10) -> list:
+    """One bucket-2048 pass ``forward(ids, key_words)`` under cProfile:
+    the functions with the most host time of their own.  cProfile slows
+    Python calls, not the numpy and torch work inside them, so the shares
+    lean towards Python-heavy functions."""
+    import cProfile
+    import pstats
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, N_NODES, 2048)
+    kw = rng.integers(0, 2**32, size=(len(FANOUTS), 2), dtype=np.uint32)
+    forward(ids, kw).cpu()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    forward(ids, kw).cpu()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [dict(fn=f"{f[0].rsplit('/', 1)[-1]}:{f[1]}:{f[2]}", calls=v[1],
+                 own_ms=v[2] * 1e3, cum_ms=v[3] * 1e3) for f, v in rows]
 
 
 def main() -> int:
@@ -410,6 +721,7 @@ def main() -> int:
         return 2
     from quiver_tpu_torch.ops.cuda import KERNELS, build
     from quiver_tpu_torch.ops.cuda import gather_rows as b2
+    from quiver_tpu_torch.ops.cuda import page_gather as b5
     from quiver_tpu_torch.ops.cuda import window_sample as b1
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -446,7 +758,39 @@ def main() -> int:
                                       b2)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+
+    # slice 2: every feature below compares with the source table by its
+    # own feature_order (each from_cpu_tensor rewrites topo.feature_order)
+    src = torch.from_numpy(feat).to(DEV)
+    t0 = time.perf_counter()
+    budgeted = budgeted_feature(qt, topo, feat, pool_pages=N_NODES)
+    torch.cuda.synchronize()
+    print(f"budgeted feature built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    b5_record, n_id = b5_phase(torch, qt, topo, feat, budgeted, src, b5)
+    server_b, launches_b, summary_b = budgeted_serving_phase(
+        torch, qt, topo, budgeted, feature, src, b1, b5)
+    b5_record["launches"] = launches_b["page_gather"]
+    b5_record["launches_per_pass"] = (launches_b["page_gather"]
+                                      / summary_b["passes"])
+    kernels.append(b5_record)
+    summary_b["fallback_overlay"] = fallback_overlay_phase(
+        torch, qt, topo, feat, src, n_id)
+    stages = budgeted_stage_times(torch, server_b)
+    print("budgeted bucket-2048 pass split (ms, median of 5) "
+          + json.dumps(stages), flush=True)
+    prof = device_profile(torch, server_b.unfused_forward,
+                          stages["pass_wall"], SEED + 8)
+    print("budgeted bucket-2048 pass on the card (torch.profiler) "
+          + json.dumps(prof), flush=True)
+    hprof = host_profile(torch, server_b.unfused_forward, SEED + 9)
+    print("budgeted bucket-2048 pass on the host (cProfile, own time) "
+          + json.dumps(hprof), flush=True)
+    summary_b.update(stages_ms=stages, device_profile=prof,
+                     host_profile=hprof)
+
     print("summary " + json.dumps(summary), flush=True)
+    print("budgeted summary " + json.dumps(summary_b), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,47 +1,82 @@
 """Cached feature store (counterpart of ``quiver_tpu/feature.py``).
 
-This slice ports the ``device_replicate`` policy with the whole table on
-the card.  With ``csr_topo`` set, rows are first put in degree-descending
-order with a shuffled hot slice (``reindex_feature``), and
-``feature_order`` maps old id -> row, the same array as the JAX package.
-Every gather goes through kernel B2 (``ops/cuda/gather_rows.py``) on the
-card.  A byte budget smaller than the table would need the host cold tail,
-which is not ported yet (ROADMAP A4), so it raises.
+The ``device_replicate`` policy under a byte budget.  With ``csr_topo``
+set, rows are first put in degree-descending order with a shuffled hot
+slice (``reindex_feature``); ``feature_order`` maps old id -> row, the
+same array as the JAX package.  Then:
+
+  * the hot prefix, the first ``cache_count`` rows, lives on the card and
+    is gathered by kernel B2 (``ops/cuda/gather_rows.py``);
+  * the cold tail lives in pinned host memory; a gather copies the cold
+    rows of the batch into a pinned staging buffer, ships them, and
+    copies them into their positions behind B2's hot rows (the staged
+    merge);
+  * the cold-row overlay (``enable_cold_cache``) keeps recurring cold rows
+    in a device table, so they stop crossing the host link;
+  * the paged store (``enable_paging``) packs the table into pages and
+    serves the batch through kernel B5 (``ops/paged.py``), falling back to
+    the overlay or the staged merge when a batch's pages exceed its pool.
+
+A budgeted gather reads its ids on the host (a device id tensor is read
+back once) and ends with its device work launched under ``_plock``, so
+its result is a tensor of its own: a later batch that evicts overlay
+slots or pages, which the port updates in place where JAX made new
+arrays, cannot change it.
+
+Counters use the JAX package's telemetry names (``stats()``), apart from
+``feature_h2d_bytes_total``: the port ships only real rows and pages,
+where JAX pads each copy to a shape bucket.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from .config import get_config
+from .ops.coldcache import ColdRowCache
 from .ops.cuda.gather_rows import gather_rows
+from .ops.paged import PagedStore, PageTable, default_page_rows
 from .utils.device import resolve_device
+from .utils.staging import HostStaging
 from .utils.topology import CSRTopo, parse_size, reindex_feature
 
 __all__ = ["Feature"]
 
 
 class Feature:
-    """Node-feature store on the card.
+    """Hot/cold node-feature store.
+
+    ``_plock`` guards the staging state a gather shares with other
+    threads: the overlay table and its ``cold_cache`` metadata, the paged
+    store, the staging buffers and the counters.
 
     Args:
       rank: local device index (kept for the reference's signature).
       device_list: devices in the cache (kept for the signature).
-      device_cache_size: byte budget (``parse_size``), or rows with
-        ``cache_unit="rows"``; it must hold the whole table.
+      device_cache_size: byte budget of the hot prefix (``parse_size``),
+        or rows with ``cache_unit="rows"``.
       cache_policy: ``"device_replicate"``.
       csr_topo: optional :class:`CSRTopo` for degree-ordered rows.
       dtype: storage dtype (a ``torch.dtype``; default: the input's).
-      device: where the table lives (``None``: the card).
+      cache_unit: ``"bytes"`` or ``"rows"``.
+      device: where the hot prefix lives (``None``: the card).
+      cold_cache_size: overlay budget in the units of
+        ``device_cache_size``; ``None`` defers to ``config``, ``"auto"``
+        leaves it off until :meth:`enable_cold_cache`, ``0`` disables.
+      cold_cache_policy: overlay eviction, ``"clock"`` or ``"minfreq"``.
     """
 
     def __init__(self, rank: int = 0, device_list: Optional[Sequence] = None,
                  device_cache_size: Union[int, str] = 0,
                  cache_policy: str = "device_replicate",
                  csr_topo: Optional[CSRTopo] = None, dtype=None,
-                 cache_unit: str = "bytes", device=None):
+                 cache_unit: str = "bytes", device=None,
+                 cold_cache_size: Union[int, str, None] = None,
+                 cold_cache_policy: Optional[str] = None):
         if cache_unit not in ("bytes", "rows"):
             raise ValueError(f"cache_unit must be 'bytes' or 'rows', got "
                              f"{cache_unit!r}")
@@ -57,12 +92,21 @@ class Feature:
         self.cache_unit = cache_unit
         self.csr_topo = csr_topo
         self.dtype = dtype
+        self.cold_cache_size = cold_cache_size
+        self.cold_cache_policy = cold_cache_policy
         self.feature_order: Optional[np.ndarray] = None  # old id -> row
-        self.hot: Optional[torch.Tensor] = None          # [N, D] on device
+        self.hot: Optional[torch.Tensor] = None   # [cache_count, D], device
+        self.cold: Optional[torch.Tensor] = None  # [N - cache_count, D], host
         self.cache_count = 0
         self.node_count = 0
         self.dim = 0
+        self.cold_cache: Optional[ColdRowCache] = None
+        self._overlay: Optional[torch.Tensor] = None  # [C, D], device
+        self.paged: Optional[PagedStore] = None
         self._order_dev: Optional[torch.Tensor] = None
+        self._plock = threading.Lock()
+        self._staging = HostStaging(self.device)
+        self._counts: dict = {}  # JAX metric key -> count
 
     def _budget_rows(self, row_bytes: int) -> int:
         budget = parse_size(self.device_cache_size)
@@ -71,8 +115,11 @@ class Feature:
         return int(budget // max(row_bytes, 1))
 
     def from_cpu_tensor(self, tensor, prob=None) -> "Feature":
-        """Place ``tensor`` ``[N, D]`` on the device.  ``prob`` (per-node
-        access probability) orders rows by it instead of by degree."""
+        """Split ``tensor [N, D]`` into the hot prefix on the device and
+        the cold tail in host memory (pinned when the device is the
+        card).  ``prob`` (per-node access probability) orders rows by it
+        instead of by degree; ``csr_topo.feature_order`` is set as a side
+        effect of degree order, as in the reference."""
         if isinstance(tensor, torch.Tensor):
             tensor = tensor.cpu().numpy()
         tensor = np.asarray(tensor)
@@ -80,11 +127,6 @@ class Feature:
         dt = self.dtype or torch.from_numpy(tensor[:0]).dtype
         row_bytes = torch.empty((), dtype=dt).element_size() * dim
         cache_count = min(self._budget_rows(row_bytes), node_count)
-        if cache_count < node_count:
-            raise NotImplementedError(
-                f"device_cache_size holds {cache_count} of {node_count} "
-                "rows: the host cold tail is not ported yet (ROADMAP A4); "
-                "give a budget that holds the whole table")
 
         new_order = None
         topo_order = False
@@ -98,44 +140,302 @@ class Feature:
             tensor, new_order = reindex_feature(self.csr_topo, tensor, ratio)
             topo_order = True
 
-        hot = torch.from_numpy(np.ascontiguousarray(tensor)).to(dt)
-        self.hot = hot.to(self.device).contiguous()
-        self.node_count, self.dim = node_count, dim
-        self.cache_count = cache_count
-        self.feature_order = new_order
-        self._order_dev = (
-            None if new_order is None else
-            torch.from_numpy(new_order.astype(np.int32)).to(self.device))
+        table = torch.from_numpy(np.ascontiguousarray(tensor)).to(dt)
+        hot = table[:cache_count].to(self.device).contiguous()
+        cold = table[cache_count:]
+        cold = (cold.pin_memory() if self.device.type == "cuda"
+                else cold.clone())
+        with self._plock:
+            self.node_count, self.dim = node_count, dim
+            self.cache_count = cache_count
+            self.hot, self.cold = hot, cold
+            self.feature_order = new_order
+            self._order_dev = (
+                None if new_order is None else
+                torch.from_numpy(new_order.astype(np.int32)).to(self.device))
+            self.cold_cache = self._overlay = self.paged = None
         if topo_order:
             self.csr_topo.feature_order = new_order
+        self._maybe_enable_cold_cache()
+        self._maybe_enable_paging()
         return self
 
+    # -- cold-row overlay ----------------------------------------------
+    def _maybe_enable_cold_cache(self):
+        """Turn the overlay on at build time when a size is configured;
+        ``"auto"`` leaves it to :meth:`enable_cold_cache` or the serving
+        lane."""
+        size = self.cold_cache_size
+        if size is None:
+            size = get_config().cold_cache_size
+        if size in (None, "auto", "off"):
+            return
+        budget = parse_size(size)
+        if self.cache_unit == "rows":
+            rows = int(budget)
+        else:
+            rows = int(budget) // max(self._row_bytes(), 1)
+        if rows > 0:
+            self.enable_cold_cache(rows=rows)
+
+    def enable_cold_cache(self, rows: Optional[int] = None,
+                          policy: Optional[str] = None,
+                          admit_threshold: Optional[int] = None
+                          ) -> "Feature":
+        """Attach the device overlay over the cold tail: a cold row is
+        admitted on its ``admit_threshold``-th miss and then served from
+        the device.  No-op when the feature is fully hot.
+
+        Args:
+          rows: capacity in rows.  Default: a quarter of the hot prefix
+            (at least 1024), capped at the cold tail.
+          policy: ``"clock"`` or ``"minfreq"`` (default from config).
+          admit_threshold: admit on the N-th miss (default from config).
+        """
+        self._check_built()
+        n_cold = self.node_count - self.cache_count
+        if n_cold <= 0:
+            return self
+        cfg = get_config()
+        if rows is None:
+            rows = max(1024, self.cache_count // 4)
+        rows = int(min(rows, n_cold))
+        if rows <= 0:
+            return self
+        policy = policy or self.cold_cache_policy or cfg.cold_cache_policy
+        admit = (admit_threshold if admit_threshold is not None
+                 else cfg.cold_cache_admit)
+        cache = ColdRowCache(rows, n_cold, policy=policy,
+                             admit_threshold=admit)
+        overlay = torch.zeros((rows, self.dim), dtype=self.hot.dtype,
+                              device=self.device)
+        with self._plock:
+            self.cold_cache, self._overlay = cache, overlay
+        return self
+
+    # -- paged store ---------------------------------------------------
+    def _maybe_enable_paging(self):
+        """Attach the paged store at build time when ``feature_paged`` is
+        ``"on"`` and the table does not fit the budget."""
+        cfg = get_config()
+        if cfg.feature_paged != "on" or self.cache_count >= self.node_count:
+            return
+        self.enable_paging(page_rows=cfg.feature_page_rows or None,
+                           pool_pages=cfg.feature_page_pool or None)
+
+    def enable_paging(self, page_rows: Optional[int] = None,
+                      pool_pages: Optional[int] = None,
+                      policy: Optional[str] = None) -> "Feature":
+        """Pack the table into device pages and serve every budgeted
+        gather through kernel B5.  The staged merge (or the overlay) stays
+        underneath for batches whose pages exceed the pool.  No-op when
+        the feature is fully hot.
+
+        Args:
+          page_rows: rows per page (default: ``default_page_rows``).
+          pool_pages: OVERLAY pool capacity in pages.  Default: a quarter
+            of the host pages (at least 8), capped at the host pages.
+          policy: page eviction, ``"clock"`` or ``"minfreq"``.
+        """
+        self._check_built()
+        if self.cache_count >= self.node_count:
+            return self
+        R = int(page_rows) if page_rows else default_page_rows(
+            self._row_bytes())
+        n_pages = -(-self.node_count // R)
+        hot_pages = -(-self.cache_count // R) if self.cache_count else 0
+        n_host_pages = n_pages - min(hot_pages, n_pages)
+        if pool_pages is None:
+            pool_pages = max(8, n_host_pages // 4)
+        pool_pages = min(int(pool_pages), n_host_pages)
+        policy = (policy or self.cold_cache_policy
+                  or get_config().cold_cache_policy)
+        table = PageTable(self.node_count, self.cache_count, R, pool_pages,
+                          policy=policy)
+        with self._plock:
+            self.paged = PagedStore(table, self.cold, self.hot,
+                                    self._count)
+        return self
+
+    def invalidate_rows(self, node_ids) -> int:
+        """Drop changed rows (old node ids) from the overlay and their
+        pages from the page pool; touch counts reset, so a row re-earns
+        admission.  The hot prefix is a partition, not a cache, and is
+        untouched.  Returns the overlay slots dropped."""
+        if self.cold_cache is None and self.paged is None:
+            return 0
+        ids = np.atleast_1d(np.asarray(node_ids, dtype=np.int64))
+        if self.feature_order is not None:
+            ids = ids[(ids >= 0) & (ids < len(self.feature_order))]
+            ids = self.feature_order[ids]
+        cold_ids = ids - self.cache_count
+        cold_ids = cold_ids[cold_ids >= 0]
+        with self._plock:
+            cache = self.cold_cache
+            dropped = (cache.invalidate_rows(cold_ids)
+                       if cache is not None else 0)
+            if self.paged is not None:
+                self.paged.invalidate_rows(cold_ids)
+            if dropped:
+                self._count("coldcache_invalidated_rows_total", dropped)
+        return dropped
+
+    def stats(self) -> dict:
+        """``counters`` under the JAX telemetry keys (rows by tier,
+        overlay hits, misses and evictions, page faults, hits, evictions
+        and fallbacks, bytes shipped, batches by tier), and the overlay's
+        and paged store's own stats."""
+        with self._plock:
+            return dict(
+                counters=dict(self._counts),
+                cold_cache=(self.cold_cache.stats()
+                            if self.cold_cache is not None else None),
+                paged=self.paged.stats() if self.paged is not None else None)
+
+    # -- gathers -------------------------------------------------------
     def _check_built(self):
         if self.hot is None or self.node_count == 0:
             raise RuntimeError("Feature is empty: call from_cpu_tensor first")
 
+    def _row_bytes(self) -> int:
+        return self.hot.element_size() * self.dim
+
+    def _count(self, key: str, n) -> None:
+        """Caller holds ``_plock``."""
+        self._counts[key] = self._counts.get(key, 0) + n
+
     def __getitem__(self, node_idx) -> torch.Tensor:
-        """Rows by (old) node id, on the device.  Tensor ids stay on the
-        device (:meth:`lookup_device`); host ids are mapped through
-        ``feature_order`` on the host first."""
+        """Rows by (old) node id, on the device.  With the whole table on
+        the device, tensor ids stay there (:meth:`lookup_device`);
+        otherwise ids are read on the host and the budgeted path runs."""
         self._check_built()
-        if isinstance(node_idx, torch.Tensor):
+        full = self.cache_count >= self.node_count
+        with self._plock:
+            tier = ("hot" if full else
+                    "cold" if self.cache_count == 0 else "mixed")
+            self._count(f"feature_gather_batches_total{{tier={tier}}}", 1)
+        if full and isinstance(node_idx, torch.Tensor):
             return self.lookup_device(node_idx)
+        if isinstance(node_idx, torch.Tensor):
+            node_idx = node_idx.cpu().numpy()  # the one read-back
         idx = np.asarray(node_idx)
         if idx.size and (idx.min() < 0 or idx.max() >= self.node_count):
             raise ValueError(f"node ids must lie in [0, {self.node_count})")
+        flat = idx.reshape(-1)
         if self.feature_order is not None:
-            idx = self.feature_order[idx]
-        flat = torch.from_numpy(idx.astype(np.int32).reshape(-1))
-        rows = gather_rows(self.hot, flat.to(self.device))
+            flat = self.feature_order[flat]
+        if full:
+            rows = gather_rows(self.hot, torch.from_numpy(
+                flat.astype(np.int32)).to(self.device))
+        else:
+            with self._plock:
+                rows = self._stage(flat.astype(np.int64))
         return rows.reshape(*idx.shape, self.dim)
 
+    def _to_device(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """Ship a host array through staging buffer ``name``."""
+        arr = torch.from_numpy(np.ascontiguousarray(arr))
+        buf = self._staging.buffer(name, arr.shape, arr.dtype)
+        buf.copy_(arr)
+        return self._staging.send(name, buf)
+
+    def _hot_rows(self, rows: np.ndarray) -> torch.Tensor:
+        return gather_rows(self.hot,
+                           self._to_device("hot", rows.astype(np.int32)))
+
+    def _upload_cold(self, rel: np.ndarray) -> torch.Tensor:
+        """Copy cold-tail rows ``rel`` into the pinned staging buffer and
+        start their copy to the device."""
+        buf = self._staging.buffer("rows", (len(rel), self.dim),
+                                   self.cold.dtype)
+        torch.index_select(self.cold, 0, torch.from_numpy(rel), out=buf)
+        self._count("feature_h2d_bytes_total",
+                    buf.numel() * buf.element_size())
+        return self._staging.send("rows", buf)
+
+    def _stage(self, idx: np.ndarray) -> torch.Tensor:
+        """Rows of feature-order rows ``idx`` for a budgeted feature, with
+        every device step launched.  Caller holds ``_plock``."""
+        if self.paged is not None and len(idx):
+            st = self.paged.stage(idx)
+            if st is not None:
+                return self.paged.finish(st)
+            # the batch's pages exceed the pool: the paths below serve it
+        if self.cold_cache is not None:
+            return self._stage_overlay(idx)
+        cc = self.cache_count
+        if cc == 0:
+            self._count("feature_rows_total{tier=cold}", len(idx))
+            return self._upload_cold(idx)
+        hot_mask = idx < cc
+        cold_pos = np.nonzero(~hot_mask)[0]
+        self._count("feature_rows_total{tier=hot}", len(idx) - len(cold_pos))
+        out = self._hot_rows(np.where(hot_mask, idx, 0))
+        if len(cold_pos):
+            self._count("feature_rows_total{tier=cold}", len(cold_pos))
+            rows = self._upload_cold(idx[cold_pos] - cc)
+            out.index_copy_(0, self._to_device("cold_pos", cold_pos), rows)
+        return out
+
+    def _stage_overlay(self, idx: np.ndarray) -> torch.Tensor:
+        """Three tiers: the hot prefix through B2, overlay hits from the
+        device table, fresh rows from the host; then the fresh rows that
+        earned admission are written into the overlay.  The hits are read
+        before that write, so a slot this batch evicts still serves the
+        row its probe found.  Caller holds ``_plock``."""
+        B, cc = len(idx), self.cache_count
+        hot_mask = idx < cc
+        cold_pos = np.nonzero(~hot_mask)[0]
+        if cc > 0:
+            self._count("feature_rows_total{tier=hot}", B - len(cold_pos))
+        if len(cold_pos) == 0:
+            return self._hot_rows(np.where(hot_mask, idx, 0))
+        self._count("feature_rows_total{tier=cold}", len(cold_pos))
+        rel = idx[cold_pos] - cc
+        cache = self.cold_cache
+        hit, slots = cache.probe(rel)
+        n_hit = int(hit.sum())
+        out = (self._hot_rows(np.where(hot_mask, idx, 0)) if cc > 0 else
+               torch.zeros((B, self.dim), dtype=self.hot.dtype,
+                           device=self.device))
+        if n_hit:
+            rows = gather_rows(self._overlay, self._to_device(
+                "ov_slot", slots[hit].astype(np.int32)))
+            out.index_copy_(0, self._to_device("ov_pos", cold_pos[hit]),
+                            rows)
+        n_evicted = 0
+        if n_hit < len(rel):
+            fresh = rel[~hit]
+            rows = self._upload_cold(fresh)
+            out.index_copy_(0, self._to_device("cold_pos", cold_pos[~hit]),
+                            rows)
+            adm, n_evicted = cache.admit(fresh)
+            if (adm >= 0).any():
+                # duplicates of one row share its slot: write it once
+                slot, src = np.unique(adm, return_index=True)
+                src, slot = src[slot >= 0], slot[slot >= 0]
+                self._overlay.index_copy_(
+                    0, self._to_device("adm_slot", slot.astype(np.int64)),
+                    rows.index_select(0, self._to_device("adm_src", src)))
+        self._count("feature_coldcache_rows_total{result=hit}", n_hit)
+        self._count("feature_coldcache_rows_total{result=miss}",
+                    len(rel) - n_hit)
+        if n_evicted:
+            self._count("feature_coldcache_evictions_total", n_evicted)
+        return out
+
     def lookup_device(self, idx: torch.Tensor) -> torch.Tensor:
-        """Gather with ids already on the device.  Ids are clipped to
-        ``[0, N)`` before ``feature_order`` is applied, as the JAX package
-        clips them; without an order the clip keeps B2 inside the table
-        (the ids are never read back to the host to be checked)."""
+        """Gather with ids already on the device, for features whose whole
+        table is on the device (the fused serving lane).  Ids are clipped
+        to ``[0, N)`` before ``feature_order`` is applied, as the JAX
+        package clips them; without an order the clip keeps B2 inside the
+        table (the ids are never read back to the host to be checked)."""
         self._check_built()
+        if self.cache_count < self.node_count:
+            raise RuntimeError(
+                f"lookup_device needs the whole table on the device; "
+                f"{self.cache_count} of {self.node_count} rows are: use "
+                "feature[ids]")
         pos = idx.to(self.device, torch.int64).clamp(0, self.node_count - 1)
         if self._order_dev is not None:
             return gather_rows(self.hot, self._order_dev[pos])
@@ -151,4 +451,5 @@ class Feature:
     def __repr__(self):
         return (f"Feature(nodes={self.node_count}, dim={self.dim}, "
                 f"hot={self.cache_count}, policy={self.cache_policy!r}, "
-                f"device={self.device})")
+                f"overlay={self.cold_cache is not None}, "
+                f"paged={self.paged is not None}, device={self.device})")

@@ -3,6 +3,6 @@
 ``KERNELS`` names each kernel's library, built from ``csrc/<name>.cu``.
 """
 
-KERNELS = ("window_sample", "gather_rows")
+KERNELS = ("window_sample", "gather_rows", "page_gather")
 
 __all__ = ["KERNELS"]

@@ -3,8 +3,15 @@
 Stages are threads in one process sharing ``queue.Queue``s: a
 :class:`RequestBatcher` routes client streams onto the device lane, and an
 :class:`InferenceServer` thread drains it, coalesces queued requests into
-one pass, pads the pass to a bucketed batch size and runs the fused
-forward (sample -> feature gather -> model) with one host sync per chunk.
+one pass, pads the pass to a bucketed batch size and runs it through one
+of two lanes:
+
+  * fused, when the feature holds the whole table on the device: sample
+    -> ``lookup_device`` -> model, with one host sync per chunk;
+  * unfused, for a budgeted feature: sample on the device, read ``n_id``
+    back once, gather through ``Feature.__getitem__`` (the staged merge,
+    the overlay or the paged store), then the model.  The server turns
+    the cold-row overlay on for such a feature, as the JAX package does.
 
 Bucketing is kept although CUDA kernels take any shape: the hop-2 hash
 counters are ``b*k + j`` over a frontier whose length follows the padded
@@ -114,17 +121,18 @@ class RequestBatcher:
 
 
 class InferenceServer:
-    """Device lane: coalesce -> pad to a bucket -> fused forward -> answer.
+    """Device lane: coalesce -> pad to a bucket -> forward -> answer.
 
     Args:
       sampler: a :class:`GraphSageSampler` on the card.
-      feature: a :class:`Feature` holding the whole table on the same
-        device.
+      feature: a :class:`Feature` on the same device.
       model: an ``nn.Module`` called as ``model(x, blocks)``.
       device_batched_queue: the batcher's device lane.
       result_queue: answers go here as ``(request, logits ndarray)`` or
         ``(request, exception)``.
       max_coalesce: most requests one pass may take.
+      fused: take the fused lane (``None``: when the feature holds the
+        whole table on the device).
       seed: seed of the generator that draws every pass's key words.
     """
 
@@ -132,7 +140,8 @@ class InferenceServer:
                  model: torch.nn.Module,
                  device_batched_queue: "queue.Queue",
                  result_queue: Optional["queue.Queue"] = None,
-                 max_coalesce: Optional[int] = None, seed: int = 0):
+                 max_coalesce: Optional[int] = None,
+                 fused: Optional[bool] = None, seed: int = 0):
         if feature.device != sampler.device:
             raise ValueError(f"feature on {feature.device}, sampler on "
                              f"{sampler.device}")
@@ -148,8 +157,29 @@ class InferenceServer:
         self.served = Counter("serving_requests_ok")
         self.failed = Counter("serving_requests_error")
         self._rng = np.random.default_rng(seed)
+        if fused is None:
+            fused = (feature.node_count > 0
+                     and feature.cache_count >= feature.node_count
+                     and sampler.mode == "GPU")
+        self._fused = fused
+        if not fused:
+            self._maybe_enable_cold_cache(feature)
         self._threads: List[threading.Thread] = []
         self._stopped = threading.Event()
+
+    @staticmethod
+    def _maybe_enable_cold_cache(feature: Feature):
+        """Attach the cold-row overlay to a budgeted feature in the
+        unfused lane: recurring requests keep touching the same cold
+        rows.  ``cold_cache_size`` ``"off"``, ``"0"`` or ``"none"`` in
+        the config vetoes it."""
+        if (feature.node_count <= 0
+                or feature.cache_count >= feature.node_count
+                or feature.cold_cache is not None):
+            return
+        if str(get_config().cold_cache_size).lower() in ("0", "off", "none"):
+            return
+        feature.enable_cold_cache()
 
     # -- one pass ------------------------------------------------------
     def _pad_ids(self, ids: np.ndarray) -> np.ndarray:
@@ -167,7 +197,8 @@ class InferenceServer:
     def fused_forward(self, padded_ids: np.ndarray,
                       key_words: np.ndarray) -> torch.Tensor:
         """Sample -> ``lookup_device`` -> model for one padded pass, on the
-        device, with no host round trip between the stages."""
+        device, with no host round trip between the stages (the feature
+        must hold the whole table on the device)."""
         s = self.sampler
         with torch.inference_mode():
             seeds = s.seed_tensor(padded_ids)
@@ -177,24 +208,49 @@ class InferenceServer:
             x = self.feature.lookup_device(n_id)
             return self.model(x, blocks)
 
+    def unfused_forward(self, padded_ids: np.ndarray,
+                        key_words: np.ndarray,
+                        split: Optional[dict] = None) -> torch.Tensor:
+        """Sample on the device -> one read-back of ``n_id`` ->
+        ``feature[n_id]`` -> model, for one padded pass.  ``split`` gets
+        the wall seconds of ``sample`` and ``gather``."""
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            batch = self.sampler.sample(padded_ids, key_words=key_words)
+            t1 = time.perf_counter()
+            x = self.feature[batch.n_id.cpu().numpy()]
+            t2 = time.perf_counter()
+            out = self.model(x, batch.layers)
+        if split is not None:
+            split["sample"] = t1 - t0
+            split["gather"] = t2 - t1
+        return out
+
     def _run_bucketed(self, ids: np.ndarray, stages: Optional[dict] = None,
                       log: Optional[list] = None) -> np.ndarray:
         """One padded device pass per chunk of at most the top bucket, so
-        every pass has one of the bucketed sizes.  ``log`` collects each
-        chunk's ``(padded_ids, key_words)``."""
+        every pass has one of the bucketed sizes.  ``stages`` adds up wall
+        seconds by stage: ``infer`` for a fused pass; ``sample``,
+        ``gather`` and ``infer`` (model and answer read-back), which
+        partition an unfused pass.  ``log`` collects each chunk's
+        ``(padded_ids, key_words)``."""
         top = self.BUCKETS[-1]
         outs = []
         for off in range(0, max(len(ids), 1), top):
             chunk = ids[off: off + top]
             padded = self._pad_ids(chunk)
             kw = self.draw_key_words()
+            split: dict = {}
             t0 = time.perf_counter()
-            out = self.fused_forward(padded, kw)
-            # the one host sync of the chunk
+            out = (self.fused_forward(padded, kw) if self._fused else
+                   self.unfused_forward(padded, kw, split))
+            # the answer's host sync (the fused lane's only one)
             outs.append(out[: len(chunk)].cpu().numpy())
             if stages is not None:
-                stages["infer"] = (stages.get("infer", 0.0)
-                                   + time.perf_counter() - t0)
+                split["infer"] = (time.perf_counter() - t0
+                                  - sum(split.values()))
+                for stage, dt in split.items():
+                    stages[stage] = stages.get(stage, 0.0) + dt
             if log is not None:
                 log.append((padded, kw))
         return outs[0] if len(outs) == 1 else np.concatenate(outs)
@@ -286,8 +342,8 @@ class InferenceServer:
 
 class InferenceServer_Debug(InferenceServer):
     """Latency-instrumented server.  ``stats()`` returns avg / p50 / p99
-    latency, throughput and ``stage_breakdown_ms`` (queue_wait / infer mean
-    and total), the JAX package's keys.  ``pass_log`` keeps, for each
+    latency, throughput and ``stage_breakdown_ms`` (queue_wait, and infer
+    or sample / gather / infer; mean and total), the JAX package's keys.  ``pass_log`` keeps, for each
     served pass, the ``(client, seq)`` of its requests and each chunk's
     ``(padded_ids, key_words)``, so a pass can be recomputed directly."""
 

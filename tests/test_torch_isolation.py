@@ -57,6 +57,20 @@ def test_no_forbidden_imports_in_source():
     assert not bad, bad
 
 
+def test_walk_covers_the_budgeted_store():
+    """The source walk reaches the feature-store modules, including the
+    port's own copy of the numpy-only ``ColdRowCache``."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in ("config.py", "feature.py", "ops/coldcache.py",
+                "ops/paged.py", "ops/cuda/page_gather.py",
+                "utils/staging.py"):
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+    from quiver_tpu_torch.ops import coldcache, paged
+
+    assert coldcache.ColdRowCache.__module__.startswith("quiver_tpu_torch")
+    assert paged.ColdRowCache is coldcache.ColdRowCache
+
+
 def test_forbidden_matcher():
     assert _forbidden("quiver_tpu") and _forbidden("quiver_tpu.ops.sample")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")

@@ -51,7 +51,7 @@ def world():
     psampler = qt.GraphSageSampler(ptopo, [6, 4], device="cpu",
                                    return_eid=True)
     return dict(jtopo=jtopo, jfeat=jfeat, pfeat=pfeat, jsampler=jsampler,
-                psampler=psampler, n_edges=int(indptr[-1]))
+                psampler=psampler, n_edges=int(indptr[-1]), feat=feat)
 
 
 def _jax_model(world, edge_dim=0):
@@ -206,3 +206,123 @@ def test_histogram_matches_jax_registry():
 def test_batcher_modes():
     with pytest.raises(NotImplementedError, match="A11"):
         qt.RequestBatcher([queue.Queue()], mode="Auto")
+
+
+# -- the unfused lane over a budgeted feature ----------------------------------
+
+HOT_ROWS = 600  # of 1500: the cold tail stays on the host
+
+
+def _budgeted(world, paged_pool=None):
+    """A budgeted port feature in degree order (its own topology object:
+    ``from_cpu_tensor`` writes ``csr_topo.feature_order``)."""
+    jtopo = world["jtopo"]
+    f = qt.Feature(device_cache_size=HOT_ROWS, cache_unit="rows",
+                   csr_topo=qt.CSRTopo(indptr=jtopo.indptr,
+                                       indices=jtopo.indices),
+                   device="cpu").from_cpu_tensor(world["feat"])
+    if paged_pool is not None:
+        f.enable_paging(page_rows=8, pool_pages=paged_pool)
+    return f
+
+
+@pytest.mark.parametrize("pool", [None, 10_000, 4],
+                         ids=["overlay", "paged", "paged-overflow"])
+def test_unfused_lane_matches_jax(world, pool):
+    """A budgeted feature takes the unfused lane; for the same key words
+    its frontier and gathered rows equal JAX's sampler and
+    ``Feature.__getitem__`` bitwise, and its logits JAX's ``apply``."""
+    model, params, port, _ = _jax_model(world)
+    jtopo = world["jtopo"]
+    jfeat = JaxFeature(device_cache_size=HOT_ROWS, cache_unit="rows",
+                       csr_topo=JaxTopo(indptr=jtopo.indptr,
+                                        indices=jtopo.indices)
+                       ).from_cpu_tensor(world["feat"])
+    pfeat = _budgeted(world, pool)
+    server = qt.InferenceServer(world["psampler"], pfeat, port, None)
+    assert not server._fused and pfeat.cold_cache is not None
+    for i, n in enumerate((13, 40, 13)):
+        padded = server._pad_ids(np.arange(2, 2 + 7 * n, 7) % N_NODES)
+        key = make_key(50 + i)
+        jb = world["jsampler"].sample(padded, key=key)
+        jx = np.asarray(jfeat[np.asarray(jb.n_id)])
+        want = np.asarray(model.apply(params, jfeat[np.asarray(jb.n_id)],
+                                      jb.layers))
+        kw = hop_words(key, 2)
+        pb = world["psampler"].sample(padded, key_words=kw)
+        np.testing.assert_array_equal(pb.n_id.numpy(), np.asarray(jb.n_id))
+        np.testing.assert_array_equal(pfeat[pb.n_id].numpy(), jx)
+        np.testing.assert_array_equal(jx, world["feat"][np.asarray(jb.n_id)])
+        got = server.unfused_forward(padded, kw).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+    c = pfeat.stats()["counters"]
+    if pool == 10_000:
+        assert c["feature_page_faults_total"] > 0
+        assert "feature_page_fallback_total" not in c
+    elif pool == 4:
+        assert c["feature_page_fallback_total"] > 0
+    assert c["feature_rows_total{tier=cold}"] > 0
+
+
+def test_unfused_server_answers_equal_direct_forward(world):
+    """The lane end to end over a paged budgeted feature: every answer
+    equals the unfused forward of its pass's recorded padded ids and key
+    words, and the stage split has the JAX keys."""
+    _, _, port, _ = _jax_model(world)
+    streams = [queue.Queue() for _ in range(2)]
+    results = queue.Queue()
+    rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
+    feat = _budgeted(world, 10_000)
+    server = qt.InferenceServer_Debug(world["psampler"], feat, port,
+                                      rb.device_batched_queue,
+                                      result_queue=results, max_coalesce=4,
+                                      seed=3)
+    server.BUCKETS = (8, 16, 32)
+    reqs = _submit(streams, [3, 9, 40, 1, 6, 17], np.random.default_rng(2))
+    rb.start()
+    server.start()
+    answers = {}
+    for _ in reqs:
+        req, out = results.get(timeout=60)
+        assert not isinstance(out, Exception), out
+        answers[(req.client, req.seq)] = out
+    assert rb.stop() == [] and server.stop() == []
+    by_key = {(r.client, r.seq): r for r in reqs}
+    for members, chunks in server.pass_log:
+        total = sum(len(by_key[m].ids) for m in members)
+        direct = np.concatenate([
+            server.unfused_forward(p, kw).numpy()[:min(32, total - 32 * i)]
+            for i, (p, kw) in enumerate(chunks)])
+        off = 0
+        for m in members:
+            n = len(by_key[m].ids)
+            np.testing.assert_array_equal(answers[m], direct[off: off + n])
+            off += n
+    assert len(answers) == len(reqs)
+    st = server.stats()
+    assert set(st["stage_breakdown_ms"]) == {"sample", "gather", "infer",
+                                             "queue_wait"}
+    assert feat.stats()["counters"]["feature_page_faults_total"] > 0
+
+
+def test_lane_choice_and_overlay_veto(world):
+    """``fused=False`` on a full feature gives the fused lane's logits;
+    ``cold_cache_size="off"`` keeps the server from attaching the
+    overlay."""
+    from quiver_tpu_torch import config
+
+    _, _, port, _ = _jax_model(world)
+    fused = _server(world, port)
+    unfused = _server(world, port, fused=False)
+    assert fused._fused and not unfused._fused
+    padded = fused._pad_ids(np.arange(0, 60, 5))
+    kw = hop_words(make_key(8), 2)
+    assert torch.equal(unfused.unfused_forward(padded, kw),
+                       fused.fused_forward(padded, kw))
+    with config.override(cold_cache_size="off"):
+        feat = _budgeted(world)
+        qt.InferenceServer(world["psampler"], feat, port, None)
+    assert feat.cold_cache is None
+    with pytest.raises(RuntimeError, match="whole table"):
+        qt.InferenceServer(world["psampler"], feat, port, None,
+                           fused=True).fused_forward(padded, kw)
