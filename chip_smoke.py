@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of quiver_tpu_torch on one CUDA card, at Reddit size.
+"""Smoke run of quiver_tpu_torch on one CUDA card: Reddit-size serving and
+ogbn-products-size training.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``quiver_tpu_torch/csrc`` (at first
-use, with nvcc, one process per source, all at once), then:
+Builds the port's five CUDA kernels from ``quiver_tpu_torch/csrc`` (at
+first use, with nvcc, one process per source, all at once), then:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the kernels and prints the build time;
@@ -40,17 +41,37 @@ use, with nvcc, one process per source, all at once), then:
    ``n_id``, the host stage (plan and faults), the gather and the model,
    lists its device time by kernel with ``torch.profiler`` and its host
    time by function with cProfile;
-9. prints one ``{"kernels": [...]}`` line, the card line, and last
+9. B3/B4 kernel phase (slice 3, training): on ``synthetic_products``
+   (2,449,029 nodes, ~123.7M edges) holds kernels B3 and B4 against their
+   plain versions, exactly, at the last hop of one 1,024-seed batch with
+   fanouts [15, 10, 5] (two reads of ``indptr`` at the 180,224-long
+   frontier, one read of ``indices`` at its 901,120 draws), and times
+   kernel, plain version and library call;
+10. fused training phase: the whole 100-wide table on the card, GraphSAGE
+   100 -> 256 -> 256 -> 47 with dropout 0.5 and seeded weights, Adam at
+   3e-3, ``gather_mode="pallas"``; 30 steps of ``make_fused_train_step``
+   (the loss must fall; B3 must launch 9 times and B2 once per step); the
+   step split by CUDA events and one step under ``torch.profiler``; one
+   batch through ``make_fused_eval_fn`` against the plain versions on the
+   CPU within CPU_TOL;
+11. two-stage training phase: ``device_cache_size="200M"`` (524,288 hot
+   rows), ``SeedLoader(prefetch=2)`` over a sampler in
+   ``gather_mode="lanes_fused"`` (B4 must launch 9 times per sampled
+   batch), ``make_train_step``, 5 steps, every gathered row bitwise equal
+   to the source; then one batch split into sampling, read-back, host
+   gather and training;
+12. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 2 and
 prints no result.
 
-The graph has PyG Reddit's 232,965 nodes and asks ``synthetic_csr``
-(lognormal degrees) for its 114,615,892 edges; flooring each node's
-degree leaves 114,499,636, 0.1% fewer.  The JAX package's
+The Reddit graph has PyG Reddit's 232,965 nodes and asks
+``synthetic_csr`` (lognormal degrees) for its 114,615,892 edges; flooring
+each node's degree leaves 114,499,636, 0.1% fewer.  The JAX package's
 ``synthetic_reddit`` asks for a tenth of the edges; this run uses the
-published count, so indices alone are ~458 MB on the card.
+published count, so indices alone are ~458 MB on the card.  Nothing of
+the products configuration is cut to size.
 """
 
 from __future__ import annotations
@@ -72,11 +93,19 @@ FANOUTS = [25, 10]
 SEED = 0
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+SECTOR = 32  # bytes: the unit in which device memory is read
+SPIN_CYCLES = 5_000_000  # about 2.5 ms of the card's clock (cuda_ms)
 N_CLIENTS, PER_CLIENT, MAX_IDS = 4, 16, 512
 CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32, CPU vs card summation order
 # the budget of examples/ogbn_products_sage.py and of the reference's
-# serving example: 87,091 of Reddit's 602-wide fp32 rows
+# serving example: 87,091 of Reddit's 602-wide fp32 rows, 524,288 of
+# products' 100-wide ones
 HOT_BUDGET = "200M"
+# slice 3: the training loop of examples/ogbn_products_sage.py at full width
+P_DIM, P_HIDDEN, P_CLASSES = 100, 256, 47
+P_FANOUTS = [15, 10, 5]
+P_BATCH, P_LR = 1024, 3e-3
+FUSED_STEPS, STAGED_STEPS = 30, 5
 
 
 def fail(msg: str):
@@ -98,19 +127,45 @@ def card_line() -> str:
 
 def cuda_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     """Median device milliseconds of ``fn`` over ``reps`` runs, each
-    bracketed by CUDA events."""
+    bracketed by CUDA events.  A spin kernel runs first, so the host has
+    enqueued the events and ``fn``'s launches before the card reaches
+    them: the span is device time, not the host's launch time (which is
+    longer than the kernel for calls under about 0.1 ms)."""
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def host_ms(torch, fn, reps: int = 15) -> float:
+    """Median host milliseconds to return from ``fn`` (its launch cost),
+    the card drained before each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def sector_bytes(torch, *positions) -> int:
+    """Bytes of the distinct 32-byte sectors of a 4-byte-element table that
+    the element ``positions`` touch, together: the least a gather of them
+    must read, each sector once however often it is hit (and never more
+    than the table)."""
+    pos = torch.cat([p.reshape(-1).to(torch.int64) for p in positions])
+    return int(torch.unique(pos >> 3).numel()) * SECTOR
 
 
 def seeded_model(torch, qt):
@@ -173,9 +228,13 @@ def kernel_phase(torch, qt, topo, feature, b1, b2):
         hop2 = got
         drawn = int(got.counts.sum())
         B = s.shape[0]
-        # inputs read once (seeds, mask, two indptr words, one index per
-        # draw), outputs written once (nbrs, mask, eid per slot, counts)
-        nbytes = B * (4 + 1 + 8 + 4) + drawn * 4 + B * k * (4 + 1 + 4)
+        # inputs read once (seeds, mask; the distinct sectors of indptr
+        # that the seeds' two words touch and of indices that the draws
+        # touch), outputs written once (nbrs, mask, eid per slot, counts)
+        s64 = s.long().clamp(0, ip.shape[0] - 2)
+        nbytes = (B * (4 + 1 + 4) + sector_bytes(torch, s64, s64 + 1)
+                  + sector_bytes(torch, got.eid[got.mask])
+                  + B * k * (4 + 1 + 4))
         b1_cases.append(dict(
             shape=f"hop {hop}: B={B}, k={k}", max_abs_err=float(err),
             ms=cuda_ms(torch, lambda: b1.window_sample(ip, ix, s, k, k0, k1,
@@ -267,33 +326,42 @@ def stage_times(torch, server):
     return {k: float(np.median(v[2:])) for k, v in out.items()}
 
 
-def device_profile(torch, forward, pass_wall_ms: float, seed: int) -> dict:
-    """One bucket-2048 pass ``forward(ids, key_words)`` under
-    ``torch.profiler``: device time by kernel or copy (top 8), and the
-    card's busy share of the unprofiled pass wall time (one stream, so
-    device events do not overlap and their sum is the busy time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def pass_runner(forward, seed: int):
+    """A zero-argument run of one bucket-2048 pass ``forward(ids,
+    key_words)`` and its read-back, on ids and words drawn from ``seed``."""
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, N_NODES, 2048)
     kw = rng.integers(0, 2**32, size=(len(FANOUTS), 2), dtype=np.uint32)
-    forward(ids, kw).cpu()
+    return lambda: forward(ids, kw).cpu()
+
+
+def device_profile(torch, run, wall_ms: float, top: int = 8) -> dict:
+    """``run()`` once warm, then once under ``torch.profiler``: device time
+    by kernel or copy (the ``top`` largest), and the card's busy share of
+    ``wall_ms``, the unprofiled run's wall time (one stream, so device
+    events do not overlap and their sum is the busy time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        forward(ids, kw).cpu()
+        run()
+        torch.cuda.synchronize()
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # user annotations (e.g. Optimizer.step) span the kernels inside
+        # them on the device track: count the kernels only
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     busy_ms = sum(by_name.values()) / 1e3
     if busy_ms == 0:
         return {"device_ms": "not measured: the profiler saw no device "
                              "events"}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(device_ms=busy_ms, busy_share=busy_ms / pass_wall_ms,
-                top=[dict(name=n[:100], ms=t / 1e3) for n, t in top])
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(device_ms=busy_ms, busy_share=busy_ms / wall_ms,
+                top=[dict(name=n[:100], ms=t / 1e3) for n, t in ranked])
 
 
 def request_plan():
@@ -450,8 +518,8 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
     stages = stage_times(torch, server)
     print("bucket-2048 pass split (ms, median of 5) " + json.dumps(stages),
           flush=True)
-    prof = device_profile(torch, server.fused_forward, stages["pass_wall"],
-                          SEED + 4)
+    prof = device_profile(torch, pass_runner(server.fused_forward, SEED + 4),
+                          stages["pass_wall"])
     print("bucket-2048 pass on the card (torch.profiler) " + json.dumps(prof),
           flush=True)
     summary.update(stages_ms=stages, device_profile=prof)
@@ -684,27 +752,437 @@ def budgeted_stage_times(torch, server) -> dict:
     return {k: float(np.median(v[2:])) for k, v in out.items()}
 
 
-def host_profile(torch, forward, seed: int, top: int = 10) -> list:
-    """One bucket-2048 pass ``forward(ids, key_words)`` under cProfile:
-    the functions with the most host time of their own.  cProfile slows
-    Python calls, not the numpy and torch work inside them, so the shares
-    lean towards Python-heavy functions."""
+def host_profile(torch, run, top: int = 10) -> list:
+    """``run()`` once warm, then once under cProfile: the functions with
+    the most host time of their own.  cProfile slows Python calls, not the
+    numpy and torch work inside them, so the shares lean towards
+    Python-heavy functions."""
     import cProfile
     import pstats
 
-    rng = np.random.default_rng(seed)
-    ids = rng.integers(0, N_NODES, 2048)
-    kw = rng.integers(0, 2**32, size=(len(FANOUTS), 2), dtype=np.uint32)
-    forward(ids, kw).cpu()
+    run()
     torch.cuda.synchronize()
     prof = cProfile.Profile()
     prof.enable()
-    forward(ids, kw).cpu()
+    run()
+    torch.cuda.synchronize()
     prof.disable()
     st = pstats.Stats(prof)
     rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
     return [dict(fn=f"{f[0].rsplit('/', 1)[-1]}:{f[1]}:{f[2]}", calls=v[1],
                  own_ms=v[2] * 1e3, cum_ms=v[3] * 1e3) for f, v in rows]
+
+
+# -- slice 3: GraphSAGE training at ogbn-products width ---------------------
+
+def products_data(qt):
+    """The products graph (``synthetic_products``), 100-wide features made
+    as ``examples/ogbn_products_sage.py``'s synthetic fallback makes them
+    (a 47-column one-hot of a random label, then 53 columns of
+    N(0, 0.5)), the labels and the train half of the nodes."""
+    topo = qt.synthetic_products(SEED)
+    n = topo.node_count
+    rng = np.random.default_rng(SEED)
+    labels = rng.integers(0, P_CLASSES, n).astype(np.int32)
+    feat = np.empty((n, P_DIM), np.float32)
+    feat[:, :P_CLASSES] = np.eye(P_CLASSES, dtype=np.float32)[labels]
+    feat[:, P_CLASSES:] = rng.normal(0, 0.5, (n, P_DIM - P_CLASSES))
+    train = rng.permutation(n)[: n // 2]
+    return topo, feat, labels, train
+
+
+def products_model(torch, qt):
+    """GraphSAGE 100 -> 256 -> 256 -> 47, dropout 0.5, weights uniform in
+    +-1/sqrt(fan_in) from a seeded generator, on the card."""
+    model = qt.GraphSAGE(P_DIM, P_HIDDEN, P_CLASSES, num_layers=3,
+                         dropout=0.5)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            conv = model.convs[int(name.split(".")[1])]
+            fan_in = (conv.lin_self if "lin_self" in name
+                      else conv.lin_nbr).in_features
+            bound = 1.0 / fan_in ** 0.5
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
+    return model.to(DEV)
+
+
+def frontier_sizes(B: int):
+    """Frontier lengths of the positional pipeline: B, B(1+k1), ..."""
+    out = [B]
+    for k in P_FANOUTS:
+        out.append(out[-1] * (1 + k))
+    return out
+
+
+def b3_b4_phase(torch, qt, topo, train, b3, b4):
+    """Kernels B3 and B4 against their plain versions at the shapes of the
+    last hop of one products batch: two reads of ``indptr`` at the
+    180,224-long hop-3 frontier, one read of ``indices`` at its 901,120
+    draw positions.  Returns the two kernel records (times summed over the
+    three reads, as one hop runs them)."""
+    from quiver_tpu_torch.ops.sample import (_hash_uniform,
+                                             _stratified_positions)
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    rng = np.random.default_rng(SEED + 11)
+    seeds = torch.from_numpy(train[:P_BATCH].astype(np.int32)).to(dev)
+    kw = rng.integers(0, 2**32, size=(3, 2), dtype=np.uint32)
+    with torch.inference_mode():
+        # the hop-3 frontier and its mask, as the pipeline hands them on
+        n_id, fmask, _, _, _ = run_pipeline(
+            "none", ip, ix, seeds, kw[:2], P_FANOUTS[:2], gather_mode="xla")
+        sizes = frontier_sizes(P_BATCH)
+        check(n_id.shape[0] == sizes[2], f"hop-3 frontier {n_id.shape[0]}")
+        start = ip[n_id.long()]
+        deg = torch.where(fmask, ip[n_id.long() + 1] - start,
+                          torch.zeros_like(start))
+        k = P_FANOUTS[2]
+        u = _hash_uniform(int(kw[2, 0]), int(kw[2, 1]), (n_id.shape[0], k),
+                          device=dev)
+        pos = (start[:, None] + _stratified_positions(u, deg, k)).reshape(-1)
+    check(pos.shape[0] == sizes[2] * k, f"hop-3 draws {pos.shape[0]}")
+    reads = [("indptr start", ip, n_id), ("indptr end", ip, n_id + 1),
+             ("indices", ix, pos)]
+
+    def bound_ms(sector_b, m):
+        # the distinct sectors read, idx read and out written once
+        return (sector_b + m * (4 + 4)) / HBM_BYTES_PER_S * 1e3
+
+    # the hop's three reads together read each sector they touch once:
+    # the two reads of indptr share most of theirs
+    clipped = [i.long().clamp(0, t.shape[0] - 1) for _, t, i in reads]
+    hop_bound = bound_ms(sector_bytes(torch, clipped[0], clipped[1])
+                         + sector_bytes(torch, clipped[2]),
+                         sum(c.shape[0] for c in clipped))
+    del clipped
+    cases = {"element_gather": [], "lane_select": []}
+    for name, table, idx in reads:
+        t2d = table.view(-1, 128)
+        idx = idx.to(torch.int32).clamp(0, table.shape[0] - 1)
+        m = idx.shape[0]
+        got = b3.element_gather(t2d, idx)
+        want = b3.element_gather_plain(t2d, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"B3 {name} differs from the plain "
+              "version")
+        check(torch.equal(got, table[idx.long()]), f"B3 {name} differs "
+              "from the table")
+        idx64 = idx.long()  # the library call's index type, made untimed
+        cases["element_gather"].append(dict(
+            shape=f"{name}: M={m}", max_abs_err=float(
+                (got.long() - want.long()).abs().max()),
+            ms=cuda_ms(torch, lambda: b3.element_gather(t2d, idx)),
+            host_ms=host_ms(torch, lambda: b3.element_gather(t2d, idx)),
+            plain_ms=cuda_ms(torch, lambda: b3.element_gather_plain(t2d,
+                                                                    idx)),
+            library_ms=cuda_ms(torch, lambda: torch.take(table, idx64)),
+            bound_ms=bound_ms(sector_bytes(torch, idx), m)))
+        # B4 at the same reads, after the row gather lanes_fused runs
+        rows = t2d.index_select(0, torch.bitwise_right_shift(idx, 7))
+        lanes = torch.bitwise_and(idx, 127)
+        lanes64 = lanes.long()[:, None]
+        got4 = b4.lane_select(rows, lanes)
+        want4 = b4.lane_select_plain(rows, lanes)
+        torch.cuda.synchronize()
+        check(torch.equal(got4, want4), f"B4 {name} differs from the plain "
+              "version")
+        check(torch.equal(got4, got), f"B4 {name} differs from B3")
+        cases["lane_select"].append(dict(
+            shape=f"{name}: rows [{m}, 128] ({rows.numel() * 4} B)",
+            max_abs_err=float((got4.long() - want4.long()).abs().max()),
+            ms=cuda_ms(torch, lambda: b4.lane_select(rows, lanes)),
+            host_ms=host_ms(torch, lambda: b4.lane_select(rows, lanes)),
+            plain_ms=cuda_ms(torch, lambda: b4.lane_select_plain(rows,
+                                                                 lanes)),
+            library_ms=cuda_ms(torch, lambda: torch.gather(rows, 1,
+                                                           lanes64)),
+            # each row is its own: one sector of each
+            bound_ms=bound_ms(m * SECTOR, m)))
+        for kname in cases:
+            print(f"{kname} {name}: exact; {json.dumps(cases[kname][-1])}",
+                  flush=True)
+        del rows, lanes, lanes64, got4, want4
+
+    def total(cs, key):
+        return float(sum(c[key] for c in cs))
+
+    # B3's reads share sectors of indptr (hop_bound); B4's rows are
+    # distinct, so its cases' bounds add up
+    bounds = (hop_bound, total(cases["lane_select"], "bound_ms"))
+    out = []
+    for mod, bound, (kname, cs) in zip((b3, b4), bounds, cases.items()):
+        out.append(dict(
+            name=kname, route="cuda", source=mod.SOURCE,
+            replaces=mod.REPLACES,
+            max_abs_err=max(c["max_abs_err"] for c in cs),
+            ms=total(cs, "ms"), plain_ms=total(cs, "plain_ms"),
+            bound_ms=bound, bound_by="bytes",
+            library_ms=total(cs, "library_ms"), cases=cs))
+    return out
+
+
+def batches(torch, train, labels_d, n: int, seed: int):
+    """``n`` batches of P_BATCH shuffled train seeds and their labels, on
+    the card."""
+    order = np.random.default_rng(seed).permutation(train)
+    for i in range(n):
+        s = torch.from_numpy(order[i * P_BATCH:(i + 1) * P_BATCH]
+                             .astype(np.int32)).to(DEV)
+        yield s, labels_d[s.long()]
+
+
+def fused_step_split(torch, qt, sampler, feature, model, opt, seeds, labels,
+                     mask) -> dict:
+    """One fused step's stages by CUDA events (median of 5 after 2 warm):
+    sampling, lookup, forward and loss, backward, optimizer."""
+    from quiver_tpu_torch.parallel.train import masked_cross_entropy
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    ip, ix = sampler.csr_topo.to_device(sampler.device)
+    keys = ("sample", "lookup", "forward", "backward", "optimizer")
+    out = {k: [] for k in keys}
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    model.train()
+    for _ in range(7):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        kw = sampler.draw_key_words()
+        ev[0].record()
+        n_id, _, _, blocks, _ = run_pipeline(
+            "none", ip, ix, seeds, kw, sampler.sizes,
+            gather_mode=sampler.gather_mode)
+        ev[1].record()
+        x = feature.lookup_device(n_id)
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss = masked_cross_entropy(model(x, blocks, generator=gen), labels,
+                                    mask)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        ev[5].synchronize()
+        for i, k in enumerate(keys):
+            out[k].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: float(np.median(v[2:])) for k, v in out.items()}
+
+
+def fused_training_phase(torch, qt, topo, feat, labels, train, b2, b3):
+    """The fused lane: the whole table on the card, ``gather_mode="pallas"``
+    (B3 for every element gather), B2 for the lookup, FUSED_STEPS steps of
+    ``make_fused_train_step``; the loss must fall.  Then the step split,
+    one step under the profiler, and one batch through
+    ``make_fused_eval_fn`` against the plain versions on the CPU.  Returns
+    the launches of the steps and a summary."""
+    t0 = time.perf_counter()
+    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                         device=DEV).from_cpu_tensor(feat)
+    check(feature.cache_count == topo.node_count, "the table is not whole")
+    sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
+                                  gather_mode="pallas")
+    model = products_model(torch, qt)
+    opt = torch.optim.Adam(model.parameters(), lr=P_LR)
+    step = qt.make_fused_train_step(sampler, feature, model, opt, seed=SEED)
+    labels_d = torch.from_numpy(labels).to(DEV)
+    ones = torch.ones((P_BATCH,), dtype=torch.bool, device=DEV)
+    torch.cuda.synchronize()
+    print(f"fused lane: {feature!r}, {sampler!r}; set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (b2.gather_rows, b3.element_gather):
+        fn.launches = 0
+    losses, wall, dev_ms = [], [], []
+    for seeds, lab in batches(torch, train, labels_d, FUSED_STEPS, SEED + 12):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        losses.append(step(seeds, lab, ones))
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(a.elapsed_time(b))
+    launches = {"element_gather": b3.element_gather.launches,
+                "gather_rows": b2.gather_rows.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(losses).all(), "a fused-step loss is not finite")
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    check(last < first, f"the fused loss did not fall: {first} -> {last}")
+    n_hops = len(P_FANOUTS)
+    check(launches["element_gather"] == 3 * n_hops * FUSED_STEPS,
+          f"B3 launched {launches['element_gather']} times in "
+          f"{FUSED_STEPS} steps")
+    check(launches["gather_rows"] == FUSED_STEPS,
+          f"B2 launched {launches['gather_rows']} times")
+    summary = dict(steps=FUSED_STEPS, loss_first=float(losses[0]),
+                   loss_last=float(losses[-1]), loss_first5_mean=first,
+                   loss_last5_mean=last, step_wall_ms=float(
+                       np.median(wall[2:])),
+                   step_event_ms=float(np.median(dev_ms[2:])),
+                   launches=launches, peak_gib=peak_gib)
+    print("fused training " + json.dumps(summary), flush=True)
+
+    # the step split and one step under the profiler
+    seeds, lab = next(batches(torch, train, labels_d, 1, SEED + 13))
+    split = fused_step_split(torch, qt, sampler, feature, model, opt, seeds,
+                             lab, ones)
+    print("fused step split (CUDA events, ms, median of 5) "
+          + json.dumps(split), flush=True)
+    prof = device_profile(torch, lambda: step(seeds, lab, ones),
+                          summary["step_wall_ms"], top=12)
+    print("fused step on the card (torch.profiler) " + json.dumps(prof),
+          flush=True)
+    summary.update(split_ms=split, device_profile=prof)
+
+    # one batch through make_fused_eval_fn, then through the plain
+    # versions on the CPU with the same words
+    ids = train[-P_BATCH:]
+    kw = sampler.draw_key_words()
+    y_card = qt.make_fused_eval_fn(sampler, feature, model)(ids, kw).cpu()
+    del feature, step, opt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sampler_cpu = qt.GraphSageSampler(topo, P_FANOUTS, device="cpu",
+                                      gather_mode="pallas")
+    feature_cpu = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                             device="cpu").from_cpu_tensor(feat)
+    y_cpu = qt.make_fused_eval_fn(sampler_cpu, feature_cpu,
+                                  copy.deepcopy(model).cpu())(ids, kw)
+    err = float((y_card - y_cpu).abs().max())
+    check(y_card.shape == (P_BATCH, P_CLASSES) and
+          bool(torch.isfinite(y_card).all()), "eval logits")
+    check(torch.allclose(y_card, y_cpu, **CPU_TOL),
+          f"card eval logits differ from the CPU's by {err}")
+    print(f"fused eval batch against the CPU's plain versions: logits max "
+          f"abs err {err:.3e} (CPU pass {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    summary["eval_logits_max_abs_err"] = err
+    return launches, summary
+
+
+def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
+    """The two-stage lane under the example's ``device_cache_size="200M"``:
+    ``SeedLoader(prefetch=2)`` over a sampler in ``gather_mode=
+    "lanes_fused"`` (B4 for every element gather) and a budgeted feature
+    (hot rows through B2, cold rows through the staged merge), then
+    ``make_train_step``, for STAGED_STEPS steps.  Every gathered row must
+    equal the source.  Then a split of one batch run stage by stage.
+    Returns the launches of the loop and a summary."""
+    t0 = time.perf_counter()
+    feature = qt.Feature(device_cache_size=HOT_BUDGET, csr_topo=topo,
+                         device=DEV).from_cpu_tensor(feat)
+    want_hot = min(qt.parse_size(HOT_BUDGET) // (P_DIM * 4), topo.node_count)
+    check(feature.cache_count == want_hot,
+          f"the 200M budget holds {feature.cache_count} rows")
+    check(feature.cache_count < topo.node_count, "the table fits the budget")
+    check(feature.cold.is_pinned(), "the cold tail is not pinned")
+    sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
+                                  gather_mode="lanes_fused")
+    model = products_model(torch, qt)
+    opt = torch.optim.Adam(model.parameters(), lr=P_LR)
+    step = qt.make_train_step(model, opt, seed=SEED)
+    src = torch.from_numpy(feat).to(DEV)
+    sampled = []
+    sample = sampler.sample
+
+    def counted_sample(*a, **k):
+        sampled.append(1)
+        return sample(*a, **k)
+
+    sampler.sample = counted_sample
+    loader = qt.SeedLoader(train, sampler, feature, labels=labels,
+                           batch_size=P_BATCH, prefetch=2, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"two-stage lane: {feature!r}, {sampler!r}; set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    for fn in (b2.gather_rows, b4.lane_select):
+        fn.launches = 0
+    it = iter(loader)
+    rec = {"wait": [], "train_wall": [], "train_event": [], "step_wall": []}
+    losses = []
+    try:
+        for _ in range(STAGED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch, x, lab, mask = next(it)
+            t1 = time.perf_counter()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses.append(step(x, batch.layers, lab, mask))
+            b.record()
+            b.synchronize()
+            t2 = time.perf_counter()
+            rec["wait"].append((t1 - t0) * 1e3)
+            rec["train_wall"].append((t2 - t1) * 1e3)
+            rec["train_event"].append(a.elapsed_time(b))
+            rec["step_wall"].append((t2 - t0) * 1e3)
+            check(torch.equal(x, src[batch.n_id.long()]),
+                  "a gathered row differs from the source")
+    finally:
+        it.close()  # stops the loader's worker
+    launches = {"lane_select": b4.lane_select.launches,
+                "gather_rows": b2.gather_rows.launches,
+                "sampled_batches": len(sampled)}
+    check(launches["lane_select"] == 3 * len(P_FANOUTS) * len(sampled),
+          f"B4 launched {launches['lane_select']} times for {len(sampled)} "
+          "sampled batches")
+    check(launches["gather_rows"] > 0, "B2 served no hot rows")
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(losses).all(), "a two-stage loss is not finite")
+    summary = {k: float(np.median(v[1:])) for k, v in rec.items()}
+    summary.update(steps=STAGED_STEPS, losses=losses.tolist(),
+                   launches=launches,
+                   counters=feature.stats()["counters"])
+    print("two-stage training (ms, median after the first step) "
+          + json.dumps(summary), flush=True)
+
+    # one batch stage by stage, no prefetch: sample (events), read-back,
+    # host stage and copy (feature[...], wall), train (events)
+    sampler.sample = sample
+    split = {k: [] for k in ("sample", "readback", "gather", "train",
+                             "batch_wall")}
+    for seeds, lab in batches(torch, train, torch.from_numpy(labels).to(DEV),
+                              4, SEED + 14):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        batch = sampler.sample(seeds)
+        ev[1].record()
+        ev[1].synchronize()
+        t1 = time.perf_counter()
+        n_id = batch.n_id.cpu().numpy()
+        t2 = time.perf_counter()
+        x = feature[n_id]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ev[2].record()
+        step(x, batch.layers, lab, torch.ones_like(seeds, dtype=torch.bool))
+        ev[3].record()
+        ev[3].synchronize()
+        split["sample"].append(ev[0].elapsed_time(ev[1]))
+        split["readback"].append((t2 - t1) * 1e3)
+        split["gather"].append((t3 - t2) * 1e3)
+        split["train"].append(ev[2].elapsed_time(ev[3]))
+        split["batch_wall"].append((time.perf_counter() - t0) * 1e3)
+    split = {k: float(np.median(v[1:])) for k, v in split.items()}
+    split["host_share"] = (split["readback"] + split["gather"]) \
+        / split["batch_wall"]
+    print("two-stage batch split (ms, median of 3) " + json.dumps(split),
+          flush=True)
+    summary["split_ms"] = split
+    feature.close()
+    del feature, src, model, opt
+    torch.cuda.empty_cache()
+    return launches, summary
 
 
 def main() -> int:
@@ -720,7 +1198,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from quiver_tpu_torch.ops.cuda import KERNELS, build
+    from quiver_tpu_torch.ops.cuda import element_gather as b3
     from quiver_tpu_torch.ops.cuda import gather_rows as b2
+    from quiver_tpu_torch.ops.cuda import lane_select as b4
     from quiver_tpu_torch.ops.cuda import page_gather as b5
     from quiver_tpu_torch.ops.cuda import window_sample as b1
 
@@ -779,11 +1259,12 @@ def main() -> int:
     stages = budgeted_stage_times(torch, server_b)
     print("budgeted bucket-2048 pass split (ms, median of 5) "
           + json.dumps(stages), flush=True)
-    prof = device_profile(torch, server_b.unfused_forward,
-                          stages["pass_wall"], SEED + 8)
+    prof = device_profile(torch, pass_runner(server_b.unfused_forward,
+                                             SEED + 8), stages["pass_wall"])
     print("budgeted bucket-2048 pass on the card (torch.profiler) "
           + json.dumps(prof), flush=True)
-    hprof = host_profile(torch, server_b.unfused_forward, SEED + 9)
+    hprof = host_profile(torch, pass_runner(server_b.unfused_forward,
+                                            SEED + 9))
     print("budgeted bucket-2048 pass on the host (cProfile, own time) "
           + json.dumps(hprof), flush=True)
     summary_b.update(stages_ms=stages, device_profile=prof,
@@ -791,6 +1272,30 @@ def main() -> int:
 
     print("summary " + json.dumps(summary), flush=True)
     print("budgeted summary " + json.dumps(summary_b), flush=True)
+    del budgeted, server_b, feature, src
+    torch.cuda.empty_cache()
+
+    # slice 3: training at ogbn-products width
+    t0 = time.perf_counter()
+    ptopo, pfeat, plabels, ptrain = products_data(qt)
+    ptopo.to_device(DEV)
+    torch.cuda.synchronize()
+    print(f"products graph {ptopo!r}, features {pfeat.shape}, "
+          f"{len(ptrain)} train seeds: made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
+    launches_f, summary_f = fused_training_phase(
+        torch, qt, ptopo, pfeat, plabels, ptrain, b2, b3)
+    b3_record["launches"] = launches_f["element_gather"]
+    kernels[1]["launches_fused_training"] = launches_f["gather_rows"]
+    launches_s, summary_s = staged_training_phase(
+        torch, qt, ptopo, pfeat, plabels, ptrain, b2, b4)
+    b4_record["launches"] = launches_s["lane_select"]
+    kernels[1]["launches_two_stage_training"] = launches_s["gather_rows"]
+    kernels[2:2] = [b3_record, b4_record]
+    print("fused training summary " + json.dumps(summary_f), flush=True)
+    print("two-stage training summary " + json.dumps(summary_s), flush=True)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,19 +8,27 @@ PyTorch version runs instead.
 """
 
 from .feature import Feature
-from .models import GraphSAGE, SAGEConv, sage_params_from_flax
+from .loader import SeedLoader
+from .models import (GraphSAGE, SAGEConv, sage_params_from_flax,
+                     sage_params_to_flax)
+from .parallel import Prefetcher, TrainState, make_train_step
+from .pipeline import make_fused_eval_fn, make_fused_train_step, make_scan_epoch
 from .ops.sample import SampleOut, sample_neighbors, to_ragged
 from .sampler import GraphSageSampler, LayerBlock, SampledBatch, run_pipeline
 from .serving import (InferenceServer, InferenceServer_Debug, RequestBatcher,
                       ServingRequest)
-from .utils import (CSRTopo, coo_to_csr, parse_size, reindex_by_config,
-                    reindex_feature, synthetic_csr)
+from .utils import (CSRTopo, community_graph, coo_to_csr, parse_size,
+                    reindex_by_config, reindex_feature, synthetic_csr,
+                    synthetic_products, synthetic_reddit)
 
 __all__ = [
     "CSRTopo", "Feature", "GraphSAGE", "GraphSageSampler",
-    "InferenceServer", "InferenceServer_Debug", "LayerBlock",
-    "RequestBatcher", "SAGEConv", "SampleOut", "SampledBatch",
-    "ServingRequest", "coo_to_csr", "parse_size", "reindex_by_config",
-    "reindex_feature", "run_pipeline", "sage_params_from_flax",
-    "sample_neighbors", "synthetic_csr", "to_ragged",
+    "InferenceServer", "InferenceServer_Debug", "LayerBlock", "Prefetcher",
+    "RequestBatcher", "SAGEConv", "SampleOut", "SampledBatch", "SeedLoader",
+    "ServingRequest", "TrainState", "community_graph", "coo_to_csr",
+    "make_fused_eval_fn", "make_fused_train_step", "make_scan_epoch",
+    "make_train_step", "parse_size", "reindex_by_config", "reindex_feature",
+    "run_pipeline", "sage_params_from_flax", "sage_params_to_flax",
+    "sample_neighbors", "synthetic_csr", "synthetic_products",
+    "synthetic_reddit", "to_ragged",
 ]

@@ -23,6 +23,10 @@ its result is a tensor of its own: a later batch that evicts overlay
 slots or pages, which the port updates in place where JAX made new
 arrays, cannot change it.
 
+:meth:`prefetch` runs a budgeted gather on a worker thread ahead of its
+``feature[ids]`` call, which then claims the staged rows (the JAX
+package's ``Feature.prefetch``); ``SeedLoader`` calls it one batch ahead.
+
 Counters use the JAX package's telemetry names (``stats()``), apart from
 ``feature_h2d_bytes_total``: the port ships only real rows and pages,
 where JAX pads each copy to a shape bucket.
@@ -30,7 +34,9 @@ where JAX pads each copy to a shape bucket.
 
 from __future__ import annotations
 
+import collections
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -47,12 +53,18 @@ from .utils.topology import CSRTopo, parse_size, reindex_feature
 __all__ = ["Feature"]
 
 
+def _host_ids(node_idx) -> np.ndarray:
+    if isinstance(node_idx, torch.Tensor):
+        return node_idx.cpu().numpy()  # the one read-back
+    return np.asarray(node_idx)
+
+
 class Feature:
     """Hot/cold node-feature store.
 
     ``_plock`` guards the staging state a gather shares with other
     threads: the overlay table and its ``cold_cache`` metadata, the paged
-    store, the staging buffers and the counters.
+    store, the staging buffers, the counters and the prefetched batches.
 
     Args:
       rank: local device index (kept for the reference's signature).
@@ -107,6 +119,10 @@ class Feature:
         self._plock = threading.Lock()
         self._staging = HostStaging(self.device)
         self._counts: dict = {}  # JAX metric key -> count
+        # prefetch: one worker, staged rows by the ids' bytes, its futures
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pending: dict = {}
+        self._inflight: collections.deque = collections.deque()
 
     def _budget_rows(self, row_bytes: int) -> int:
         budget = parse_size(self.device_cache_size)
@@ -154,6 +170,7 @@ class Feature:
                 None if new_order is None else
                 torch.from_numpy(new_order.astype(np.int32)).to(self.device))
             self.cold_cache = self._overlay = self.paged = None
+            self._pending.clear()
         if topo_order:
             self.csr_topo.feature_order = new_order
         self._maybe_enable_cold_cache()
@@ -316,21 +333,88 @@ class Feature:
             self._count(f"feature_gather_batches_total{{tier={tier}}}", 1)
         if full and isinstance(node_idx, torch.Tensor):
             return self.lookup_device(node_idx)
-        if isinstance(node_idx, torch.Tensor):
-            node_idx = node_idx.cpu().numpy()  # the one read-back
-        idx = np.asarray(node_idx)
+        idx = _host_ids(node_idx)
+        if full:
+            rows = gather_rows(self.hot, torch.from_numpy(
+                self._rows_of(idx).astype(np.int32)).to(self.device))
+            return rows.reshape(*idx.shape, self.dim)
+        rows = self._take_staged(idx.tobytes())
+        if self._pool is not None:
+            with self._plock:
+                self._count("feature_prefetch_total{result=%s}" % (
+                    "hit" if rows is not None else "miss"), 1)
+        if rows is None:
+            flat = self._rows_of(idx)
+            with self._plock:
+                rows = self._stage(flat)
+        return rows.reshape(*idx.shape, self.dim)
+
+    def _rows_of(self, idx: np.ndarray) -> np.ndarray:
+        """Flat int64 table rows of (old) node ids, checked."""
         if idx.size and (idx.min() < 0 or idx.max() >= self.node_count):
             raise ValueError(f"node ids must lie in [0, {self.node_count})")
         flat = idx.reshape(-1)
         if self.feature_order is not None:
             flat = self.feature_order[flat]
-        if full:
-            rows = gather_rows(self.hot, torch.from_numpy(
-                flat.astype(np.int32)).to(self.device))
-        else:
+        return flat.astype(np.int64)
+
+    # -- prefetch ------------------------------------------------------
+    def prefetch(self, node_idx) -> None:
+        """Start the budgeted gather of ``node_idx`` (host ids, or device
+        ids, read back on the worker) on a worker thread; the
+        ``feature[node_idx]`` call with the same ids claims its rows.  The
+        host gather and copy of the cold rows then run while the caller's
+        previous step runs on the card.  Does nothing when the whole table
+        is on the device.  Up to 8 unclaimed batches are kept, oldest
+        dropped first."""
+        self._check_built()
+        if self.cache_count >= self.node_count:
+            return
+        with self._plock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="feature-prefetch")
+            pool = self._pool
+
+        def work():
+            idx = _host_ids(node_idx)
+            flat = self._rows_of(idx)
             with self._plock:
-                rows = self._stage(flat.astype(np.int64))
-        return rows.reshape(*idx.shape, self.dim)
+                self._pending[idx.tobytes()] = self._stage(flat)
+                while len(self._pending) > 8:
+                    self._pending.pop(next(iter(self._pending)))
+
+        fut = pool.submit(work)
+        with self._plock:
+            self._inflight.append(fut)
+            # drop only finished futures: _take_staged waits on the rest
+            while len(self._inflight) > 8 and self._inflight[0].done():
+                self._inflight.popleft()
+
+    def _take_staged(self, key: bytes) -> Optional[torch.Tensor]:
+        """Claim the prefetched rows of ids ``key``, waiting on prefetches
+        in flight.  One worker finishes them in submission order, so
+        waiting on the oldest either stages the key or proves it was never
+        prefetched; an error of the prefetch is raised here."""
+        if self._pool is None:
+            return None
+        while True:
+            with self._plock:
+                rows = self._pending.pop(key, None)
+                if rows is not None or not self._inflight:
+                    return rows
+                fut = self._inflight.popleft()
+            fut.result()
+
+    def close(self) -> None:
+        """Stop the prefetch worker (after its current batch) and drop
+        unclaimed batches."""
+        with self._plock:
+            pool, self._pool = self._pool, None
+            self._pending.clear()
+            self._inflight.clear()
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
 
     def _to_device(self, name: str, arr: np.ndarray) -> torch.Tensor:
         """Ship a host array through staging buffer ``name``."""

@@ -1,4 +1,5 @@
-"""Parameter conversion from the JAX package's Flax GraphSAGE."""
+"""Parameter conversion between the port's GraphSAGE and the JAX
+package's Flax GraphSAGE, in both directions."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["sage_params_from_flax"]
+__all__ = ["sage_params_from_flax", "sage_params_to_flax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -35,3 +36,30 @@ def sage_params_from_flax(params) -> Dict[str, torch.Tensor]:
     if i == 0:
         raise ValueError("no conv{i} entries in the Flax params")
     return out
+
+
+def sage_params_to_flax(state_dict) -> Dict[str, dict]:
+    """A :class:`GraphSAGE` ``state_dict`` (or the module) -> the Flax tree
+    ``{'params': {'conv{i}': ...}}`` of numpy arrays, the inverse of
+    :func:`sage_params_from_flax`, so parameters of both packages can be
+    compared in one layout."""
+    if hasattr(state_dict, "state_dict"):
+        state_dict = state_dict.state_dict()
+
+    def arr(t) -> np.ndarray:
+        return t.detach().cpu().numpy().copy()
+
+    tree: Dict[str, dict] = {}
+    i = 0
+    while f"convs.{i}.lin_self.weight" in state_dict:
+        pre = f"convs.{i}"
+        lin_self = {"kernel": arr(state_dict[f"{pre}.lin_self.weight"]).T}
+        if f"{pre}.lin_self.bias" in state_dict:
+            lin_self["bias"] = arr(state_dict[f"{pre}.lin_self.bias"])
+        tree[f"conv{i}"] = {
+            "lin_self": lin_self,
+            "lin_nbr": {"kernel": arr(state_dict[f"{pre}.lin_nbr.weight"]).T}}
+        i += 1
+    if i == 0:
+        raise ValueError("no convs.{i} entries in the state_dict")
+    return {"params": tree}

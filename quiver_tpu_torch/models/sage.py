@@ -34,10 +34,13 @@ class GraphSAGE(nn.Module):
             for i in range(num_layers))
 
     def forward(self, x: torch.Tensor, blocks: Sequence,
-                edge_feat_table: Optional[torch.Tensor] = None
+                edge_feat_table: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """``blocks`` outermost first; ``edge_feat_table [E, De]`` turns
-        every layer edge-featured (sample with ``return_eid=True``)."""
+        every layer edge-featured (sample with ``return_eid=True``).
+        In training, dropout masks are drawn from ``generator`` (the train
+        steps hold one; ``None`` is the global generator)."""
         if len(blocks) != self.num_layers:
             raise ValueError(
                 f"{len(blocks)} blocks for {self.num_layers} layers")
@@ -52,5 +55,15 @@ class GraphSAGE(nn.Module):
             x = self.convs[i](x, blk, efeat)
             if i != self.num_layers - 1:
                 x = F.relu(x)
-                x = F.dropout(x, self.dropout, training=self.training)
+                x = _dropout(x, self.dropout, self.training, generator)
         return x
+
+
+def _dropout(x: torch.Tensor, p: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with its keep mask drawn from ``generator``
+    (``F.dropout`` takes none)."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)

@@ -3,6 +3,7 @@
 ``KERNELS`` names each kernel's library, built from ``csrc/<name>.cu``.
 """
 
-KERNELS = ("window_sample", "gather_rows", "page_gather")
+KERNELS = ("window_sample", "gather_rows", "element_gather", "lane_select",
+           "page_gather")
 
 __all__ = ["KERNELS"]

@@ -9,9 +9,16 @@ so every draw equals the JAX package's ``sample_rng="hash"`` draw bit for
 bit.  The port has this one RNG; JAX's threefry ``sample_rng="key"`` has
 no counterpart.
 
-On the card a hop is one launch of kernel B1
-(``ops/cuda/window_sample.py``); on the CPU it runs :func:`sample_hop_plain`,
-which is also the kernel's reference.
+The hop's element gathers follow ``gather_mode``, as in the JAX package:
+``"pwindow"`` (what ``"auto"`` resolves to) is one launch of kernel B1
+(``ops/cuda/window_sample.py``), the fused hop; every other mode computes
+the uniforms and positions here and reads ``indptr`` twice and ``indices``
+once through :func:`_gather`: ``"xla"`` a clipped index, ``"lanes"`` and
+``"lanes_fused"`` the lane-select gather (``ops/fastgather.py``, the
+latter through kernel B4), ``"pallas"`` kernel B3
+(``ops/cuda/element_gather.py``).  All modes give the same draws.  On the
+CPU every kernel runs its plain version; :func:`sample_hop_plain`, the hop
+with ``"xla"`` gathers, is B1's reference.
 """
 
 from __future__ import annotations
@@ -21,10 +28,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_gather_mode
 from ..utils.device import resolve_device
 
-__all__ = ["sample_neighbors", "sample_hop_plain", "SampleOut", "to_ragged",
-           "key_words_pair"]
+__all__ = ["sample_neighbors", "sample_hop", "sample_hop_plain", "SampleOut",
+           "to_ragged", "key_words_pair"]
 
 
 class SampleOut(NamedTuple):
@@ -93,18 +101,48 @@ def _stratified_positions(u: torch.Tensor, deg: torch.Tensor,
     return torch.minimum(pos, torch.clamp_min(deg[:, None] - 1, 0))
 
 
+def _gather(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
+    """``table[idx]`` with ``idx`` clipped into the table, by element-gather
+    ``mode``; the lane modes and ``"pallas"`` need a 128-multiple table
+    (``CSRTopo.to_device`` pads it)."""
+    m = table.shape[0]
+    if mode == "xla":
+        return table[idx.to(torch.int64).clamp(0, m - 1)]
+    if mode not in ("lanes", "lanes_fused", "pallas"):
+        raise ValueError(f"no element gather for gather_mode={mode!r}")
+    if m % 128:
+        raise ValueError(f"gather_mode={mode!r} needs a 128-multiple table, "
+                         f"got {m}: pad with ops.fastgather.pad_table_128")
+    idx = idx.to(torch.int32).clamp(0, m - 1)
+    if mode == "pallas":
+        from .cuda.element_gather import element_gather as b3
+
+        return b3(table.view(-1, 128), idx)
+    from .fastgather import element_gather
+
+    return element_gather(table.view(-1, 128), idx,
+                          fused=(mode == "lanes_fused"))
+
+
 def sample_hop_plain(indptr: torch.Tensor, indices: torch.Tensor,
                      seeds: torch.Tensor, k: int, k0: int, k1: int,
                      seed_mask: Optional[torch.Tensor] = None) -> SampleOut:
-    """One sampling hop in plain PyTorch: the reference for kernel B1.
+    """One sampling hop in plain PyTorch: the reference for kernel B1."""
+    return sample_hop(indptr, indices, seeds, k, k0, k1, seed_mask, "xla")
+
+
+def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
+               seeds: torch.Tensor, k: int, k0: int, k1: int,
+               seed_mask: Optional[torch.Tensor] = None,
+               gather_mode: str = "xla") -> SampleOut:
+    """One sampling hop (``ops/sample.py:208-273`` of the JAX package)
+    whose three element gathers run by ``gather_mode`` (:func:`_gather`).
 
     Reads of ``indptr``/``indices`` are clipped to the (padded) tables,
     as the JAX gathers clip."""
     seeds = seeds.to(torch.int32)
-    m = indptr.shape[0]
-    s64 = seeds.to(torch.int64)
-    start = indptr[s64.clamp(0, m - 1)]
-    end = indptr[(s64 + 1).clamp(0, m - 1)]
+    start = _gather(indptr, seeds, gather_mode)
+    end = _gather(indptr, seeds + 1, gather_mode)
     deg = end - start
     if seed_mask is not None:
         deg = torch.where(seed_mask, deg, torch.zeros_like(deg))
@@ -114,7 +152,7 @@ def sample_hop_plain(indptr: torch.Tensor, indices: torch.Tensor,
     pos = _stratified_positions(u, deg, k)
     mask = j < counts[:, None]
     idx = start[:, None] + pos
-    nbrs = indices[idx.to(torch.int64).clamp(0, indices.shape[0] - 1)]
+    nbrs = _gather(indices, idx, gather_mode)
     neg = torch.full_like(idx, -1)
     return SampleOut(nbrs=torch.where(mask, nbrs, neg), mask=mask,
                      counts=counts, eid=torch.where(mask, idx, neg))
@@ -131,7 +169,7 @@ def key_words_pair(key_words) -> Tuple[int, int]:
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
                      seeds: torch.Tensor, k: int, key_words,
                      seed_mask: Optional[torch.Tensor] = None,
-                     device=None) -> SampleOut:
+                     device=None, gather_mode: str = "auto") -> SampleOut:
     """Sample up to ``k`` distinct neighbours per seed from a CSR graph.
 
     Args:
@@ -142,18 +180,34 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
       k: fanout.
       key_words: the two folded uint32 key words ``(k0, k1)``.
       device: where the hop runs (``None``: the card).
+      gather_mode: element-gather mode (``config.resolve_gather_mode``;
+        ``"auto"`` is ``"pwindow"``): ``"pwindow[:U]"`` is kernel B1, any
+        other mode three element gathers; the draws are the same.
 
     ``deg <= k`` returns every neighbour in CSR order; ``deg > k`` returns
     k distinct neighbours, one per stratum.
     """
-    from .cuda.window_sample import window_sample
-
     dev = resolve_device(device)
     k0, k1 = key_words_pair(key_words)
     if seed_mask is not None:
         seed_mask = seed_mask.to(dev)
-    return window_sample(indptr.to(dev), indices.to(dev),
-                         seeds.to(dev, torch.int32), k, k0, k1, seed_mask)
+    return run_hop(indptr.to(dev), indices.to(dev),
+                   seeds.to(dev, torch.int32), k, k0, k1, seed_mask,
+                   resolve_gather_mode(gather_mode))
+
+
+def run_hop(indptr: torch.Tensor, indices: torch.Tensor, seeds: torch.Tensor,
+            k: int, k0: int, k1: int, seed_mask: Optional[torch.Tensor],
+            gather_mode: str) -> SampleOut:
+    """One hop on tensors already on one device, in a gather mode that
+    :func:`resolve_gather_mode` has resolved: ``"pwindow[:U]"`` launches
+    kernel B1, any other mode runs :func:`sample_hop`."""
+    if gather_mode.startswith("pwindow"):
+        from .cuda.window_sample import window_sample
+
+        return window_sample(indptr, indices, seeds, k, k0, k1, seed_mask)
+    return sample_hop(indptr, indices, seeds, k, k0, k1, seed_mask,
+                      gather_mode)
 
 
 def to_ragged(out: SampleOut) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -18,7 +18,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .ops.sample import sample_neighbors
+from .config import resolve_gather_mode
+from .ops.sample import key_words_pair, run_hop
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo
 
@@ -67,16 +68,17 @@ class SampledBatch(NamedTuple):
 
 
 def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
-                             return_eid=False):
-    """Multi-hop pipeline without dedup; one B1 hop per layer."""
+                             return_eid, gather_mode):
+    """Multi-hop pipeline without dedup; one hop per layer (one B1 launch,
+    or three element gathers, by the resolved ``gather_mode``)."""
     dev = indptr.device
     B = seeds.shape[0]
-    frontier = seeds.to(torch.int32)
+    frontier = seeds.to(dev, torch.int32)
     fmask = torch.ones((B,), dtype=torch.bool, device=dev)
     blocks = []
     for l, k in enumerate(sizes):
-        out = sample_neighbors(indptr, indices, frontier, k, key_words[l],
-                               seed_mask=fmask, device=dev)
+        out = run_hop(indptr, indices, frontier, k,
+                      *key_words_pair(key_words[l]), fmask, gather_mode)
         t = frontier.shape[0]
         pos = (t + torch.arange(t, dtype=torch.int32, device=dev)[:, None] * k
                + torch.arange(k, dtype=torch.int32, device=dev)[None, :])
@@ -97,9 +99,10 @@ def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
 
 
 def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes,
-                 return_eid=False):
-    """Multi-hop sampling; ``key_words`` is ``[L, 2]`` uint32.  Only the
-    positional ``dedup="none"`` pipeline is ported."""
+                 return_eid=False, gather_mode="auto"):
+    """Multi-hop sampling; ``key_words`` is ``[L, 2]`` uint32 and
+    ``gather_mode`` is resolved here (``config.resolve_gather_mode``).
+    Only the positional ``dedup="none"`` pipeline is ported."""
     if dedup != "none":
         raise NotImplementedError(
             f"dedup={dedup!r} is not ported yet (ROADMAP A7); use 'none'")
@@ -108,7 +111,8 @@ def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes,
         raise ValueError(f"{key_words.shape[0]} key-word pairs for "
                          f"{len(sizes)} hops")
     return _sample_pipeline_nodedup(indptr, indices, seeds, key_words,
-                                    sizes, return_eid=return_eid)
+                                    sizes, return_eid,
+                                    resolve_gather_mode(gather_mode))
 
 
 class GraphSageSampler:
@@ -123,15 +127,22 @@ class GraphSageSampler:
       return_eid: fill ``LayerBlock.eid`` with global edge positions.
       seed: seed of the generator that draws key words when a call gives
         none.
+      gather_mode: how each hop reads ``indptr`` and ``indices``
+        (``config.resolve_gather_mode``): ``"auto"``/``"pwindow"`` is the
+        fused hop of kernel B1, ``"pallas"`` kernel B3, ``"lanes_fused"``
+        a row gather and kernel B4, ``"lanes"`` and ``"xla"`` plain
+        PyTorch.  Every mode samples the same neighbours.
     """
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
-                 mode: str = "GPU", return_eid: bool = False, seed: int = 0):
+                 mode: str = "GPU", return_eid: bool = False, seed: int = 0,
+                 gather_mode: str = "auto"):
         if mode != "GPU":
             raise NotImplementedError(
                 f"mode={mode!r}: only the device mode 'GPU' is ported "
                 "(the host sampler is ROADMAP A10)")
         self.device = resolve_device(device)
+        self.gather_mode = resolve_gather_mode(gather_mode)
         self.csr_topo = csr_topo
         self.sizes = list(sizes)
         self.mode = mode
@@ -163,11 +174,12 @@ class GraphSageSampler:
         indptr, indices = self.csr_topo.to_device(self.device)
         n_id, n_mask, num_nodes, blocks, drops = run_pipeline(
             self.dedup, indptr, indices, seeds, key_words, self.sizes,
-            return_eid=self.return_eid)
+            return_eid=self.return_eid, gather_mode=self.gather_mode)
         return SampledBatch(n_id=n_id, n_id_mask=n_mask, num_nodes=num_nodes,
                             batch_size=int(seeds.shape[0]), layers=blocks,
                             drops=drops)
 
     def __repr__(self):
         return (f"GraphSageSampler(sizes={self.sizes}, mode={self.mode!r}, "
-                f"device={self.device}, graph={self.csr_topo!r})")
+                f"gather={self.gather_mode!r}, device={self.device}, "
+                f"graph={self.csr_topo!r})")

@@ -204,7 +204,8 @@ class InferenceServer:
             seeds = s.seed_tensor(padded_ids)
             indptr, indices = s.csr_topo.to_device(s.device)
             n_id, _, _, blocks, _ = run_pipeline(
-                "none", indptr, indices, seeds, key_words, s.sizes)
+                "none", indptr, indices, seeds, key_words, s.sizes,
+                gather_mode=s.gather_mode)
             x = self.feature.lookup_device(n_id)
             return self.model(x, blocks)
 

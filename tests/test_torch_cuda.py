@@ -14,7 +14,10 @@ import pytest
 import torch
 
 import quiver_tpu_torch as qt
+from quiver_tpu_torch.ops import fastgather
+from quiver_tpu_torch.ops.cuda import element_gather as b3
 from quiver_tpu_torch.ops.cuda import gather_rows as b2
+from quiver_tpu_torch.ops.cuda import lane_select as b4
 from quiver_tpu_torch.ops.cuda import page_gather as b5
 from quiver_tpu_torch.ops.cuda import window_sample as b1
 from quiver_tpu_torch.ops.paged import plan_blocks
@@ -194,3 +197,172 @@ def test_fused_forward_card_matches_cpu(card):
         model = model.cpu()
     assert torch.equal(frontiers[0], frontiers[1])
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
+
+
+def _table(card, dtype, n, seed):
+    """A 1-D card table; fp32 ones hold -0.0 every 7th entry."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                             device=card, dtype=torch.int32)
+    t = torch.randn((n,), generator=g, device=card)
+    t[::7] = -0.0
+    return t
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("m", [1, 1000, 4097, 901_120])
+def test_element_gather_kernel_equals_plain(card, dtype, m):
+    n = 3000 * 128
+    t2d = _table(card, dtype, n, m).view(-1, 128)
+    g = torch.Generator(device=card).manual_seed(m + 1)
+    idx = torch.randint(0, n, (m,), generator=g, device=card,
+                        dtype=torch.int32)
+    ends = torch.tensor([0, n - 1, -7, n + 1000], dtype=torch.int32,
+                        device=card)
+    idx[:min(m, 4)] = ends[:min(m, 4)]
+    for i in (idx, idx.reshape(-1, 1) if m > 1 else idx):
+        before = b3.element_gather.launches
+        got = b3.element_gather(t2d, i)
+        torch.cuda.synchronize()
+        assert b3.element_gather.launches == before + 1
+        assert got.shape == i.shape
+        assert torch.equal(_bits(got), _bits(b3.element_gather_plain(t2d, i)))
+    if dtype == torch.float32:  # -0.0 comes back as +0.0
+        flat = t2d.reshape(-1)[idx.long().clamp(0, n - 1)]
+        neg = (flat == 0) & torch.signbit(flat)
+        assert neg.any() or m < 1000
+        assert (_bits(got)[neg] == 0).all()
+    assert b3.element_gather(t2d, idx[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("m", [1, 1000, 4097, 180_224])
+def test_lane_select_kernel_equals_plain(card, dtype, m):
+    rows = _table(card, dtype, m * 128, m).view(m, 128)
+    g = torch.Generator(device=card).manual_seed(m + 2)
+    lanes = torch.randint(0, 128, (m,), generator=g, device=card,
+                          dtype=torch.int32)
+    lanes[:min(m, 4)] = torch.tensor([0, 127, -1, 128], dtype=torch.int32,
+                                     device=card)[:min(m, 4)]
+    before = b4.lane_select.launches
+    got = b4.lane_select(rows, lanes)
+    torch.cuda.synchronize()
+    assert b4.lane_select.launches == before + 1
+    assert torch.equal(_bits(got), _bits(b4.lane_select_plain(rows, lanes)))
+    if m >= 4:
+        assert got[2] == 0 and got[3] == 0
+    assert b4.lane_select(rows[:0], lanes[:0]).shape == (0,)
+
+
+def test_b3_b4_refuse_bad_input(card):
+    t = torch.zeros((4, 128), device=card)
+    i = torch.zeros(5, dtype=torch.int32, device=card)
+    for bad in (t.double(), t[:, ::2], t.half()):
+        with pytest.raises(ValueError):
+            b3.element_gather(bad, i)
+    with pytest.raises(ValueError):
+        b3.element_gather(t, i.long())
+    with pytest.raises(ValueError):
+        b4.lane_select(t, i[:4].long())
+    with pytest.raises(ValueError):
+        b4.lane_select(t[:, :64].contiguous(), i[:4])
+    with pytest.raises(ValueError):
+        b4.lane_select(t, i)  # one lane per row
+
+
+@pytest.mark.parametrize("mode", ["pallas", "lanes_fused", "lanes"])
+def test_gather_modes_on_card_equal_cpu(card, mode):
+    """The 3-hop sampler on the card in each element-gather mode returns
+    the CPU's frontier and blocks bitwise, through B3 or B4."""
+    topo = _graph(7, n=3000)
+    kw = np.array([[5, 6], [7, 8], [9, 10]], np.uint32)
+    ids = np.arange(0, 3000, 37)
+    counters = {"pallas": b3.element_gather, "lanes_fused": b4.lane_select}
+    fn = counters.get(mode)
+    before = fn.launches if fn else 0
+    got = qt.GraphSageSampler(topo, [10, 5, 3], device=card,
+                              gather_mode=mode).sample(ids, key_words=kw)
+    torch.cuda.synchronize()
+    if fn:
+        assert fn.launches == before + 9
+    want = qt.GraphSageSampler(topo, [10, 5, 3], device="cpu",
+                               gather_mode="xla").sample(ids, key_words=kw)
+    assert torch.equal(got.n_id.cpu(), want.n_id)
+    for a, b in zip(got.layers, want.layers):
+        assert torch.equal(a.nbr_local.cpu(), b.nbr_local)
+        assert torch.equal(a.mask.cpu(), b.mask)
+
+
+def test_fastgather_on_card_equals_cpu(card):
+    t = _table(card, torch.float32, 1000, 3)
+    idx = torch.randint(0, 1000, (37, 11), device=card, dtype=torch.int32)
+    want = fastgather.element_gather(fastgather.prepare_table(t.cpu()),
+                                     idx.cpu())
+    for fused in (False, True):
+        got = fastgather.element_gather(fastgather.prepare_table(t), idx,
+                                        fused=fused)
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+def test_prefetch_then_read_on_card(card):
+    """A budgeted feature on the card: prefetch batch i+1, read batch i,
+    then claim i+1, over many batches (the pinned staging buffers are
+    reused while a prefetched copy may be in flight): rows bitwise equal
+    to the source."""
+    topo = _graph(5, n=3000)
+    feat = np.random.default_rng(3).standard_normal(
+        (3000, 100)).astype(np.float32)
+    f = qt.Feature(device_cache_size=600 * 100 * 4, csr_topo=topo,
+                   device=card).from_cpu_tensor(feat)
+    rng = np.random.default_rng(1)
+    try:
+        nxt = rng.integers(0, 3000, 5000).astype(np.int32)
+        for i in range(20):
+            cur, nxt = nxt, rng.integers(0, 3000, int(rng.integers(1, 9000))
+                                         ).astype(np.int32)
+            f.prefetch(torch.from_numpy(nxt).to(card))
+            rows = f[cur]
+            assert torch.equal(rows.cpu(), torch.from_numpy(feat[cur]))
+        assert torch.equal(f[nxt].cpu(), torch.from_numpy(feat[nxt]))
+        c = f.stats()["counters"]
+        assert c["feature_prefetch_total{result=hit}"] == 20
+    finally:
+        f.close()
+
+
+def test_fused_train_step_card_matches_cpu(card):
+    """Two fused steps (B3 sampling, B2 lookup, autograd, Adam) on the card
+    against the plain versions on the CPU: losses and parameters within
+    fp32 summation-order tolerance."""
+    topo = _graph(4, n=2000)
+    feat = np.random.default_rng(2).standard_normal(
+        (2000, 24)).astype(np.float32)
+    labels = torch.from_numpy(np.random.default_rng(3).integers(0, 7, 2000))
+    torch.manual_seed(0)
+    base = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0)
+    kws = [np.array([[1, i], [2, i], [3, i]], np.uint32) for i in range(2)]
+    ids = np.arange(0, 2000, 7)
+    out = []
+    for dev in ("cpu", card):
+        model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0).to(dev)
+        model.load_state_dict(base.state_dict())
+        s = qt.GraphSageSampler(topo, [6, 4, 3], device=dev,
+                                gather_mode="pallas")
+        f = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                       device=dev).from_cpu_tensor(feat)
+        step = qt.make_fused_train_step(
+            s, f, model, torch.optim.Adam(model.parameters(), lr=3e-3))
+        lab = labels[ids].to(dev)
+        ones = torch.ones(len(ids), dtype=torch.bool, device=dev)
+        losses = [float(step(ids, lab, ones, kw)) for kw in kws]
+        out.append((losses, {k: v.cpu() for k, v in
+                             model.state_dict().items()}))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-5)
+    for k in out[0][1]:
+        torch.testing.assert_close(out[1][1][k], out[0][1][k], rtol=0,
+                                   atol=2e-5)

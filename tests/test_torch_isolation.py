@@ -71,6 +71,34 @@ def test_walk_covers_the_budgeted_store():
     assert paged.ColdRowCache is coldcache.ColdRowCache
 
 
+def test_walk_covers_the_training_slice():
+    """The source walk and the subprocess import reach the training slice:
+    the gather modes with kernels B3 and B4, the train step, the loader,
+    the prefetcher (with the port's own ``join_and_reap``) and the fused
+    pipeline."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = ("ops/fastgather.py", "ops/cuda/element_gather.py",
+            "ops/cuda/lane_select.py", "parallel/train.py",
+            "parallel/prefetch.py", "loader.py", "pipeline.py",
+            "utils/shutdown.py", "utils/synthetic.py")
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    from quiver_tpu_torch.parallel import prefetch
+    from quiver_tpu_torch.utils import shutdown
+
+    assert prefetch.join_and_reap is shutdown.join_and_reap
+
+
 def test_forbidden_matcher():
     assert _forbidden("quiver_tpu") and _forbidden("quiver_tpu.ops.sample")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
@@ -91,3 +119,5 @@ def test_default_device_is_the_card(monkeypatch):
         qt.sample_neighbors(torch.zeros(128, dtype=torch.int32),
                             torch.zeros(128, dtype=torch.int32),
                             torch.zeros(2, dtype=torch.int32), 2, (1, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qt.parallel.AsyncNeighborSampler(topo, 2)
