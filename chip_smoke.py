@@ -8,7 +8,8 @@ Builds the port's five CUDA kernels from ``quiver_tpu_torch/csrc`` (at
 first use, with nvcc, one process per source, all at once), then:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
-2. builds the kernels and prints the build time;
+2. builds the kernels and prints the build time, each kernel's registers
+   and the card's L2 fetch granularity;
 3. kernel phase: on a Reddit-sized graph, holds kernels B1 and B2 against
    their plain PyTorch versions on the card at the main path's shapes,
    exactly, and times kernel, plain version and library call with CUDA
@@ -41,25 +42,29 @@ first use, with nvcc, one process per source, all at once), then:
    ``n_id``, the host stage (plan and faults), the gather and the model,
    lists its device time by kernel with ``torch.profiler`` and its host
    time by function with cProfile;
-9. B3/B4 kernel phase (slice 3, training): on ``synthetic_products``
-   (2,449,029 nodes, ~123.7M edges) holds kernels B3 and B4 against their
-   plain versions, exactly, at the last hop of one 1,024-seed batch with
-   fanouts [15, 10, 5] (two reads of ``indptr`` at the 180,224-long
-   frontier, one read of ``indices`` at its 901,120 draws), and times
-   kernel, plain version and library call;
+9. B3/B4 kernel phase (slices 3 and 4, training): on ``synthetic_products``
+   (2,449,029 nodes, ~123.7M edges), at the last hop of one 1,024-seed
+   batch with fanouts [15, 10, 5] (the 180,224-long frontier, its 901,120
+   draws), holds B3's two entries and B4's fused and literal entries
+   against their plain versions, exactly, times kernel, host launch,
+   plain version and library call, the earlier two-step B4
+   (``index_select`` rows, then the literal entry) and the hop's reads on
+   the host in the earlier three-read form and the pair form, and checks
+   that ``element_gather(fused=True)`` allocates no ``[M, 128]`` rows;
 10. fused training phase: the whole 100-wide table on the card, GraphSAGE
    100 -> 256 -> 256 -> 47 with dropout 0.5 and seeded weights, Adam at
    3e-3, ``gather_mode="pallas"``; 30 steps of ``make_fused_train_step``
-   (the loss must fall; B3 must launch 9 times and B2 once per step); the
-   step split by CUDA events and one step under ``torch.profiler``; one
-   batch through ``make_fused_eval_fn`` against the plain versions on the
-   CPU within CPU_TOL;
+   (the loss must fall; B3 must launch twice per hop, 6 times a step, and
+   B2 once); the step split by CUDA events and one step under
+   ``torch.profiler``; one batch through ``make_fused_eval_fn`` against
+   the plain versions on the CPU within CPU_TOL;
 11. two-stage training phase: ``device_cache_size="200M"`` (524,288 hot
    rows), ``SeedLoader(prefetch=2)`` over a sampler in
    ``gather_mode="lanes_fused"`` (B4 must launch 9 times per sampled
-   batch), ``make_train_step``, 5 steps, every gathered row bitwise equal
-   to the source; then one batch split into sampling, read-back, host
-   gather and training;
+   batch), ``make_train_step``, 5 steps (the loss must fall), every
+   gathered row bitwise equal to the source, peak device memory printed;
+   then one batch split into sampling, read-back, host gather and
+   training;
 12. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -77,7 +82,10 @@ the products configuration is cut to size.
 from __future__ import annotations
 
 import copy
+import ctypes
+import glob
 import json
+import os
 import queue
 import subprocess
 import sys
@@ -775,6 +783,24 @@ def host_profile(torch, run, top: int = 10) -> list:
 
 # -- slice 3: GraphSAGE training at ogbn-products width ---------------------
 
+def l2_fetch_granularity(torch) -> int:
+    """``cudaLimitMaxL2FetchGranularity`` of the current device, in bytes,
+    read (never set) through ``cudaDeviceGetLimit`` of the toolkit's
+    ``libcudart``: whether a 32-byte sector read fetches more."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    libs = sorted(glob.glob(os.path.join(CUDA_HOME or "/usr/local/cuda",
+                                         "lib64", "libcudart.so*")))
+    check(libs, f"no libcudart under {CUDA_HOME}")
+    cudart = ctypes.CDLL(libs[0])
+    value = ctypes.c_size_t()
+    limit_max_l2_fetch_granularity = 0x05  # cudaLimit in driver_types.h
+    rc = cudart.cudaDeviceGetLimit(ctypes.byref(value),
+                                   limit_max_l2_fetch_granularity)
+    check(rc == 0, f"cudaDeviceGetLimit: CUDA error {rc}")
+    return value.value
+
+
 def products_data(qt):
     """The products graph (``synthetic_products``), 100-wide features made
     as ``examples/ogbn_products_sage.py``'s synthetic fallback makes them
@@ -815,113 +841,254 @@ def frontier_sizes(B: int):
     return out
 
 
-def b3_b4_phase(torch, qt, topo, train, b3, b4):
-    """Kernels B3 and B4 against their plain versions at the shapes of the
-    last hop of one products batch: two reads of ``indptr`` at the
-    180,224-long hop-3 frontier, one read of ``indices`` at its 901,120
-    draw positions.  Returns the two kernel records (times summed over the
-    three reads, as one hop runs them)."""
+def products_hops(torch, ip, ix, train):
+    """The element reads of each hop of one products batch (P_BATCH
+    seeds, fanouts P_FANOUTS) as the fused lane makes them: per hop, the
+    frontier ids at which ``indptr`` is read at ``s`` and ``s + 1``, and
+    the draw positions at which ``indices`` is read."""
     from quiver_tpu_torch.ops.sample import (_hash_uniform,
                                              _stratified_positions)
     from quiver_tpu_torch.sampler import run_pipeline
 
-    dev = torch.device(DEV)
-    ip, ix = topo.to_device(dev)
+    dev = ip.device
     rng = np.random.default_rng(SEED + 11)
     seeds = torch.from_numpy(train[:P_BATCH].astype(np.int32)).to(dev)
     kw = rng.integers(0, 2**32, size=(3, 2), dtype=np.uint32)
+    sizes = frontier_sizes(P_BATCH)
+    hops = []
     with torch.inference_mode():
-        # the hop-3 frontier and its mask, as the pipeline hands them on
-        n_id, fmask, _, _, _ = run_pipeline(
-            "none", ip, ix, seeds, kw[:2], P_FANOUTS[:2], gather_mode="xla")
-        sizes = frontier_sizes(P_BATCH)
-        check(n_id.shape[0] == sizes[2], f"hop-3 frontier {n_id.shape[0]}")
-        start = ip[n_id.long()]
-        deg = torch.where(fmask, ip[n_id.long() + 1] - start,
-                          torch.zeros_like(start))
-        k = P_FANOUTS[2]
-        u = _hash_uniform(int(kw[2, 0]), int(kw[2, 1]), (n_id.shape[0], k),
-                          device=dev)
-        pos = (start[:, None] + _stratified_positions(u, deg, k)).reshape(-1)
-    check(pos.shape[0] == sizes[2] * k, f"hop-3 draws {pos.shape[0]}")
-    reads = [("indptr start", ip, n_id), ("indptr end", ip, n_id + 1),
-             ("indices", ix, pos)]
+        for h, k in enumerate(P_FANOUTS):
+            if h == 0:
+                n_id, fmask = seeds, torch.ones_like(seeds, dtype=torch.bool)
+            else:
+                n_id, fmask, _, _, _ = run_pipeline(
+                    "none", ip, ix, seeds, kw[:h], P_FANOUTS[:h],
+                    gather_mode="xla")
+            check(n_id.shape[0] == sizes[h],
+                  f"hop-{h + 1} frontier {n_id.shape[0]}")
+            start = ip[n_id.long()]
+            deg = torch.where(fmask, ip[n_id.long() + 1] - start,
+                              torch.zeros_like(start))
+            u = _hash_uniform(int(kw[h, 0]), int(kw[h, 1]),
+                              (n_id.shape[0], k), device=dev)
+            pos = (start[:, None] + _stratified_positions(u, deg, k))
+            check(pos.numel() == sizes[h] * k,
+                  f"hop-{h + 1} draws {pos.numel()}")
+            hops.append((n_id.to(torch.int32).contiguous(),
+                         pos.reshape(-1).to(torch.int32).contiguous()))
+    return hops
 
-    def bound_ms(sector_b, m):
-        # the distinct sectors read, idx read and out written once
-        return (sector_b + m * (4 + 4)) / HBM_BYTES_PER_S * 1e3
 
-    # the hop's three reads together read each sector they touch once:
-    # the two reads of indptr share most of theirs
-    clipped = [i.long().clamp(0, t.shape[0] - 1) for _, t, i in reads]
-    hop_bound = bound_ms(sector_bytes(torch, clipped[0], clipped[1])
-                         + sector_bytes(torch, clipped[2]),
-                         sum(c.shape[0] for c in clipped))
-    del clipped
-    cases = {"element_gather": [], "lane_select": []}
-    for name, table, idx in reads:
-        t2d = table.view(-1, 128)
-        idx = idx.to(torch.int32).clamp(0, table.shape[0] - 1)
+def three_read_hop(torch, lib, argtypes, ip2d, ix2d, n_id, pos):
+    """A hop's ``indptr`` and ``indices`` reads in the earlier three-read
+    form, for its host cost beside the pair form's: ``seeds + 1``, a host
+    clamp before each of three single reads, and a wrapper that resolved
+    the C function, set its argument types and entered the device context
+    on every call.  The kernel is the single read of this tree."""
+    outs = []
+    for t2d, idx in ((ip2d, n_id), (ip2d, n_id + 1), (ix2d, pos)):
+        idx = idx.to(torch.int32).clamp(0, t2d.numel() - 1)
+        fn = lib.element_gather
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        flat = idx.contiguous().reshape(-1)
+        out = torch.empty(idx.shape, dtype=t2d.dtype, device=t2d.device)
+        with torch.cuda.device(t2d.device):
+            stream = torch.cuda.current_stream(t2d.device).cuda_stream
+            rc = fn(t2d.data_ptr(), t2d.numel(), flat.data_ptr(),
+                    out.data_ptr(), flat.shape[0], 0, stream)
+        check(rc == 0, f"element_gather launch: CUDA error {rc}")
+        outs.append(out)
+    return outs
+
+
+def b3_b4_phase(torch, qt, topo, train, b3, b4):
+    """Kernels B3 and B4 against their plain versions at the shapes of
+    the last hop of one products batch: B3's pair read of ``indptr`` at
+    the 180,224-long hop-3 frontier and its read of ``indices`` at the
+    901,120 draws; B4's fused entry at the three reads ``"lanes_fused"``
+    makes (``indptr`` at ``s`` and ``s + 1``, ``indices``), beside the
+    earlier two-step form (``index_select`` rows, then the literal B4).
+    Times kernel, plain version and library call.  Returns the two kernel
+    records (times summed over a hop's reads)."""
+    from quiver_tpu_torch.ops import fastgather
+    from quiver_tpu_torch.ops import sample as psample
+    from quiver_tpu_torch.ops.cuda import build
+
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    ip2d, ix2d = ip.view(-1, 128), ix.view(-1, 128)
+    hops = products_hops(torch, ip, ix, train)
+
+    def bound_ms(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    def err(a, b):
+        return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+    # B3: the pair read and the single read, as the fused lane's hop 3
+    n_id, pos = hops[-1]
+    m1, m2 = n_id.shape[0], pos.shape[0]
+    lo, hi = b3.element_gather_pair(ip2d, n_id)
+    got = b3.element_gather(ix2d, pos)
+    want_lo, want_hi = b3.element_gather_pair_plain(ip2d, n_id)
+    want = b3.element_gather_plain(ix2d, pos)
+    torch.cuda.synchronize()
+    pair_ids = torch.stack([n_id.long(), n_id.long() + 1]).clamp(
+        0, ip.shape[0] - 1)  # the library call's input, made untimed
+    pos64 = pos.long().clamp(0, ix.shape[0] - 1)
+    check(torch.equal(lo, want_lo) and torch.equal(hi, want_hi),
+          "B3 pair read differs from the plain version")
+    check(torch.equal(torch.stack([lo, hi]), ip[pair_ids]),
+          "B3 pair read differs from the table")
+    check(torch.equal(got, want), "B3 indices read differs from the plain "
+          "version")
+    check(torch.equal(got, ix[pos64]), "B3 indices read differs from the "
+          "table")
+    b3_cases = [
+        dict(shape=f"indptr pair: M={m1}",
+             max_abs_err=max(err(lo, want_lo), err(hi, want_hi)),
+             ms=cuda_ms(torch, lambda: b3.element_gather_pair(ip2d, n_id)),
+             host_ms=host_ms(torch, lambda: b3.element_gather_pair(ip2d,
+                                                                   n_id)),
+             plain_ms=cuda_ms(torch, lambda: b3.element_gather_pair_plain(
+                 ip2d, n_id)),
+             library_ms=cuda_ms(torch, lambda: torch.take(ip, pair_ids)),
+             # the sectors s and s + 1 touch, ids read once, two outputs
+             bound_ms=bound_ms(sector_bytes(torch, pair_ids) + m1 * 12)),
+        dict(shape=f"indices: M={m2}", max_abs_err=err(got, want),
+             ms=cuda_ms(torch, lambda: b3.element_gather(ix2d, pos)),
+             host_ms=host_ms(torch, lambda: b3.element_gather(ix2d, pos)),
+             plain_ms=cuda_ms(torch, lambda: b3.element_gather_plain(ix2d,
+                                                                     pos)),
+             library_ms=cuda_ms(torch, lambda: torch.take(ix, pos64)),
+             bound_ms=bound_ms(sector_bytes(torch, pos64) + m2 * 8)),
+    ]
+    for c in b3_cases:
+        print(f"element_gather {c['shape']}: exact; {json.dumps(c)}",
+              flush=True)
+    del lo, hi, got, want, want_lo, want_hi
+
+    # the hop's reads on the host: the earlier three-read form against
+    # the pair form, as sample_hop runs them
+    from quiver_tpu_torch.ops.cuda.element_gather import _ARGTYPES
+    lib = ctypes.CDLL(str(build.build_all(["element_gather"])[0]))
+    before = three_read_hop(torch, lib, _ARGTYPES, ip2d, ix2d, n_id, pos)
+    after = (*psample._gather_bounds(ip, n_id, "pallas"),
+             psample._gather(ix, pos, "pallas"))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(before, after)),
+          "the two forms of the hop's reads differ")
+    hop_host = dict(
+        three_reads_ms=host_ms(torch, lambda: three_read_hop(
+            torch, lib, _ARGTYPES, ip2d, ix2d, n_id, pos)),
+        pair_form_ms=host_ms(torch, lambda: (
+            psample._gather_bounds(ip, n_id, "pallas"),
+            psample._gather(ix, pos, "pallas"))))
+    print("B3 hop-3 reads on the host, earlier form then pair form (ms) "
+          + json.dumps(hop_host), flush=True)
+    del before, after
+
+    # B4: the fused entry at the reads "lanes_fused" makes, beside the
+    # two-step form and the literal entry alone
+    reads = [("indptr start", ip2d, n_id), ("indptr end", ip2d, n_id + 1),
+             ("indices", ix2d, pos)]
+    b4_cases = []
+    clamped = []
+    for name, t2d, idx in reads:
+        idx = idx.to(torch.int32).clamp(0, t2d.numel() - 1)  # as _gather
+        clamped.append(idx)
         m = idx.shape[0]
-        got = b3.element_gather(t2d, idx)
-        want = b3.element_gather_plain(t2d, idx)
+        row, lane = idx >> 7, idx & 127
+        got = b4.lane_select_rows(t2d, row, lane)
+        want = b4.lane_select_plain(t2d.index_select(0, row), lane)
+        rows = t2d.index_select(0, row)
+        literal = b4.lane_select(rows, lane)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"B3 {name} differs from the plain "
+        check(torch.equal(got, want), f"B4 {name} differs from the plain "
               "version")
-        check(torch.equal(got, table[idx.long()]), f"B3 {name} differs "
-              "from the table")
-        idx64 = idx.long()  # the library call's index type, made untimed
-        cases["element_gather"].append(dict(
-            shape=f"{name}: M={m}", max_abs_err=float(
-                (got.long() - want.long()).abs().max()),
-            ms=cuda_ms(torch, lambda: b3.element_gather(t2d, idx)),
-            host_ms=host_ms(torch, lambda: b3.element_gather(t2d, idx)),
-            plain_ms=cuda_ms(torch, lambda: b3.element_gather_plain(t2d,
-                                                                    idx)),
-            library_ms=cuda_ms(torch, lambda: torch.take(table, idx64)),
-            bound_ms=bound_ms(sector_bytes(torch, idx), m)))
-        # B4 at the same reads, after the row gather lanes_fused runs
-        rows = t2d.index_select(0, torch.bitwise_right_shift(idx, 7))
-        lanes = torch.bitwise_and(idx, 127)
-        lanes64 = lanes.long()[:, None]
-        got4 = b4.lane_select(rows, lanes)
-        want4 = b4.lane_select_plain(rows, lanes)
-        torch.cuda.synchronize()
-        check(torch.equal(got4, want4), f"B4 {name} differs from the plain "
-              "version")
-        check(torch.equal(got4, got), f"B4 {name} differs from B3")
-        cases["lane_select"].append(dict(
-            shape=f"{name}: rows [{m}, 128] ({rows.numel() * 4} B)",
-            max_abs_err=float((got4.long() - want4.long()).abs().max()),
-            ms=cuda_ms(torch, lambda: b4.lane_select(rows, lanes)),
-            host_ms=host_ms(torch, lambda: b4.lane_select(rows, lanes)),
-            plain_ms=cuda_ms(torch, lambda: b4.lane_select_plain(rows,
-                                                                 lanes)),
-            library_ms=cuda_ms(torch, lambda: torch.gather(rows, 1,
-                                                           lanes64)),
-            # each row is its own: one sector of each
-            bound_ms=bound_ms(m * SECTOR, m)))
-        for kname in cases:
-            print(f"{kname} {name}: exact; {json.dumps(cases[kname][-1])}",
-                  flush=True)
-        del rows, lanes, lanes64, got4, want4
+        check(torch.equal(literal, want), f"B4 literal {name} differs from "
+              "the plain version")
+        check(torch.equal(got, t2d.reshape(-1)[idx.long()]),
+              f"B4 {name} differs from the table")
+        idx64, lanes64 = idx.long(), lane.long()[:, None]
+        b4_cases.append(dict(
+            shape=f"{name}: M={m}", max_abs_err=max(err(got, want),
+                                                    err(literal, want)),
+            ms=cuda_ms(torch, lambda: b4.lane_select_rows(t2d, row, lane)),
+            host_ms=host_ms(torch, lambda: b4.lane_select_rows(t2d, row,
+                                                               lane)),
+            plain_ms=cuda_ms(torch, lambda: b4.lane_select_plain(
+                t2d.index_select(0, row), lane)),
+            library_ms=cuda_ms(torch, lambda: torch.take(t2d, idx64)),
+            # the distinct sectors read, row and lane ids, the output
+            bound_ms=bound_ms(sector_bytes(torch, idx) + m * 12),
+            two_step_ms=cuda_ms(torch, lambda: b4.lane_select(
+                t2d.index_select(0, row), lane)),
+            row_gather_ms=cuda_ms(torch, lambda: t2d.index_select(0, row)),
+            literal_ms=cuda_ms(torch, lambda: b4.lane_select(rows, lane)),
+            literal_library_ms=cuda_ms(
+                torch, lambda: torch.gather(rows, 1, lanes64)),
+            rows_bytes=rows.numel() * rows.element_size()))
+        print(f"lane_select {name}: exact; {json.dumps(b4_cases[-1])}",
+              flush=True)
+        del got, want, rows, literal, idx64, lanes64
+
+    # fastgather.element_gather(fused=True) allocates no [M, 128] rows
+    idx = clamped[2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fastgather.element_gather(ix2d, idx, fused=True)
+    torch.cuda.synchronize()
+    fused_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rows = ix2d.index_select(0, idx >> 7)
+    two_step = b4.lane_select(rows, idx & 127)
+    del rows
+    torch.cuda.synchronize()
+    two_step_peak = torch.cuda.max_memory_allocated() - base
+    check(torch.equal(got, two_step), "fused and two-step B4 differ")
+    check(fused_peak < idx.shape[0] * 512 / 16,
+          f"element_gather(fused=True) peaked at {fused_peak} B")
+    memory = dict(m=idx.shape[0], fused_peak_bytes=fused_peak,
+                  two_step_peak_bytes=two_step_peak)
+    print("B4 hop-3 indices read, peak device memory " + json.dumps(memory),
+          flush=True)
 
     def total(cs, key):
         return float(sum(c[key] for c in cs))
 
-    # B3's reads share sectors of indptr (hop_bound); B4's rows are
-    # distinct, so its cases' bounds add up
-    bounds = (hop_bound, total(cases["lane_select"], "bound_ms"))
-    out = []
-    for mod, bound, (kname, cs) in zip((b3, b4), bounds, cases.items()):
-        out.append(dict(
-            name=kname, route="cuda", source=mod.SOURCE,
-            replaces=mod.REPLACES,
-            max_abs_err=max(c["max_abs_err"] for c in cs),
-            ms=total(cs, "ms"), plain_ms=total(cs, "plain_ms"),
-            bound_ms=bound, bound_by="bytes",
-            library_ms=total(cs, "library_ms"), cases=cs))
-    return out
+    # B4's bound: the hop's three reads together read each sector they
+    # touch once (the two indptr reads share most of theirs)
+    b4_bound = bound_ms(sector_bytes(torch, clamped[0], clamped[1])
+                        + sector_bytes(torch, clamped[2])
+                        + sum(c.shape[0] for c in clamped) * 12)
+    b3_record = dict(
+        name="element_gather", route="cuda", source=b3.SOURCE,
+        replaces=b3.REPLACES,
+        max_abs_err=max(c["max_abs_err"] for c in b3_cases),
+        ms=total(b3_cases, "ms"), plain_ms=total(b3_cases, "plain_ms"),
+        bound_ms=total(b3_cases, "bound_ms"), bound_by="bytes",
+        library_ms=total(b3_cases, "library_ms"),
+        host_ms=total(b3_cases, "host_ms"), hop_host_ms=hop_host,
+        cases=b3_cases)
+    b4_record = dict(
+        name="lane_select", route="cuda", source=b4.SOURCE,
+        replaces=b4.REPLACES,
+        max_abs_err=max(c["max_abs_err"] for c in b4_cases),
+        ms=total(b4_cases, "ms"), plain_ms=total(b4_cases, "plain_ms"),
+        bound_ms=b4_bound, bound_by="bytes",
+        library_ms=total(b4_cases, "library_ms"),
+        host_ms=total(b4_cases, "host_ms"),
+        two_step_ms=total(b4_cases, "two_step_ms"),
+        literal_ms=total(b4_cases, "literal_ms"),
+        literal_library_ms=total(b4_cases, "literal_library_ms"),
+        memory=memory, cases=b4_cases)
+    check(b4_record["ms"] < b4_record["two_step_ms"],
+          "fused B4 is not faster than index_select and the literal B4")
+    return b3_record, b4_record
 
 
 def batches(torch, train, labels_d, n: int, seed: int):
@@ -1015,7 +1182,7 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b2, b3):
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
     check(last < first, f"the fused loss did not fall: {first} -> {last}")
     n_hops = len(P_FANOUTS)
-    check(launches["element_gather"] == 3 * n_hops * FUSED_STEPS,
+    check(launches["element_gather"] == 2 * n_hops * FUSED_STEPS,
           f"B3 launched {launches['element_gather']} times in "
           f"{FUSED_STEPS} steps")
     check(launches["gather_rows"] == FUSED_STEPS,
@@ -1102,6 +1269,7 @@ def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
     print(f"two-stage lane: {feature!r}, {sampler!r}; set up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
+    torch.cuda.reset_peak_memory_stats()
     for fn in (b2.gather_rows, b4.lane_select):
         fn.launches = 0
     it = iter(loader)
@@ -1131,15 +1299,18 @@ def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
     launches = {"lane_select": b4.lane_select.launches,
                 "gather_rows": b2.gather_rows.launches,
                 "sampled_batches": len(sampled)}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(launches["lane_select"] == 3 * len(P_FANOUTS) * len(sampled),
           f"B4 launched {launches['lane_select']} times for {len(sampled)} "
           "sampled batches")
     check(launches["gather_rows"] > 0, "B2 served no hot rows")
     losses = torch.stack(losses).cpu().numpy()
     check(np.isfinite(losses).all(), "a two-stage loss is not finite")
+    check(losses[-2:].mean() < losses[:2].mean(),
+          f"the two-stage loss did not fall: {losses.tolist()}")
     summary = {k: float(np.median(v[1:])) for k, v in rec.items()}
     summary.update(steps=STAGED_STEPS, losses=losses.tolist(),
-                   launches=launches,
+                   launches=launches, peak_gib=peak_gib,
                    counters=feature.stats()["counters"])
     print("two-stage training (ms, median after the first step) "
           + json.dumps(summary), flush=True)
@@ -1220,6 +1391,8 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    print(f"cudaLimitMaxL2FetchGranularity: {l2_fetch_granularity(torch)} B",
+          flush=True)
 
     t0 = time.perf_counter()
     indptr, indices = qt.synthetic_csr(N_NODES, N_EDGES, seed=SEED)

@@ -3,13 +3,15 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
 ``build/quiver_tpu_torch/lib<name>-<hash>.so`` beside the package, then
-loaded with ``ctypes``.  The hash is the source's, so an edited kernel is
-never served from a stale library.  Builds happen at first use;
+loaded with ``ctypes``.  The hash covers the source and every header it
+includes from ``csrc`` (``#include "..."``), so an edited kernel or shared
+header is never served from a stale library.  Builds happen at first use;
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all.  Importing this module needs no ``nvcc``.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers raise through :func:`check` when it is not 0.
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` calls one on the tensor's device and current stream and
+raises when it is not 0.
 """
 
 from __future__ import annotations
@@ -17,12 +19,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "check"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "check",
+           "launch"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -37,6 +43,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -48,11 +56,28 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively,
+    each once, in the order first met."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -114,7 +139,11 @@ def build_log(name: str) -> str:
 
 def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C function ``fn`` of kernel library ``name``, built at first
-    use, with its argument types set and an ``int`` result."""
+    use, with its argument types set and an ``int`` result.  Resolved once:
+    later calls return the same function object."""
+    f = _fns.get((name, fn))
+    if f is not None:
+        return f
     lib = _libs.get(name)
     if lib is None:
         path = build_all([name])[0]
@@ -123,10 +152,24 @@ def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     f = getattr(lib, fn)
     f.argtypes = list(argtypes)
     f.restype = ctypes.c_int
-    return f
+    with _lock:
+        return _fns.setdefault((name, fn), f)
 
 
 def check(rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def launch(fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:
+    """``fn(*args, stream)`` on ``device``'s current stream, made the
+    current device only when it is not (the context costs host time on
+    every call); raises when the launch returned an error."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    check(rc, f"{fn.__name__} launch")

@@ -2,33 +2,46 @@
 
 Replaces ``quiver_tpu/ops/pallas/sample_gather_kernel.py::
 pallas_element_gather``, the sampler's ``gather_mode="pallas"`` read of
-``indptr`` and ``indices``.  The CUDA source, ``csrc/element_gather.cu``,
-says what bounds it on the H100 (latency of one random 32-byte sector per
-element) and what its design does about that (one thread per element
-reads that element only).  Its plain version is
-:func:`element_gather_plain`.
+``indptr`` and ``indices``.  Two entries of one kernel library:
+:func:`element_gather` reads one element per id (a hop's draws from
+``indices``), :func:`element_gather_pair` reads the elements at ``idx`` and
+``idx + 1`` in one launch (a hop's start and end from ``indptr``).
 
-:func:`element_gather` runs the plain version for tensors on the CPU and
-the kernel for tensors on the card; a kernel that does not build or
-launch raises.  ``element_gather.launches`` counts kernel launches.
+The CUDA source, ``csrc/element_gather.cu`` with the device code it shares
+with B4 (``csrc/element_gather.cuh``), says what bounds it on the H100
+(scattered reads, fetched 64 bytes at a time) and what its design does about
+that: four ids a thread per step with 16-byte id loads and stores, every
+element load in flight before any is used, one wave of 128-thread blocks
+sized from the SM count and the occupancy.  That walk was picked by
+``walk_sweep.py`` at the products hops' shapes (``PERF.md``).  The plain
+versions are
+:func:`element_gather_plain` and :func:`element_gather_pair_plain`.
+
+Both entries run the plain version for tensors on the CPU and the kernel
+for tensors on the card; a kernel that does not build or launch raises.
+``element_gather.launches`` counts the kernel launches of both entries.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import build
 
-__all__ = ["element_gather", "element_gather_plain", "SOURCE", "REPLACES"]
+__all__ = ["element_gather", "element_gather_pair", "element_gather_plain",
+           "element_gather_pair_plain", "SOURCE", "REPLACES"]
 
 SOURCE = "quiver_tpu_torch/csrc/element_gather.cu"
 REPLACES = "quiver_tpu/ops/pallas/sample_gather_kernel.py:73"
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_ARGTYPES = (_P, _I64, _P, _P, _I64, ctypes.c_int, _P)
+_INT = ctypes.c_int
+_ARGTYPES = (_P, _I64, _P, _P, _I64, _INT, _P)
+_PAIR_ARGTYPES = (_P, _I64, _P, _P, _P, _I64, _INT, _P)
 _DTYPES = (torch.int32, torch.float32)
 
 
@@ -42,34 +55,63 @@ def element_gather_plain(table2d: torch.Tensor,
     return out + 0.0 if out.is_floating_point() else out
 
 
+def element_gather_pair_plain(table2d: torch.Tensor, idx: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(flat[clamp(idx)], flat[clamp(idx + 1)])`` in plain PyTorch, with
+    ``idx + 1`` in 64 bits: the reference for the pair entry."""
+    return (element_gather_plain(table2d, idx),
+            element_gather_plain(table2d, idx.to(torch.int64) + 1))
+
+
+def _check(what: str, table2d: torch.Tensor, idx: torch.Tensor) -> None:
+    if table2d.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {table2d.device}")
+    if (table2d.dtype not in _DTYPES or table2d.dim() != 2
+            or not table2d.is_contiguous() or table2d.numel() == 0):
+        raise ValueError(f"{what}: table2d must be a non-empty contiguous "
+                         "2-D int32 or float32 tensor, got "
+                         f"{table2d.dtype} {tuple(table2d.shape)}")
+    if idx.dtype != torch.int32 or idx.device != table2d.device:
+        raise ValueError(f"{what}: idx must be an int32 tensor on the "
+                         "table's device")
+
+
 def element_gather(table2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Elements of the flattened contiguous ``table2d`` (int32 or fp32 on
     the card) at int32 ``idx`` of any shape, each clamped into the table;
     the result has ``idx``'s shape."""
     if table2d.device.type == "cpu":
         return element_gather_plain(table2d, idx)
-    if table2d.device.type != "cuda":
-        raise ValueError(f"element_gather: unsupported device "
-                         f"{table2d.device}")
-    if (table2d.dtype not in _DTYPES or table2d.dim() != 2
-            or not table2d.is_contiguous() or table2d.numel() == 0):
-        raise ValueError("element_gather: table2d must be a non-empty "
-                         "contiguous 2-D int32 or float32 tensor, got "
-                         f"{table2d.dtype} {tuple(table2d.shape)}")
-    if idx.dtype != torch.int32 or idx.device != table2d.device:
-        raise ValueError("element_gather: idx must be an int32 tensor on the "
-                         "table's device")
-    flat = idx.contiguous().reshape(-1)
+    _check("element_gather", table2d, idx)
+    flat = idx.contiguous()
     out = torch.empty(idx.shape, dtype=table2d.dtype, device=table2d.device)
-    fn = build.load("element_gather", "element_gather", _ARGTYPES)
-    with torch.cuda.device(table2d.device):
-        stream = torch.cuda.current_stream(table2d.device).cuda_stream
-        rc = fn(table2d.data_ptr(), table2d.numel(), flat.data_ptr(),
-                out.data_ptr(), flat.shape[0],
-                int(table2d.dtype == torch.float32), stream)
-    build.check(rc, "element_gather launch")
+    build.launch(build.load("element_gather", "element_gather", _ARGTYPES),
+                 table2d.device, table2d.data_ptr(), table2d.numel(),
+                 flat.data_ptr(), out.data_ptr(), flat.numel(),
+                 int(table2d.dtype == torch.float32))
     element_gather.launches += 1
     return out
+
+
+def element_gather_pair(table2d: torch.Tensor, idx: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(flat[clamp(idx)], flat[clamp(idx + 1)])`` over the flattened
+    contiguous ``table2d`` at int32 ``idx`` of any shape, in one launch;
+    ``idx + 1`` is taken in 64 bits, so no id wraps.  Both results have
+    ``idx``'s shape (two views of one allocation)."""
+    if table2d.device.type == "cpu":
+        return element_gather_pair_plain(table2d, idx)
+    _check("element_gather_pair", table2d, idx)
+    flat = idx.contiguous()
+    lo, hi = torch.empty((2, *idx.shape), dtype=table2d.dtype,
+                         device=table2d.device).unbind(0)
+    build.launch(build.load("element_gather", "element_gather_pair",
+                            _PAIR_ARGTYPES),
+                 table2d.device, table2d.data_ptr(), table2d.numel(),
+                 flat.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                 flat.numel(), int(table2d.dtype == torch.float32))
+    element_gather.launches += 1
+    return lo, hi
 
 
 element_gather.launches = 0

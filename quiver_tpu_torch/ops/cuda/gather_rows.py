@@ -62,12 +62,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, D), dtype=table.dtype, device=table.device)
     row_bytes = D * table.element_size()
     vec = vector_bytes(row_bytes, table.data_ptr(), out.data_ptr())
-    fn = build.load("gather_rows", "gather_rows", _ARGTYPES)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), M,
-                row_bytes, vec, stream)
-    build.check(rc, "gather_rows launch")
+    build.launch(build.load("gather_rows", "gather_rows", _ARGTYPES),
+                 table.device, table.data_ptr(), idx.data_ptr(),
+                 out.data_ptr(), M, row_bytes, vec)
     gather_rows.launches += 1
     return out
 

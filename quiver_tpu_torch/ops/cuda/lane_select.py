@@ -1,16 +1,28 @@
-"""Kernel B4 wrapper: lane select ``out[i] = rows[i, lanes[i]]`` on the card.
+"""Kernel B4 wrapper: lane select on the card.
 
 Replaces ``quiver_tpu/ops/pallas/element_gather_kernel.py::lane_select``,
 the lane half of ``ops/fastgather.py::element_gather(fused=True)`` (the
-sampler's ``gather_mode="lanes_fused"``).  The CUDA source,
-``csrc/lane_select.cu``, says what bounds it on the H100 (latency of one
-32-byte sector per row) and what its design does about that (one thread
-per row reads the selected element only).  Its plain version is
-:func:`lane_select_plain`.
+sampler's ``gather_mode="lanes_fused"``).  Two entries of one kernel
+library:
 
-:func:`lane_select` runs the plain version for tensors on the CPU and the
-kernel for tensors on the card; a kernel that does not build or launch
-raises.  ``lane_select.launches`` counts kernel launches.
+- :func:`lane_select_rows` ``(table2d, row, lane)`` reads
+  ``table2d[row[i], lane[i]]`` straight from the ``[R, 128]`` table: the
+  row gather is fused in, so the ``[M, 128]`` rows never land in device
+  memory, as on the TPU, where the ``jnp.take`` in front of the kernel
+  streams through VMEM.  ``element_gather(fused=True)`` calls it.
+- :func:`lane_select` ``(rows, lanes)`` selects from rows already gathered
+  (row ``i`` of ``rows``): the TPU kernel's own interface, kept for the
+  two-step path and for parity with the Pallas kernel.
+
+The CUDA source, ``csrc/lane_select.cu`` with the device code it shares
+with B3 (``csrc/element_gather.cuh``), says what bounds it on the H100
+(one scattered read per element, fetched 64 bytes at a time) and what its
+design does about that (B3's walk: four ids a thread per step, every load
+in flight before any is used, one wave of 128-thread blocks).  Its plain version is :func:`lane_select_plain`.
+
+Both entries run the plain version for tensors on the CPU and the kernel
+for tensors on the card; a kernel that does not build or launch raises.
+``lane_select.launches`` counts the kernel launches of both entries.
 """
 
 from __future__ import annotations
@@ -21,14 +33,18 @@ import torch
 
 from . import build
 
-__all__ = ["lane_select", "lane_select_plain", "SOURCE", "REPLACES"]
+__all__ = ["lane_select", "lane_select_rows", "lane_select_plain",
+           "SOURCE", "REPLACES"]
 
 SOURCE = "quiver_tpu_torch/csrc/lane_select.cu"
 REPLACES = "quiver_tpu/ops/pallas/element_gather_kernel.py:43"
 
 LANES = 128
 _P = ctypes.c_void_p
-_ARGTYPES = (_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P)
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _I64, _INT, _P)
+_ROWS_ARGTYPES = (_P, _I64, _P, _P, _P, _I64, _INT, _P)
 _DTYPES = (torch.int32, torch.float32)
 
 
@@ -45,32 +61,63 @@ def lane_select_plain(rows: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     return out + 0.0 if out.is_floating_point() else out
 
 
+def _check_table(what: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    if (t.dtype not in _DTYPES or t.dim() != 2 or t.shape[1] != LANES
+            or not t.is_contiguous()):
+        raise ValueError(f"{what}: the table must be a contiguous [R, 128] "
+                         f"int32 or float32 tensor, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+
+
+def _check_ids(what: str, t: torch.Tensor, m: int, dev) -> None:
+    if (t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != m
+            or t.device != dev):
+        raise ValueError(f"{what}: ids must be 1-D int32 tensors of one "
+                         "length, on the table's device")
+
+
 def lane_select(rows: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     """One lane of each row of contiguous ``rows [M, 128]`` (int32 or fp32
     on the card) at int32 ``lanes [M]``, for any ``M``."""
     if rows.device.type == "cpu":
         return lane_select_plain(rows, lanes)
-    if rows.device.type != "cuda":
-        raise ValueError(f"lane_select: unsupported device {rows.device}")
-    if (rows.dtype not in _DTYPES or rows.dim() != 2
-            or rows.shape[1] != LANES or not rows.is_contiguous()):
-        raise ValueError("lane_select: rows must be a contiguous [M, 128] "
-                         "int32 or float32 tensor, got "
-                         f"{rows.dtype} {tuple(rows.shape)}")
-    if (lanes.dtype != torch.int32 or lanes.dim() != 1
-            or lanes.shape[0] != rows.shape[0]
-            or lanes.device != rows.device):
-        raise ValueError("lane_select: lanes must be a 1-D int32 tensor of "
-                         "one entry per row, on the rows' device")
-    lanes = lanes.contiguous()
+    _check_table("lane_select", rows)
     M = rows.shape[0]
+    _check_ids("lane_select", lanes, M, rows.device)
+    lanes = lanes.contiguous()
     out = torch.empty((M,), dtype=rows.dtype, device=rows.device)
-    fn = build.load("lane_select", "lane_select", _ARGTYPES)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = fn(rows.data_ptr(), lanes.data_ptr(), out.data_ptr(), M,
-                int(rows.dtype == torch.float32), stream)
-    build.check(rc, "lane_select launch")
+    build.launch(build.load("lane_select", "lane_select", _ARGTYPES),
+                 rows.device, rows.data_ptr(), lanes.data_ptr(),
+                 out.data_ptr(), M, int(rows.dtype == torch.float32))
+    lane_select.launches += 1
+    return out
+
+
+def lane_select_rows(table2d: torch.Tensor, row: torch.Tensor,
+                     lane: torch.Tensor) -> torch.Tensor:
+    """``table2d[row[i], lane[i]]`` for int32 ``row [M]`` and ``lane [M]``
+    over the contiguous ``[R, 128]`` table (int32 or fp32 on the card),
+    0 where a lane is outside ``[0, 128)``, without gathering the rows.
+
+    On the card a row outside ``[0, R)`` is clamped into it; the plain
+    version, ``lane_select_plain(table2d.index_select(0, row), lane)``,
+    raises for one instead.  The sampler clamps its ids first
+    (``ops/sample.py::_gather``), so its rows are always in range."""
+    if table2d.device.type == "cpu":
+        return lane_select_plain(table2d.index_select(0, row), lane)
+    _check_table("lane_select_rows", table2d)
+    M = row.shape[0] if row.dim() == 1 else -1
+    _check_ids("lane_select_rows", row, M, table2d.device)
+    _check_ids("lane_select_rows", lane, M, table2d.device)
+    row, lane = row.contiguous(), lane.contiguous()
+    out = torch.empty((M,), dtype=table2d.dtype, device=table2d.device)
+    build.launch(build.load("lane_select", "lane_select_rows",
+                            _ROWS_ARGTYPES),
+                 table2d.device, table2d.data_ptr(), table2d.shape[0],
+                 row.data_ptr(), lane.data_ptr(), out.data_ptr(), M,
+                 int(table2d.dtype == torch.float32))
     lane_select.launches += 1
     return out
 

@@ -84,13 +84,10 @@ def page_gather(frames: torch.Tensor, blk_pages: torch.Tensor,
     out = torch.empty((B, D), dtype=frames.dtype, device=frames.device)
     row_bytes = D * frames.element_size()
     vec = vector_bytes(row_bytes, frames.data_ptr(), out.data_ptr())
-    fn = build.load("page_gather", "page_gather", _ARGTYPES)
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream(frames.device).cuda_stream
-        rc = fn(frames.data_ptr(), blk_pages.data_ptr(), row_lp.data_ptr(),
-                row_off.data_ptr(), rank.data_ptr(), out.data_ptr(), B, R,
-                row_bytes, block, ppb, vec, stream)
-    build.check(rc, "page_gather launch")
+    build.launch(build.load("page_gather", "page_gather", _ARGTYPES),
+                 frames.device, frames.data_ptr(), blk_pages.data_ptr(),
+                 row_lp.data_ptr(), row_off.data_ptr(), rank.data_ptr(),
+                 out.data_ptr(), B, R, row_bytes, block, ppb, vec)
     page_gather.launches += 1
     return out
 

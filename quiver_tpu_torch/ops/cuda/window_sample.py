@@ -65,15 +65,12 @@ def window_sample(indptr: torch.Tensor, indices: torch.Tensor,
     mask = torch.empty((B, k), dtype=torch.bool, device=dev)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
     eid = torch.empty((B, k), dtype=torch.int32, device=dev)
-    fn = build.load("window_sample", "window_sample", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(indptr.data_ptr(), indptr.shape[0], indices.data_ptr(),
-                indices.shape[0], seeds.data_ptr(),
-                seed_mask.data_ptr() if seed_mask is not None else None,
-                B, k, k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, nbrs.data_ptr(),
-                mask.data_ptr(), counts.data_ptr(), eid.data_ptr(), stream)
-    build.check(rc, "window_sample launch")
+    build.launch(build.load("window_sample", "window_sample", _ARGTYPES), dev,
+                 indptr.data_ptr(), indptr.shape[0], indices.data_ptr(),
+                 indices.shape[0], seeds.data_ptr(),
+                 seed_mask.data_ptr() if seed_mask is not None else None,
+                 B, k, k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, nbrs.data_ptr(),
+                 mask.data_ptr(), counts.data_ptr(), eid.data_ptr())
     window_sample.launches += 1
     return SampleOut(nbrs=nbrs, mask=mask, counts=counts, eid=eid)
 

@@ -8,10 +8,13 @@ the card has no such limit, so the port keeps the two modes for users
 who pick them and for parity, not for speed.
 
 ``fused=False`` is the row gather and a one-hot lane sum in plain PyTorch
-(no kernel, as in JAX).  ``fused=True`` is the row gather (``index_select``,
-which JAX also leaves outside its kernel as ``jnp.take``) and then kernel
-B4 (``ops/cuda/lane_select.py``).  Both materialize the ``[M, 128]`` rows,
-128 times the payload.
+(no kernel, as in JAX); it materializes the ``[M, 128]`` rows, 128 times
+the payload.  ``fused=True`` is kernel B4's fused entry
+(``ops/cuda/lane_select.py::lane_select_rows``), which reads each selected
+element straight from the table: on the card the rows never land in device
+memory, as on the TPU, where the row gather streams into the Pallas
+kernel through VMEM.  On the CPU it is the row gather and B4's plain
+version.
 
 Floating results follow JAX's lane sum, which adds zeros to the selected
 element: a ``-0.0`` comes back as ``+0.0``.
@@ -56,17 +59,18 @@ def element_gather(table2d: torch.Tensor, idx: torch.Tensor,
       table2d: ``[rows, 128]`` (:func:`prepare_table`).
       idx: int32 flat element indices of any shape, each below
         ``rows * 128``.
-      fused: select lanes with kernel B4 instead of a one-hot sum.
+      fused: read the elements with kernel B4's fused entry instead of a
+        row gather and a one-hot sum.
     """
     shape = idx.shape
     flat = idx.reshape(-1).to(torch.int32)
     row = torch.bitwise_right_shift(flat, 7)  # idx >= 0: the logical shift
     lane = torch.bitwise_and(flat, LANES - 1)
-    rows = table2d.index_select(0, row)                  # [M, 128]
     if fused:
-        from .cuda.lane_select import lane_select
+        from .cuda.lane_select import lane_select_rows
 
-        return lane_select(rows, lane).reshape(shape)
+        return lane_select_rows(table2d, row, lane).reshape(shape)
+    rows = table2d.index_select(0, row)                  # [M, 128]
     onehot = lane[:, None] == torch.arange(LANES, dtype=torch.int32,
                                            device=lane.device)[None, :]
     out = torch.where(onehot, rows, torch.zeros((), dtype=rows.dtype,

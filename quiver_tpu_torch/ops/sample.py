@@ -16,9 +16,11 @@ the uniforms and positions here and reads ``indptr`` twice and ``indices``
 once through :func:`_gather`: ``"xla"`` a clipped index, ``"lanes"`` and
 ``"lanes_fused"`` the lane-select gather (``ops/fastgather.py``, the
 latter through kernel B4), ``"pallas"`` kernel B3
-(``ops/cuda/element_gather.py``).  All modes give the same draws.  On the
-CPU every kernel runs its plain version; :func:`sample_hop_plain`, the hop
-with ``"xla"`` gathers, is B1's reference.
+(``ops/cuda/element_gather.py``), whose pair entry reads ``indptr`` at the
+seeds and the seeds plus one in one launch.  All modes give the same
+draws.  On the CPU every kernel runs its plain version;
+:func:`sample_hop_plain`, the hop with ``"xla"`` gathers, is B1's
+reference.
 """
 
 from __future__ import annotations
@@ -101,27 +103,49 @@ def _stratified_positions(u: torch.Tensor, deg: torch.Tensor,
     return torch.minimum(pos, torch.clamp_min(deg[:, None] - 1, 0))
 
 
+def _rows_of(table: torch.Tensor, mode: str) -> torch.Tensor:
+    """``table`` as ``[rows, 128]`` for the lane modes and ``"pallas"``,
+    which need a 128-multiple table (``CSRTopo.to_device`` pads it)."""
+    if mode not in ("lanes", "lanes_fused", "pallas"):
+        raise ValueError(f"no element gather for gather_mode={mode!r}")
+    if table.shape[0] % 128:
+        raise ValueError(f"gather_mode={mode!r} needs a 128-multiple table, "
+                         f"got {table.shape[0]}: pad with "
+                         "ops.fastgather.pad_table_128")
+    return table.view(-1, 128)
+
+
 def _gather(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
     """``table[idx]`` with ``idx`` clipped into the table, by element-gather
-    ``mode``; the lane modes and ``"pallas"`` need a 128-multiple table
-    (``CSRTopo.to_device`` pads it)."""
+    ``mode``.  Kernel B3 (``"pallas"``) and its plain version clamp into
+    the table themselves; the lane modes get clamped ids, as JAX gives
+    them."""
     m = table.shape[0]
     if mode == "xla":
         return table[idx.to(torch.int64).clamp(0, m - 1)]
-    if mode not in ("lanes", "lanes_fused", "pallas"):
-        raise ValueError(f"no element gather for gather_mode={mode!r}")
-    if m % 128:
-        raise ValueError(f"gather_mode={mode!r} needs a 128-multiple table, "
-                         f"got {m}: pad with ops.fastgather.pad_table_128")
-    idx = idx.to(torch.int32).clamp(0, m - 1)
+    t2d = _rows_of(table, mode)
     if mode == "pallas":
         from .cuda.element_gather import element_gather as b3
 
-        return b3(table.view(-1, 128), idx)
+        return b3(t2d, idx.to(torch.int32))
     from .fastgather import element_gather
 
-    return element_gather(table.view(-1, 128), idx,
+    return element_gather(t2d, idx.to(torch.int32).clamp(0, m - 1),
                           fused=(mode == "lanes_fused"))
+
+
+def _gather_bounds(indptr: torch.Tensor, seeds: torch.Tensor,
+                   mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(indptr[seeds], indptr[seeds + 1])``, clipped into the table.
+    ``"pallas"`` reads both in one launch of B3's pair entry (``seeds + 1``
+    in 64 bits; JAX's int32 sum differs only for a seed of 2**31 - 1,
+    which no table of node ids reaches); the other modes read twice, as
+    JAX does."""
+    if mode == "pallas":
+        from .cuda.element_gather import element_gather_pair
+
+        return element_gather_pair(_rows_of(indptr, mode), seeds)
+    return _gather(indptr, seeds, mode), _gather(indptr, seeds + 1, mode)
 
 
 def sample_hop_plain(indptr: torch.Tensor, indices: torch.Tensor,
@@ -136,13 +160,14 @@ def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
                seed_mask: Optional[torch.Tensor] = None,
                gather_mode: str = "xla") -> SampleOut:
     """One sampling hop (``ops/sample.py:208-273`` of the JAX package)
-    whose three element gathers run by ``gather_mode`` (:func:`_gather`).
+    whose element gathers run by ``gather_mode``: the seeds' bounds
+    (:func:`_gather_bounds`, one launch under ``"pallas"``, two reads
+    otherwise) and the draws (:func:`_gather`).
 
     Reads of ``indptr``/``indices`` are clipped to the (padded) tables,
     as the JAX gathers clip."""
     seeds = seeds.to(torch.int32)
-    start = _gather(indptr, seeds, gather_mode)
-    end = _gather(indptr, seeds + 1, gather_mode)
+    start, end = _gather_bounds(indptr, seeds, gather_mode)
     deg = end - start
     if seed_mask is not None:
         deg = torch.where(seed_mask, deg, torch.zeros_like(deg))
@@ -182,7 +207,8 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
       device: where the hop runs (``None``: the card).
       gather_mode: element-gather mode (``config.resolve_gather_mode``;
         ``"auto"`` is ``"pwindow"``): ``"pwindow[:U]"`` is kernel B1, any
-        other mode three element gathers; the draws are the same.
+        other mode element gathers (two under ``"pallas"``, three
+        otherwise); the draws are the same.
 
     ``deg <= k`` returns every neighbour in CSR order; ``deg > k`` returns
     k distinct neighbours, one per stratum.

@@ -70,7 +70,8 @@ class SampledBatch(NamedTuple):
 def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
                              return_eid, gather_mode):
     """Multi-hop pipeline without dedup; one hop per layer (one B1 launch,
-    or three element gathers, by the resolved ``gather_mode``)."""
+    or the element gathers of ``ops/sample.py::sample_hop``, by the
+    resolved ``gather_mode``)."""
     dev = indptr.device
     B = seeds.shape[0]
     frontier = seeds.to(dev, torch.int32)
@@ -130,8 +131,8 @@ class GraphSageSampler:
       gather_mode: how each hop reads ``indptr`` and ``indices``
         (``config.resolve_gather_mode``): ``"auto"``/``"pwindow"`` is the
         fused hop of kernel B1, ``"pallas"`` kernel B3, ``"lanes_fused"``
-        a row gather and kernel B4, ``"lanes"`` and ``"xla"`` plain
-        PyTorch.  Every mode samples the same neighbours.
+        kernel B4 (its fused entry, with no row gather), ``"lanes"`` and
+        ``"xla"`` plain PyTorch.  Every mode samples the same neighbours.
     """
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,

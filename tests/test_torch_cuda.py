@@ -214,18 +214,27 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def _ids(card, m, n, seed, ends=()):
+    """``m`` int32 ids in ``[0, n)`` with ``ends`` at the front, and the
+    same ids as a view that starts one element into its storage (not
+    16-byte aligned)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    base = torch.randint(0, n, (m + 1,), generator=g, device=card,
+                         dtype=torch.int32)
+    ends = torch.tensor(ends, dtype=torch.int32, device=card)[:m]
+    base[1:1 + ends.shape[0]] = ends
+    idx = base[1:].clone()
+    assert base[1:].data_ptr() % 16 == 4
+    return idx, base[1:]
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("m", [1, 1000, 4097, 901_120])
+@pytest.mark.parametrize("m", [1, 3, 1000, 4097, 901_120])
 def test_element_gather_kernel_equals_plain(card, dtype, m):
     n = 3000 * 128
     t2d = _table(card, dtype, n, m).view(-1, 128)
-    g = torch.Generator(device=card).manual_seed(m + 1)
-    idx = torch.randint(0, n, (m,), generator=g, device=card,
-                        dtype=torch.int32)
-    ends = torch.tensor([0, n - 1, -7, n + 1000], dtype=torch.int32,
-                        device=card)
-    idx[:min(m, 4)] = ends[:min(m, 4)]
-    for i in (idx, idx.reshape(-1, 1) if m > 1 else idx):
+    idx, shifted = _ids(card, m, n, m + 1, (0, n - 1, -7, n + 1000))
+    for i in (idx, shifted, idx.reshape(-1, 1) if m > 1 else idx):
         before = b3.element_gather.launches
         got = b3.element_gather(t2d, i)
         torch.cuda.synchronize()
@@ -241,22 +250,110 @@ def test_element_gather_kernel_equals_plain(card, dtype, m):
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("m", [1, 1000, 4097, 180_224])
+@pytest.mark.parametrize("m", [1, 3, 4097, 180_224])
+def test_element_gather_pair_kernel_equals_plain(card, dtype, m):
+    """B3's pair entry: ``(flat[clamp(i)], flat[clamp(i + 1)])`` in one
+    launch, bitwise equal to two plain reads, for aligned and shifted ids,
+    ids at the table's last elements and beyond, -0.0 in fp32 tables."""
+    n = 3000 * 128
+    t2d = _table(card, dtype, n, m + 5).view(-1, 128)
+    idx, shifted = _ids(card, m, n, m + 6,
+                        (n - 1, n - 2, -7, n + 1000, 2**31 - 1))
+    for i in (idx, shifted):
+        before = b3.element_gather.launches
+        lo, hi = b3.element_gather_pair(t2d, i)
+        torch.cuda.synchronize()
+        assert b3.element_gather.launches == before + 1
+        assert lo.shape == hi.shape == i.shape
+        want_lo, want_hi = b3.element_gather_pair_plain(t2d, i)
+        assert torch.equal(_bits(lo), _bits(want_lo))
+        assert torch.equal(_bits(hi), _bits(want_hi))
+        assert torch.equal(_bits(lo), _bits(b3.element_gather(t2d, i)))
+    if dtype == torch.float32 and m > 1000:
+        flat = t2d.reshape(-1)[idx.long().clamp(0, n - 1)]
+        assert (flat == 0).logical_and(torch.signbit(flat)).any()
+        assert not (_bits(lo) == _bits(torch.tensor(-0.0))).any()
+    empty = b3.element_gather_pair(t2d, idx[:0])
+    assert empty[0].shape == empty[1].shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("m", [1, 3, 1000, 4097, 180_224])
 def test_lane_select_kernel_equals_plain(card, dtype, m):
     rows = _table(card, dtype, m * 128, m).view(m, 128)
-    g = torch.Generator(device=card).manual_seed(m + 2)
-    lanes = torch.randint(0, 128, (m,), generator=g, device=card,
-                          dtype=torch.int32)
-    lanes[:min(m, 4)] = torch.tensor([0, 127, -1, 128], dtype=torch.int32,
-                                     device=card)[:min(m, 4)]
-    before = b4.lane_select.launches
-    got = b4.lane_select(rows, lanes)
-    torch.cuda.synchronize()
-    assert b4.lane_select.launches == before + 1
-    assert torch.equal(_bits(got), _bits(b4.lane_select_plain(rows, lanes)))
+    lanes, shifted = _ids(card, m, 128, m + 2, (0, 127, -1, 128))
+    for lane in (lanes, shifted):
+        before = b4.lane_select.launches
+        got = b4.lane_select(rows, lane)
+        torch.cuda.synchronize()
+        assert b4.lane_select.launches == before + 1
+        assert torch.equal(_bits(got), _bits(b4.lane_select_plain(rows,
+                                                                   lane)))
     if m >= 4:
         assert got[2] == 0 and got[3] == 0
     assert b4.lane_select(rows[:0], lanes[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("m", [1, 3, 4097, 901_120])
+def test_lane_select_rows_kernel_equals_plain(card, dtype, m):
+    """B4's fused entry reads ``table2d[row, lane]`` without gathering the
+    rows: bitwise equal to the plain row gather and lane select, for
+    shifted ids, lanes outside ``[0, 128)`` (0) and rows outside the table
+    (clamped on the card; the plain version needs them in range)."""
+    R = 3000
+    t2d = _table(card, dtype, R * 128, m + 3).view(R, 128)
+    row, row_s = _ids(card, m, R, m + 4, (0, R - 1, -3, R + 9))
+    lane, lane_s = _ids(card, m, 128, m + 5, (127, -1, 128, 0))
+    for r, l in ((row, lane), (row_s, lane_s), (row, lane_s)):
+        before = b4.lane_select.launches
+        got = b4.lane_select_rows(t2d, r, l)
+        torch.cuda.synchronize()
+        assert b4.lane_select.launches == before + 1
+        want = b4.lane_select_plain(
+            t2d.index_select(0, r.clamp(0, R - 1)), l)
+        assert torch.equal(_bits(got), _bits(want))
+    if m >= 4:
+        assert got[1] == 0 and got[2] == 0
+    assert b4.lane_select_rows(t2d, row[:0], lane[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("m", [5, 4097, 70_001, 4_194_307])
+def test_b3_b4_walks_equal_plain(card, m):
+    """The walk, aligned or not, through one step or many a thread (4M ids
+    outrun one wave of resident threads), gives the plain versions' bits
+    in B3's two entries and B4's fused entry."""
+    n = 2000 * 128
+    t2d = _table(card, torch.float32, n, m).view(-1, 128)
+    idx, shifted = _ids(card, m, n, m, (n - 1, -2, n + 3))
+    for i in (idx, shifted):
+        want = _bits(b3.element_gather_plain(t2d, i))
+        assert torch.equal(_bits(b3.element_gather(t2d, i)), want)
+        lo, hi = b3.element_gather_pair(t2d, i)
+        assert torch.equal(_bits(lo), want)
+        assert torch.equal(_bits(hi), _bits(b3.element_gather_plain(
+            t2d, i.long() + 1)))
+        row, lane = i.clamp(0, n - 1) >> 7, i.clamp(0, n - 1) & 127
+        got = b4.lane_select_rows(t2d, row, lane)
+        assert torch.equal(_bits(got), want)
+    torch.cuda.synchronize()
+
+
+def test_fused_element_gather_allocates_no_rows(card):
+    """``fastgather.element_gather(fused=True)`` at products' hop-3 draw
+    count allocates far less than the ``[M, 128]`` rows (``M * 512``
+    bytes) the two-step path writes."""
+    t2d = _table(card, torch.int32, 4000 * 128, 1).view(-1, 128)
+    m = 901_120
+    idx = torch.randint(0, t2d.numel(), (m,), device=card, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fastgather.element_gather(t2d, idx, fused=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < m * 512 / 16, peak
+    assert torch.equal(got, t2d.reshape(-1)[idx.long()])
 
 
 def test_b3_b4_refuse_bad_input(card):
@@ -273,23 +370,31 @@ def test_b3_b4_refuse_bad_input(card):
         b4.lane_select(t[:, :64].contiguous(), i[:4])
     with pytest.raises(ValueError):
         b4.lane_select(t, i)  # one lane per row
+    with pytest.raises(ValueError):
+        b3.element_gather_pair(t.double(), i)
+    with pytest.raises(ValueError):
+        b4.lane_select_rows(t, i, i[:4])
+    with pytest.raises(ValueError):
+        b4.lane_select_rows(t[:, :64].contiguous(), i, i)
 
 
 @pytest.mark.parametrize("mode", ["pallas", "lanes_fused", "lanes"])
 def test_gather_modes_on_card_equal_cpu(card, mode):
     """The 3-hop sampler on the card in each element-gather mode returns
-    the CPU's frontier and blocks bitwise, through B3 or B4."""
+    the CPU's frontier and blocks bitwise, through B3 (two launches a hop:
+    the paired indptr read and the draws) or B4 (three)."""
     topo = _graph(7, n=3000)
     kw = np.array([[5, 6], [7, 8], [9, 10]], np.uint32)
     ids = np.arange(0, 3000, 37)
-    counters = {"pallas": b3.element_gather, "lanes_fused": b4.lane_select}
-    fn = counters.get(mode)
+    counters = {"pallas": (b3.element_gather, 6),
+                "lanes_fused": (b4.lane_select, 9)}
+    fn, per_sample = counters.get(mode, (None, 0))
     before = fn.launches if fn else 0
     got = qt.GraphSageSampler(topo, [10, 5, 3], device=card,
                               gather_mode=mode).sample(ids, key_words=kw)
     torch.cuda.synchronize()
     if fn:
-        assert fn.launches == before + 9
+        assert fn.launches == before + per_sample
     want = qt.GraphSageSampler(topo, [10, 5, 3], device="cpu",
                                gather_mode="xla").sample(ids, key_words=kw)
     assert torch.equal(got.n_id.cpu(), want.n_id)

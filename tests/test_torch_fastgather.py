@@ -1,6 +1,7 @@
 """Port parity: the lane-select element gather (``ops/fastgather.py``) and
-the plain versions of kernels B3 (``element_gather``) and B4
-(``lane_select``) against the JAX package on the same numpy inputs.
+the plain versions of kernels B3 (``element_gather`` and its pair entry)
+and B4 (``lane_select`` and its fused entry ``lane_select_rows``) against
+the JAX package on the same numpy inputs.
 
 Outputs must be bitwise equal; fp32 outputs are compared as bit patterns,
 over tables that hold ``-0.0``.  JAX's lane sums add zeros to the selected
@@ -130,6 +131,78 @@ def test_element_gather_plain_matches_take(dtype):
              else table[[0, 0, -1, -1]]))
 
 
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_element_gather_pair_plain_matches_take(dtype):
+    """B3's pair entry on the CPU: ``(flat[clip(idx)], flat[clip(idx +
+    1)])`` against two ``jnp.take(..., mode="clip")`` calls, with ids at
+    both ends of the table and beyond (``idx + 1`` taken in 64 bits), and
+    the bits of JAX's lane gather for the float ``+0.0``."""
+    table = table_of(dtype, 64 * 128, seed=7)
+    t2d = table.reshape(-1, 128)
+    n = table.shape[0]
+    idx = np.random.default_rng(8).integers(0, n, (45, 7)).astype(np.int32)
+    idx.reshape(-1)[:6] = [0, n - 2, n - 1, n, n + 40, -3]
+    lo, hi = b3.element_gather_pair(torch.from_numpy(t2d),
+                                    torch.from_numpy(idx))
+    assert lo.shape == hi.shape == idx.shape
+    jt = jnp.asarray(table)
+    for got, ids in ((lo, idx), (hi, idx.astype(np.int64) + 1)):
+        want = jnp.take(jt, jnp.asarray(np.clip(ids, -5, n + 50)
+                                        .astype(np.int32)), mode="clip")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        lanes = jfg.element_gather(jnp.asarray(t2d), jnp.asarray(
+            np.clip(ids, 0, n - 1).astype(np.int32)))
+        np.testing.assert_array_equal(bits(got), bits(lanes))
+    assert lo.reshape(-1)[2] == hi.reshape(-1)[1] == hi.reshape(-1)[2]
+    int_max = torch.tensor([2**31 - 1], dtype=torch.int32)
+    assert b3.element_gather_pair(torch.from_numpy(t2d), int_max)[1].item() \
+        == pytest.approx(float(table[-1] + 0))
+
+
+@pytest.mark.parametrize("m", [1000, 2 * BLK])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_fused_element_gather_matches_pallas_interpret(dtype, m):
+    """``fastgather.element_gather(fused=True)``, B4's fused entry
+    (``lane_select_rows``), against JAX's fused form: the ``jnp.take`` row
+    gather into the Pallas ``lane_select`` in interpret mode, padded to its
+    1,024-row block as JAX pads it.  Bit patterns over a table holding
+    -0.0."""
+    table = table_of(dtype, 40 * 128, seed=9)
+    t2d = jnp.asarray(table.reshape(-1, 128))
+    idx = np.random.default_rng(m).integers(0, table.shape[0],
+                                            m).astype(np.int32)
+    idx[:2] = [0, table.shape[0] - 1]
+    row, lane = idx >> 7, idx & 127
+    pad = (-m) % BLK
+    rows = jnp.take(t2d, jnp.asarray(np.pad(row, (0, pad))), axis=0)
+    want = jax_lane_select(rows, jnp.asarray(np.pad(lane, (0, pad))),
+                           interpret=True)[:m]
+    got = pfg.element_gather(pfg.prepare_table(torch.from_numpy(table)),
+                             torch.from_numpy(idx), fused=True)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    if dtype == "float32":
+        assert (bits(table[idx]) == NEG0).any()
+        assert not (bits(got) == NEG0).any()
+
+
+def test_lane_select_rows_plain():
+    """B4's fused entry on the CPU is the row gather and B4's plain
+    version: a lane outside ``[0, 128)`` selects 0, and a row outside the
+    table raises (the kernel clamps it instead)."""
+    t2d = torch.from_numpy(table_of("float32", 8 * 128, seed=10)
+                           .reshape(8, 128))
+    row = torch.tensor([0, 7, 3, 3], dtype=torch.int32)
+    lane = torch.tensor([5, 127, -1, 128], dtype=torch.int32)
+    got = b4.lane_select_rows(t2d, row, lane)
+    want = b4.lane_select_plain(t2d.index_select(0, row), lane)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert got.tolist() == [t2d[0, 5].item() + 0, t2d[7, 127].item() + 0,
+                            0.0, 0.0]
+    with pytest.raises(IndexError):
+        b4.lane_select_rows(t2d, torch.tensor([8], dtype=torch.int32),
+                            lane[:1])
+
+
 def test_wrappers_refuse_other_devices():
     t = torch.zeros((2, 128), dtype=torch.int32, device="meta")
     i = torch.zeros(3, dtype=torch.int32, device="meta")
@@ -137,3 +210,7 @@ def test_wrappers_refuse_other_devices():
         b3.element_gather(t, i)
     with pytest.raises(ValueError):
         b4.lane_select(t, i)
+    with pytest.raises(ValueError):
+        b3.element_gather_pair(t, i)
+    with pytest.raises(ValueError):
+        b4.lane_select_rows(t, i, i)

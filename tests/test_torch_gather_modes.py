@@ -89,6 +89,31 @@ def test_gather_mode_samples_bitwise_like_jax(csr, mode):
         assert int(jl.num_targets) == int(pl.num_targets)
 
 
+@pytest.mark.parametrize("mode", ["xla", "lanes", "lanes_fused", "pallas"])
+def test_bounds_read_matches_jax_clip(csr, mode):
+    """A hop's ``indptr`` reads at the seeds and the seeds plus one (one
+    paired read of B3 under ``"pallas"``) against JAX's clipped
+    ``_gather(indptr, seeds)`` and ``_gather(indptr, seeds + 1)``, with
+    seeds at both ends of the padded table and beyond it."""
+    from quiver_tpu.ops.sample import _gather as jax_gather
+
+    indptr, indices = csr
+    ip, _ = qt.CSRTopo(indptr=indptr, indices=indices).to_device("cpu")
+    jip, _ = JaxTopo(indptr=indptr, indices=indices).to_device()
+    m = ip.shape[0]
+    seeds = np.concatenate([[0, N_NODES - 1, N_NODES, m - 2, m - 1, m,
+                             m + 77, -4],
+                            np.random.default_rng(3).integers(0, N_NODES,
+                                                              200)])
+    seeds = seeds.astype(np.int32)
+    start, end = psample._gather_bounds(ip, torch.from_numpy(seeds), mode)
+    js = jnp.asarray(seeds)
+    np.testing.assert_array_equal(start.numpy(), np.asarray(
+        jax_gather(jip, js, "xla")))
+    np.testing.assert_array_equal(end.numpy(), np.asarray(
+        jax_gather(jip, js + 1, "xla")))
+
+
 def test_resolve_gather_mode(monkeypatch):
     assert config.resolve_gather_mode("auto") == "pwindow"
     for m in ("xla", "lanes", "lanes_fused", "pallas", "pwindow",

@@ -25,7 +25,7 @@ def _forbidden(module: str) -> bool:
 
 def _port_files():
     files = sorted((ROOT / "quiver_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "walk_sweep.py"]
 
 
 def test_import_leaves_jax_out():

@@ -275,6 +275,34 @@ def test_kernel_build_failure_raises(tmp_path, monkeypatch):
     assert not list(tmp_path.glob("*.so"))
 
 
+def test_lib_path_hashes_included_headers(tmp_path, monkeypatch):
+    """A kernel's library name changes when the source or any local header
+    it includes (directly or through another header) changes, and only
+    then: a shared header edit never loads a stale library."""
+    from quiver_tpu_torch.ops.cuda import build
+
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// not included\n")
+    assert [p.name for p in build._sources("k")] == ["k.cu", "a.cuh",
+                                                      "b.cuh"]
+    first = build._lib_path("k")
+    assert build._lib_path("k") == first
+    (tmp_path / "other.cuh").write_text("// edited\n")
+    assert build._lib_path("k") == first
+    paths = {first}
+    for name in ("b.cuh", "a.cuh", "k.cu"):
+        (tmp_path / name).write_text((tmp_path / name).read_text() + "//\n")
+        paths.add(build._lib_path("k"))
+    assert len(paths) == 4
+    # the port's own kernels: both B3 and B4 hash the shared header
+    monkeypatch.undo()
+    for name in ("element_gather", "lane_select"):
+        assert "element_gather.cuh" in [p.name for p in build._sources(name)]
+
+
 @pytest.mark.parametrize("row_bytes,addr,want", [
     (602 * 4, 0, 8), (602 * 2, 0, 4), (256 * 2, 0, 16), (3 * 2, 0, 2),
     (7, 0, 1), (64, 8, 8), (64, 4, 4)])
