@@ -10,10 +10,15 @@ first use, with nvcc, one process per source, all at once), then:
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the kernels and prints the build time, each kernel's registers
    and the card's L2 fetch granularity;
-3. kernel phase: on a Reddit-sized graph, holds kernels B1 and B2 against
-   their plain PyTorch versions on the card at the main path's shapes,
-   exactly, and times kernel, plain version and library call with CUDA
-   events;
+3. kernel phase: on a Reddit-sized graph, holds kernels B1 (both
+   entries, at each hop of one bucket-2048 pass, on the frontier the
+   kernel builds) and B2 against their plain PyTorch versions on the card
+   at the main path's shapes, exactly, and times kernel, host launch,
+   plain version and library call with CUDA events; then the
+   ``"pwindow"`` pipeline's host time, device span and device operations
+   at each depth (each hop must add one B1 launch and no other operation)
+   and its host profile; B1 is also timed with the L2 fetch granularity
+   limit at 32 bytes (set, then restored);
 4. serving phase (slice 1, the whole table on the card):
    RequestBatcher(mode="Device") -> InferenceServer_Debug -> GraphSAGE
    602 -> 256 -> 41 with fanouts [25, 10] and seeded random weights;
@@ -42,30 +47,35 @@ first use, with nvcc, one process per source, all at once), then:
    ``n_id``, the host stage (plan and faults), the gather and the model,
    lists its device time by kernel with ``torch.profiler`` and its host
    time by function with cProfile;
-9. B3/B4 kernel phase (slices 3 and 4, training): on ``synthetic_products``
-   (2,449,029 nodes, ~123.7M edges), at the last hop of one 1,024-seed
-   batch with fanouts [15, 10, 5] (the 180,224-long frontier, its 901,120
-   draws), holds B3's two entries and B4's fused and literal entries
-   against their plain versions, exactly, times kernel, host launch,
-   plain version and library call, the earlier two-step B4
-   (``index_select`` rows, then the literal entry) and the hop's reads on
-   the host in the earlier three-read form and the pair form, and checks
-   that ``element_gather(fused=True)`` allocates no ``[M, 128]`` rows;
-10. fused training phase: the whole 100-wide table on the card, GraphSAGE
+9. B1 products phase (slice 5): on ``synthetic_products`` (2,449,029
+   nodes, ~123.7M edges), B1's two entries at the three hops of one
+   1,024-seed batch with fanouts [15, 10, 5] (frontiers of 1,024, 16,384
+   and 180,224 ids), as in the kernel phase, and the ``"pwindow"``
+   pipeline's cost by depth;
+10. B3/B4 kernel phase (slices 3 and 4, training): at the last hop of that
+   batch (the 180,224-long frontier, its 901,120 draws), holds B3's two
+   entries and B4's fused and literal entries against their plain
+   versions, exactly, times kernel, host launch, plain version and
+   library call and the earlier two-step B4 (``index_select`` rows, then
+   the literal entry), and checks that ``element_gather(fused=True)``
+   allocates no ``[M, 128]`` rows;
+11. fused training phase: the whole 100-wide table on the card, GraphSAGE
    100 -> 256 -> 256 -> 47 with dropout 0.5 and seeded weights, Adam at
-   3e-3, ``gather_mode="pallas"``; 30 steps of ``make_fused_train_step``
-   (the loss must fall; B3 must launch twice per hop, 6 times a step, and
-   B2 once); the step split by CUDA events and one step under
-   ``torch.profiler``; one batch through ``make_fused_eval_fn`` against
-   the plain versions on the CPU within CPU_TOL;
-11. two-stage training phase: ``device_cache_size="200M"`` (524,288 hot
+   3e-3; 30 steps of ``make_fused_train_step`` under
+   ``gather_mode="pallas"`` (B3 twice a hop, 6 times a step, B1 never)
+   and 10 under ``"auto"``, the example's default (B1 once a hop, 3 times
+   a step, B3 never); B2 once a step; the loss must fall in each; per
+   lane the step split by CUDA events, one step under ``torch.profiler``,
+   and one batch through ``make_fused_eval_fn`` against the plain
+   versions on the CPU within CPU_TOL;
+12. two-stage training phase: ``device_cache_size="200M"`` (524,288 hot
    rows), ``SeedLoader(prefetch=2)`` over a sampler in
    ``gather_mode="lanes_fused"`` (B4 must launch 9 times per sampled
    batch), ``make_train_step``, 5 steps (the loss must fall), every
    gathered row bitwise equal to the source, peak device memory printed;
    then one batch split into sampling, read-back, host gather and
    training;
-12. prints one ``{"kernels": [...]}`` line, the card line, and last
+13. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 2 and
@@ -113,7 +123,7 @@ HOT_BUDGET = "200M"
 P_DIM, P_HIDDEN, P_CLASSES = 100, 256, 47
 P_FANOUTS = [15, 10, 5]
 P_BATCH, P_LR = 1024, 3e-3
-FUSED_STEPS, STAGED_STEPS = 30, 5
+FUSED_STEPS, AUTO_STEPS, STAGED_STEPS = 30, 10, 5
 
 
 def fail(msg: str):
@@ -199,6 +209,110 @@ def frontier_of(torch, qt, topo, n_seeds: int, seed: int):
         return sampler.sample(ids).n_id.cpu().numpy()
 
 
+def int_err(pairs) -> float:
+    """Max absolute difference over pairs of integer tensors (0 if all
+    are empty)."""
+    return float(max([(a.long() - b.long()).abs().max().item()
+                      for a, b in pairs if a.numel()] or [0]))
+
+
+def b1_hops(torch, b1, ip, ix, seeds, fanouts, kw, where: str):
+    """Kernel B1 at each hop of one positional pipeline from ``seeds``,
+    through both entries: the pipeline entry (one launch a hop under
+    ``"pwindow"``; it writes the hop's frontier tail, mask tail and local
+    ids) and the literal entry, each held against its plain version
+    exactly, on the frontier the kernel itself builds.  Times kernel (CUDA
+    events), host launch and plain version per hop and entry.  Returns the
+    cases and the final frontier and mask."""
+    dev = ip.device
+    t = seeds.shape[0]
+    total = t
+    for k in fanouts:
+        total *= 1 + k
+    frontier = torch.empty(total, dtype=torch.int32, device=dev)
+    fmask = torch.empty(total, dtype=torch.bool, device=dev)
+    frontier[:t] = seeds
+    fmask[:t] = True
+    ref_f, ref_m = frontier.clone(), fmask.clone()  # the plain version's
+    cases = []
+    for hop, k in enumerate(fanouts, 1):
+        k0, k1 = int(kw[hop - 1, 0]), int(kw[hop - 1, 1])
+        s, m, n = frontier[:t], fmask[:t], t * k
+
+        def pipe():
+            return b1.window_sample_frontier(ip, ix, frontier, fmask, t, k,
+                                             k0, k1)
+
+        def pipe_plain():
+            return b1.window_sample_frontier_plain(ip, ix, ref_f, ref_m, t,
+                                                   k, k0, k1)
+
+        def lit():
+            return b1.window_sample(ip, ix, s, k, k0, k1, m)
+
+        def lit_plain():
+            return b1.window_sample_plain(ip, ix, s, k, k0, k1, m)
+
+        got, want, lgot, lwant = pipe(), pipe_plain(), lit(), lit_plain()
+        torch.cuda.synchronize()
+        pairs = [(frontier[t:t + n], ref_f[t:t + n]),
+                 (fmask[t:t + n], ref_m[t:t + n]),
+                 (got.nbr_local, want.nbr_local), (got.counts, want.counts),
+                 *zip(lgot, lwant)]
+        for i, (a, b) in enumerate(pairs):
+            check(torch.equal(a, b), f"B1 {where} hop {hop}: output {i} "
+                  "differs from the plain version")
+        check(torch.equal(frontier[t:t + n].view(t, k), torch.where(
+            lgot.mask, lgot.nbrs, torch.zeros_like(lgot.nbrs))),
+            f"B1 {where} hop {hop}: the two entries differ")
+        err = int_err(pairs)
+        # inputs read once (seeds and their mask; the distinct sectors of
+        # indptr that live seeds' two words touch and of indices that the
+        # draws touch), outputs written once (three per draw: frontier,
+        # mask and local ids, or neighbours, mask and edge ids; counts)
+        live = s[m].long()
+        nbytes = (t * (4 + 1 + 4) + sector_bytes(torch, live, live + 1)
+                  + sector_bytes(torch, lgot.eid[lgot.mask]) + n * (4 + 1 + 4))
+        draws = int(lgot.counts.sum())
+        for entry, fn, plain in (("pipeline", pipe, pipe_plain),
+                                 ("literal", lit, lit_plain)):
+            cases.append(dict(
+                entry=entry, shape=f"{where} hop {hop}: B={t}, k={k}",
+                max_abs_err=err, ms=cuda_ms(torch, fn),
+                host_ms=host_ms(torch, fn), plain_ms=cuda_ms(torch, plain),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, draws=draws))
+            if entry == "pipeline":
+                # the scattered reads with 32-byte fetches (side timing)
+                cases[-1]["ms_l2_fetch"] = dict(zip(
+                    ("ms", "limit_bytes"), cuda_ms_at_fetch(torch, fn, 32)))
+            print(f"B1 {entry} entry, {cases[-1]['shape']}: exact; "
+                  f"{json.dumps(cases[-1])}", flush=True)
+        del got, want, lgot, lwant
+        t += n
+    check(bool(fmask.any()) and not bool(fmask.all()),
+          f"B1 {where}: the hops met no masked slot")
+    return cases, frontier, fmask
+
+
+def b1_record(b1, cases) -> dict:
+    """B1's entry in the kernels line: the pipeline entry's times (what
+    the main path runs) summed over the hops; each case listed."""
+    pipe = [c for c in cases if c["entry"] == "pipeline"]
+    lit = [c for c in cases if c["entry"] == "literal"]
+
+    def total(cs, key):
+        return float(sum(c[key] for c in cs))
+
+    return dict(name="window_sample", route="cuda", source=b1.SOURCE,
+                replaces=b1.REPLACES,
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=total(pipe, "ms"), plain_ms=total(pipe, "plain_ms"),
+                bound_ms=total(pipe, "bound_ms"), bound_by="bytes",
+                library_ms=None, host_ms=total(pipe, "host_ms"),
+                literal_ms=total(lit, "ms"),
+                literal_host_ms=total(lit, "host_ms"), cases=cases)
+
+
 def kernel_phase(torch, qt, topo, feature, b1, b2):
     """Each kernel against its plain version at the main path's shapes
     (one bucket-2048 pass); returns the kernel records."""
@@ -208,54 +322,15 @@ def kernel_phase(torch, qt, topo, feature, b1, b2):
     kw = rng.integers(0, 2**32, size=(2, 2), dtype=np.uint32)
 
     # B1 at hop 1 (2048 seeds, k=25) and hop 2 (53,248 seeds, k=10, with
-    # the pipeline's masked slots), the inputs the pipeline gives it
+    # the pipeline's masked slots), through both entries
     seeds = torch.from_numpy(
         rng.integers(0, N_NODES, 2048).astype(np.int32)).to(dev)
-    m1 = torch.ones(2048, dtype=torch.bool, device=dev)
-    h1 = b1.window_sample(ip, ix, seeds, FANOUTS[0], int(kw[0, 0]),
-                          int(kw[0, 1]), m1)
-    s2 = torch.cat([seeds, torch.where(h1.mask, h1.nbrs,
-                                       torch.zeros_like(h1.nbrs)).reshape(-1)])
-    m2 = torch.cat([m1, h1.mask.reshape(-1)])
-    check(s2.shape[0] == 53_248, f"hop-2 frontier {s2.shape[0]}")
-    check(not bool(m2.all()), "hop 2 has no masked seeds")
-    b1_cases = []
-    hop2 = None
-    for hop, (s, m, k, (k0, k1)) in enumerate(
-            [(seeds, m1, FANOUTS[0], kw[0]), (s2, m2, FANOUTS[1], kw[1])], 1):
-        k0, k1 = int(k0), int(k1)
-        got = b1.window_sample(ip, ix, s, k, k0, k1, m)
-        want = b1.window_sample_plain(ip, ix, s, k, k0, k1, m)
-        torch.cuda.synchronize()
-        err = 0
-        for name, a, b in zip(("nbrs", "mask", "counts", "eid"), got, want):
-            check(torch.equal(a, b), f"B1 hop {hop}: {name} differs from "
-                  "the plain version")
-            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
-                               .abs().max()))
-        hop2 = got
-        drawn = int(got.counts.sum())
-        B = s.shape[0]
-        # inputs read once (seeds, mask; the distinct sectors of indptr
-        # that the seeds' two words touch and of indices that the draws
-        # touch), outputs written once (nbrs, mask, eid per slot, counts)
-        s64 = s.long().clamp(0, ip.shape[0] - 2)
-        nbytes = (B * (4 + 1 + 4) + sector_bytes(torch, s64, s64 + 1)
-                  + sector_bytes(torch, got.eid[got.mask])
-                  + B * k * (4 + 1 + 4))
-        b1_cases.append(dict(
-            shape=f"hop {hop}: B={B}, k={k}", max_abs_err=float(err),
-            ms=cuda_ms(torch, lambda: b1.window_sample(ip, ix, s, k, k0, k1,
-                                                       m)),
-            plain_ms=cuda_ms(torch, lambda: b1.window_sample_plain(
-                ip, ix, s, k, k0, k1, m)),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, draws=drawn))
-        print(f"B1 hop {hop}: B={B} k={k} exact; {json.dumps(b1_cases[-1])}",
-              flush=True)
+    b1_cases, n_id, _ = b1_hops(torch, b1, ip, ix, seeds, FANOUTS, kw,
+                                "Reddit")
+    cost = pwindow_pipeline_phase(torch, ip, ix, seeds, kw, FANOUTS,
+                                  "Reddit", b1)
 
     # B2 at the lookup of that pass: 585,728 frontier rows of width 602
-    n_id = torch.cat([s2, torch.where(
-        hop2.mask, hop2.nbrs, torch.zeros_like(hop2.nbrs)).reshape(-1)])
     check(n_id.shape[0] == 585_728, f"frontier {n_id.shape[0]}")
     order = torch.from_numpy(feature.feature_order.astype(np.int32)).to(dev)
     idx = order[n_id.to(torch.int64)]  # what lookup_device hands B2
@@ -283,16 +358,8 @@ def kernel_phase(torch, qt, topo, feature, b1, b2):
         print(f"B2 {dtype}: exact; {json.dumps(b2_cases[-1])}", flush=True)
         del got, want, table
 
-    def total(cases, key):
-        return float(sum(c[key] for c in cases))
-
     return [
-        dict(name="window_sample", route="cuda", source=b1.SOURCE,
-             replaces=b1.REPLACES,
-             max_abs_err=max(c["max_abs_err"] for c in b1_cases),
-             ms=total(b1_cases, "ms"), plain_ms=total(b1_cases, "plain_ms"),
-             bound_ms=total(b1_cases, "bound_ms"), bound_by="bytes",
-             library_ms=None, cases=b1_cases),
+        dict(b1_record(b1, b1_cases), pipeline_cost=cost),
         dict(name="gather_rows", route="cuda", source=b2.SOURCE,
              replaces=b2.REPLACES,
              max_abs_err=max(c["max_abs_err"] for c in b2_cases),
@@ -783,22 +850,40 @@ def host_profile(torch, run, top: int = 10) -> list:
 
 # -- slice 3: GraphSAGE training at ogbn-products width ---------------------
 
-def l2_fetch_granularity(torch) -> int:
+def l2_fetch_granularity(torch, set_to=None) -> int:
     """``cudaLimitMaxL2FetchGranularity`` of the current device, in bytes,
-    read (never set) through ``cudaDeviceGetLimit`` of the toolkit's
-    ``libcudart``: whether a 32-byte sector read fetches more."""
+    read through ``cudaDeviceGetLimit`` of the toolkit's ``libcudart``
+    (after ``cudaDeviceSetLimit`` to ``set_to`` bytes where given): whether
+    a 32-byte sector read fetches more.  The port never sets it."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     libs = sorted(glob.glob(os.path.join(CUDA_HOME or "/usr/local/cuda",
                                          "lib64", "libcudart.so*")))
     check(libs, f"no libcudart under {CUDA_HOME}")
     cudart = ctypes.CDLL(libs[0])
-    value = ctypes.c_size_t()
     limit_max_l2_fetch_granularity = 0x05  # cudaLimit in driver_types.h
+    if set_to is not None:
+        rc = cudart.cudaDeviceSetLimit(limit_max_l2_fetch_granularity,
+                                       ctypes.c_size_t(set_to))
+        check(rc == 0, f"cudaDeviceSetLimit: CUDA error {rc}")
+    value = ctypes.c_size_t()
     rc = cudart.cudaDeviceGetLimit(ctypes.byref(value),
                                    limit_max_l2_fetch_granularity)
     check(rc == 0, f"cudaDeviceGetLimit: CUDA error {rc}")
     return value.value
+
+
+def cuda_ms_at_fetch(torch, fn, nbytes: int):
+    """``cuda_ms(fn)`` with the L2 fetch granularity limit set to
+    ``nbytes``, then restored; returns the time and the limit the card
+    took."""
+    before = l2_fetch_granularity(torch)
+    try:
+        took = l2_fetch_granularity(torch, nbytes)
+        return cuda_ms(torch, fn), took
+    finally:
+        check(l2_fetch_granularity(torch, before) == before,
+              "the L2 fetch granularity was not restored")
 
 
 def products_data(qt):
@@ -841,6 +926,14 @@ def frontier_sizes(B: int):
     return out
 
 
+def products_batch(torch, dev, train):
+    """The products batch the kernel phases read: the first P_BATCH train
+    seeds on ``dev`` and one key-word pair per hop."""
+    kw = np.random.default_rng(SEED + 11).integers(
+        0, 2**32, size=(len(P_FANOUTS), 2), dtype=np.uint32)
+    return torch.from_numpy(train[:P_BATCH].astype(np.int32)).to(dev), kw
+
+
 def products_hops(torch, ip, ix, train):
     """The element reads of each hop of one products batch (P_BATCH
     seeds, fanouts P_FANOUTS) as the fused lane makes them: per hop, the
@@ -851,9 +944,7 @@ def products_hops(torch, ip, ix, train):
     from quiver_tpu_torch.sampler import run_pipeline
 
     dev = ip.device
-    rng = np.random.default_rng(SEED + 11)
-    seeds = torch.from_numpy(train[:P_BATCH].astype(np.int32)).to(dev)
-    kw = rng.integers(0, 2**32, size=(3, 2), dtype=np.uint32)
+    seeds, kw = products_batch(torch, dev, train)
     sizes = frontier_sizes(P_BATCH)
     hops = []
     with torch.inference_mode():
@@ -879,27 +970,126 @@ def products_hops(torch, ip, ix, train):
     return hops
 
 
-def three_read_hop(torch, lib, argtypes, ip2d, ix2d, n_id, pos):
-    """A hop's ``indptr`` and ``indices`` reads in the earlier three-read
-    form, for its host cost beside the pair form's: ``seeds + 1``, a host
-    clamp before each of three single reads, and a wrapper that resolved
-    the C function, set its argument types and entered the device context
-    on every call.  The kernel is the single read of this tree."""
-    outs = []
-    for t2d, idx in ((ip2d, n_id), (ip2d, n_id + 1), (ix2d, pos)):
-        idx = idx.to(torch.int32).clamp(0, t2d.numel() - 1)
-        fn = lib.element_gather
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        flat = idx.contiguous().reshape(-1)
-        out = torch.empty(idx.shape, dtype=t2d.dtype, device=t2d.device)
-        with torch.cuda.device(t2d.device):
-            stream = torch.cuda.current_stream(t2d.device).cuda_stream
-            rc = fn(t2d.data_ptr(), t2d.numel(), flat.data_ptr(),
-                    out.data_ptr(), flat.shape[0], 0, stream)
-        check(rc == 0, f"element_gather launch: CUDA error {rc}")
-        outs.append(out)
-    return outs
+def b1_products_phase(torch, topo, train, b1):
+    """Kernel B1 at the three hops of the products batch that
+    ``products_hops`` reads (frontiers of 1,024, 16,384 and 180,224 ids,
+    fanouts 15, 10, 5), both entries against their plain versions; the
+    frontier it builds must equal the ``"xla"`` pipeline's; then the
+    ``"pwindow"`` pipeline's cost by depth.  Returns the cases and that
+    cost."""
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    seeds, kw = products_batch(torch, dev, train)
+    cases, n_id, fmask = b1_hops(torch, b1, ip, ix, seeds, P_FANOUTS, kw,
+                                 "products")
+    want = run_pipeline("none", ip, ix, seeds, kw, P_FANOUTS,
+                        gather_mode="xla")
+    check(torch.equal(n_id, want[0]) and torch.equal(fmask, want[1]),
+          "B1's products frontier differs from the xla pipeline's")
+    cost = pwindow_pipeline_phase(torch, ip, ix, seeds, kw, P_FANOUTS,
+                                  "products", b1)
+    return cases, cost
+
+
+def device_ops(torch, fn, tries: int = 3) -> list:
+    """Names of the device operations (kernels, copies, fills) of one
+    ``fn()`` under ``torch.profiler``, after a warm call.  A capture that
+    holds no device event at all is taken again, up to ``tries`` times (the
+    profiler on the card sometimes returns an empty capture); an empty list
+    means not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+        if ops:
+            return ops
+    return []
+
+
+def pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
+                  gather_mode="pwindow") -> list:
+    """One ``run_pipeline`` call at each depth of ``fanouts`` (its first 1,
+    2, ... hops): the host time to return (its launches, median of 15), the
+    device span (CUDA events behind a spin kernel) and the device
+    operations by name (none where the profiler saw none); each depth
+    after the first also gets its hop's share, the difference from the
+    depth before, where both were profiled."""
+    rows = []
+    for depth in range(1, len(fanouts) + 1):
+        def fn():
+            return run_pipeline("none", ip, ix, seeds, kw[:depth],
+                                fanouts[:depth], gather_mode=gather_mode)
+
+        ops = device_ops(torch, fn)
+        by_name: dict = {}
+        for name in ops:
+            by_name[name[:90]] = by_name.get(name[:90], 0) + 1
+        row = dict(depth=depth, host_ms=host_ms(torch, fn),
+                   device_ms=cuda_ms(torch, fn), device_ops=len(ops),
+                   ops=by_name)
+        if rows:
+            row["hop_host_ms"] = row["host_ms"] - rows[-1]["host_ms"]
+        if rows and ops and rows[-1]["device_ops"]:
+            row["hop_device_ops"] = len(ops) - rows[-1]["device_ops"]
+            row["hop_ops"] = {n: c - rows[-1]["ops"].get(n, 0)
+                              for n, c in by_name.items()
+                              if c != rows[-1]["ops"].get(n, 0)}
+        rows.append(row)
+    return rows
+
+
+def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
+    """The ``"pwindow"`` pipeline's cost per depth (``pipeline_cost``);
+    checks that it launches B1 once a hop and that each hop adds no device
+    operation but B1's kernel: the hop's frontier, mask and local ids come
+    from that launch alone."""
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    before = b1.window_sample.launches
+    run_pipeline("none", ip, ix, seeds, kw, fanouts, gather_mode="pwindow")
+    check(b1.window_sample.launches - before == len(fanouts),
+          f"{where}: the pwindow pipeline launched B1 "
+          f"{b1.window_sample.launches - before} times for "
+          f"{len(fanouts)} hops")
+    rows = pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts)
+    print(f"{where} pwindow pipeline, cost by depth "
+          + json.dumps(dict(fanouts=list(fanouts), B=int(seeds.shape[0]),
+                            rows=rows)), flush=True)
+    hprof = host_profile(torch, lambda: run_pipeline(
+        "none", ip, ix, seeds, kw, fanouts, gather_mode="pwindow"))
+    print(f"{where} pwindow pipeline on the host (cProfile, own time) "
+          + json.dumps(hprof), flush=True)
+    check(rows[0]["device_ops"] and rows[-1]["device_ops"],
+          f"{where}: the profiler saw no device operation")
+    for row in rows:
+        if not row["device_ops"]:
+            continue
+        b1_ops = sum(c for n, c in row["ops"].items()
+                     if "window_sample_kernel" in n)
+        check(b1_ops == row["depth"], f"{where}: {b1_ops} B1 kernels in the "
+              f"profile of {row['depth']} hops")
+        if "hop_device_ops" in row:
+            check(row["hop_device_ops"] == 1 and all(
+                "window_sample_kernel" in n for n in row["hop_ops"]),
+                f"{where}: hop {row['depth']} added {row['hop_ops']}")
+    # the deepest pipeline's other operations are the first depth's
+    others = [{n: c for n, c in r["ops"].items()
+               if "window_sample_kernel" not in n} for r in (rows[0],
+                                                             rows[-1])]
+    check(others[0] == others[1], f"{where}: the operations besides B1 "
+          f"grew with depth: {others}")
+    return rows
 
 
 def b3_b4_phase(torch, qt, topo, train, b3, b4):
@@ -912,8 +1102,6 @@ def b3_b4_phase(torch, qt, topo, train, b3, b4):
     Times kernel, plain version and library call.  Returns the two kernel
     records (times summed over a hop's reads)."""
     from quiver_tpu_torch.ops import fastgather
-    from quiver_tpu_torch.ops import sample as psample
-    from quiver_tpu_torch.ops.cuda import build
 
     dev = torch.device(DEV)
     ip, ix = topo.to_device(dev)
@@ -968,26 +1156,6 @@ def b3_b4_phase(torch, qt, topo, train, b3, b4):
         print(f"element_gather {c['shape']}: exact; {json.dumps(c)}",
               flush=True)
     del lo, hi, got, want, want_lo, want_hi
-
-    # the hop's reads on the host: the earlier three-read form against
-    # the pair form, as sample_hop runs them
-    from quiver_tpu_torch.ops.cuda.element_gather import _ARGTYPES
-    lib = ctypes.CDLL(str(build.build_all(["element_gather"])[0]))
-    before = three_read_hop(torch, lib, _ARGTYPES, ip2d, ix2d, n_id, pos)
-    after = (*psample._gather_bounds(ip, n_id, "pallas"),
-             psample._gather(ix, pos, "pallas"))
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(before, after)),
-          "the two forms of the hop's reads differ")
-    hop_host = dict(
-        three_reads_ms=host_ms(torch, lambda: three_read_hop(
-            torch, lib, _ARGTYPES, ip2d, ix2d, n_id, pos)),
-        pair_form_ms=host_ms(torch, lambda: (
-            psample._gather_bounds(ip, n_id, "pallas"),
-            psample._gather(ix, pos, "pallas"))))
-    print("B3 hop-3 reads on the host, earlier form then pair form (ms) "
-          + json.dumps(hop_host), flush=True)
-    del before, after
 
     # B4: the fused entry at the reads "lanes_fused" makes, beside the
     # two-step form and the literal entry alone
@@ -1072,8 +1240,7 @@ def b3_b4_phase(torch, qt, topo, train, b3, b4):
         ms=total(b3_cases, "ms"), plain_ms=total(b3_cases, "plain_ms"),
         bound_ms=total(b3_cases, "bound_ms"), bound_by="bytes",
         library_ms=total(b3_cases, "library_ms"),
-        host_ms=total(b3_cases, "host_ms"), hop_host_ms=hop_host,
-        cases=b3_cases)
+        host_ms=total(b3_cases, "host_ms"), cases=b3_cases)
     b4_record = dict(
         name="lane_select", route="cuda", source=b4.SOURCE,
         replaces=b4.REPLACES,
@@ -1137,33 +1304,32 @@ def fused_step_split(torch, qt, sampler, feature, model, opt, seeds, labels,
     return {k: float(np.median(v[2:])) for k, v in out.items()}
 
 
-def fused_training_phase(torch, qt, topo, feat, labels, train, b2, b3):
-    """The fused lane: the whole table on the card, ``gather_mode="pallas"``
-    (B3 for every element gather), B2 for the lookup, FUSED_STEPS steps of
-    ``make_fused_train_step``; the loss must fall.  Then the step split,
-    one step under the profiler, and one batch through
-    ``make_fused_eval_fn`` against the plain versions on the CPU.  Returns
-    the launches of the steps and a summary."""
+def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
+               counters, per_step):
+    """One lane of ``make_fused_train_step`` over the whole-table
+    ``feature``: a sampler in ``gather_mode=mode``, seeded GraphSAGE and
+    Adam, ``steps`` steps on the first batches of one shuffle (the loss
+    must fall; each kernel of ``counters`` must launch ``per_step[name]``
+    times a step).  Then the step split, one step under the profiler, and
+    one batch through ``make_fused_eval_fn``.  Returns the launches, a
+    summary, and what the CPU check needs: the model, the eval ids and
+    words, and the card's logits."""
     t0 = time.perf_counter()
-    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
-                         device=DEV).from_cpu_tensor(feat)
-    check(feature.cache_count == topo.node_count, "the table is not whole")
     sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
-                                  gather_mode="pallas")
+                                  gather_mode=mode)
     model = products_model(torch, qt)
     opt = torch.optim.Adam(model.parameters(), lr=P_LR)
     step = qt.make_fused_train_step(sampler, feature, model, opt, seed=SEED)
-    labels_d = torch.from_numpy(labels).to(DEV)
     ones = torch.ones((P_BATCH,), dtype=torch.bool, device=DEV)
     torch.cuda.synchronize()
-    print(f"fused lane: {feature!r}, {sampler!r}; set up in "
+    print(f"fused lane {mode!r}: {feature!r}, {sampler!r}; set up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in (b2.gather_rows, b3.element_gather):
+    for fn in counters.values():
         fn.launches = 0
     losses, wall, dev_ms = [], [], []
-    for seeds, lab in batches(torch, train, labels_d, FUSED_STEPS, SEED + 12):
+    for seeds, lab in batches(torch, train, labels_d, steps, SEED + 12):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1174,63 +1340,93 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b2, b3):
         b.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(a.elapsed_time(b))
-    launches = {"element_gather": b3.element_gather.launches,
-                "gather_rows": b2.gather_rows.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = torch.stack(losses).cpu().numpy()
-    check(np.isfinite(losses).all(), "a fused-step loss is not finite")
+    check(np.isfinite(losses).all(), f"a {mode!r} step loss is not finite")
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
-    check(last < first, f"the fused loss did not fall: {first} -> {last}")
-    n_hops = len(P_FANOUTS)
-    check(launches["element_gather"] == 2 * n_hops * FUSED_STEPS,
-          f"B3 launched {launches['element_gather']} times in "
-          f"{FUSED_STEPS} steps")
-    check(launches["gather_rows"] == FUSED_STEPS,
-          f"B2 launched {launches['gather_rows']} times")
-    summary = dict(steps=FUSED_STEPS, loss_first=float(losses[0]),
-                   loss_last=float(losses[-1]), loss_first5_mean=first,
-                   loss_last5_mean=last, step_wall_ms=float(
-                       np.median(wall[2:])),
+    check(last < first, f"the {mode!r} loss did not fall: {first} -> {last}")
+    for name, n in launches.items():
+        check(n == per_step[name] * steps, f"{mode!r}: {name} launched {n} "
+              f"times in {steps} steps, not {per_step[name]} a step")
+    summary = dict(gather_mode=mode, steps=steps, losses=losses.tolist(),
+                   loss_first5_mean=first, loss_last5_mean=last,
+                   step_wall_ms=float(np.median(wall[2:])),
                    step_event_ms=float(np.median(dev_ms[2:])),
                    launches=launches, peak_gib=peak_gib)
-    print("fused training " + json.dumps(summary), flush=True)
+    print(f"fused training {mode!r} " + json.dumps(summary), flush=True)
 
     # the step split and one step under the profiler
     seeds, lab = next(batches(torch, train, labels_d, 1, SEED + 13))
     split = fused_step_split(torch, qt, sampler, feature, model, opt, seeds,
                              lab, ones)
-    print("fused step split (CUDA events, ms, median of 5) "
+    print(f"fused step split {mode!r} (CUDA events, ms, median of 5) "
           + json.dumps(split), flush=True)
     prof = device_profile(torch, lambda: step(seeds, lab, ones),
                           summary["step_wall_ms"], top=12)
-    print("fused step on the card (torch.profiler) " + json.dumps(prof),
-          flush=True)
+    print(f"fused step {mode!r} on the card (torch.profiler) "
+          + json.dumps(prof), flush=True)
     summary.update(split_ms=split, device_profile=prof)
 
-    # one batch through make_fused_eval_fn, then through the plain
-    # versions on the CPU with the same words
     ids = train[-P_BATCH:]
     kw = sampler.draw_key_words()
     y_card = qt.make_fused_eval_fn(sampler, feature, model)(ids, kw).cpu()
-    del feature, step, opt
-    torch.cuda.empty_cache()
+    return launches, summary, (model, ids, kw, y_card)
+
+
+def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
+    """The fused lane, the whole table on the card, B2 for the lookup, in
+    two gather modes: ``"pallas"`` (B3 for every element gather, twice a
+    hop) for FUSED_STEPS steps, and ``"auto"``, the example's default,
+    which is ``"pwindow"`` (B1 once a hop, B3 never) for AUTO_STEPS steps
+    (``fused_lane``).  Then each lane's eval batch against the plain
+    versions on the CPU within CPU_TOL.  Returns each lane's launches and
+    summary, by mode."""
     t0 = time.perf_counter()
-    sampler_cpu = qt.GraphSageSampler(topo, P_FANOUTS, device="cpu",
-                                      gather_mode="pallas")
+    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                         device=DEV).from_cpu_tensor(feat)
+    check(feature.cache_count == topo.node_count, "the table is not whole")
+    labels_d = torch.from_numpy(labels).to(DEV)
+    print(f"whole products table on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    counters = {"window_sample": b1.window_sample,
+                "element_gather": b3.element_gather,
+                "gather_rows": b2.gather_rows}
+    n_hops = len(P_FANOUTS)
+    lanes = {}
+    for mode, steps, per_step in (
+            ("pallas", FUSED_STEPS, dict(window_sample=0,
+                                         element_gather=2 * n_hops,
+                                         gather_rows=1)),
+            ("auto", AUTO_STEPS, dict(window_sample=n_hops,
+                                      element_gather=0, gather_rows=1))):
+        lanes[mode] = fused_lane(torch, qt, topo, feature, labels_d, train,
+                                 mode, steps, counters, per_step)
+    del feature
+    torch.cuda.empty_cache()
+
+    # each lane's eval batch through the plain versions on the CPU, with
+    # the same words
     feature_cpu = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                              device="cpu").from_cpu_tensor(feat)
-    y_cpu = qt.make_fused_eval_fn(sampler_cpu, feature_cpu,
-                                  copy.deepcopy(model).cpu())(ids, kw)
-    err = float((y_card - y_cpu).abs().max())
-    check(y_card.shape == (P_BATCH, P_CLASSES) and
-          bool(torch.isfinite(y_card).all()), "eval logits")
-    check(torch.allclose(y_card, y_cpu, **CPU_TOL),
-          f"card eval logits differ from the CPU's by {err}")
-    print(f"fused eval batch against the CPU's plain versions: logits max "
-          f"abs err {err:.3e} (CPU pass {time.perf_counter() - t0:.1f} s)",
-          flush=True)
-    summary["eval_logits_max_abs_err"] = err
-    return launches, summary
+    out = {}
+    for mode, (launches, summary, (model, ids, kw, y_card)) in lanes.items():
+        t0 = time.perf_counter()
+        sampler_cpu = qt.GraphSageSampler(topo, P_FANOUTS, device="cpu",
+                                          gather_mode=mode)
+        y_cpu = qt.make_fused_eval_fn(sampler_cpu, feature_cpu,
+                                      copy.deepcopy(model).cpu())(ids, kw)
+        err = float((y_card - y_cpu).abs().max())
+        check(y_card.shape == (P_BATCH, P_CLASSES) and
+              bool(torch.isfinite(y_card).all()), f"{mode!r} eval logits")
+        check(torch.allclose(y_card, y_cpu, **CPU_TOL),
+              f"{mode!r}: card eval logits differ from the CPU's by {err}")
+        print(f"fused eval batch {mode!r} against the CPU's plain versions: "
+              f"logits max abs err {err:.3e} (CPU pass "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        summary["eval_logits_max_abs_err"] = err
+        out[mode] = (launches, summary)
+    return out
 
 
 def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
@@ -1456,10 +1652,19 @@ def main() -> int:
     print(f"products graph {ptopo!r}, features {pfeat.shape}, "
           f"{len(ptrain)} train seeds: made in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    b1_cases, b1_cost = b1_products_phase(torch, ptopo, ptrain, b1)
+    products = b1_record(b1, b1_cases)
+    kernels[0]["products"] = {k: products[k] for k in (
+        "ms", "plain_ms", "bound_ms", "host_ms", "literal_ms",
+        "literal_host_ms", "cases")}
+    kernels[0]["products"]["pipeline_cost"] = b1_cost
     b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
-    launches_f, summary_f = fused_training_phase(
-        torch, qt, ptopo, pfeat, plabels, ptrain, b2, b3)
+    lanes = fused_training_phase(torch, qt, ptopo, pfeat, plabels, ptrain,
+                                 b1, b2, b3)
+    (launches_f, summary_f), (launches_a, summary_a) = (lanes["pallas"],
+                                                        lanes["auto"])
     b3_record["launches"] = launches_f["element_gather"]
+    kernels[0]["launches_fused_training_auto"] = launches_a["window_sample"]
     kernels[1]["launches_fused_training"] = launches_f["gather_rows"]
     launches_s, summary_s = staged_training_phase(
         torch, qt, ptopo, pfeat, plabels, ptrain, b2, b4)
@@ -1467,6 +1672,8 @@ def main() -> int:
     kernels[1]["launches_two_stage_training"] = launches_s["gather_rows"]
     kernels[2:2] = [b3_record, b4_record]
     print("fused training summary " + json.dumps(summary_f), flush=True)
+    print("fused training summary, gather_mode=\"auto\" "
+          + json.dumps(summary_a), flush=True)
     print("two-stage training summary " + json.dumps(summary_s), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 // Device code shared by kernels B3 (element_gather.cu) and B4
 // (lane_select.cu): the read of scattered 4-byte elements, many to a
-// thread, on Hopper.
+// thread, on Hopper.  B1 (window_sample.cu) uses its one-wave grid.
 //
 // On the H100 both kernels read one element at each of M scattered
 // positions of a table far larger than the 50 MB L2, and the time is the
@@ -166,11 +166,11 @@ __device__ __forceinline__ void walk(int64_t m, int64_t h, Step step,
   if (t < m - tail) one(tail + t);
 }
 
-// Blocks for the walk of `steps` steps at kThreads a block: at most as
-// many as are resident at once (SMs times the kernel's blocks per SM), so
-// the walk runs in one wave.  The occupancy is looked up once per kernel
-// and device.
-template <auto Kernel>
+// Blocks for the walk of `steps` steps (one a thread) at Threads a block:
+// at most as many as are resident at once (SMs times the kernel's blocks
+// per SM), so the walk runs in one wave.  The occupancy is looked up once
+// per kernel and device.
+template <auto Kernel, int Threads = kThreads>
 cudaError_t grid_for(int64_t steps, unsigned* blocks) {
   constexpr int kDevices = 16;
   static std::atomic<int> resident[kDevices];
@@ -183,12 +183,12 @@ cudaError_t grid_for(int64_t steps, unsigned* blocks) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                      kThreads, 0);
+                                                      Threads, 0);
     if (e != cudaSuccess) return e;
     cap = sms * (per_sm > 0 ? per_sm : 1);
     if (dev < kDevices) resident[dev].store(cap);
   }
-  const int64_t need = (steps + kThreads - 1) / kThreads;
+  const int64_t need = (steps + Threads - 1) / Threads;
   *blocks = static_cast<unsigned>(need < 1 ? 1 : (need < cap ? need : cap));
   return cudaSuccess;
 }

@@ -20,6 +20,7 @@ import torch
 
 from .config import resolve_gather_mode
 from .ops.sample import key_words_pair, run_hop
+from .ops.cuda.window_sample import window_sample_frontier
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo
 
@@ -69,9 +70,15 @@ class SampledBatch(NamedTuple):
 
 def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
                              return_eid, gather_mode):
-    """Multi-hop pipeline without dedup; one hop per layer (one B1 launch,
-    or the element gathers of ``ops/sample.py::sample_hop``, by the
-    resolved ``gather_mode``)."""
+    """Multi-hop pipeline without dedup; one hop per layer.  Under
+    ``"pwindow"`` each hop is one launch of kernel B1's pipeline entry,
+    which also writes the hop's frontier tail, mask tail and local ids
+    (:func:`_pwindow_pipeline`); every other mode runs the hop's element
+    gathers (``ops/sample.py::sample_hop``) and builds those with torch
+    ops, as the JAX pipeline does."""
+    if gather_mode.startswith("pwindow"):
+        return _pwindow_pipeline(indptr, indices, seeds, key_words, sizes,
+                                 return_eid)
     dev = indptr.device
     B = seeds.shape[0]
     frontier = seeds.to(dev, torch.int32)
@@ -97,6 +104,42 @@ def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
     num_nodes = fmask.sum().to(torch.int32)
     drops = torch.zeros((len(sizes),), dtype=torch.int32, device=dev)
     return frontier, fmask, num_nodes, tuple(blocks[::-1]), drops
+
+
+def _pwindow_pipeline(indptr, indices, seeds, key_words, sizes, return_eid):
+    """The positional pipeline through B1's pipeline entry: the frontier
+    and its mask are allocated once at their final length ``B * prod(1 +
+    k)``, the seeds copied in, and hop l reads ``frontier[:t]`` and writes
+    ``frontier[t : t + t*k]`` and its mask in its one launch.  Each block's
+    mask is a view of the frontier mask, which nothing writes again; the
+    target counts are views of one running count of that mask, taken after
+    the last hop, so a hop launches nothing but B1."""
+    dev = indptr.device
+    t = seeds.shape[0]
+    total = t
+    for k in sizes:
+        total *= 1 + k
+    frontier = torch.empty((total,), dtype=torch.int32, device=dev)
+    fmask = torch.empty((total,), dtype=torch.bool, device=dev)
+    frontier[:t].copy_(seeds)
+    fmask[:t] = True
+    hops, starts = [], []
+    for l, k in enumerate(sizes):
+        hops.append(window_sample_frontier(indptr, indices, frontier, fmask,
+                                           t, k,
+                                           *key_words_pair(key_words[l]),
+                                           return_eid))
+        starts.append(t)
+        t += t * k
+    # live[i]: valid ids in frontier[:i]
+    live = torch.empty((total + 1,), dtype=torch.int32, device=dev)
+    live[:1] = 0  # a fill: a 0-d store would copy from pageable memory
+    torch.cumsum(fmask, 0, dtype=torch.int32, out=live[1:])
+    blocks = [LayerBlock(nbr_local=h.nbr_local, mask=h.mask,
+                         num_targets=live[s], eid=h.eid)
+              for h, s in zip(hops, starts)]
+    drops = torch.zeros((len(sizes),), dtype=torch.int32, device=dev)
+    return frontier, fmask, live[total], tuple(blocks[::-1]), drops
 
 
 def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes,

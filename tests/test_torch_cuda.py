@@ -44,23 +44,141 @@ def _graph(seed=0, n=3000):
     return qt.CSRTopo(indptr=indptr, indices=indices)
 
 
-@pytest.mark.parametrize("k", [1, 10, 25, 128])
-def test_window_sample_kernel_equals_plain(card, k):
+def _b1_inputs(card, k, n_seeds=3000):
+    """A skewed graph on the card and seeds with degree-0 nodes and the
+    last node among them."""
     topo = _graph(k)
     ip, ix = topo.to_device(card)
     rng = np.random.default_rng(k)
-    seeds = np.concatenate([np.arange(12), rng.integers(0, 3000, 3000),
+    seeds = np.concatenate([np.arange(12), rng.integers(0, 3000, n_seeds),
                             [2999]]).astype(np.int32)
-    seeds = torch.from_numpy(seeds).to(card)
+    return ip, ix, torch.from_numpy(seeds).to(card), rng
+
+
+B1_FANOUTS = [1, 5, 10, 25, 33, 128]
+
+
+@pytest.mark.parametrize("k", B1_FANOUTS)
+def test_window_sample_kernel_equals_plain(card, k):
+    """The literal entry: masked and unmasked seeds, a seed view that
+    starts one element into its storage, all seeds masked."""
+    ip, ix, seeds, rng = _b1_inputs(card, k)
     mask = torch.from_numpy(rng.random(seeds.shape[0]) < 0.7).to(card)
-    for m in (mask, None):
+    for s, m in ((seeds, mask), (seeds, None), (seeds[1:], mask[1:]),
+                 (seeds, torch.zeros_like(mask))):
         before = b1.window_sample.launches
-        got = b1.window_sample(ip, ix, seeds, k, 0xDEADBEEF, 12345, m)
+        got = b1.window_sample(ip, ix, s, k, 0xDEADBEEF, 12345, m)
         torch.cuda.synchronize()
         assert b1.window_sample.launches == before + 1
-        want = b1.window_sample_plain(ip, ix, seeds, k, 0xDEADBEEF, 12345, m)
+        want = b1.window_sample_plain(ip, ix, s, k, 0xDEADBEEF, 12345, m)
         for name, a, b in zip(("nbrs", "mask", "counts", "eid"), got, want):
             assert torch.equal(a, b), name
+
+
+def _frontier_buffers(seeds, mask, k):
+    """Pipeline buffers holding ``seeds`` (masked by ``mask``) and room for
+    one hop's tail, the tail filled with a sentinel."""
+    t = seeds.shape[0]
+    frontier = torch.full((t * (1 + k),), -7, dtype=torch.int32,
+                          device=seeds.device)
+    fmask = torch.zeros_like(frontier, dtype=torch.bool)
+    frontier[:t] = seeds
+    fmask[:t] = mask
+    return frontier, fmask
+
+
+@pytest.mark.parametrize("k", B1_FANOUTS)
+def test_window_sample_frontier_kernel_equals_plain(card, k):
+    """The pipeline entry: the frontier and mask tails, local ids, counts
+    and edge ids equal the plain version's, with and without edge ids, a
+    frontier that starts one element into its storage, all seeds
+    masked."""
+    ip, ix, seeds, rng = _b1_inputs(card, k)
+    mask = torch.from_numpy(rng.random(seeds.shape[0]) < 0.7).to(card)
+    cases = [(seeds, mask, True), (seeds, mask, False),
+             (seeds, torch.zeros_like(mask), True)]
+    for s, m, eid in cases + [(seeds[1:], mask[1:], True)]:
+        bufs = [_frontier_buffers(s, m, k) for _ in range(2)]
+        if s.data_ptr() != seeds.data_ptr():  # shift the buffers too
+            bufs = [(torch.cat([f[:1], f])[1:], torch.cat([fm[:1], fm])[1:])
+                    for f, fm in bufs]
+            assert bufs[0][0].storage_offset() == 1
+        t = s.shape[0]
+        before = b1.window_sample.launches
+        got = b1.window_sample_frontier(ip, ix, *bufs[0], t, k, 0xDEADBEEF,
+                                        12345, return_eid=eid)
+        torch.cuda.synchronize()
+        assert b1.window_sample.launches == before + 1
+        want = b1.window_sample_frontier_plain(ip, ix, *bufs[1], t, k,
+                                               0xDEADBEEF, 12345,
+                                               return_eid=eid)
+        assert torch.equal(bufs[0][0], bufs[1][0])
+        assert torch.equal(bufs[0][1], bufs[1][1])
+        for name in ("nbr_local", "mask", "counts"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        if eid:
+            assert torch.equal(got.eid, want.eid)
+        else:
+            assert got.eid is None and want.eid is None
+
+
+def test_window_sample_larger_than_one_wave(card):
+    """Both entries over more draws than one wave of resident threads
+    holds (each thread walks many 32-draw steps)."""
+    ip, ix, seeds, rng = _b1_inputs(card, 5, n_seeds=400_000)
+    mask = torch.from_numpy(rng.random(seeds.shape[0]) < 0.9).to(card)
+    got = b1.window_sample(ip, ix, seeds, 5, 7, 8, mask)
+    want = b1.window_sample_plain(ip, ix, seeds, 5, 7, 8, mask)
+    for name, a, b in zip(("nbrs", "mask", "counts", "eid"), got, want):
+        assert torch.equal(a, b), name
+    bufs = [_frontier_buffers(seeds, mask, 5) for _ in range(2)]
+    t = seeds.shape[0]
+    got = b1.window_sample_frontier(ip, ix, *bufs[0], t, 5, 7, 8)
+    want = b1.window_sample_frontier_plain(ip, ix, *bufs[1], t, 5, 7, 8)
+    assert torch.equal(bufs[0][0], bufs[1][0])
+    assert torch.equal(bufs[0][1], bufs[1][1])
+    assert torch.equal(got.nbr_local, want.nbr_local)
+    assert torch.equal(got.counts, want.counts)
+
+
+def test_window_sample_refuses_2_31_draws_and_short_buffers(card):
+    ip, ix = _graph().to_device(card)
+    seeds = torch.zeros(2048, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        b1.window_sample(ip, ix, seeds, 2**20, 1, 2)
+    frontier, fmask = _frontier_buffers(seeds, seeds >= 0, 4)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        b1.window_sample_frontier(ip, ix, frontier, fmask, 2048, 2**20, 1, 2)
+    with pytest.raises(ValueError, match="too short"):
+        b1.window_sample_frontier(ip, ix, frontier, fmask, 2048, 5, 1, 2)
+    with pytest.raises(ValueError, match="too short"):
+        b1.window_sample_frontier(ip, ix, frontier[:-1], fmask[:-1], 2048, 4,
+                                  1, 2)
+
+
+def test_pwindow_pipeline_on_card_equals_cpu(card):
+    """The 3-hop sampler on the card under ``"pwindow"`` launches B1 once a
+    hop and returns the CPU's batch bitwise: frontier, its mask, node
+    count, and every block's local ids, mask, target count and edge
+    ids."""
+    topo = _graph(7, n=3000)
+    kw = np.array([[5, 6], [7, 8], [9, 10]], np.uint32)
+    ids = np.concatenate([np.arange(0, 3000, 37), [2999, 0]])
+    before = b1.window_sample.launches
+    got = qt.GraphSageSampler(topo, [10, 5, 3], device=card, return_eid=True,
+                              gather_mode="pwindow").sample(ids, key_words=kw)
+    torch.cuda.synchronize()
+    assert b1.window_sample.launches == before + 3
+    want = qt.GraphSageSampler(topo, [10, 5, 3], device="cpu",
+                               return_eid=True, gather_mode="pwindow"
+                               ).sample(ids, key_words=kw)
+    assert torch.equal(got.n_id.cpu(), want.n_id)
+    assert torch.equal(got.n_id_mask.cpu(), want.n_id_mask)
+    assert int(got.num_nodes) == int(want.num_nodes)
+    for a, b in zip(got.layers, want.layers):
+        for name in ("nbr_local", "mask", "eid"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+        assert int(a.num_targets) == int(b.num_targets)
 
 
 @pytest.mark.parametrize("dtype,width", [

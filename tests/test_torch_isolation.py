@@ -25,7 +25,8 @@ def _forbidden(module: str) -> bool:
 
 def _port_files():
     files = sorted((ROOT / "quiver_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "walk_sweep.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "walk_sweep.py",
+                    ROOT / "pipeline_compare.py"]
 
 
 def test_import_leaves_jax_out():
