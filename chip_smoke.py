@@ -28,6 +28,16 @@ first use, with nvcc, one process per source, all at once), then:
    both kernels' launch counters rose while serving; then splits one
    bucket-2048 pass into sampling, lookup and model with CUDA events and
    lists its device time by kernel with ``torch.profiler``;
+4b. weighted serving phase (slice 6): the same graph with edge weights
+   from ``default_rng(SEED).random(E)`` and ``dedup="hop"``; serves the
+   same 64-request plan (B3 27 times a hop of each chunk: bounds, total,
+   24 CDF rounds, draws; B2 once a chunk; B1 never), holds one padded
+   bucket-2048 pass (duplicate seeds) bitwise against the ``"xla"``
+   pipeline on the card and its logits within CPU_TOL of the model on
+   that batch, splits the pass, and runs its pipeline under
+   ``"blocked:3"`` (B3 for every read, 27 launches a hop): bitwise equal
+   to ``"xla"``, its span and peak memory beside ``"auto"``'s and
+   ``"xla"``'s;
 5. B5 kernel phase (slice 2, the budgeted feature store): the feature
    under the reference's ``device_cache_size="200M"`` in degree order,
    paged, with a pool of every host page; stages the frontier of one
@@ -51,7 +61,9 @@ first use, with nvcc, one process per source, all at once), then:
    nodes, ~123.7M edges), B1's two entries at the three hops of one
    1,024-seed batch with fanouts [15, 10, 5] (frontiers of 1,024, 16,384
    and 180,224 ids), as in the kernel phase, and the ``"pwindow"``
-   pipeline's cost by depth;
+   pipeline's cost by depth; then that batch's positional pipeline
+   under ``"blocked:3"`` (B3 twice a hop), bitwise against ``"xla"``,
+   with spans and peak memory as in 4b;
 10. B3/B4 kernel phase (slices 3 and 4, training): at the last hop of that
    batch (the 180,224-long frontier, its 901,120 draws), holds B3's two
    entries and B4's fused and literal entries against their plain
@@ -63,11 +75,18 @@ first use, with nvcc, one process per source, all at once), then:
    100 -> 256 -> 256 -> 47 with dropout 0.5 and seeded weights, Adam at
    3e-3; 30 steps of ``make_fused_train_step`` under
    ``gather_mode="pallas"`` (B3 twice a hop, 6 times a step, B1 never)
-   and 10 under ``"auto"``, the example's default (B1 once a hop, 3 times
-   a step, B3 never); B2 once a step; the loss must fall in each; per
-   lane the step split by CUDA events, one step under ``torch.profiler``,
-   and one batch through ``make_fused_eval_fn`` against the plain
-   versions on the CPU within CPU_TOL;
+   10 under ``"auto"``, the example's default (B1 once a hop, 3 times a
+   step, B3 never), and 10 under ``"auto"`` with ``dedup="hop"`` and no
+   caps (slice 6: B1's literal entry once a hop, then the reindex); B2
+   once a step; the loss must fall in each; per lane the step split by
+   CUDA events, one step under ``torch.profiler`` (B1's kernels and the
+   sort, searchsorted and scatter kernels counted; 3 B1 kernels under
+   ``"hop"``; the dedup's whole device time is the ``"hop"`` step's
+   device time less the ``"none"`` step's), and one batch through ``make_fused_eval_fn``
+   against the plain versions on the CPU within CPU_TOL; the ``"hop"``
+   lane's first sampled batch bitwise against the ``"xla"`` pipeline on
+   the card, and one call under ``bench.py``'s ``hop_caps`` (hop 1 must
+   drop nodes; ``overflow_stats``), bitwise against ``"xla"`` too;
 12. two-stage training phase: ``device_cache_size="200M"`` (524,288 hot
    rows), ``SeedLoader(prefetch=2)`` over a sampler in
    ``gather_mode="lanes_fused"`` (B4 must launch 9 times per sampled
@@ -124,6 +143,11 @@ P_DIM, P_HIDDEN, P_CLASSES = 100, 256, 47
 P_FANOUTS = [15, 10, 5]
 P_BATCH, P_LR = 1024, 3e-3
 FUSED_STEPS, AUTO_STEPS, STAGED_STEPS = 30, 10, 5
+# device operations counted by name in a step's profile (lower case)
+KERNEL_FAMILIES = {"B1": ("window_sample_kernel",),
+                   "sort_searchsorted_scatter": ("sort", "searchsorted",
+                                                 "scatter")}
+BLOCKED_MODE = "blocked:3"
 
 
 def fail(msg: str):
@@ -372,10 +396,7 @@ def kernel_phase(torch, qt, topo, feature, b1, b2):
 def stage_times(torch, server):
     """CUDA-event split of one bucket-2048 pass: sampling, feature
     lookup, model (median of 5)."""
-    from quiver_tpu_torch.sampler import run_pipeline
-
     s = server.sampler
-    ip, ix = s.csr_topo.to_device(s.device)
     ids = np.random.default_rng(SEED + 2).integers(0, N_NODES, 2048)
     out = {"sample": [], "lookup": [], "model": [], "pass_wall": []}
     with torch.inference_mode():
@@ -385,9 +406,7 @@ def stage_times(torch, server):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ev[0].record()
-            seeds = s.seed_tensor(ids)
-            n_id, _, _, blocks, _ = run_pipeline("none", ip, ix, seeds, kw,
-                                                 s.sizes)
+            n_id, _, _, blocks, _ = s.pipeline(s.seed_tensor(ids), kw)
             ev[1].record()
             x = server.feature.lookup_device(n_id)
             ev[2].record()
@@ -410,33 +429,55 @@ def pass_runner(forward, seed: int):
     return lambda: forward(ids, kw).cpu()
 
 
-def device_profile(torch, run, wall_ms: float, top: int = 8) -> dict:
+def device_profile(torch, run, wall_ms: float, top: int = 8,
+                   families=None, tries: int = 3) -> dict:
     """``run()`` once warm, then once under ``torch.profiler``: device time
     by kernel or copy (the ``top`` largest), and the card's busy share of
     ``wall_ms``, the unprofiled run's wall time (one stream, so device
-    events do not overlap and their sum is the busy time)."""
+    events do not overlap and their sum is the busy time), and the count
+    of device operations.  ``families`` maps a label to name fragments
+    (matched without case): each label gets the count and device time of
+    the operations whose names hold one.  A capture with no device event
+    is taken again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        # user annotations (e.g. Optimizer.step) span the kernels inside
-        # them on the device track: count the kernels only
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        counts: dict = {}
+        for e in prof.events():
+            # user annotations (e.g. Optimizer.step) span the kernels
+            # inside them on the device track: count the kernels only
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.device_time_total
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if by_name:
+            break
     busy_ms = sum(by_name.values()) / 1e3
     if busy_ms == 0:
         return {"device_ms": "not measured: the profiler saw no device "
                              "events"}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(device_ms=busy_ms, busy_share=busy_ms / wall_ms,
-                top=[dict(name=n[:100], ms=t / 1e3) for n, t in ranked])
+    out = dict(device_ms=busy_ms, busy_share=busy_ms / wall_ms,
+               top=[dict(name=n[:100], ms=t / 1e3) for n, t in ranked],
+               ops=sum(counts.values()))
+    if families:
+        out["families"] = {}
+        for label, frags in families.items():
+            names = [n for n in by_name
+                     if any(f in n.lower() for f in frags)]
+            ms = sum(by_name[n] for n in names) / 1e3
+            out["families"][label] = dict(
+                count=sum(counts[n] for n in names), ms=ms,
+                share=ms / busy_ms)
+    return out
 
 
 def request_plan():
@@ -598,6 +639,80 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
     print("bucket-2048 pass on the card (torch.profiler) " + json.dumps(prof),
           flush=True)
     summary.update(stages_ms=stages, device_profile=prof)
+    return launches, summary
+
+
+def weighted_serving_phase(torch, qt, topo, feature, b2, b3):
+    """Reddit serving with edge weights (``default_rng(SEED).random(E)``)
+    and ``dedup="hop"``: the request plan through ``serve``; B3 reads
+    every hop's bounds, totals, 24 CDF rounds and draws (27 launches a hop
+    of each pass's chunk, B1 none), B2 the lookup.  One padded
+    bucket-2048 pass (its duplicate seeds are the bucket's pad) against
+    the ``"xla"`` pipeline on the card, bit for bit, and its logits within
+    CPU_TOL of the model on that pipeline's batch; the pass split; then
+    the same pass's pipeline under BLOCKED_MODE (``blocked_phase``).
+    Returns the launches and a summary."""
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    t0 = time.perf_counter()
+    w = np.random.default_rng(SEED).random(topo.edge_count, dtype=np.float32)
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED,
+                                  edge_weights=w, dedup="hop")
+    del w
+    torch.cuda.synchronize()
+    print(f"weighted sampler {sampler!r}: cumulative weights on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    model = seeded_model(torch, qt)
+    server, _, _, launches, rng, summary = serve(
+        torch, qt, sampler, feature, model,
+        {"element_gather": b3.element_gather, "gather_rows": b2.gather_rows})
+    chunks = sum(len(log) for _, log in server.pass_log)
+    per_chunk = len(FANOUTS) * (1 + 1 + 24 + 1)
+    check(launches["element_gather"] == per_chunk * chunks,
+          f"B3 launched {launches['element_gather']} times for {chunks} "
+          f"weighted chunks, not {per_chunk} a chunk")
+    check(launches["gather_rows"] == chunks,
+          f"B2 launched {launches['gather_rows']} times for {chunks} chunks")
+
+    ip, ix = topo.to_device(DEV)
+    cw = sampler._cum_weights
+    padded = server._pad_ids(rng.integers(0, N_NODES, 1500))
+    check(len(padded) == 2048, f"padded to {len(padded)}")
+    kw = server.draw_key_words()
+    seeds = sampler.seed_tensor(padded)
+    with torch.inference_mode():
+        got = sampler.pipeline(seeds, kw)
+        want = run_pipeline("hop", ip, ix, seeds, kw, FANOUTS,
+                            gather_mode="xla", cum_weights=cw)
+        check_same_sample(torch, got, want, "weighted Reddit hop vs xla")
+        y = server.fused_forward(padded, kw).cpu()
+        y_plain = server.model(feature.lookup_device(want[0]),
+                               want[3]).cpu()
+    err = float((y - y_plain).abs().max())
+    check(bool(torch.isfinite(y).all()) and y.shape == (2048, CLASSES),
+          "weighted logits")
+    check(torch.allclose(y, y_plain, **CPU_TOL),
+          f"weighted logits differ from the xla batch's by {err}")
+    sizes = dict(padded=[int(b.nbr_local.shape[0]) for b in got[3][::-1]]
+                 + [int(got[0].shape[0])],
+                 valid=[int(b.num_targets) for b in got[3][::-1]]
+                 + [int(got[2])])
+    print(f"weighted hop bucket-2048 pass: batch equal to xla, bit for bit; "
+          f"logits max abs err {err:.3e}; frontiers {json.dumps(sizes)}",
+          flush=True)
+    stages = stage_times(torch, server)
+    print("weighted hop bucket-2048 pass split (ms, median of 5) "
+          + json.dumps(stages), flush=True)
+    hprof = host_profile(torch, lambda: sampler.pipeline(seeds, kw))
+    print("weighted hop pipeline on the host (cProfile, own time) "
+          + json.dumps(hprof), flush=True)
+    blocked = blocked_phase(torch, "Reddit weighted hop", lambda mode:
+                            run_pipeline("hop", ip, ix, seeds, kw, FANOUTS,
+                                         gather_mode=mode, cum_weights=cw),
+                            b3, per_chunk)
+    summary.update(stages_ms=stages, logits_max_abs_err=err,
+                   frontiers=sizes, chunks=chunks, blocked=blocked,
+                   host_profile=hprof)
     return launches, summary
 
 
@@ -1273,9 +1388,7 @@ def fused_step_split(torch, qt, sampler, feature, model, opt, seeds, labels,
     """One fused step's stages by CUDA events (median of 5 after 2 warm):
     sampling, lookup, forward and loss, backward, optimizer."""
     from quiver_tpu_torch.parallel.train import masked_cross_entropy
-    from quiver_tpu_torch.sampler import run_pipeline
 
-    ip, ix = sampler.csr_topo.to_device(sampler.device)
     keys = ("sample", "lookup", "forward", "backward", "optimizer")
     out = {k: [] for k in keys}
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -1284,9 +1397,7 @@ def fused_step_split(torch, qt, sampler, feature, model, opt, seeds, labels,
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         kw = sampler.draw_key_words()
         ev[0].record()
-        n_id, _, _, blocks, _ = run_pipeline(
-            "none", ip, ix, seeds, kw, sampler.sizes,
-            gather_mode=sampler.gather_mode)
+        n_id, _, _, blocks, _ = sampler.pipeline(seeds, kw, weighted=False)
         ev[1].record()
         x = feature.lookup_device(n_id)
         ev[2].record()
@@ -1305,24 +1416,27 @@ def fused_step_split(torch, qt, sampler, feature, model, opt, seeds, labels,
 
 
 def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
-               counters, per_step):
+               counters, per_step, dedup="none"):
     """One lane of ``make_fused_train_step`` over the whole-table
     ``feature``: a sampler in ``gather_mode=mode``, seeded GraphSAGE and
     Adam, ``steps`` steps on the first batches of one shuffle (the loss
     must fall; each kernel of ``counters`` must launch ``per_step[name]``
     times a step).  Then the step split, one step under the profiler, and
-    one batch through ``make_fused_eval_fn``.  Returns the launches, a
-    summary, and what the CPU check needs: the model, the eval ids and
-    words, and the card's logits."""
+    one batch through ``make_fused_eval_fn``.  The profile counts B1's
+    kernels and the sort, searchsorted and scatter kernels (the reindex's
+    largest, not all of its operations) and their share of the step; under ``dedup="hop"`` it must show B1 once a hop.
+    Returns the launches, a summary, and what the CPU check needs: the
+    model, the eval ids and words, and the card's logits."""
+    lane = repr(mode) if dedup == "none" else f"{mode!r} dedup={dedup!r}"
     t0 = time.perf_counter()
     sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
-                                  gather_mode=mode)
+                                  gather_mode=mode, dedup=dedup)
     model = products_model(torch, qt)
     opt = torch.optim.Adam(model.parameters(), lr=P_LR)
     step = qt.make_fused_train_step(sampler, feature, model, opt, seed=SEED)
     ones = torch.ones((P_BATCH,), dtype=torch.bool, device=DEV)
     torch.cuda.synchronize()
-    print(f"fused lane {mode!r}: {feature!r}, {sampler!r}; set up in "
+    print(f"fused lane {lane}: {feature!r}, {sampler!r}; set up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1343,30 +1457,35 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = torch.stack(losses).cpu().numpy()
-    check(np.isfinite(losses).all(), f"a {mode!r} step loss is not finite")
+    check(np.isfinite(losses).all(), f"a {lane} step loss is not finite")
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
-    check(last < first, f"the {mode!r} loss did not fall: {first} -> {last}")
+    check(last < first, f"the {lane} loss did not fall: {first} -> {last}")
     for name, n in launches.items():
-        check(n == per_step[name] * steps, f"{mode!r}: {name} launched {n} "
+        check(n == per_step[name] * steps, f"{lane}: {name} launched {n} "
               f"times in {steps} steps, not {per_step[name]} a step")
-    summary = dict(gather_mode=mode, steps=steps, losses=losses.tolist(),
-                   loss_first5_mean=first, loss_last5_mean=last,
+    summary = dict(gather_mode=mode, dedup=dedup, steps=steps,
+                   losses=losses.tolist(), loss_first5_mean=first, loss_last5_mean=last,
                    step_wall_ms=float(np.median(wall[2:])),
                    step_event_ms=float(np.median(dev_ms[2:])),
                    launches=launches, peak_gib=peak_gib)
-    print(f"fused training {mode!r} " + json.dumps(summary), flush=True)
+    print(f"fused training {lane} " + json.dumps(summary), flush=True)
 
     # the step split and one step under the profiler
     seeds, lab = next(batches(torch, train, labels_d, 1, SEED + 13))
     split = fused_step_split(torch, qt, sampler, feature, model, opt, seeds,
                              lab, ones)
-    print(f"fused step split {mode!r} (CUDA events, ms, median of 5) "
+    print(f"fused step split {lane} (CUDA events, ms, median of 5) "
           + json.dumps(split), flush=True)
     prof = device_profile(torch, lambda: step(seeds, lab, ones),
-                          summary["step_wall_ms"], top=12)
-    print(f"fused step {mode!r} on the card (torch.profiler) "
+                          summary["step_wall_ms"], top=12,
+                          families=KERNEL_FAMILIES)
+    print(f"fused step {lane} on the card (torch.profiler) "
           + json.dumps(prof), flush=True)
     summary.update(split_ms=split, device_profile=prof)
+    if dedup == "hop":
+        b1_ops = prof.get("families", {}).get("B1", {}).get("count")
+        check(b1_ops == per_step["window_sample"], f"{lane}: {b1_ops} B1 "
+              "kernels in the profile of one step")
 
     ids = train[-P_BATCH:]
     kw = sampler.draw_key_words()
@@ -1374,14 +1493,124 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     return launches, summary, (model, ids, kw, y_card)
 
 
+def hop_caps(batch_size: int, sizes) -> list:
+    """``bench.py``'s frontier caps for ``dedup="hop"``: half of each
+    hop's bound without dedup, at least ``batch_size + 1``."""
+    p, caps = batch_size, []
+    for k in sizes:
+        p *= 1 + k
+        caps.append(max(batch_size + 1, p // 2))
+    return caps
+
+
+def check_same_sample(torch, got, want, what: str):
+    """Two ``run_pipeline`` results, bit for bit: ``n_id``, its mask,
+    ``num_nodes``, every block's ``nbr_local``, ``mask`` and
+    ``num_targets``, and ``drops``."""
+    for name, a, b in zip(("n_id", "n_id_mask", "num_nodes"), got[:3],
+                          want[:3]):
+        check(torch.equal(a, b), f"{what}: {name} differs")
+    check(len(got[3]) == len(want[3]), f"{what}: block counts differ")
+    for i, (a, b) in enumerate(zip(got[3], want[3])):
+        for name in ("nbr_local", "mask", "num_targets"):
+            check(torch.equal(getattr(a, name), getattr(b, name)),
+                  f"{what}: block {i} {name} differs")
+    check(torch.equal(got[4], want[4]), f"{what}: drops differ")
+
+
+def hop_batch_phase(torch, qt, topo, seeds, b1) -> dict:
+    """Step 1's sampled batch of the ``dedup="hop"`` lane (its seeds and
+    the first words of a sampler seeded as the lane's is), under
+    ``"auto"`` (B1's literal entry once a hop), against the ``"xla"``
+    pipeline on the card, bit for bit; padded frontiers 1,024, 16,384,
+    180,224 and 1,081,344.  Then one sampling call under ``bench.py``'s
+    ``hop_caps``, whose first hop must drop nodes, against ``"xla"`` with
+    the same caps."""
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    ip, ix = topo.to_device(DEV)
+    sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
+                                  dedup="hop")
+    kw = sampler.draw_key_words()
+    before = b1.window_sample.launches
+    got = sampler.pipeline(seeds, kw)
+    torch.cuda.synchronize()
+    check(b1.window_sample.launches - before == len(P_FANOUTS),
+          "the hop pipeline did not launch B1 once a hop")
+    want = run_pipeline("hop", ip, ix, seeds, kw, P_FANOUTS,
+                        gather_mode="xla")
+    check_same_sample(torch, got, want, "products hop step 1 vs xla")
+    padded = [int(b.nbr_local.shape[0]) for b in got[3][::-1]]
+    padded.append(int(got[0].shape[0]))
+    check(padded == frontier_sizes(P_BATCH), f"hop frontiers {padded}")
+    out = dict(padded=padded, valid=[int(b.num_targets) for b in
+                                     got[3][::-1]] + [int(got[2])])
+
+    caps = hop_caps(P_BATCH, P_FANOUTS)
+    capped = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, dedup="hop",
+                                 frontier_caps=caps)
+    batch = capped.sample(seeds, key_words=kw)
+    drops = capped.overflow_stats()
+    check(drops[0] > 0, f"hop 1 dropped no node under caps {caps}")
+    want = run_pipeline("hop", ip, ix, seeds, kw, P_FANOUTS, caps,
+                        gather_mode="xla")
+    check_same_sample(torch, (batch.n_id, batch.n_id_mask, batch.num_nodes,
+                              batch.layers, batch.drops), want,
+                      "capped products hop vs xla")
+    out.update(caps=caps, drops=drops.tolist(),
+               drops_counter=capped.frontier_drops.value,
+               capped_num_nodes=int(batch.num_nodes))
+    print("products hop batch: equal to xla, bit for bit "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def blocked_phase(torch, where: str, run, b3, b3_per_call: int) -> dict:
+    """``run(mode)`` (one ``run_pipeline`` call) under BLOCKED_MODE against
+    ``"xla"``, bit for bit, with B3 launched ``b3_per_call`` times (every
+    read of the mode is B3's); then each of BLOCKED_MODE, ``"auto"`` and
+    ``"xla"``: its sample span (CUDA events behind a spin kernel, median
+    of 5; the host's launches show in it when they outlast the spin), the
+    host time to return (``host_ms``), the device time of its operations
+    (``torch.profiler``) and the device memory it allocates above what was
+    allocated before it (peak)."""
+    before = b3.element_gather.launches
+    got = run(BLOCKED_MODE)
+    n = b3.element_gather.launches - before
+    check(n == b3_per_call, f"{where} {BLOCKED_MODE}: B3 launched {n} "
+          f"times, not {b3_per_call}")
+    check_same_sample(torch, got, run("xla"),
+                      f"{where} {BLOCKED_MODE} vs xla")
+    out = {}
+    for mode in (BLOCKED_MODE, "auto", "xla"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(mode)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        span = cuda_ms(torch, lambda: run(mode), reps=5, warm=1)
+        prof = device_profile(torch, lambda: run(mode), span, top=3)
+        out[mode] = dict(span_ms=span,
+                         host_ms=host_ms(torch, lambda: run(mode), reps=5),
+                         device_ms=prof["device_ms"],
+                         device_ops=prof.get("ops"),
+                         peak_extra_gib=peak / 2**30)
+    print(f"{where} pipeline under {BLOCKED_MODE}: equal to xla, bit for "
+          "bit " + json.dumps(out), flush=True)
+    return out
+
+
 def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     """The fused lane, the whole table on the card, B2 for the lookup, in
-    two gather modes: ``"pallas"`` (B3 for every element gather, twice a
-    hop) for FUSED_STEPS steps, and ``"auto"``, the example's default,
-    which is ``"pwindow"`` (B1 once a hop, B3 never) for AUTO_STEPS steps
-    (``fused_lane``).  Then each lane's eval batch against the plain
-    versions on the CPU within CPU_TOL.  Returns each lane's launches and
-    summary, by mode."""
+    three lanes (``fused_lane``): ``"pallas"`` (B3 for every element
+    gather, twice a hop) for FUSED_STEPS steps; ``"auto"``, the example's
+    default, which is ``"pwindow"`` (B1 once a hop, B3 never), for
+    AUTO_STEPS steps; and ``"auto"`` under ``dedup="hop"`` with no caps
+    (B1's literal entry once a hop, then the reindex) for AUTO_STEPS
+    steps, with ``hop_batch_phase``.  Then each lane's eval batch against
+    the plain versions on the CPU within CPU_TOL.  Returns each lane's
+    launches and summary, by lane."""
     t0 = time.perf_counter()
     feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                          device=DEV).from_cpu_tensor(feat)
@@ -1393,15 +1622,18 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
                 "element_gather": b3.element_gather,
                 "gather_rows": b2.gather_rows}
     n_hops = len(P_FANOUTS)
+    b1_lane = dict(window_sample=n_hops, element_gather=0, gather_rows=1)
     lanes = {}
-    for mode, steps, per_step in (
-            ("pallas", FUSED_STEPS, dict(window_sample=0,
-                                         element_gather=2 * n_hops,
-                                         gather_rows=1)),
-            ("auto", AUTO_STEPS, dict(window_sample=n_hops,
-                                      element_gather=0, gather_rows=1))):
-        lanes[mode] = fused_lane(torch, qt, topo, feature, labels_d, train,
-                                 mode, steps, counters, per_step)
+    for label, mode, dedup, steps, per_step in (
+            ("pallas", "pallas", "none", FUSED_STEPS,
+             dict(window_sample=0, element_gather=2 * n_hops,
+                  gather_rows=1)),
+            ("auto", "auto", "none", AUTO_STEPS, b1_lane),
+            ("auto hop", "auto", "hop", AUTO_STEPS, b1_lane)):
+        lanes[label] = fused_lane(torch, qt, topo, feature, labels_d, train,
+                                  mode, steps, counters, per_step, dedup)
+    seeds, _ = next(batches(torch, train, labels_d, 1, SEED + 12))
+    hop_checks = hop_batch_phase(torch, qt, topo, seeds, b1)
     del feature
     torch.cuda.empty_cache()
 
@@ -1410,22 +1642,25 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     feature_cpu = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                              device="cpu").from_cpu_tensor(feat)
     out = {}
-    for mode, (launches, summary, (model, ids, kw, y_card)) in lanes.items():
+    for label, (launches, summary, (model, ids, kw, y_card)) in lanes.items():
+        mode = summary["gather_mode"]
         t0 = time.perf_counter()
         sampler_cpu = qt.GraphSageSampler(topo, P_FANOUTS, device="cpu",
-                                          gather_mode=mode)
+                                          gather_mode=mode,
+                                          dedup=summary["dedup"])
         y_cpu = qt.make_fused_eval_fn(sampler_cpu, feature_cpu,
                                       copy.deepcopy(model).cpu())(ids, kw)
         err = float((y_card - y_cpu).abs().max())
         check(y_card.shape == (P_BATCH, P_CLASSES) and
-              bool(torch.isfinite(y_card).all()), f"{mode!r} eval logits")
+              bool(torch.isfinite(y_card).all()), f"{label!r} eval logits")
         check(torch.allclose(y_card, y_cpu, **CPU_TOL),
-              f"{mode!r}: card eval logits differ from the CPU's by {err}")
-        print(f"fused eval batch {mode!r} against the CPU's plain versions: "
+              f"{label!r}: card eval logits differ from the CPU's by {err}")
+        print(f"fused eval batch {label!r} against the CPU's plain versions: "
               f"logits max abs err {err:.3e} (CPU pass "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
         summary["eval_logits_max_abs_err"] = err
-        out[mode] = (launches, summary)
+        out[label] = (launches, summary)
+    out["auto hop"][1]["batch_checks"] = hop_checks
     return out
 
 
@@ -1570,6 +1805,7 @@ def main() -> int:
     from quiver_tpu_torch.ops.cuda import lane_select as b4
     from quiver_tpu_torch.ops.cuda import page_gather as b5
     from quiver_tpu_torch.ops.cuda import window_sample as b1
+    from quiver_tpu_torch.sampler import run_pipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1607,6 +1843,10 @@ def main() -> int:
                                       b2)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    launches_w, summary_w = weighted_serving_phase(torch, qt, topo, feature,
+                                                   b2, b3)
+    kernels[1]["launches_weighted_serving"] = launches_w["gather_rows"]
+    torch.cuda.empty_cache()
 
     # slice 2: every feature below compares with the source table by its
     # own feature_order (each from_cpu_tensor rewrites topo.feature_order)
@@ -1658,14 +1898,40 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "host_ms", "literal_ms",
         "literal_host_ms", "cases")}
     kernels[0]["products"]["pipeline_cost"] = b1_cost
+    pip, pix = ptopo.to_device(DEV)
+    pseeds, pkw = products_batch(torch, torch.device(DEV), ptrain)
+    blocked_p = blocked_phase(torch, "products", lambda mode: run_pipeline(
+        "none", pip, pix, pseeds, pkw, P_FANOUTS, gather_mode=mode),
+        b3, 2 * len(P_FANOUTS))
     b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
+    b3_record["launches_weighted_serving"] = launches_w["element_gather"]
     lanes = fused_training_phase(torch, qt, ptopo, pfeat, plabels, ptrain,
                                  b1, b2, b3)
-    (launches_f, summary_f), (launches_a, summary_a) = (lanes["pallas"],
-                                                        lanes["auto"])
+    (launches_f, summary_f), (launches_a, summary_a), \
+        (launches_h, summary_h) = (lanes["pallas"], lanes["auto"],
+                                   lanes["auto hop"])
     b3_record["launches"] = launches_f["element_gather"]
     kernels[0]["launches_fused_training_auto"] = launches_a["window_sample"]
+    kernels[0]["launches_hop_training"] = launches_h["window_sample"]
     kernels[1]["launches_fused_training"] = launches_f["gather_rows"]
+    kernels[1]["launches_hop_training"] = launches_h["gather_rows"]
+    side = {}
+    for name, summ in (("none", summary_a), ("hop", summary_h)):
+        prof = summ["device_profile"]
+        side[name] = dict(
+            step_wall_ms=summ["step_wall_ms"],
+            sample_span_ms=summ["split_ms"]["sample"],
+            device_ms=prof["device_ms"],
+            sort_searchsorted_scatter=prof.get("families", {}).get(
+                "sort_searchsorted_scatter"),
+            busy_share=prof.get("busy_share"), peak_gib=summ["peak_gib"],
+            losses=summ["losses"])
+    if all(isinstance(side[n]["device_ms"], float) for n in side):
+        # the dedup's whole device cost: sort, compares, cumsum, scatter
+        side["hop"]["dedup_device_ms"] = (side["hop"]["device_ms"]
+                                          - side["none"]["device_ms"])
+    print("products fused training under \"auto\", dedup=\"hop\" beside "
+          "dedup=\"none\" " + json.dumps(side), flush=True)
     launches_s, summary_s = staged_training_phase(
         torch, qt, ptopo, pfeat, plabels, ptrain, b2, b4)
     b4_record["launches"] = launches_s["lane_select"]
@@ -1674,6 +1940,12 @@ def main() -> int:
     print("fused training summary " + json.dumps(summary_f), flush=True)
     print("fused training summary, gather_mode=\"auto\" "
           + json.dumps(summary_a), flush=True)
+    print("fused training summary, gather_mode=\"auto\", dedup=\"hop\" "
+          + json.dumps(summary_h), flush=True)
+    print("weighted hop serving summary " + json.dumps(summary_w), flush=True)
+    print(f"{BLOCKED_MODE} summary " + json.dumps(dict(
+        products=blocked_p, reddit_weighted_hop=summary_w["blocked"])),
+        flush=True)
     print("two-stage training summary " + json.dumps(summary_s), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,12 @@
 """Settings the port reads (counterpart of ``quiver_tpu/config.py``).
 
 Kept: the bucketed batch shapes every serving pass is padded to, how many
-queued requests one pass may coalesce, the sampler's element-gather mode,
-and the feature-store knobs of the budgeted path (cold-row overlay and
-paged store).  Defaults are the JAX package's, and each field that JAX
-reads from the environment reads the same ``QUIVER_TPU_*`` name here, so
-a deployment's setting means the same to both packages.  The one default
+queued requests one pass may coalesce, the sampler's element-gather mode
+and frontier dedup, and the feature-store knobs of the budgeted path
+(cold-row overlay and paged store).  Defaults are the JAX package's, and
+each field that JAX reads from the environment reads the same
+``QUIVER_TPU_*`` name here, so a deployment's setting means the same to
+both packages.  The one default
 that differs is where ``gather_mode="auto"`` lands
 (:func:`resolve_gather_mode`).
 
@@ -23,7 +24,8 @@ import threading
 from dataclasses import dataclass, field
 from typing import Iterator, Optional, Tuple
 
-__all__ = ["Config", "get_config", "override", "resolve_gather_mode"]
+__all__ = ["Config", "get_config", "override", "resolve_dedup",
+           "resolve_gather_mode", "resolve_sample_rng"]
 
 # element-gather modes of the sampler's hops, besides "pwindow[:U]"
 _GATHER_MODES = ("auto", "xla", "lanes", "lanes_fused", "pallas")
@@ -43,6 +45,8 @@ class Config:
     # sampler element gathers: "auto" resolves in resolve_gather_mode
     gather_mode: str = field(
         default_factory=lambda: _env("GATHER_MODE", "auto"))
+    # sampler frontier dedup: "auto" resolves in resolve_dedup
+    dedup: str = field(default_factory=lambda: _env("DEDUP", "auto"))
     # cold-row overlay: "auto" = off until enable_cold_cache() or the
     # serving lane's auto-enable; "off"/"0" = never; a size ("64M", or
     # rows under cache_unit="rows") enables it when the feature is built
@@ -93,32 +97,19 @@ def override(**changes) -> Iterator[Config]:
             _config = prev
 
 
-def _check_u_mode(mode: str, prefix: str) -> None:
-    """Accept ``"<prefix>"`` and ``"<prefix>:U"`` with U >= 1; anything
-    else raises, as the JAX package's ``parse_u_mode`` does."""
-    if mode == prefix:
-        return
-    if not mode.startswith(prefix + ":"):
-        raise ValueError(f"{prefix} gather mode must be '{prefix}' or "
-                         f"'{prefix}:U', got {mode!r}")
-    if int(mode.split(":", 1)[1]) < 1:  # ValueError on a bad suffix too
-        raise ValueError(f"{prefix}:U needs U >= 1, got {mode!r}")
-
-
 def _validate_gather_mode(mode) -> None:
+    # imported here: ops/ imports this module
+    from .ops.blockgather import parse_u_mode
+
     if mode in _GATHER_MODES:
         return
-    if isinstance(mode, str) and mode.startswith("pwindow"):
-        _check_u_mode(mode, "pwindow")
-        return
-    if isinstance(mode, str) and mode.startswith("blocked"):
-        _check_u_mode(mode, "blocked")
-        raise NotImplementedError(
-            f"gather_mode={mode!r} (ops/blockgather.py) is not ported yet "
-            "(ROADMAP A8)")
+    for prefix in ("pwindow", "blocked"):
+        if isinstance(mode, str) and mode.startswith(prefix):
+            parse_u_mode(mode, prefix)
+            return
     raise ValueError(
-        f"gather_mode must be one of {_GATHER_MODES} or 'pwindow[:U]', got "
-        f"{mode!r}")
+        f"gather_mode must be one of {_GATHER_MODES}, 'pwindow[:U]' or "
+        f"'blocked[:U]', got {mode!r}")
 
 
 def resolve_gather_mode(gather_mode: str) -> str:
@@ -129,8 +120,8 @@ def resolve_gather_mode(gather_mode: str) -> str:
     it to ``"lanes"`` on an accelerator, a choice made against the TPU's
     serialized scalar gather, which the card does not have.)  Every mode
     draws the same neighbours under the counter-hash RNG; ``pwindow``'s
-    ``U`` sizes a TPU VMEM window and is accepted but unused.
-    ``"blocked[:U]"`` raises ``NotImplementedError``.
+    ``U`` sizes a TPU VMEM window and ``blocked``'s a block of TPU rows;
+    both are accepted but unused (``ops/blockgather.py``).
     """
     _validate_gather_mode(gather_mode)
     if gather_mode != "auto":
@@ -138,3 +129,30 @@ def resolve_gather_mode(gather_mode: str) -> str:
     cfg = get_config().gather_mode
     _validate_gather_mode(cfg)
     return "pwindow" if cfg == "auto" else cfg
+
+
+def resolve_dedup(dedup: str) -> str:
+    """The frontier dedup a sampler runs: an explicit ``"none"`` or
+    ``"hop"`` wins, then ``QUIVER_TPU_DEDUP``; ``"auto"`` is ``"none"``,
+    the positional pipeline, as in the JAX package (which may also read
+    a tuned file; the port does not)."""
+    if dedup not in ("auto", "none", "hop"):
+        raise ValueError(f"dedup must be auto|none|hop, got {dedup!r}")
+    if dedup != "auto":
+        return dedup
+    cfg = get_config().dedup
+    return "none" if cfg == "auto" else resolve_dedup(cfg)
+
+
+def resolve_sample_rng(sample_rng: str) -> str:
+    """The uniform source of the sampling hops: always the counter hash.
+    ``"auto"`` and ``"hash"`` return ``"hash"``; JAX's threefry
+    ``"key"`` has no counterpart in the port (ROADMAP §C) and raises."""
+    if sample_rng in ("auto", "hash"):
+        return "hash"
+    if sample_rng == "key":
+        raise ValueError(
+            "sample_rng='key' (JAX's threefry draws) has no counterpart in "
+            "the port, which samples with the counter hash only (ROADMAP "
+            "§C); pass 'hash' or 'auto'")
+    raise ValueError(f"sample_rng must be auto|key|hash, got {sample_rng!r}")

@@ -21,6 +21,17 @@ seeds and the seeds plus one in one launch.  All modes give the same
 draws.  On the CPU every kernel runs its plain version;
 :func:`sample_hop_plain`, the hop with ``"xla"`` gathers, is B1's
 reference.
+
+Under ``"blocked*"`` and ``"pwindow*"`` the scattered element reads (the
+bounds from ``indptr``, the weighted sampler's totals, CDF search and
+draws, and every read of a ``"blocked"`` hop) go through kernel B3, the
+card's fastest scattered read; JAX sends them through ``"lanes"`` and
+reads a ``"blocked"`` hop's windows as whole rows
+(``ops/blockgather.py``).  The values read are the same.
+
+:func:`sample_neighbors_weighted` draws weight-proportionally, with
+replacement, by inverting each row's cumulative weights
+(:func:`row_cumsum_weights`).
 """
 
 from __future__ import annotations
@@ -33,8 +44,9 @@ import torch
 from ..config import resolve_gather_mode
 from ..utils.device import resolve_device
 
-__all__ = ["sample_neighbors", "sample_hop", "sample_hop_plain", "SampleOut",
-           "to_ragged", "key_words_pair"]
+__all__ = ["sample_neighbors", "sample_neighbors_weighted", "sample_hop",
+           "sample_hop_plain", "SampleOut", "to_ragged", "key_words_pair",
+           "row_cumsum_weights"]
 
 
 class SampleOut(NamedTuple):
@@ -95,7 +107,9 @@ def _stratified_positions(u: torch.Tensor, deg: torch.Tensor,
     reciprocal, which is off by one ulp often enough to move a draw."""
     j = torch.arange(k, dtype=torch.int32, device=u.device)[None, :]
     degf = deg.to(torch.float32)[:, None]
-    kf = torch.tensor(float(k), dtype=torch.float32, device=u.device)
+    # a fill on the device: torch.tensor would copy the value from pageable
+    # host memory, which waits for the stream
+    kf = torch.full((), float(k), dtype=torch.float32, device=u.device)
     lo = torch.floor(j.to(torch.float32) * degf / kf)
     hi = torch.floor((j + 1).to(torch.float32) * degf / kf)
     strat = lo + torch.floor(u * torch.clamp_min(hi - lo, 1.0))
@@ -115,11 +129,18 @@ def _rows_of(table: torch.Tensor, mode: str) -> torch.Tensor:
     return table.view(-1, 128)
 
 
+def _scattered(mode: str) -> str:
+    """The element-gather mode of a hop's scattered reads: the window
+    modes ``"blocked*"`` and ``"pwindow*"`` read them with B3."""
+    return "pallas" if mode.startswith(("blocked", "pwindow")) else mode
+
+
 def _gather(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
     """``table[idx]`` with ``idx`` clipped into the table, by element-gather
-    ``mode``.  Kernel B3 (``"pallas"``) and its plain version clamp into
-    the table themselves; the lane modes get clamped ids, as JAX gives
-    them."""
+    ``mode`` (:func:`_scattered`).  Kernel B3 (``"pallas"``) and its plain
+    version clamp into the table themselves; the lane modes get clamped
+    ids, as JAX gives them."""
+    mode = _scattered(mode)
     m = table.shape[0]
     if mode == "xla":
         return table[idx.to(torch.int64).clamp(0, m - 1)]
@@ -141,6 +162,7 @@ def _gather_bounds(indptr: torch.Tensor, seeds: torch.Tensor,
     in 64 bits; JAX's int32 sum differs only for a seed of 2**31 - 1,
     which no table of node ids reaches); the other modes read twice, as
     JAX does."""
+    mode = _scattered(mode)
     if mode == "pallas":
         from .cuda.element_gather import element_gather_pair
 
@@ -181,6 +203,75 @@ def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
     neg = torch.full_like(idx, -1)
     return SampleOut(nbrs=torch.where(mask, nbrs, neg), mask=mask,
                      counts=counts, eid=torch.where(mask, idx, neg))
+
+
+def _cdf_search(cum_weights: torch.Tensor, start: torch.Tensor,
+                end: torch.Tensor, u: torch.Tensor, bits: int,
+                mode: str) -> torch.Tensor:
+    """The first position ``p`` in ``[start, end)`` with
+    ``cum_weights[p] > u``, by a ``bits``-round binary search of element
+    gathers by ``mode``, clipped to ``[start, max(end - 1, 0)]``."""
+    lo = start[:, None].expand(u.shape)
+    hi = end[:, None].expand(u.shape)
+    for _ in range(bits):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        gt = _gather(cum_weights, mid, mode) > u
+        lo, hi = torch.where(gt, lo, mid + 1), torch.where(gt, mid, hi)
+    return torch.minimum(torch.maximum(lo, start[:, None]),
+                         torch.clamp_min(end[:, None] - 1, 0))
+
+
+def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
+                              cum_weights: torch.Tensor, seeds: torch.Tensor,
+                              k: int, key_words,
+                              seed_mask: Optional[torch.Tensor] = None,
+                              gather_mode: str = "xla",
+                              bits: int = 24) -> SampleOut:
+    """Weight-proportional neighbour sampling, with replacement
+    (``ops/sample.py:382-469`` of the JAX package; the reference's
+    ``weight_sample``), on tensors already on one device.
+
+    ``cum_weights`` is the 128-padded per-row inclusive cumulative weight
+    (:func:`row_cumsum_weights`).  Each draw ``u * total`` inverts its
+    row's CDF by a ``bits``-round binary search of element gathers by
+    ``gather_mode`` (``config.resolve_gather_mode``; ``"pwindow"`` and
+    ``"blocked"`` read through B3 here).  JAX's ``"blocked"`` count over
+    the CDF block finds the same positions.
+    ``deg <= k`` rows return every neighbour once, in CSR order, as the
+    uniform hop does.  ``key_words`` are the hop's two folded words."""
+    k0, k1 = key_words_pair(key_words)
+    gather_mode = resolve_gather_mode(gather_mode)
+    seeds = seeds.to(torch.int32)
+    B = seeds.shape[0]
+    start, end = _gather_bounds(indptr, seeds, gather_mode)
+    deg = end - start
+    if seed_mask is not None:
+        deg = torch.where(seed_mask, deg, torch.zeros_like(deg))
+    counts = torch.clamp_max(deg, k).to(torch.int32)
+    j = torch.arange(k, dtype=torch.int32, device=seeds.device)[None, :]
+    mask = j < counts[:, None]
+    # the row total is the last entry of its inclusive cumulative weights
+    last = _gather(cum_weights, torch.clamp_min(end - 1, 0), gather_mode)
+    total = torch.where(deg > 0, last, torch.zeros_like(last))
+    u = _hash_uniform(k0, k1, (B, k), device=seeds.device) * total[:, None]
+    pos = _cdf_search(cum_weights, start, end, u, bits, gather_mode)
+    pos = torch.where(deg[:, None] <= k, start[:, None] + j, pos)
+    nbrs = _gather(indices, torch.where(mask, pos, torch.zeros_like(pos)),
+                   gather_mode)
+    neg = torch.full_like(pos, -1)
+    return SampleOut(nbrs=torch.where(mask, nbrs, neg), mask=mask,
+                     counts=counts, eid=torch.where(mask, pos, neg))
+
+
+def row_cumsum_weights(indptr, weights) -> np.ndarray:
+    """Per-row inclusive cumulative weights, fp32, on the host, for
+    :func:`sample_neighbors_weighted` (once per graph).  The running sum
+    is float64: a float32 cumsum over 1e8 edges has an ulp above a
+    typical weight, so late rows would lose their relative weights."""
+    indptr = np.asarray(indptr)
+    cw = np.cumsum(np.asarray(weights, dtype=np.float64))
+    prev = np.concatenate([[0.0], cw])[indptr[:-1]]
+    return (cw - np.repeat(prev, np.diff(indptr))).astype(np.float32)
 
 
 def key_words_pair(key_words) -> Tuple[int, int]:

@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from .parallel.train import make_train_step
-from .sampler import run_pipeline
 
 __all__ = ["make_fused_train_step", "make_fused_eval_fn", "make_scan_epoch"]
 
@@ -35,13 +34,14 @@ def _check(feature) -> None:
 
 
 def _sample_rows(sampler, feature, seeds, key_words):
-    """Blocks and the rows of the outermost frontier, all on the device."""
+    """Blocks and the rows of the outermost frontier, all on the device.
+    The sampler's dedup and frontier caps apply; its edge weights do not:
+    the JAX package's fused step samples uniformly even for a weighted
+    sampler (``quiver_tpu/pipeline.py:62-65``), and so does this one."""
     if key_words is None:
         key_words = sampler.draw_key_words()
-    indptr, indices = sampler.csr_topo.to_device(sampler.device)
-    n_id, _, _, blocks, _ = run_pipeline(
-        sampler.dedup, indptr, indices, sampler.seed_tensor(seeds), key_words,
-        sampler.sizes, gather_mode=sampler.gather_mode)
+    n_id, _, _, blocks, _ = sampler.pipeline(sampler.seed_tensor(seeds),
+                                             key_words, weighted=False)
     return feature.lookup_device(n_id), blocks
 
 

@@ -1,10 +1,19 @@
 """Multi-hop GraphSAGE sampler (counterpart of ``quiver_tpu/sampler.py``).
 
-Returns a :class:`SampledBatch` of dense ``[T, k]`` blocks with the
-positional relabel of the JAX package's ``dedup="none"`` pipeline: the
-hop-l frontier is ``concat(prev_frontier, sampled_nbrs.flat)`` and
-neighbour j of target b sits at position ``P_prev + b*k + j``.  No sort, no
-hash table; duplicate nodes stay duplicated.
+Returns a :class:`SampledBatch` of dense ``[T, k]`` blocks under one of
+the JAX package's two frontier rules (``dedup``):
+
+- ``"none"`` (what ``"auto"`` resolves to): the positional relabel.  The
+  hop-l frontier is ``concat(prev_frontier, sampled_nbrs.flat)`` and
+  neighbour j of target b sits at position ``P_prev + b*k + j``.  No
+  sort, no hash table; duplicate nodes stay duplicated.
+- ``"hop"``: the reference's exact dedup every hop (``ops/reindex.py``),
+  the frontier padded to ``T + T*k`` or cut to a ``frontier_caps`` entry;
+  a cut masks the edges to the nodes it drops and counts them in
+  ``SampledBatch.drops``.
+
+With ``edge_weights`` every hop draws weight-proportionally
+(``ops/sample.py::sample_neighbors_weighted``).
 
 Key words: the JAX pipeline splits one key per hop and folds each into two
 uint32 words.  The port takes those words directly, ``[L, 2]`` uint32, one
@@ -13,14 +22,19 @@ pair per hop, so the same words give the same batch in both packages.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .config import resolve_gather_mode
-from .ops.sample import key_words_pair, run_hop
+from .config import resolve_dedup, resolve_gather_mode, resolve_sample_rng
 from .ops.cuda.window_sample import window_sample_frontier
+from .ops.fastgather import pad_table_128
+from .ops.prob import sample_prob
+from .ops.reindex import ReindexOut, reindex
+from .ops.sample import (SampleOut, key_words_pair, row_cumsum_weights,
+                         run_hop, sample_neighbors_weighted)
+from .telemetry import Counter
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo
 
@@ -44,7 +58,7 @@ class SampledBatch(NamedTuple):
     num_nodes: torch.Tensor  # scalar int32
     batch_size: int          # number of seed nodes
     layers: Tuple[LayerBlock, ...]  # outermost first (PyG adjs order)
-    drops: Optional[torch.Tensor] = None  # [L] frontier-cap drops (all 0)
+    drops: Optional[torch.Tensor] = None  # [L] nodes frontier caps dropped
 
     def to_pyg_adjs(self):
         """Ragged ``(n_id, batch_size, [Adj])`` view on the host, each Adj
@@ -68,15 +82,28 @@ class SampledBatch(NamedTuple):
         return self.n_id.cpu().numpy(), self.batch_size, adjs
 
 
+def _hop(indptr, indices, frontier, k, key_words, fmask, gather_mode,
+         cum_weights) -> SampleOut:
+    """One hop of the generic loop: weighted when ``cum_weights`` is
+    given, else uniform (``run_hop``: B1's literal entry under
+    ``"pwindow"``)."""
+    if cum_weights is not None:
+        return sample_neighbors_weighted(indptr, indices, cum_weights,
+                                         frontier, k, key_words, fmask,
+                                         gather_mode)
+    return run_hop(indptr, indices, frontier, k, *key_words_pair(key_words),
+                   fmask, gather_mode)
+
+
 def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
-                             return_eid, gather_mode):
-    """Multi-hop pipeline without dedup; one hop per layer.  Under
-    ``"pwindow"`` each hop is one launch of kernel B1's pipeline entry,
-    which also writes the hop's frontier tail, mask tail and local ids
-    (:func:`_pwindow_pipeline`); every other mode runs the hop's element
-    gathers (``ops/sample.py::sample_hop``) and builds those with torch
-    ops, as the JAX pipeline does."""
-    if gather_mode.startswith("pwindow"):
+                             return_eid, gather_mode, cum_weights):
+    """Multi-hop pipeline without dedup; one hop per layer.  A uniform
+    pipeline under ``"pwindow"`` runs each hop as one launch of kernel
+    B1's pipeline entry, which also writes the hop's frontier tail, mask
+    tail and local ids (:func:`_pwindow_pipeline`); every other pipeline
+    runs :func:`_hop` and builds those with torch ops, as the JAX pipeline
+    does."""
+    if gather_mode.startswith("pwindow") and cum_weights is None:
         return _pwindow_pipeline(indptr, indices, seeds, key_words, sizes,
                                  return_eid)
     dev = indptr.device
@@ -85,8 +112,8 @@ def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
     fmask = torch.ones((B,), dtype=torch.bool, device=dev)
     blocks = []
     for l, k in enumerate(sizes):
-        out = run_hop(indptr, indices, frontier, k,
-                      *key_words_pair(key_words[l]), fmask, gather_mode)
+        out = _hop(indptr, indices, frontier, k, key_words[l], fmask,
+                   gather_mode, cum_weights)
         t = frontier.shape[0]
         pos = (t + torch.arange(t, dtype=torch.int32, device=dev)[:, None] * k
                + torch.arange(k, dtype=torch.int32, device=dev)[None, :])
@@ -142,21 +169,76 @@ def _pwindow_pipeline(indptr, indices, seeds, key_words, sizes, return_eid):
     return frontier, fmask, live[total], tuple(blocks[::-1]), drops
 
 
-def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes,
-                 return_eid=False, gather_mode="auto"):
-    """Multi-hop sampling; ``key_words`` is ``[L, 2]`` uint32 and
-    ``gather_mode`` is resolved here (``config.resolve_gather_mode``).
-    Only the positional ``dedup="none"`` pipeline is ported."""
-    if dedup != "none":
+def _sample_pipeline(indptr, indices, seeds, key_words, sizes, caps,
+                     return_eid, gather_mode, cum_weights):
+    """Multi-hop pipeline with exact dedup every hop
+    (``quiver_tpu/sampler.py:201-248``): sample, :func:`reindex`, block.
+
+    A cap below the deduped frontier's padded length keeps its prefix
+    (the previous frontier, whole: a cap must be at least it), masks the
+    edges to the nodes past it out of the hop's block (``eid`` -1 there)
+    and counts those nodes in ``drops``, which stays on the device."""
+    dev = indptr.device
+    frontier = seeds.to(dev, torch.int32)
+    fmask = torch.ones((frontier.shape[0],), dtype=torch.bool, device=dev)
+    blocks, drops = [], []
+    for l, (k, cap) in enumerate(zip(sizes, caps)):
+        out = _hop(indptr, indices, frontier, k, key_words[l], fmask,
+                   gather_mode, cum_weights)
+        r = reindex(frontier, out.nbrs, out.mask, fmask)
+        blk = LayerBlock(nbr_local=r.local_nbrs, mask=r.mask,
+                         num_targets=fmask.sum().to(torch.int32),
+                         eid=out.eid if return_eid else None)
+        n_id, n_mask = r.n_id, r.n_id_mask
+        drop = torch.zeros((), dtype=torch.int32, device=dev)
+        if cap is not None and n_id.shape[0] > cap:
+            drop = n_mask[cap:].sum().to(torch.int32)
+            n_id, n_mask = n_id[:cap], n_mask[:cap]
+            keep = blk.nbr_local < cap
+            blk = blk._replace(
+                mask=blk.mask & keep,
+                nbr_local=torch.where(keep, blk.nbr_local,
+                                      torch.zeros_like(blk.nbr_local)),
+                eid=(torch.where(keep, blk.eid, torch.full_like(blk.eid, -1))
+                     if blk.eid is not None else None))
+        blocks.append(blk)
+        drops.append(drop)
+        frontier, fmask = n_id, n_mask
+    num_nodes = fmask.sum().to(torch.int32)
+    return frontier, fmask, num_nodes, tuple(blocks[::-1]), torch.stack(drops)
+
+
+def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes, caps=None,
+                 return_eid=False, gather_mode="auto", cum_weights=None,
+                 overlay=None):
+    """Multi-hop sampling under ``dedup`` ``"none"`` or ``"hop"``.
+
+    ``key_words`` is ``[L, 2]`` uint32; ``caps`` one frontier cap (or
+    ``None``) per hop, read under ``"hop"`` only; ``gather_mode`` is
+    resolved here (``config.resolve_gather_mode``); ``cum_weights`` (the
+    128-padded ``row_cumsum_weights`` on the device) makes every hop
+    weighted.  Returns ``(n_id, n_id_mask, num_nodes, blocks, drops)``.
+    The streaming ``overlay`` is not ported yet (ROADMAP A12)."""
+    if overlay is not None:
         raise NotImplementedError(
-            f"dedup={dedup!r} is not ported yet (ROADMAP A7); use 'none'")
+            "overlay sampling (the streaming tier) is not ported yet "
+            "(ROADMAP A12)")
+    if dedup not in ("none", "hop"):
+        raise ValueError(f"dedup must be 'none' or 'hop', got {dedup!r}")
     key_words = np.asarray(key_words, dtype=np.uint32).reshape(-1, 2)
     if key_words.shape[0] != len(sizes):
         raise ValueError(f"{key_words.shape[0]} key-word pairs for "
                          f"{len(sizes)} hops")
-    return _sample_pipeline_nodedup(indptr, indices, seeds, key_words,
-                                    sizes, return_eid,
-                                    resolve_gather_mode(gather_mode))
+    gather_mode = resolve_gather_mode(gather_mode)
+    if dedup == "none":
+        return _sample_pipeline_nodedup(indptr, indices, seeds, key_words,
+                                        sizes, return_eid, gather_mode,
+                                        cum_weights)
+    caps = [None] * len(sizes) if caps is None else list(caps)
+    if len(caps) != len(sizes):
+        raise ValueError(f"{len(caps)} frontier caps for {len(sizes)} hops")
+    return _sample_pipeline(indptr, indices, seeds, key_words, sizes, caps,
+                            return_eid, gather_mode, cum_weights)
 
 
 class GraphSageSampler:
@@ -167,32 +249,71 @@ class GraphSageSampler:
       sizes: fanout per layer, outward order, e.g. ``[25, 10]``.
       device: where the topology lives and hops run (``None``: the card).
       mode: ``"GPU"``, the reference's name for the device mode.  The host
-        sampler (``"CPU"``) is not ported yet.
+        sampler (``"CPU"``) is not ported yet (ROADMAP A10).
       return_eid: fill ``LayerBlock.eid`` with global edge positions.
       seed: seed of the generator that draws key words when a call gives
         none.
       gather_mode: how each hop reads ``indptr`` and ``indices``
         (``config.resolve_gather_mode``): ``"auto"``/``"pwindow"`` is the
         fused hop of kernel B1, ``"pallas"`` kernel B3, ``"lanes_fused"``
-        kernel B4 (its fused entry, with no row gather), ``"lanes"`` and
+        kernel B4 (its fused entry, with no row gather), ``"blocked[:U]"``
+        kernel B3 as well (``ops/blockgather.py``), ``"lanes"`` and
         ``"xla"`` plain PyTorch.  Every mode samples the same neighbours.
+      dedup: ``"none"`` (the positional pipeline), ``"hop"`` (exact dedup
+        every hop, ``ops/reindex.py``) or ``"auto"``
+        (``config.resolve_dedup``).
+      frontier_caps: per hop, a cap on the padded frontier or ``None``;
+        read under ``dedup="hop"``.  Nodes past a cap are dropped and
+        counted (:meth:`overflow_stats`).
+      edge_weights: ``[E]`` weights; every hop then draws
+        weight-proportionally, with replacement.
+      sample_rng: ``"auto"`` or ``"hash"``, the counter hash; JAX's
+        ``"key"`` is refused (``config.resolve_sample_rng``).
+      uva_budget, uva_overlap, uva_timings: the hot/cold split of a graph
+        larger than the card (ROADMAP A10), not ported: any value but the
+        defaults raises.
     """
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
                  mode: str = "GPU", return_eid: bool = False, seed: int = 0,
-                 gather_mode: str = "auto"):
+                 gather_mode: str = "auto", dedup: str = "auto",
+                 frontier_caps: Optional[Sequence[Optional[int]]] = None,
+                 edge_weights=None, sample_rng: str = "auto",
+                 uva_budget: Union[int, str, None] = None,
+                 uva_overlap: bool = True,
+                 uva_timings: Optional[dict] = None):
+        if (uva_budget is not None or not uva_overlap
+                or uva_timings is not None):
+            raise NotImplementedError(
+                "uva_budget, uva_overlap, uva_timings: the hot/cold graph "
+                "split is not ported yet (ROADMAP A10)")
         if mode != "GPU":
             raise NotImplementedError(
                 f"mode={mode!r}: only the device mode 'GPU' is ported "
                 "(the host sampler is ROADMAP A10)")
+        self.sizes = list(sizes)
+        self.frontier_caps = (list(frontier_caps) if frontier_caps is not None
+                              else [None] * len(self.sizes))
+        if len(self.frontier_caps) != len(self.sizes):
+            raise ValueError(f"{len(self.frontier_caps)} frontier caps for "
+                             f"{len(self.sizes)} hops")
         self.device = resolve_device(device)
         self.gather_mode = resolve_gather_mode(gather_mode)
+        resolve_sample_rng(sample_rng)  # validates: the port has one RNG
+        self.dedup = resolve_dedup(dedup)
         self.csr_topo = csr_topo
-        self.sizes = list(sizes)
         self.mode = mode
-        self.dedup = "none"
         self.return_eid = return_eid
         self._rng = np.random.default_rng(seed)
+        self._cum_weights = None
+        if edge_weights is not None:
+            cw = row_cumsum_weights(csr_topo.indptr, edge_weights)
+            # the last value fills the pad: a clipped read past E is harmless
+            self._cum_weights = torch.from_numpy(pad_table_128(
+                cw, fill=float(cw[-1]) if len(cw) else None)).to(self.device)
+        self.last_drops: Optional[torch.Tensor] = None
+        self._drops_recorded = True
+        self.frontier_drops = Counter("sampler_frontier_drops_total")
         csr_topo.to_device(self.device)
 
     def draw_key_words(self) -> np.ndarray:
@@ -209,21 +330,89 @@ class GraphSageSampler:
             raise ValueError(f"node ids must lie in [0, {n})")
         return torch.from_numpy(ids.astype(np.int32)).to(self.device)
 
+    def pipeline(self, seeds: torch.Tensor, key_words, weighted: bool = True):
+        """``run_pipeline`` over this sampler's graph, fanouts, dedup,
+        caps, gather mode and (when ``weighted``) edge weights, from
+        ``seeds`` on the device; returns its five outputs."""
+        indptr, indices = self.csr_topo.to_device(self.device)
+        return run_pipeline(
+            self.dedup, indptr, indices, seeds, key_words, self.sizes,
+            self.frontier_caps, return_eid=self.return_eid,
+            gather_mode=self.gather_mode,
+            cum_weights=self._cum_weights if weighted else None)
+
     def sample(self, input_nodes, key_words=None) -> SampledBatch:
         """Sample the k-hop neighbourhood of ``input_nodes`` under per-hop
         ``key_words`` (``[L, 2]`` uint32; drawn here when ``None``)."""
         if key_words is None:
             key_words = self.draw_key_words()
         seeds = self.seed_tensor(input_nodes)
-        indptr, indices = self.csr_topo.to_device(self.device)
-        n_id, n_mask, num_nodes, blocks, drops = run_pipeline(
-            self.dedup, indptr, indices, seeds, key_words, self.sizes,
-            return_eid=self.return_eid, gather_mode=self.gather_mode)
+        n_id, n_mask, num_nodes, blocks, drops = self.pipeline(seeds,
+                                                               key_words)
+        # kept on the device until overflow_stats() reads it
+        self.last_drops = drops
+        self._drops_recorded = False
         return SampledBatch(n_id=n_id, n_id_mask=n_mask, num_nodes=num_nodes,
                             batch_size=int(seeds.shape[0]), layers=blocks,
                             drops=drops)
 
+    def overflow_stats(self, batch: Optional[SampledBatch] = None
+                       ) -> Optional[np.ndarray]:
+        """``[L]`` per-hop counts of frontier nodes the caps dropped, as
+        numpy: ``batch``'s, or the last :meth:`sample` call's (``None``
+        before any).  The second form adds the dropped count to
+        ``frontier_drops`` (``sampler_frontier_drops_total``) once per
+        ``sample`` call; a loader that samples ahead should pass the batch."""
+        if batch is not None:
+            return None if batch.drops is None else batch.drops.cpu().numpy()
+        if self.last_drops is None:
+            return None
+        arr = self.last_drops.cpu().numpy()
+        if not self._drops_recorded:
+            self._drops_recorded = True
+            total = float(arr.sum())
+            if total:
+                self.frontier_drops.inc(total)
+        return arr
+
+    # -- the single-hop API (the reference's sample_layer / reindex /
+    #    sample_sub) --------------------------------------------------
+    def sample_layer(self, batch, size: int, key_words=None) -> SampleOut:
+        """One uniform hop of fanout ``size`` from ``batch`` under two key
+        words (the first hop's of :meth:`draw_key_words` when ``None``)."""
+        if key_words is None:
+            key_words = self.draw_key_words()[0]
+        indptr, indices = self.csr_topo.to_device(self.device)
+        return run_hop(indptr, indices, self.seed_tensor(batch), size,
+                       *key_words_pair(key_words), None, self.gather_mode)
+
+    def reindex(self, inputs, nbrs: torch.Tensor,
+                mask: torch.Tensor) -> ReindexOut:
+        """Dedup ``inputs`` and their neighbours ``nbrs`` and relabel
+        (``ops/reindex.py``)."""
+        return reindex(self.seed_tensor(inputs), nbrs, mask)
+
+    def sample_sub(self, seeds, size: int, key_words=None):
+        """One-hop subgraph on the host: ``(nodes, row, col)`` numpy, with
+        ``nodes[:len(seeds)] == seeds`` and ``(row, col)`` the sampled
+        edges in local ids (the reference's ``sample_sub``)."""
+        seeds = np.asarray(seeds)
+        out = self.sample_layer(seeds, size, key_words)
+        r = self.reindex(seeds, out.nbrs, out.mask)
+        nodes = r.n_id[: int(r.num_nodes)].cpu().numpy()
+        m = r.mask.cpu().numpy()
+        row = np.repeat(np.arange(len(seeds)), m.shape[1]).reshape(m.shape)
+        return nodes, row[m], r.local_nbrs.cpu().numpy()[m]
+
+    def sample_prob(self, train_idx, total_node_count: int) -> torch.Tensor:
+        """Each node's expected appearances in a batch grown from
+        ``train_idx`` through this sampler's fanouts (``ops/prob.py``)."""
+        indptr, indices = self.csr_topo.to_device(self.device)
+        return sample_prob(indptr, indices, np.asarray(train_idx),
+                           total_node_count, self.sizes,
+                           num_edges=self.csr_topo.edge_count)
+
     def __repr__(self):
         return (f"GraphSageSampler(sizes={self.sizes}, mode={self.mode!r}, "
-                f"gather={self.gather_mode!r}, device={self.device}, "
-                f"graph={self.csr_topo!r})")
+                f"dedup={self.dedup!r}, gather={self.gather_mode!r}, "
+                f"device={self.device}, graph={self.csr_topo!r})")

@@ -38,7 +38,7 @@ import torch
 
 from .config import get_config
 from .feature import Feature
-from .sampler import GraphSageSampler, run_pipeline
+from .sampler import GraphSageSampler
 from .telemetry import Counter, Histogram
 
 __all__ = ["RequestBatcher", "InferenceServer", "InferenceServer_Debug",
@@ -198,14 +198,12 @@ class InferenceServer:
                       key_words: np.ndarray) -> torch.Tensor:
         """Sample -> ``lookup_device`` -> model for one padded pass, on the
         device, with no host round trip between the stages (the feature
-        must hold the whole table on the device)."""
+        must hold the whole table on the device).  The sampler's dedup,
+        caps and edge weights apply, as in the unfused lane."""
         s = self.sampler
         with torch.inference_mode():
-            seeds = s.seed_tensor(padded_ids)
-            indptr, indices = s.csr_topo.to_device(s.device)
-            n_id, _, _, blocks, _ = run_pipeline(
-                "none", indptr, indices, seeds, key_words, s.sizes,
-                gather_mode=s.gather_mode)
+            n_id, _, _, blocks, _ = s.pipeline(s.seed_tensor(padded_ids),
+                                               key_words)
             x = self.feature.lookup_device(n_id)
             return self.model(x, blocks)
 

@@ -589,3 +589,97 @@ def test_fused_train_step_card_matches_cpu(card):
     for k in out[0][1]:
         torch.testing.assert_close(out[1][1][k], out[0][1][k], rtol=0,
                                    atol=2e-5)
+
+
+def _same_batch(a, b):
+    """Two SampledBatches equal bit for bit (on any devices)."""
+    for x, y in ((a.n_id, b.n_id), (a.n_id_mask, b.n_id_mask),
+                 (a.num_nodes, b.num_nodes), (a.drops, b.drops)):
+        assert torch.equal(x.cpu(), y.cpu())
+    for la, lb in zip(a.layers, b.layers):
+        for x, y in ((la.nbr_local, lb.nbr_local), (la.mask, lb.mask),
+                     (la.num_targets, lb.num_targets)):
+            assert torch.equal(x.cpu(), y.cpu())
+
+
+def test_reindex_on_card_equals_cpu(card):
+    """The dedup of a hop with duplicate and masked seeds on the card,
+    against the CPU's."""
+    from quiver_tpu_torch.ops.reindex import reindex
+
+    rng = np.random.default_rng(0)
+    B, k = 5000, 9
+    seeds = rng.integers(0, 20_000, B).astype(np.int32)
+    seeds[4000:] = seeds[0]
+    nbrs = np.where(rng.random((B, k)) < 0.3, rng.choice(seeds, (B, k)),
+                    rng.integers(0, 20_000, (B, k)))
+    mask = rng.random((B, k)) < 0.8
+    nbrs = np.where(mask, nbrs, -1).astype(np.int32)
+    smask = rng.random(B) < 0.9
+    args = [torch.from_numpy(a) for a in (seeds, nbrs, mask, smask)]
+    want = reindex(*args)
+    got = reindex(*[a.to(card) for a in args])
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "pwindow", "blocked:3"])
+def test_weighted_hop_on_card_equals_xla(card, mode):
+    """A weighted hop on the card in ``mode`` (B3 for the bounds, totals,
+    the 24 CDF rounds and the draws in each mode) against ``"xla"`` on
+    the card."""
+    from quiver_tpu_torch.ops.sample import (row_cumsum_weights,
+                                             sample_neighbors_weighted)
+
+    topo = _graph(11)
+    ip, ix = topo.to_device(card)
+    w = np.random.default_rng(2).random(topo.edge_count, dtype=np.float32)
+    cw = qt.ops.fastgather.pad_table_128(torch.from_numpy(
+        row_cumsum_weights(topo.indptr, w)).to(card))
+    rng = np.random.default_rng(3)
+    seeds = torch.from_numpy(np.concatenate([np.arange(12), rng.integers(
+        0, 3000, 4000), [2999]]).astype(np.int32)).to(card)
+    smask = torch.from_numpy(rng.random(seeds.shape[0]) < 0.8).to(card)
+    before = b3.element_gather.launches
+    got = sample_neighbors_weighted(ip, ix, cw, seeds, 10, (7, 8), smask,
+                                    mode)
+    torch.cuda.synchronize()
+    assert b3.element_gather.launches - before == 1 + 1 + 24 + 1
+    want = sample_neighbors_weighted(ip, ix, cw, seeds, 10, (7, 8), smask,
+                                     "xla")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_hop_and_blocked_pipelines_on_card_equal_xla(card, weighted):
+    """Three ``"hop"`` hops with a cap that drops, under ``"auto"`` (B1's
+    literal entry, one launch a uniform hop) and ``"blocked:3"`` (B3: two
+    launches a uniform hop, 27 a weighted one), against ``"xla"`` on the
+    card and on the CPU."""
+    topo = _graph(13)
+    w = (np.random.default_rng(4).random(topo.edge_count, dtype=np.float32)
+         if weighted else None)
+    kw = np.array([[5, 6], [7, 8], [9, 10]], np.uint32)
+    ids = np.concatenate([np.arange(0, 3000, 23), np.full(30, 5)])
+    batches = {}
+    for dev, mode in ((card, "auto"), (card, "blocked:3"), (card, "xla"),
+                      ("cpu", "xla")):
+        s = qt.GraphSageSampler(topo, [10, 5, 3], device=dev,
+                                gather_mode=mode, dedup="hop",
+                                frontier_caps=[None, 1000, 4000],
+                                edge_weights=w)
+        before = b1.window_sample.launches
+        before_b3 = b3.element_gather.launches
+        batches[(str(dev), mode)] = s.sample(ids, key_words=kw)
+        torch.cuda.synchronize()
+        if mode == "auto":
+            assert (b1.window_sample.launches - before
+                    == (0 if weighted else 3))
+        if mode == "blocked:3":
+            assert (b3.element_gather.launches - before_b3
+                    == 3 * (27 if weighted else 2))
+    want = batches[("cpu", "xla")]
+    assert int(want.drops.sum()) > 0
+    for key, got in batches.items():
+        _same_batch(got, want)

@@ -100,6 +100,26 @@ def test_walk_covers_the_training_slice():
     assert prefetch.join_and_reap is shutdown.join_and_reap
 
 
+def test_walk_covers_the_sampler_surface():
+    """The source walk and the subprocess import reach the modules of
+    exact dedup, the weighted sampler and the blocked gather."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = ("ops/blockgather.py", "ops/reindex.py", "ops/prob.py",
+            "ops/sample.py", "sampler.py", "config.py")
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_forbidden_matcher():
     assert _forbidden("quiver_tpu") and _forbidden("quiver_tpu.ops.sample")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")

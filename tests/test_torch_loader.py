@@ -36,6 +36,24 @@ COUNTED = ("feature_rows_total", "feature_coldcache_", "feature_page_",
            "feature_gather_batches_total", "feature_prefetch_total")
 
 
+# the JAX package's telemetry switch as the process starts (collection
+# runs before any test can change it)
+_JAX_TELEMETRY_DEFAULT = telemetry.enabled()
+
+
+@pytest.fixture(autouse=True)
+def _jax_telemetry_on():
+    """The JAX counters compared here need the JAX package's telemetry on;
+    a test file run earlier in the same worker may have left it off.
+    After each test the JAX registry is emptied and the switch set back to
+    its default, so nothing these tests record or switch reaches a later
+    file."""
+    telemetry.set_enabled(True)
+    yield
+    telemetry.reset()
+    telemetry.set_enabled(_JAX_TELEMETRY_DEFAULT)
+
+
 def hop_words(key, n_hops):
     return np.array([[int(np.asarray(w)) for w in _fold_key_words(k)]
                      for k in jax.random.split(key, n_hops)], np.uint32)
