@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of quiver_tpu_torch on one CUDA card: Reddit-size serving and
-ogbn-products-size training.
+"""Smoke run of quiver_tpu_torch on one CUDA card: Reddit-size serving,
+ogbn-products-size training of GraphSAGE, GAT and GCN with exact
+inference, and R-GAT at OGB-LSC MAG240M widths.
 
     python3 chip_smoke.py
 
@@ -86,7 +87,10 @@ first use, with nvcc, one process per source, all at once), then:
    against the plain versions on the CPU within CPU_TOL; the ``"hop"``
    lane's first sampled batch bitwise against the ``"xla"`` pipeline on
    the card, and one call under ``bench.py``'s ``hop_caps`` (hop 1 must
-   drop nodes; ``overflow_stats``), bitwise against ``"xla"`` too;
+   drop nodes; ``overflow_stats``), bitwise against ``"xla"`` too; then
+   (slice 7) GAT at PyG's ``ogbn_products_gat.py`` widths and GCN at the
+   GraphSAGE lane's, 10 steps each under ``"auto"`` (B1 3 times a step,
+   B2 once; their losses are printed, not checked: see ``SAGE_LANE``);
 12. two-stage training phase: ``device_cache_size="200M"`` (524,288 hot
    rows), ``SeedLoader(prefetch=2)`` over a sampler in
    ``gather_mode="lanes_fused"`` (B4 must launch 9 times per sampled
@@ -94,7 +98,21 @@ first use, with nvcc, one process per source, all at once), then:
    gathered row bitwise equal to the source, peak device memory printed;
    then one batch split into sampling, read-back, host gather and
    training;
-13. prints one ``{"kernels": [...]}`` line, the card line, and last
+13. exact inference phase (slice 7): ``full_graph_inference`` of the
+   trained GraphSAGE, GCN and GAT over all of products' edges in chunks
+   of EDGE_CHUNK (time, peak memory, finite ``[N, 47]`` logits), and on a
+   20,000-node graph against the same call on the CPU within CPU_TOL;
+14. R-GAT phase (slice 7, its main path): a synthetic graph with
+   MAG240M's schema and average degrees (MAG_COUNTS: papers and authors
+   cut to 2,000,000) and 12.4 GB of 768-wide tables on the card;
+   ``HeteroGraphSageSampler.sample`` (B1's literal entry once a block, 5
+   a step) -> ``HeteroFeature.lookup`` (B2 once a type, 3 a step) ->
+   ``make_train_step(RGAT)`` at OGB-LSC's baseline widths for MAG_STEPS
+   steps (the loss must fall); the step split by CUDA events, one step
+   under the profiler, one batch under ``"pwindow"`` bitwise against
+   ``"xla"``, and B1 and B2 at that batch's shapes against their plain
+   versions;
+15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 2 and
@@ -105,7 +123,9 @@ The Reddit graph has PyG Reddit's 232,965 nodes and asks
 each node's degree leaves 114,499,636, 0.1% fewer.  The JAX package's
 ``synthetic_reddit`` asks for a tenth of the edges; this run uses the
 published count, so indices alone are ~458 MB on the card.  Nothing of
-the products configuration is cut to size.
+the products configuration is cut to size.  The MAG240M configuration
+keeps every width and MAG240M's average degrees and cuts the paper and
+author counts to 1/61 (MAG_COUNTS).
 """
 
 from __future__ import annotations
@@ -143,6 +163,29 @@ P_DIM, P_HIDDEN, P_CLASSES = 100, 256, 47
 P_FANOUTS = [15, 10, 5]
 P_BATCH, P_LR = 1024, 3e-3
 FUSED_STEPS, AUTO_STEPS, STAGED_STEPS = 30, 10, 5
+# slice 7: GAT at PyG's examples/ogbn_products_gat.py widths (hidden 128 x
+# 4 heads, 3 layers, fanouts [10, 10, 10], batch 512, Adam 1e-3) and GCN at
+# the GraphSAGE lane's (OGB's products GCN width), both on products
+FAMILY_STEPS = 10
+GAT_HIDDEN, GAT_HEADS, GAT_FANOUTS, GAT_BATCH, GAT_LR = 128, 4, [10] * 3, \
+    512, 1e-3
+# exact inference: edges per chunk, so GAT's [chunk, 512] gather is 4 GB
+EDGE_CHUNK = 2_000_000
+# slice 7's main path: R-GAT at OGB-LSC MAG240M's baseline widths
+# (examples/lsc/mag240m/rgnn.py in snap-stanford/ogb: 768-wide features
+# for all three types, hidden 1024, 4 heads, 2 layers, 153 classes,
+# dropout 0.5, Adam 1e-3, batch 1,024, fanouts [25, 15] per relation) on a
+# synthetic graph with MAG240M's schema and average degrees; the paper and
+# author counts are cut to 1/61 of MAG240M's (121,751,666 and 122,383,112),
+# all 25,721 institutions kept
+MAG_COUNTS = {"paper": 2_000_000, "author": 2_000_000, "institution": 25_721}
+MAG_DEGREES = {("paper", "cites", "paper"): 10.66,
+               ("author", "writes", "paper"): 3.17,
+               ("institution", "employs", "author"): 0.364}
+MAG_DIM, MAG_HIDDEN, MAG_HEADS, MAG_CLASSES = 768, 1024, 4, 153
+MAG_FANOUTS, MAG_BATCH, MAG_LR, MAG_STEPS = [25, 15], 1024, 1e-3, 10
+MAG_FRONTIERS = {"paper": 425_984, "author": 424_960, "institution": 384_000}
+MAG_CHUNK_ROWS = 262_144  # feature rows drawn on the card at a time
 # device operations counted by name in a step's profile (lower case)
 KERNEL_FAMILIES = {"B1": ("window_sample_kernel",),
                    "sort_searchsorted_scatter": ("sort", "searchsorted",
@@ -1033,6 +1076,36 @@ def products_model(torch, qt):
     return model.to(DEV)
 
 
+def family_model(torch, qt, family: str):
+    """GAT (GAT_HIDDEN x GAT_HEADS, 3 layers) or GCN (P_HIDDEN, 3 layers)
+    for products, dropout 0.5, initialised on the CPU after
+    ``torch.manual_seed(SEED)``, then moved to the card."""
+    torch.manual_seed(SEED)
+    if family == "GAT":
+        model = qt.GAT(P_DIM, GAT_HIDDEN, P_CLASSES, num_layers=3,
+                       heads=GAT_HEADS, dropout=0.5, device="cpu")
+    else:
+        model = qt.GCN(P_DIM, P_HIDDEN, P_CLASSES, num_layers=3, dropout=0.5,
+                       device="cpu")
+    return model.to(DEV)
+
+
+# ``learns``: whether the lane must show a falling loss.  The synthetic
+# products graph has uniform random neighbours (no homophily) and a node's
+# label is readable only from its own features: GraphSAGE keeps them in a
+# weight of their own, while GCN and GAT mix them with k random
+# neighbours' at every layer (a share of about 1/(k+1) a layer), so their
+# losses stay near ln(47) and are printed, not checked
+SAGE_LANE = dict(family="GraphSAGE", model=products_model, fanouts=P_FANOUTS,
+                 batch=P_BATCH, lr=P_LR, learns=True)
+GAT_LANE = dict(family="GAT", fanouts=GAT_FANOUTS, batch=GAT_BATCH, lr=GAT_LR,
+                model=lambda torch, qt: family_model(torch, qt, "GAT"),
+                learns=False)
+GCN_LANE = dict(family="GCN", fanouts=P_FANOUTS, batch=P_BATCH, lr=P_LR,
+                model=lambda torch, qt: family_model(torch, qt, "GCN"),
+                learns=False)
+
+
 def frontier_sizes(B: int):
     """Frontier lengths of the positional pipeline: B, B(1+k1), ..."""
     out = [B]
@@ -1373,12 +1446,12 @@ def b3_b4_phase(torch, qt, topo, train, b3, b4):
     return b3_record, b4_record
 
 
-def batches(torch, train, labels_d, n: int, seed: int):
-    """``n`` batches of P_BATCH shuffled train seeds and their labels, on
+def batches(torch, train, labels_d, n: int, seed: int, size: int = P_BATCH):
+    """``n`` batches of ``size`` shuffled train seeds and their labels, on
     the card."""
     order = np.random.default_rng(seed).permutation(train)
     for i in range(n):
-        s = torch.from_numpy(order[i * P_BATCH:(i + 1) * P_BATCH]
+        s = torch.from_numpy(order[i * size:(i + 1) * size]
                              .astype(np.int32)).to(DEV)
         yield s, labels_d[s.long()]
 
@@ -1416,25 +1489,32 @@ def fused_step_split(torch, qt, sampler, feature, model, opt, seeds, labels,
 
 
 def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
-               counters, per_step, dedup="none"):
+               counters, per_step, dedup="none", spec=None):
     """One lane of ``make_fused_train_step`` over the whole-table
-    ``feature``: a sampler in ``gather_mode=mode``, seeded GraphSAGE and
-    Adam, ``steps`` steps on the first batches of one shuffle (the loss
-    must fall; each kernel of ``counters`` must launch ``per_step[name]``
-    times a step).  Then the step split, one step under the profiler, and
-    one batch through ``make_fused_eval_fn``.  The profile counts B1's
-    kernels and the sort, searchsorted and scatter kernels (the reindex's
-    largest, not all of its operations) and their share of the step; under ``dedup="hop"`` it must show B1 once a hop.
+    ``feature``: a sampler in ``gather_mode=mode``, a seeded model and
+    Adam (``spec``: the model family, its fanouts, batch and rate;
+    GraphSAGE's lane when ``None``), ``steps`` steps on the first batches
+    of one shuffle (the loss must fall where ``spec["learns"]``; each
+    kernel of ``counters`` must launch ``per_step[name]`` times a step).
+    Then the step split, one step under the profiler, and one batch
+    through ``make_fused_eval_fn``.  The profile counts B1's kernels and
+    the sort, searchsorted and scatter kernels (the reindex's largest, not
+    all of its operations) and their share of the step; under
+    ``dedup="hop"`` it must show B1 once a hop.
     Returns the launches, a summary, and what the CPU check needs: the
     model, the eval ids and words, and the card's logits."""
+    spec = spec or SAGE_LANE
+    fanouts, size = spec["fanouts"], spec["batch"]
     lane = repr(mode) if dedup == "none" else f"{mode!r} dedup={dedup!r}"
+    if spec is not SAGE_LANE:
+        lane = f"{spec['family']} {lane}"
     t0 = time.perf_counter()
-    sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
+    sampler = qt.GraphSageSampler(topo, fanouts, device=DEV, seed=SEED,
                                   gather_mode=mode, dedup=dedup)
-    model = products_model(torch, qt)
-    opt = torch.optim.Adam(model.parameters(), lr=P_LR)
+    model = spec["model"](torch, qt)
+    opt = torch.optim.Adam(model.parameters(), lr=spec["lr"])
     step = qt.make_fused_train_step(sampler, feature, model, opt, seed=SEED)
-    ones = torch.ones((P_BATCH,), dtype=torch.bool, device=DEV)
+    ones = torch.ones((size,), dtype=torch.bool, device=DEV)
     torch.cuda.synchronize()
     print(f"fused lane {lane}: {feature!r}, {sampler!r}; set up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -1443,7 +1523,8 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     for fn in counters.values():
         fn.launches = 0
     losses, wall, dev_ms = [], [], []
-    for seeds, lab in batches(torch, train, labels_d, steps, SEED + 12):
+    for seeds, lab in batches(torch, train, labels_d, steps, SEED + 12,
+                              size):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1459,19 +1540,23 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     losses = torch.stack(losses).cpu().numpy()
     check(np.isfinite(losses).all(), f"a {lane} step loss is not finite")
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
-    check(last < first, f"the {lane} loss did not fall: {first} -> {last}")
+    if spec["learns"]:
+        check(last < first,
+              f"the {lane} loss did not fall: {first} -> {last}")
     for name, n in launches.items():
         check(n == per_step[name] * steps, f"{lane}: {name} launched {n} "
               f"times in {steps} steps, not {per_step[name]} a step")
-    summary = dict(gather_mode=mode, dedup=dedup, steps=steps,
-                   losses=losses.tolist(), loss_first5_mean=first, loss_last5_mean=last,
+    summary = dict(family=spec["family"], fanouts=fanouts, batch=size,
+                   lr=spec["lr"], gather_mode=mode, dedup=dedup, steps=steps,
+                   losses=losses.tolist(), loss_first5_mean=first,
+                   loss_last5_mean=last,
                    step_wall_ms=float(np.median(wall[2:])),
                    step_event_ms=float(np.median(dev_ms[2:])),
                    launches=launches, peak_gib=peak_gib)
     print(f"fused training {lane} " + json.dumps(summary), flush=True)
 
     # the step split and one step under the profiler
-    seeds, lab = next(batches(torch, train, labels_d, 1, SEED + 13))
+    seeds, lab = next(batches(torch, train, labels_d, 1, SEED + 13, size))
     split = fused_step_split(torch, qt, sampler, feature, model, opt, seeds,
                              lab, ones)
     print(f"fused step split {lane} (CUDA events, ms, median of 5) "
@@ -1487,7 +1572,7 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
         check(b1_ops == per_step["window_sample"], f"{lane}: {b1_ops} B1 "
               "kernels in the profile of one step")
 
-    ids = train[-P_BATCH:]
+    ids = train[-size:]
     kw = sampler.draw_key_words()
     y_card = qt.make_fused_eval_fn(sampler, feature, model)(ids, kw).cpu()
     return launches, summary, (model, ids, kw, y_card)
@@ -1608,9 +1693,11 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     default, which is ``"pwindow"`` (B1 once a hop, B3 never), for
     AUTO_STEPS steps; and ``"auto"`` under ``dedup="hop"`` with no caps
     (B1's literal entry once a hop, then the reindex) for AUTO_STEPS
-    steps, with ``hop_batch_phase``.  Then each lane's eval batch against
-    the plain versions on the CPU within CPU_TOL.  Returns each lane's
-    launches and summary, by lane."""
+    steps, with ``hop_batch_phase``; then GAT and GCN (slice 7) under
+    ``"auto"`` for FAMILY_STEPS steps each (GAT_LANE, GCN_LANE).  Then each
+    lane's eval batch against the plain versions on the CPU within
+    CPU_TOL.  Returns each lane's launches and summary, and its trained
+    model, by lane."""
     t0 = time.perf_counter()
     feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                          device=DEV).from_cpu_tensor(feat)
@@ -1624,14 +1711,19 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     n_hops = len(P_FANOUTS)
     b1_lane = dict(window_sample=n_hops, element_gather=0, gather_rows=1)
     lanes = {}
-    for label, mode, dedup, steps, per_step in (
+    for label, mode, dedup, steps, per_step, spec in (
             ("pallas", "pallas", "none", FUSED_STEPS,
              dict(window_sample=0, element_gather=2 * n_hops,
-                  gather_rows=1)),
-            ("auto", "auto", "none", AUTO_STEPS, b1_lane),
-            ("auto hop", "auto", "hop", AUTO_STEPS, b1_lane)):
+                  gather_rows=1), None),
+            ("auto", "auto", "none", AUTO_STEPS, b1_lane, None),
+            ("auto hop", "auto", "hop", AUTO_STEPS, b1_lane, None),
+            # slice 7: GAT and GCN through the same fused step
+            ("gat", "auto", "none", FAMILY_STEPS, dict(
+                b1_lane, window_sample=len(GAT_LANE["fanouts"])), GAT_LANE),
+            ("gcn", "auto", "none", FAMILY_STEPS, b1_lane, GCN_LANE)):
         lanes[label] = fused_lane(torch, qt, topo, feature, labels_d, train,
-                                  mode, steps, counters, per_step, dedup)
+                                  mode, steps, counters, per_step, dedup,
+                                  spec)
     seeds, _ = next(batches(torch, train, labels_d, 1, SEED + 12))
     hop_checks = hop_batch_phase(torch, qt, topo, seeds, b1)
     del feature
@@ -1641,17 +1733,17 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     # the same words
     feature_cpu = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                              device="cpu").from_cpu_tensor(feat)
-    out = {}
+    out, models = {}, {}
     for label, (launches, summary, (model, ids, kw, y_card)) in lanes.items():
         mode = summary["gather_mode"]
         t0 = time.perf_counter()
-        sampler_cpu = qt.GraphSageSampler(topo, P_FANOUTS, device="cpu",
-                                          gather_mode=mode,
+        sampler_cpu = qt.GraphSageSampler(topo, summary["fanouts"],
+                                          device="cpu", gather_mode=mode,
                                           dedup=summary["dedup"])
         y_cpu = qt.make_fused_eval_fn(sampler_cpu, feature_cpu,
                                       copy.deepcopy(model).cpu())(ids, kw)
         err = float((y_card - y_cpu).abs().max())
-        check(y_card.shape == (P_BATCH, P_CLASSES) and
+        check(y_card.shape == (summary["batch"], P_CLASSES) and
               bool(torch.isfinite(y_card).all()), f"{label!r} eval logits")
         check(torch.allclose(y_card, y_cpu, **CPU_TOL),
               f"{label!r}: card eval logits differ from the CPU's by {err}")
@@ -1660,8 +1752,9 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
         summary["eval_logits_max_abs_err"] = err
         out[label] = (launches, summary)
+        models[label] = model
     out["auto hop"][1]["batch_checks"] = hop_checks
-    return out
+    return out, models
 
 
 def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
@@ -1787,6 +1880,347 @@ def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
     return launches, summary
 
 
+def full_graph_phase(torch, qt, topo, feat, models) -> dict:
+    """Exact inference (``full_graph_inference``) on products for the
+    trained GraphSAGE (the ``"auto"`` lane's), GCN and GAT, EDGE_CHUNK
+    edges a chunk: host wall time, peak device memory, finite logits of
+    ``[N, 47]``; then each model on a 20,000-node ``synthetic_csr`` graph
+    on the card against the same call on CPU tensors within CPU_TOL."""
+    x = torch.from_numpy(feat).to(DEV)
+    out = {}
+    for label, family in (("auto", "GraphSAGE"), ("gcn", "GCN"),
+                          ("gat", "GAT")):
+        model = models[label]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = qt.full_graph_inference(model, None, x, topo.indptr, topo.indices,
+                                    edge_chunk=EDGE_CHUNK, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(y.shape == (topo.node_count, P_CLASSES)
+              and bool(torch.isfinite(y).all()),
+              f"{family} full-graph logits {tuple(y.shape)} or not finite")
+        out[family] = dict(wall_s=wall, chunks_a_pass=-(-topo.edge_count
+                                                       // EDGE_CHUNK),
+                           peak_extra_gib=(torch.cuda.max_memory_allocated()
+                                           - base) / 2**30)
+        print(f"full_graph_inference {family} on products "
+              + json.dumps(out[family]), flush=True)
+        del y
+    del x
+    torch.cuda.empty_cache()
+
+    indptr, indices = qt.synthetic_csr(20_000, 200_000, seed=SEED + 30)
+    xs = np.random.default_rng(SEED + 31).standard_normal(
+        (20_000, P_DIM), dtype=np.float32)
+    for label, family in (("auto", "GraphSAGE"), ("gcn", "GCN"),
+                          ("gat", "GAT")):
+        y_card = qt.full_graph_inference(models[label], None, xs, indptr,
+                                         indices, edge_chunk=50_000,
+                                         device=DEV).cpu()
+        y_cpu = qt.full_graph_inference(copy.deepcopy(models[label]).cpu(),
+                                        None, xs, indptr, indices,
+                                        edge_chunk=50_000, device="cpu")
+        err = float((y_card - y_cpu).abs().max())
+        check(torch.allclose(y_card, y_cpu, **CPU_TOL),
+              f"{family} full-graph logits on the card differ from the "
+              f"CPU's by {err}")
+        out[family]["small_graph_cpu_max_abs_err"] = err
+        print(f"full_graph_inference {family}, 20,000 nodes: card against "
+              f"CPU, max abs err {err:.3e}", flush=True)
+    return out
+
+
+def mag_data(torch, qt):
+    """The MAG240M-schema graph, its feature tables and the paper labels.
+    Each relation's CSR has Poisson(MAG_DEGREES) rows of uniform sources
+    (rows are DST nodes).  Features are N(0, 0.25) noise drawn on the
+    card from a seeded generator, MAG_CHUNK_ROWS rows at a time, into host
+    tables; a paper's row also holds its label's centroid, one N(0, 1)
+    vector per class (a class-conditional Gaussian mixture), so the loss
+    can fall within a few steps.  (A one-hot label in 153 of the 768
+    columns, as ``products_data`` makes products' rows, left the loss at
+    ln(153) for 10 steps at Adam 1e-3.)"""
+    rng = np.random.default_rng(SEED + 20)
+    rels = {}
+    for (s_t, name, d_t), avg in MAG_DEGREES.items():
+        deg = rng.poisson(avg, MAG_COUNTS[d_t])
+        indptr = np.zeros(len(deg) + 1, np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        indices = rng.integers(0, MAG_COUNTS[s_t], int(indptr[-1]),
+                               dtype=np.int32)
+        rels[(s_t, name, d_t)] = qt.CSRTopo(indptr=indptr, indices=indices)
+    topo = qt.HeteroCSRTopo(rels, MAG_COUNTS)
+    labels = rng.integers(0, MAG_CLASSES, MAG_COUNTS["paper"]).astype(
+        np.int32)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    labels_d = torch.from_numpy(labels).to(DEV).long()
+    centroids = torch.randn((MAG_CLASSES, MAG_DIM), generator=gen,
+                            device=DEV)
+    tables = {}
+    for t, n in MAG_COUNTS.items():
+        host = torch.empty((n, MAG_DIM), dtype=torch.float32)
+        for lo in range(0, n, MAG_CHUNK_ROWS):
+            hi = min(lo + MAG_CHUNK_ROWS, n)
+            rows = torch.randn((hi - lo, MAG_DIM), generator=gen,
+                               device=DEV) * 0.5
+            if t == "paper":
+                rows += centroids[labels_d[lo:hi]]
+            host[lo:hi].copy_(rows)
+        tables[t] = host.numpy()
+    return topo, tables, labels
+
+
+def check_same_hetero(torch, got, want, what: str):
+    """Two hetero batches, bit for bit: every type's ids and mask, every
+    block's relation, ``nbr_local``, ``mask`` and ``num_targets``."""
+    for t in want.n_id:
+        check(torch.equal(got.n_id[t], want.n_id[t]), f"{what}: {t} ids")
+        check(torch.equal(got.n_id_mask[t], want.n_id_mask[t]),
+              f"{what}: {t} mask")
+    for l, (gl, wl) in enumerate(zip(got.layers, want.layers, strict=True)):
+        for a, b in zip(gl, wl, strict=True):
+            check(a.relation == b.relation, f"{what}: layer {l} relations")
+            for name in ("nbr_local", "mask", "num_targets"):
+                check(torch.equal(getattr(a, name), getattr(b, name)),
+                      f"{what}: layer {l} {a.relation} {name} differs")
+
+
+def rgat_step_split(torch, sampler, hf, model, opt, seeds, labels,
+                    mask) -> dict:
+    """One R-GAT step's stages by CUDA events (median of 5 after 2 warm):
+    sampling, lookup, forward and loss, backward, Adam."""
+    from quiver_tpu_torch.parallel.train import masked_cross_entropy
+
+    keys = ("sample", "lookup", "forward", "backward", "optimizer")
+    out = {k: [] for k in keys}
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    model.train()
+    for _ in range(7):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        batch = sampler.sample(seeds)
+        ev[1].record()
+        xs = hf.lookup(batch)
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss = masked_cross_entropy(model(xs, batch, generator=gen), labels,
+                                    mask)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        ev[5].synchronize()
+        for i, k in enumerate(keys):
+            out[k].append(ev[i].elapsed_time(ev[i + 1]))
+        del batch, xs, loss
+    return {k: float(np.median(v[2:])) for k, v in out.items()}
+
+
+def hetero_kernel_cases(torch, b1, b2, topo, hf, sampler, batch, kw):
+    """Kernels B1 (literal entry) at each block of one sampled batch and
+    B2 at each type's lookup, held against their plain versions exactly on
+    the batch's own inputs, timed against their bounds (B1 as in
+    ``b1_hops``; B2 the distinct rows read and the ids and rows written),
+    B2 beside ``index_select``."""
+    b1_cases, b2_cases, i = [], [], 0
+    for hop in sampler.plan(batch.batch_size)[0]:
+        for blk in hop:
+            s_t, _, d_t = blk.relation
+            t, k = blk.t_len, blk.k
+            ip, ix = topo.relations[blk.relation].to_device(DEV)
+            s, m = batch.n_id[d_t][:t], batch.n_id_mask[d_t][:t]
+            k0, k1 = int(kw[i, 0]), int(kw[i, 1])
+            i += 1
+
+            def lit():
+                return b1.window_sample(ip, ix, s, k, k0, k1, m)
+
+            def lit_plain():
+                return b1.window_sample_plain(ip, ix, s, k, k0, k1, m)
+
+            got, want = lit(), lit_plain()
+            torch.cuda.synchronize()
+            for name, a, b in zip(got._fields, got, want):
+                check(torch.equal(a, b), f"B1 {blk.relation} {name} "
+                      "differs from the plain version")
+            live = s[m].long()
+            nbytes = (t * (4 + 1) + sector_bytes(torch, live, live + 1)
+                      + sector_bytes(torch, got.eid[got.mask])
+                      + t * k * (4 + 1 + 4) + t * 4)
+            b1_cases.append(dict(
+                entry="literal", shape=f"MAG {'__'.join(blk.relation)}: "
+                f"B={t}, k={k}", max_abs_err=int_err(zip(got, want)),
+                ms=cuda_ms(torch, lit), host_ms=host_ms(torch, lit),
+                plain_ms=cuda_ms(torch, lit_plain),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                draws=int(got.counts.sum())))
+            print(f"B1 literal entry, {b1_cases[-1]['shape']}: exact; "
+                  f"{json.dumps(b1_cases[-1])}", flush=True)
+    for t, f in hf.features.items():
+        idx = batch.n_id[t].to(torch.int32)  # what lookup_device hands B2
+        got = b2.gather_rows(f.hot, idx)
+        check(torch.equal(got, b2.gather_rows_plain(f.hot, idx)),
+              f"B2 {t} rows differ from the plain version")
+        row = MAG_DIM * 4
+        nbytes = (int(torch.unique(idx).shape[0]) * row
+                  + idx.shape[0] * (4 + row))
+        b2_cases.append(dict(
+            shape=f"MAG {t}: M={idx.shape[0]}, D={MAG_DIM}, float32",
+            max_abs_err=0.0, ms=cuda_ms(torch, lambda: b2.gather_rows(
+                f.hot, idx)),
+            plain_ms=cuda_ms(torch, lambda: b2.gather_rows_plain(f.hot, idx)),
+            library_ms=cuda_ms(torch, lambda: torch.index_select(
+                f.hot, 0, idx)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+        print(f"B2 {b2_cases[-1]['shape']}: exact; "
+              f"{json.dumps(b2_cases[-1])}", flush=True)
+        del got
+
+    def total(cases, key):
+        return float(sum(c[key] for c in cases))
+
+    return ({k: total(b1_cases, k) for k in ("ms", "plain_ms", "bound_ms",
+                                             "host_ms")} | {"cases": b1_cases},
+            {k: total(b2_cases, k) for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms")}
+            | {"cases": b2_cases})
+
+
+def rgat_phase(torch, qt, b1, b2):
+    """Slice 7's main path, the loop of ``examples/mag240m_rgat.py`` at
+    MAG240M's widths: ``HeteroGraphSageSampler.sample`` (B1's literal
+    entry once a sampled block, 5 a step) -> ``HeteroFeature.lookup`` (B2
+    once a type, 3 a step, the whole 12.4 GB of tables on the card) ->
+    ``make_train_step(RGAT)``, MAG_STEPS steps; the loss must fall and
+    stay finite.  Then the step split by CUDA events, one step under the
+    profiler (busy share), one batch under ``"pwindow"`` against
+    ``"xla"`` with the same words, bit for bit, and the kernels at that
+    batch's shapes (``hetero_kernel_cases``).  Returns the loop's
+    launches, a summary and B1's and B2's MAG records."""
+    t0 = time.perf_counter()
+    topo, tables, labels = mag_data(torch, qt)
+    t_data = time.perf_counter() - t0
+    hf = qt.HeteroFeature.from_cpu_tensors(
+        tables, device_cache_size=max(a.nbytes for a in tables.values()),
+        device=DEV)
+    for t, f in hf.features.items():
+        check(f.cache_count == MAG_COUNTS[t], f"the {t} table is not whole")
+    table_gb = sum(a.nbytes for a in tables.values()) / 1e9
+    del tables
+    sampler = qt.HeteroGraphSageSampler(topo, MAG_FANOUTS, seed_type="paper",
+                                        device=DEV, seed=SEED)
+    _, lens = sampler.plan(MAG_BATCH)
+    check(lens == MAG_FRONTIERS, f"MAG frontiers {lens}")
+    torch.manual_seed(SEED)
+    model = qt.RGAT({t: MAG_DIM for t in MAG_COUNTS}, MAG_HIDDEN,
+                    MAG_CLASSES, len(MAG_FANOUTS), sampler.layer_relations(),
+                    heads=MAG_HEADS, dropout=0.5, device="cpu").to(DEV)
+    opt = torch.optim.Adam(model.parameters(), lr=MAG_LR)
+    step = qt.make_train_step(model, opt, seed=SEED)
+    labels_d = torch.from_numpy(labels).to(DEV)
+    order = np.random.default_rng(SEED + 21).permutation(MAG_COUNTS["paper"])
+    ones = torch.ones((MAG_BATCH,), dtype=torch.bool, device=DEV)
+
+    def seeds_of(i):
+        return torch.from_numpy(order[i * MAG_BATCH:(i + 1) * MAG_BATCH]
+                                .astype(np.int32)).to(DEV)
+
+    torch.cuda.synchronize()
+    edges = {"__".join(r): c.edge_count for r, c in topo.relations.items()}
+    print(f"MAG240M-schema graph {MAG_COUNTS}, edges {edges}, "
+          f"{table_gb:.2f} GB of features on the card, frontiers {lens} "
+          f"({sum(lens.values()):,} rows a step), "
+          f"{sum(p.numel() for p in model.parameters()):,} R-GAT "
+          f"parameters: data in {t_data:.2f} s, set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    b1.window_sample.launches = 0
+    b2.gather_rows.launches = 0
+    losses, wall, dev_ms = [], [], []
+    for i in range(MAG_STEPS):
+        seeds = seeds_of(i)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a.record()
+        batch = sampler.sample(seeds)
+        xs = hf.lookup(batch)
+        losses.append(step(xs, batch, labels_d[seeds.long()], ones))
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+        dev_ms.append(a.elapsed_time(b))
+        del batch, xs
+    launches = {"window_sample": b1.window_sample.launches,
+                "gather_rows": b2.gather_rows.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(losses).all(), "an R-GAT loss is not finite")
+    first, last = float(losses[:3].mean()), float(losses[-3:].mean())
+    check(last < first, f"the R-GAT loss did not fall: {losses.tolist()}")
+    n_blocks = sampler.num_blocks(MAG_BATCH)
+    check(launches["window_sample"] == n_blocks * MAG_STEPS,
+          f"R-GAT: B1 launched {launches['window_sample']} times in "
+          f"{MAG_STEPS} steps, not {n_blocks} a step")
+    check(launches["gather_rows"] == len(MAG_COUNTS) * MAG_STEPS,
+          f"R-GAT: B2 launched {launches['gather_rows']} times in "
+          f"{MAG_STEPS} steps, not {len(MAG_COUNTS)} a step")
+    summary = dict(steps=MAG_STEPS, losses=losses.tolist(),
+                   loss_first3_mean=first, loss_last3_mean=last,
+                   step_wall_ms=float(np.median(wall[2:])),
+                   step_event_ms=float(np.median(dev_ms[2:])),
+                   launches=launches, peak_gib=peak_gib,
+                   table_gb=table_gb, frontiers=lens, data_s=t_data)
+    print("R-GAT training " + json.dumps(summary), flush=True)
+
+    seeds, lab = seeds_of(MAG_STEPS), labels_d[seeds_of(MAG_STEPS).long()]
+    split = rgat_step_split(torch, sampler, hf, model, opt, seeds, lab, ones)
+    print("R-GAT step split (CUDA events, ms, median of 5) "
+          + json.dumps(split), flush=True)
+
+    def one_step():
+        batch = sampler.sample(seeds)
+        step(hf.lookup(batch), batch, lab, ones)
+
+    # the launch counters above hold B1 to exactly n_blocks a step; the
+    # profile must show B1 on the card, but on some machines the profiler
+    # drops device events from every capture (runs saw 413 of a step's
+    # 417 operations, 4 of its 5 B1 kernels), so it is taken up to three
+    # times for the full count and then held to between one and n_blocks
+    # B1 kernels
+    for _ in range(3):
+        prof = device_profile(torch, one_step, summary["step_wall_ms"],
+                              top=12, families=KERNEL_FAMILIES)
+        b1_ops = prof.get("families", {}).get("B1", {}).get("count") or 0
+        if b1_ops == n_blocks:
+            break
+    print("R-GAT step on the card (torch.profiler) " + json.dumps(prof),
+          flush=True)
+    check(1 <= b1_ops <= n_blocks, f"R-GAT: {b1_ops} B1 kernels in the "
+          "profile of one step")
+    summary.update(split_ms=split, device_profile=prof)
+
+    kw = sampler.draw_key_words(MAG_BATCH)
+    got = sampler.sample(seeds, key_words=kw)
+    xla = qt.HeteroGraphSageSampler(topo, MAG_FANOUTS, seed_type="paper",
+                                    device=DEV, gather_mode="xla")
+    check_same_hetero(torch, got, xla.sample(seeds, key_words=kw),
+                      "MAG batch under pwindow vs xla")
+    print("MAG batch under \"pwindow\" (B1): equal to \"xla\", bit for bit, "
+          "per block and per type", flush=True)
+    b1_mag, b2_mag = hetero_kernel_cases(torch, b1, b2, topo, hf, sampler,
+                                         got, kw)
+    del got, hf, model, opt, step, sampler, xla
+    torch.cuda.empty_cache()
+    return launches, summary, b1_mag, b2_mag
+
+
 def main() -> int:
     import torch
 
@@ -1905,8 +2339,8 @@ def main() -> int:
         b3, 2 * len(P_FANOUTS))
     b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
     b3_record["launches_weighted_serving"] = launches_w["element_gather"]
-    lanes = fused_training_phase(torch, qt, ptopo, pfeat, plabels, ptrain,
-                                 b1, b2, b3)
+    lanes, models = fused_training_phase(torch, qt, ptopo, pfeat, plabels,
+                                         ptrain, b1, b2, b3)
     (launches_f, summary_f), (launches_a, summary_a), \
         (launches_h, summary_h) = (lanes["pallas"], lanes["auto"],
                                    lanes["auto hop"])
@@ -1915,6 +2349,10 @@ def main() -> int:
     kernels[0]["launches_hop_training"] = launches_h["window_sample"]
     kernels[1]["launches_fused_training"] = launches_f["gather_rows"]
     kernels[1]["launches_hop_training"] = launches_h["gather_rows"]
+    for family in ("gat", "gcn"):
+        for rec, name in ((kernels[0], "window_sample"),
+                          (kernels[1], "gather_rows")):
+            rec[f"launches_{family}_training"] = lanes[family][0][name]
     side = {}
     for name, summ in (("none", summary_a), ("hop", summary_h)):
         prof = summ["device_profile"]
@@ -1947,6 +2385,21 @@ def main() -> int:
         products=blocked_p, reddit_weighted_hop=summary_w["blocked"])),
         flush=True)
     print("two-stage training summary " + json.dumps(summary_s), flush=True)
+    for family in ("gat", "gcn"):
+        print(f"fused training summary, {family.upper()} "
+              + json.dumps(lanes[family][1]), flush=True)
+
+    # slice 7: exact inference of the trained models, then R-GAT
+    full = full_graph_phase(torch, qt, ptopo, pfeat, models)
+    print("full_graph_inference summary " + json.dumps(full), flush=True)
+    del models, lanes, ptopo, pfeat, pip, pix, pseeds
+    torch.cuda.empty_cache()
+    launches_r, summary_r, b1_mag, b2_mag = rgat_phase(torch, qt, b1, b2)
+    kernels[0].update(launches_rgat_training=launches_r["window_sample"],
+                      mag=b1_mag)
+    kernels[1].update(launches_rgat_training=launches_r["gather_rows"],
+                      mag=b2_mag)
+    print("R-GAT training summary " + json.dumps(summary_r), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)

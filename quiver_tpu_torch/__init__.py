@@ -8,8 +8,14 @@ PyTorch version runs instead.
 """
 
 from .feature import Feature
+from .hetero import (HeteroCSRTopo, HeteroFeature, HeteroGraphSageSampler,
+                     HeteroLayerBlock, HeteroSampledBatch)
 from .loader import SeedLoader
-from .models import (GraphSAGE, SAGEConv, sage_params_from_flax,
+from .models import (GAT, GATConv, GCN, GCNConv, RGAT, GraphSAGE, SAGEConv,
+                     full_graph_inference, gat_params_from_flax,
+                     gat_params_to_flax, gcn_params_from_flax,
+                     gcn_params_to_flax, rgat_params_from_flax,
+                     rgat_params_to_flax, sage_params_from_flax,
                      sage_params_to_flax)
 from .parallel import Prefetcher, TrainState, make_train_step
 from .pipeline import make_fused_eval_fn, make_fused_train_step, make_scan_epoch
@@ -22,13 +28,18 @@ from .utils import (CSRTopo, community_graph, coo_to_csr, parse_size,
                     synthetic_products, synthetic_reddit)
 
 __all__ = [
-    "CSRTopo", "Feature", "GraphSAGE", "GraphSageSampler",
+    "CSRTopo", "Feature", "GAT", "GATConv", "GCN", "GCNConv", "GraphSAGE",
+    "GraphSageSampler", "HeteroCSRTopo", "HeteroFeature",
+    "HeteroGraphSageSampler", "HeteroLayerBlock", "HeteroSampledBatch",
     "InferenceServer", "InferenceServer_Debug", "LayerBlock", "Prefetcher",
-    "RequestBatcher", "SAGEConv", "SampleOut", "SampledBatch", "SeedLoader",
-    "ServingRequest", "TrainState", "community_graph", "coo_to_csr",
+    "RGAT", "RequestBatcher", "SAGEConv", "SampleOut", "SampledBatch",
+    "SeedLoader", "ServingRequest", "TrainState", "community_graph",
+    "coo_to_csr", "full_graph_inference", "gat_params_from_flax",
+    "gat_params_to_flax", "gcn_params_from_flax", "gcn_params_to_flax",
     "make_fused_eval_fn", "make_fused_train_step", "make_scan_epoch",
     "make_train_step", "parse_size", "reindex_by_config", "reindex_feature",
-    "run_pipeline", "sage_params_from_flax", "sage_params_to_flax",
+    "rgat_params_from_flax", "rgat_params_to_flax", "run_pipeline",
+    "sage_params_from_flax", "sage_params_to_flax",
     "sample_neighbors", "synthetic_csr", "synthetic_products",
     "synthetic_reddit", "to_ragged",
 ]

@@ -1,7 +1,7 @@
 """Dense-block GNN layers (counterpart of ``quiver_tpu/models/layers.py``).
 
 Layers consume the sampler's dense ``[T, k]`` neighbour blocks: aggregation
-is an index, a masked sum and a divide by ``max(count, 1)``, in plain
+is an index, a masked sum (a mean or an attention-weighted sum) in plain
 PyTorch, as the JAX package leaves it to XLA.
 """
 
@@ -10,9 +10,22 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["SAGEConv"]
+from ..utils.device import resolve_device
+
+__all__ = ["SAGEConv", "GATConv", "masked_softmax"]
+
+
+def _dropout(x: torch.Tensor, p: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with its keep mask drawn from ``generator``
+    (``F.dropout`` takes none)."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
 
 
 class SAGEConv(nn.Module):
@@ -44,3 +57,66 @@ class SAGEConv(nn.Module):
             mean_e = (edge_feat.to(x.dtype) * m).sum(dim=1) / cnt
             mean_nbr = torch.cat([mean_nbr, mean_e], dim=-1)
         return self.lin_self(x[:t]) + self.lin_nbr(mean_nbr)
+
+
+def masked_softmax(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over dim 1 of ``e`` where ``mask``, 0 elsewhere.  A row with
+    no valid slot is all ``-inf`` before the softmax and NaN after it, as
+    in JAX; the ``where`` on the forward value makes it 0, and its
+    backward sends 0, not NaN, to every slot of such a row (a
+    ``masked_fill`` of the gradient-carrying value would not)."""
+    alpha = torch.softmax(torch.where(mask, e, float("-inf")), dim=1)
+    return torch.where(mask, alpha, torch.zeros_like(alpha))
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention over a dense ``[T, k]`` block, with the
+    self loop joined as slot ``k`` (PyG's ``GATConv(add_self_loops=True)``
+    under neighbour sampling).
+
+    The self loop's score uses ``att_src`` on the node's own row plus the
+    target term, as in ``quiver_tpu/models/layers.py:98``.  Output
+    ``[T, heads * out_features]`` (``concat``) or the mean over heads
+    ``[T, out_features]``.  Parameters live on ``device`` (``None``: the
+    card).
+    """
+
+    def __init__(self, in_features: int, out_features: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.heads, self.out_features = heads, out_features
+        self.concat, self.negative_slope = concat, negative_slope
+        self.lin = nn.Linear(in_features, heads * out_features, bias=False,
+                             device=dev)
+        self.att_src = nn.Parameter(torch.empty(heads, out_features,
+                                                device=dev))
+        self.att_tgt = nn.Parameter(torch.empty(heads, out_features,
+                                                device=dev))
+        nn.init.xavier_uniform_(self.att_src)
+        nn.init.xavier_uniform_(self.att_tgt)
+
+    def forward(self, x: torch.Tensor, block) -> torch.Tensor:
+        h, f = self.heads, self.out_features
+        t, k = block.nbr_local.shape
+        w = self.lin(x).view(x.shape[0], h, f)
+        w_src = w.index_select(0, block.nbr_local.reshape(-1))
+        w_src = w_src.view(t, k, h, f)                      # [T, k, H, F]
+        w_tgt = w[:t]                                       # [T, H, F]
+        e_tgt = (w_tgt * self.att_tgt).sum(-1)              # [T, H]
+        e_src = (w_src * self.att_src).sum(-1)              # [T, k, H]
+        e_self = (w_tgt * self.att_src).sum(-1) + e_tgt     # [T, H]
+        e = F.leaky_relu(torch.cat([e_src + e_tgt[:, None],
+                                    e_self[:, None]], dim=1),
+                         self.negative_slope)               # [T, k+1, H]
+        mask = torch.cat([block.mask, torch.ones_like(block.mask[:, :1])],
+                         dim=1)[..., None]
+        alpha = masked_softmax(e, mask)
+        # the neighbours' sum and the self loop's term apart: no
+        # [T, k+1, H, F] concat of the values
+        out = ((alpha[:, :k, :, None] * w_src).sum(dim=1)
+               + alpha[:, k, :, None] * w_tgt)              # [T, H, F]
+        if self.concat:
+            return out.reshape(t, h * f)
+        return out.mean(dim=1)

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import SAGEConv
+from .layers import SAGEConv, _dropout
 
 __all__ = ["GraphSAGE"]
 
@@ -57,13 +57,3 @@ class GraphSAGE(nn.Module):
                 x = F.relu(x)
                 x = _dropout(x, self.dropout, self.training, generator)
         return x
-
-
-def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with its keep mask drawn from ``generator``
-    (``F.dropout`` takes none)."""
-    if not training or p == 0.0:
-        return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
-    return x * keep / (1.0 - p)

@@ -683,3 +683,118 @@ def test_hop_and_blocked_pipelines_on_card_equal_xla(card, weighted):
     assert int(want.drops.sum()) > 0
     for key, got in batches.items():
         _same_batch(got, want)
+
+
+def _mag_graph(n_paper=3000, n_author=2000, n_inst=60, seed=0):
+    """A MAG-schema hetero graph (employs at 0.36 an author: most authors
+    have no institution)."""
+    rng = np.random.default_rng(seed)
+
+    def csr(n_src, n_dst, avg):
+        deg = rng.poisson(avg, n_dst)
+        indptr = np.zeros(n_dst + 1, np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        return qt.CSRTopo(indptr=indptr, indices=rng.integers(
+            0, n_src, int(indptr[-1])).astype(np.int32))
+
+    counts = {"paper": n_paper, "author": n_author, "institution": n_inst}
+    return qt.HeteroCSRTopo({
+        ("paper", "cites", "paper"): csr(n_paper, n_paper, 10.66),
+        ("author", "writes", "paper"): csr(n_author, n_paper, 3.17),
+        ("institution", "employs", "author"): csr(n_inst, n_author, 0.36)},
+        counts), counts
+
+
+def _same_hetero(a, b):
+    for t in a.n_id:
+        assert torch.equal(a.n_id[t].cpu(), b.n_id[t].cpu()), t
+        assert torch.equal(a.n_id_mask[t].cpu(), b.n_id_mask[t].cpu()), t
+    for la, lb in zip(a.layers, b.layers, strict=True):
+        for x, y in zip(la, lb, strict=True):
+            assert x.relation == y.relation
+            for f in ("nbr_local", "mask", "num_targets"):
+                assert torch.equal(getattr(x, f).cpu(),
+                                   getattr(y, f).cpu()), (x.relation, f)
+
+
+def test_hetero_sampler_on_card_equals_xla(card):
+    """The hetero sampler under ``"pwindow"`` (B1's literal entry once a
+    sampled block) against ``"xla"`` on the card and against the CPU, bit
+    for bit, with duplicate seeds."""
+    topo, _ = _mag_graph()
+    seeds = np.concatenate([np.arange(0, 3000, 7), [5, 5, 5]])
+    s = qt.HeteroGraphSageSampler(topo, [25, 15], device=card)
+    kw = s.draw_key_words(len(seeds))
+    before = b1.window_sample.launches
+    got = s.sample(seeds, key_words=kw)
+    torch.cuda.synchronize()
+    assert b1.window_sample.launches - before == s.num_blocks(len(seeds))
+    for mode, dev in (("xla", card), ("pwindow", "cpu")):
+        _same_hetero(got, qt.HeteroGraphSageSampler(
+            topo, [25, 15], device=dev, gather_mode=mode).sample(
+                seeds, key_words=kw))
+
+
+def test_rgat_card_matches_cpu(card):
+    """R-GAT on the card (B1 sampling, B2 lookup, autograd, Adam) against
+    the plain versions on the CPU: logits within fp32 summation-order
+    tolerance, then losses and parameters after two steps (dropout 0)."""
+    topo, counts = _mag_graph(seed=1)
+    dims = {"paper": 24, "author": 16, "institution": 8}
+    rng = np.random.default_rng(2)
+    feats = {t: rng.standard_normal((n, dims[t])).astype(np.float32)
+             for t, n in counts.items()}
+    labels = torch.from_numpy(rng.integers(0, 7, counts["paper"]))
+    ids = np.arange(0, 3000, 11)
+    torch.manual_seed(0)
+    out = []
+    for dev in ("cpu", card):
+        s = qt.HeteroGraphSageSampler(topo, [6, 4], device=dev)
+        hf = qt.HeteroFeature.from_cpu_tensors(feats, device=dev)
+        model = qt.RGAT(dims, 32, 7, 2, s.layer_relations(), heads=4,
+                        dropout=0.0, device="cpu")
+        if out:
+            model.load_state_dict(out[0][2])
+        base = {k: v.clone() for k, v in model.state_dict().items()}
+        model = model.to(dev)
+        step = qt.make_train_step(
+            model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        kws = [np.full((s.num_blocks(len(ids)), 2), i, np.uint32)
+               for i in (1, 2)]
+        batch = s.sample(ids, key_words=kws[0])
+        model.eval()
+        logits = model(hf.lookup(batch), batch).detach().cpu()
+        lab = labels[ids].to(dev)
+        ones = torch.ones(len(ids), dtype=torch.bool, device=dev)
+        losses = []
+        for kw in kws:
+            batch = s.sample(ids, key_words=kw)
+            losses.append(float(step(hf.lookup(batch), batch, lab, ones)))
+        out.append((logits, losses, base,
+                    {k: v.cpu() for k, v in model.state_dict().items()}))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-5)
+    for k in out[0][3]:
+        torch.testing.assert_close(out[1][3][k], out[0][3][k], rtol=0,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("family", ["sage", "gcn", "gat"])
+def test_full_graph_inference_card_matches_cpu(card, family):
+    """Exact inference on the card against the CPU, chunked: fp32 within
+    ``rtol=atol=1e-5`` (``index_add_`` order differs on the card)."""
+    topo = _graph(5, n=2000)
+    x = np.random.default_rng(4).standard_normal((2000, 24)).astype(
+        np.float32)
+    torch.manual_seed(0)
+    model = {"sage": lambda: qt.GraphSAGE(24, 32, 7, num_layers=3),
+             "gcn": lambda: qt.GCN(24, 32, 7, num_layers=3, device="cpu"),
+             "gat": lambda: qt.GAT(24, 16, 7, num_layers=3, heads=4,
+                                   device="cpu")}[family]()
+    want = qt.full_graph_inference(model, None, x, topo.indptr,
+                                   topo.indices, edge_chunk=300_000,
+                                   device="cpu")
+    got = qt.full_graph_inference(model.to(card), None, x, topo.indptr,
+                                  topo.indices, edge_chunk=300_000)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

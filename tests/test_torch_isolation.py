@@ -142,3 +142,45 @@ def test_default_device_is_the_card(monkeypatch):
                             torch.zeros(2, dtype=torch.int32), 2, (1, 2))
     with pytest.raises(RuntimeError, match="CUDA"):
         qt.parallel.AsyncNeighborSampler(topo, 2)
+
+
+def test_walk_covers_the_model_families():
+    """The source walk and the subprocess import reach GAT, GCN, R-GAT,
+    exact inference and the hetero sampler."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = ("hetero.py", "models/layers.py", "models/gat.py",
+            "models/gcn.py", "models/rgat.py", "models/inference.py",
+            "models/convert.py")
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_model_families_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rel = ("a", "r", "a")
+    topo = qt.HeteroCSRTopo(
+        {rel: qt.CSRTopo(indptr=np.array([0, 1, 2]),
+                         indices=np.array([1, 0]))}, {"a": 2})
+    for make in (lambda: qt.GATConv(4, 4), lambda: qt.GAT(4, 4, 2),
+                 lambda: qt.GCNConv(4, 4), lambda: qt.GCN(4, 4, 2),
+                 lambda: qt.RGAT({"a": 4}, 4, 2, 1, [[rel]]),
+                 lambda: qt.HeteroGraphSageSampler(topo, 2, num_hops=1,
+                                                   seed_type="a"),
+                 lambda: qt.HeteroFeature.from_cpu_tensors(
+                     {"a": np.zeros((2, 3), np.float32)}),
+                 lambda: qt.full_graph_inference(
+                     qt.GCN(3, 4, 2, device="cpu"), None,
+                     np.zeros((2, 3), np.float32), np.array([0, 1, 2]),
+                     np.array([1, 0]))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
