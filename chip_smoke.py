@@ -15,7 +15,12 @@ first use, with nvcc, one process per source, all at once), then:
    entries, at each hop of one bucket-2048 pass, on the frontier the
    kernel builds) and B2 against their plain PyTorch versions on the card
    at the main path's shapes, exactly, and times kernel, host launch,
-   plain version and library call with CUDA events; then the
+   plain version and library call with CUDA events (B2 as
+   ``lookup_device`` calls it, the frontier ids and the row order, in
+   fp32 and bf16, through both routes, beside ``index_select`` on the
+   mapped ids, with two bounds: ``b2_case``); the pass's lookup as three
+   steps (clamp, order take, B2) and as one call of B2's entry, device
+   time and device operations each (``lookup_span``); then the
    ``"pwindow"`` pipeline's host time, device span and device operations
    at each depth (each hop must add one B1 launch and no other operation)
    and its host profile; B1 is also timed with the L2 fetch granularity
@@ -72,7 +77,9 @@ first use, with nvcc, one process per source, all at once), then:
    library call and the earlier two-step B4 (``index_select`` rows, then
    the literal entry), and checks that ``element_gather(fused=True)``
    allocates no ``[M, 128]`` rows;
-11. fused training phase: the whole 100-wide table on the card, GraphSAGE
+11. fused training phase: the whole 100-wide table on the card, B2 at the
+   step's lookup (the batch's 1,081,344 frontier ids through the row
+   order, ``b2_case``), GraphSAGE
    100 -> 256 -> 256 -> 47 with dropout 0.5 and seeded weights, Adam at
    3e-3; 30 steps of ``make_fused_train_step`` under
    ``gather_mode="pallas"`` (B3 twice a hop, 6 times a step, B1 never)
@@ -111,7 +118,7 @@ first use, with nvcc, one process per source, all at once), then:
    steps (the loss must fall); the step split by CUDA events, one step
    under the profiler, one batch under ``"pwindow"`` bitwise against
    ``"xla"``, and B1 and B2 at that batch's shapes against their plain
-   versions;
+   versions (B2 per type as in ``b2_case``);
 15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -256,7 +263,8 @@ def sector_bytes(torch, *positions) -> int:
 def seeded_model(torch, qt):
     """GraphSAGE 602 -> 256 -> 41, weights uniform in +-1/sqrt(fan_in)
     from a seeded generator."""
-    model = qt.GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=2, dropout=0.5)
+    model = qt.GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=2, dropout=0.5,
+                         device="cpu")
     g = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -397,33 +405,16 @@ def kernel_phase(torch, qt, topo, feature, b1, b2):
     cost = pwindow_pipeline_phase(torch, ip, ix, seeds, kw, FANOUTS,
                                   "Reddit", b1)
 
-    # B2 at the lookup of that pass: 585,728 frontier rows of width 602
+    # B2 at the lookup of that pass, as Feature.lookup_device calls it:
+    # 585,728 frontier ids and the feature's row order, rows of width 602
     check(n_id.shape[0] == 585_728, f"frontier {n_id.shape[0]}")
-    order = torch.from_numpy(feature.feature_order.astype(np.int32)).to(dev)
-    idx = order[n_id.to(torch.int64)]  # what lookup_device hands B2
-    distinct = int(torch.unique(idx).shape[0])
-    b2_cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        table = feature.hot if dtype == torch.float32 else \
-            feature.hot.to(dtype)
-        got = b2.gather_rows(table, idx)
-        want = b2.gather_rows_plain(table, idx)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"B2 {dtype} differs from index_select")
-        row = DIM * table.element_size()
-        nbytes = distinct * row + idx.shape[0] * (4 + row)
-        b2_cases.append(dict(
-            shape=f"M={idx.shape[0]}, D={DIM}, {str(dtype)[6:]}",
-            vector_bytes=b2.vector_bytes(row, table.data_ptr(),
-                                         got.data_ptr()),
-            max_abs_err=float((got.float() - want.float()).abs().max()),
-            ms=cuda_ms(torch, lambda: b2.gather_rows(table, idx)),
-            plain_ms=cuda_ms(torch, lambda: b2.gather_rows_plain(table, idx)),
-            library_ms=cuda_ms(torch,
-                               lambda: torch.index_select(table, 0, idx)),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, distinct_rows=distinct))
-        print(f"B2 {dtype}: exact; {json.dumps(b2_cases[-1])}", flush=True)
-        del got, want, table
+    b2_cases = [b2_case(torch, b2, "Reddit", feature.hot, n_id,
+                        feature._order_dev)]
+    bf16 = feature.hot.to(torch.bfloat16)
+    b2_cases.append(b2_case(torch, b2, "Reddit", bf16, n_id,
+                            feature._order_dev))
+    del bf16
+    span = lookup_span(torch, feature, n_id, b2)
 
     return [
         dict(b1_record(b1, b1_cases), pipeline_cost=cost),
@@ -432,8 +423,92 @@ def kernel_phase(torch, qt, topo, feature, b1, b2):
              max_abs_err=max(c["max_abs_err"] for c in b2_cases),
              ms=b2_cases[0]["ms"], plain_ms=b2_cases[0]["plain_ms"],
              bound_ms=b2_cases[0]["bound_ms"], bound_by="bytes",
-             library_ms=b2_cases[0]["library_ms"], cases=b2_cases),
+             library_ms=b2_cases[0]["library_ms"],
+             bound_all_draws_ms=b2_cases[0]["bound_all_draws_ms"],
+             kernel_route=b2_cases[0]["route"], cases=b2_cases,
+             lookup_span=span),
     ]
+
+
+def b2_case(torch, b2, where: str, table, ids, order) -> dict:
+    """Kernel B2's entry at one lookup of the main path, called as
+    ``Feature.lookup_device`` calls it (the frontier ids and the feature's
+    row order): the entry (its route picked by ``route``) and both routes
+    held bitwise against the plain version; each timed whole (the grouped
+    route's counting sort included) with CUDA events behind a spin kernel,
+    beside the plain version and ``index_select`` on the mapped ids.  Two
+    bounds frame the time: the least work (ids, the order entries and each
+    distinct row read once, every output row written once) and the work
+    when every draw reads its row."""
+    m, n = ids.shape[0], table.shape[0]
+    row = table.shape[1] * table.element_size()
+    mapped = ids.to(torch.int64).clamp(0, n - 1)
+    if order is not None:
+        mapped = order[mapped]
+    distinct = int(torch.unique(mapped).shape[0])
+    want = b2.gather_rows_plain(table, ids, order)
+    bits = {2: torch.int16, 4: torch.int32}[table.element_size()]
+    got = {"entry": b2.gather_rows(table, ids, order)}
+    for which in ("direct", "grouped"):
+        got[which] = b2.gather_rows_route(table, ids, order, which)
+    torch.cuda.synchronize()
+    for name, g in got.items():
+        check(torch.equal(g.view(bits), want.view(bits)),
+              f"B2 {where} {table.dtype} ({name}) differs from the plain "
+              "version")
+    err = float((got["entry"].float() - want.float()).abs().max())
+    del got, want
+    id_bytes = m * ids.element_size()
+    least = (id_bytes + (distinct * 4 if order is not None else 0)
+             + distinct * row + m * row)
+    every = id_bytes + (m * 4 if order is not None else 0) + 2 * m * row
+    case = dict(
+        shape=f"{where}: M={m}, N={n}, D={table.shape[1]}, "
+              f"{str(table.dtype)[6:]}, {str(ids.dtype)[6:]} ids, "
+              f"{'ordered' if order is not None else 'no order'}",
+        route=b2.route(m, n, row), max_abs_err=err,
+        ms=cuda_ms(torch, lambda: b2.gather_rows(table, ids, order)),
+        direct_ms=cuda_ms(torch, lambda: b2.gather_rows_route(
+            table, ids, order, "direct")),
+        grouped_ms=cuda_ms(torch, lambda: b2.gather_rows_route(
+            table, ids, order, "grouped")),
+        host_ms=host_ms(torch, lambda: b2.gather_rows(table, ids, order)),
+        plain_ms=cuda_ms(torch, lambda: b2.gather_rows_plain(table, ids,
+                                                            order)),
+        library_ms=cuda_ms(torch, lambda: torch.index_select(table, 0,
+                                                             mapped)),
+        bound_ms=least / HBM_BYTES_PER_S * 1e3,
+        bound_all_draws_ms=every / HBM_BYTES_PER_S * 1e3,
+        distinct_rows=distinct)
+    print(f"B2 {case['shape']}: exact; {json.dumps(case)}", flush=True)
+    return case
+
+
+def lookup_span(torch, feature, n_id, b2) -> dict:
+    """The Reddit pass's lookup two ways on the same ids: as the clamp,
+    the order take and B2, three steps (how ``lookup_device`` ran before
+    B2 took the clamp and the order), and as ``lookup_device`` now runs it,
+    one call of B2's entry: device time (``cuda_ms``), host time and the
+    device operations of each."""
+    n = feature.node_count
+
+    def separate():
+        pos = n_id.to(torch.int64).clamp(0, n - 1)
+        return b2.gather_rows(feature.hot, feature._order_dev[pos])
+
+    def entry():
+        return feature.lookup_device(n_id)
+
+    check(torch.equal(separate(), entry()),
+          "lookup_device differs from the separate clamp, take and gather")
+    out = {}
+    for name, fn in (("separate_steps", separate), ("one_entry", entry)):
+        ops, _ = device_ops(torch, fn)
+        out[name] = dict(ms=cuda_ms(torch, fn), host_ms=host_ms(torch, fn),
+                         device_ops=len(ops) if ops else "not measured",
+                         op_names=sorted(set(o[:60] for o in ops)))
+    print("Reddit lookup span " + json.dumps(out), flush=True)
+    return out
 
 
 def stage_times(torch, server):
@@ -1064,7 +1139,7 @@ def products_model(torch, qt):
     """GraphSAGE 100 -> 256 -> 256 -> 47, dropout 0.5, weights uniform in
     +-1/sqrt(fan_in) from a seeded generator, on the card."""
     model = qt.GraphSAGE(P_DIM, P_HIDDEN, P_CLASSES, num_layers=3,
-                         dropout=0.5)
+                         dropout=0.5, device="cpu")
     g = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1181,12 +1256,18 @@ def b1_products_phase(torch, topo, train, b1):
     return cases, cost
 
 
-def device_ops(torch, fn, tries: int = 3) -> list:
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
+                "cudaMemset", "cuMemset")  # host calls that run a device op
+
+
+def device_ops(torch, fn, tries: int = 3) -> tuple:
     """Names of the device operations (kernels, copies, fills) of one
-    ``fn()`` under ``torch.profiler``, after a warm call.  A capture that
-    holds no device event at all is taken again, up to ``tries`` times (the
-    profiler on the card sometimes returns an empty capture); an empty list
-    means not measured."""
+    ``fn()`` under ``torch.profiler``, after a warm call, and the count of
+    the host's runtime calls in that capture that start one (``LAUNCH_CALLS``;
+    fewer device operations than these means the capture dropped device
+    events).  A capture that holds no device event at all is taken again,
+    up to ``tries`` times (the profiler on the card sometimes returns an
+    empty capture); an empty list means not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1197,12 +1278,15 @@ def device_ops(torch, fn, tries: int = 3) -> list:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ops = [e.name for e in prof.events()
+        events = prof.events()
+        ops = [e.name for e in events
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation]
         if ops:
-            return ops
-    return []
+            return ops, sum(e.device_type == DeviceType.CPU
+                            and e.name.startswith(LAUNCH_CALLS)
+                            for e in events)
+    return [], 0
 
 
 def pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
@@ -1219,13 +1303,13 @@ def pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
             return run_pipeline("none", ip, ix, seeds, kw[:depth],
                                 fanouts[:depth], gather_mode=gather_mode)
 
-        ops = device_ops(torch, fn)
+        ops, api_launches = device_ops(torch, fn)
         by_name: dict = {}
         for name in ops:
             by_name[name[:90]] = by_name.get(name[:90], 0) + 1
         row = dict(depth=depth, host_ms=host_ms(torch, fn),
                    device_ms=cuda_ms(torch, fn), device_ops=len(ops),
-                   ops=by_name)
+                   api_launches=api_launches, ops=by_name)
         if rows:
             row["hop_host_ms"] = row["host_ms"] - rows[-1]["host_ms"]
         if rows and ops and rows[-1]["device_ops"]:
@@ -1250,7 +1334,28 @@ def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
           f"{where}: the pwindow pipeline launched B1 "
           f"{b1.window_sample.launches - before} times for "
           f"{len(fanouts)} hops")
-    rows = pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts)
+    # the profiler on the card sometimes drops a device event from a
+    # capture (PERF.md): a capture that holds fewer B1 kernels than the
+    # counter says its depth launched, or fewer device operations than the
+    # host's runtime calls that start one, is taken again, up to three
+    # times; any other miscount fails in the checks below at once
+    launched = []
+    for depth in range(1, len(fanouts) + 1):
+        before = b1.window_sample.launches
+        run_pipeline("none", ip, ix, seeds, kw[:depth], fanouts[:depth],
+                     gather_mode="pwindow")
+        launched.append(b1.window_sample.launches - before)
+
+    def b1_in(row):
+        return sum(c for n, c in row["ops"].items()
+                   if "window_sample_kernel" in n)
+
+    for _ in range(3):
+        rows = pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts)
+        if not any(r["device_ops"] and (b1_in(r) < n or r["device_ops"]
+                                         < r["api_launches"])
+                   for r, n in zip(rows, launched)):
+            break
     print(f"{where} pwindow pipeline, cost by depth "
           + json.dumps(dict(fanouts=list(fanouts), B=int(seeds.shape[0]),
                             rows=rows)), flush=True)
@@ -1260,12 +1365,12 @@ def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
           + json.dumps(hprof), flush=True)
     check(rows[0]["device_ops"] and rows[-1]["device_ops"],
           f"{where}: the profiler saw no device operation")
-    for row in rows:
+    for row, n in zip(rows, launched):
+        check(n == row["depth"], f"{where}: {n} B1 launches at depth "
+              f"{row['depth']}")
         if not row["device_ops"]:
             continue
-        b1_ops = sum(c for n, c in row["ops"].items()
-                     if "window_sample_kernel" in n)
-        check(b1_ops == row["depth"], f"{where}: {b1_ops} B1 kernels in the "
+        check(b1_in(row) == n, f"{where}: {b1_in(row)} B1 kernels in the "
               f"profile of {row['depth']} hops")
         if "hop_device_ops" in row:
             check(row["hop_device_ops"] == 1 and all(
@@ -1705,6 +1810,7 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     labels_d = torch.from_numpy(labels).to(DEV)
     print(f"whole products table on the card in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    b2_products = b2_products_case(torch, topo, feature, train, b2)
     counters = {"window_sample": b1.window_sample,
                 "element_gather": b3.element_gather,
                 "gather_rows": b2.gather_rows}
@@ -1754,7 +1860,25 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
         out[label] = (launches, summary)
         models[label] = model
     out["auto hop"][1]["batch_checks"] = hop_checks
-    return out, models
+    return out, models, b2_products
+
+
+def b2_products_case(torch, topo, feature, train, b2) -> dict:
+    """B2 at the fused step's lookup: the frontier of the products batch
+    (1,081,344 ids, the ``"pwindow"`` pipeline's) through the 100-wide
+    table's row order, as ``lookup_device`` calls it (``b2_case``)."""
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    seeds, kw = products_batch(torch, dev, train)
+    with torch.inference_mode():
+        n_id = run_pipeline("none", ip, ix, seeds, kw, P_FANOUTS,
+                            gather_mode="pwindow")[0]
+    check(n_id.shape[0] == frontier_sizes(P_BATCH)[-1],
+          f"products frontier {n_id.shape[0]}")
+    return b2_case(torch, b2, "products", feature.hot, n_id,
+                   feature._order_dev)
 
 
 def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
@@ -2024,8 +2148,7 @@ def hetero_kernel_cases(torch, b1, b2, topo, hf, sampler, batch, kw):
     """Kernels B1 (literal entry) at each block of one sampled batch and
     B2 at each type's lookup, held against their plain versions exactly on
     the batch's own inputs, timed against their bounds (B1 as in
-    ``b1_hops``; B2 the distinct rows read and the ids and rows written),
-    B2 beside ``index_select``."""
+    ``b1_hops``; B2 as in ``b2_case``), B2 beside ``index_select``."""
     b1_cases, b2_cases, i = [], [], 0
     for hop in sampler.plan(batch.batch_size)[0]:
         for blk in hop:
@@ -2061,32 +2184,18 @@ def hetero_kernel_cases(torch, b1, b2, topo, hf, sampler, batch, kw):
             print(f"B1 literal entry, {b1_cases[-1]['shape']}: exact; "
                   f"{json.dumps(b1_cases[-1])}", flush=True)
     for t, f in hf.features.items():
-        idx = batch.n_id[t].to(torch.int32)  # what lookup_device hands B2
-        got = b2.gather_rows(f.hot, idx)
-        check(torch.equal(got, b2.gather_rows_plain(f.hot, idx)),
-              f"B2 {t} rows differ from the plain version")
-        row = MAG_DIM * 4
-        nbytes = (int(torch.unique(idx).shape[0]) * row
-                  + idx.shape[0] * (4 + row))
-        b2_cases.append(dict(
-            shape=f"MAG {t}: M={idx.shape[0]}, D={MAG_DIM}, float32",
-            max_abs_err=0.0, ms=cuda_ms(torch, lambda: b2.gather_rows(
-                f.hot, idx)),
-            plain_ms=cuda_ms(torch, lambda: b2.gather_rows_plain(f.hot, idx)),
-            library_ms=cuda_ms(torch, lambda: torch.index_select(
-                f.hot, 0, idx)),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
-        print(f"B2 {b2_cases[-1]['shape']}: exact; "
-              f"{json.dumps(b2_cases[-1])}", flush=True)
-        del got
+        # what HeteroFeature.lookup hands lookup_device
+        b2_cases.append(b2_case(torch, b2, f"MAG {t}", f.hot, batch.n_id[t],
+                                f._order_dev))
 
     def total(cases, key):
         return float(sum(c[key] for c in cases))
 
     return ({k: total(b1_cases, k) for k in ("ms", "plain_ms", "bound_ms",
                                              "host_ms")} | {"cases": b1_cases},
-            {k: total(b2_cases, k) for k in ("ms", "plain_ms", "bound_ms",
-                                             "library_ms")}
+            {k: total(b2_cases, k) for k in (
+                "ms", "direct_ms", "grouped_ms", "plain_ms", "bound_ms",
+                "bound_all_draws_ms", "library_ms")}
             | {"cases": b2_cases})
 
 
@@ -2339,8 +2448,9 @@ def main() -> int:
         b3, 2 * len(P_FANOUTS))
     b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
     b3_record["launches_weighted_serving"] = launches_w["element_gather"]
-    lanes, models = fused_training_phase(torch, qt, ptopo, pfeat, plabels,
-                                         ptrain, b1, b2, b3)
+    lanes, models, b2_products = fused_training_phase(
+        torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2, b3)
+    kernels[1]["products"] = b2_products
     (launches_f, summary_f), (launches_a, summary_a), \
         (launches_h, summary_h) = (lanes["pallas"], lanes["auto"],
                                    lanes["auto hop"])

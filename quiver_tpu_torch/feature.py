@@ -513,17 +513,18 @@ class Feature:
         table is on the device (the fused serving lane).  Ids are clipped
         to ``[0, N)`` before ``feature_order`` is applied, as the JAX
         package clips them; without an order the clip keeps B2 inside the
-        table (the ids are never read back to the host to be checked)."""
+        table (the ids are never read back to the host to be checked).
+        Clip, order and copy are one call of B2."""
         self._check_built()
         if self.cache_count < self.node_count:
             raise RuntimeError(
                 f"lookup_device needs the whole table on the device; "
                 f"{self.cache_count} of {self.node_count} rows are: use "
                 "feature[ids]")
-        pos = idx.to(self.device, torch.int64).clamp(0, self.node_count - 1)
-        if self._order_dev is not None:
-            return gather_rows(self.hot, self._order_dev[pos])
-        return gather_rows(self.hot, pos.to(torch.int32))
+        idx = idx.to(self.device)
+        if idx.dtype not in (torch.int32, torch.int64):
+            idx = idx.to(torch.int64)
+        return gather_rows(self.hot, idx, self._order_dev)
 
     def size(self, dim: int) -> int:
         return (self.node_count, self.dim)[dim]

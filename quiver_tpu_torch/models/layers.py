@@ -35,15 +35,17 @@ class SAGEConv(nn.Module):
     ``LayerBlock.eid``) the neighbour half becomes
     ``W_nbr concat(mean x_N(v), mean e)``; the two means are taken apart, so
     no ``[T, k, D + De]`` tensor is built.  ``edge_dim`` sizes ``lin_nbr``
-    for that concat.
+    for that concat.  Parameters live on ``device`` (``None``: the card).
     """
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, edge_dim: int = 0):
+                 bias: bool = True, edge_dim: int = 0, device=None):
         super().__init__()
-        self.lin_self = nn.Linear(in_features, out_features, bias=bias)
+        dev = resolve_device(device)
+        self.lin_self = nn.Linear(in_features, out_features, bias=bias,
+                                  device=dev)
         self.lin_nbr = nn.Linear(in_features + edge_dim, out_features,
-                                 bias=False)
+                                 bias=False, device=dev)
 
     def forward(self, x: torch.Tensor, block,
                 edge_feat: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import resolve_device
 from .layers import SAGEConv, _dropout
 
 __all__ = ["GraphSAGE"]
@@ -19,18 +20,20 @@ class GraphSAGE(nn.Module):
 
     PyTorch needs the input width up front (``in_dim``); the JAX module
     infers it.  ``edge_dim`` > 0 sizes every layer for an edge-feature
-    table passed to :meth:`forward`.
+    table passed to :meth:`forward`.  Parameters live on ``device``
+    (``None``: the card).
     """
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  num_layers: int = 3, dropout: float = 0.5,
-                 edge_dim: int = 0):
+                 edge_dim: int = 0, device=None):
         super().__init__()
+        dev = resolve_device(device)
         self.num_layers = num_layers
         self.dropout = dropout
         dims = [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
         self.convs = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1], edge_dim=edge_dim)
+            SAGEConv(dims[i], dims[i + 1], edge_dim=edge_dim, device=dev)
             for i in range(num_layers))
 
     def forward(self, x: torch.Tensor, blocks: Sequence,

@@ -181,22 +181,69 @@ def test_pwindow_pipeline_on_card_equals_cpu(card):
         assert int(a.num_targets) == int(b.num_targets)
 
 
-@pytest.mark.parametrize("dtype,width", [
-    (torch.float32, 602), (torch.bfloat16, 602), (torch.float32, 256),
-    (torch.bfloat16, 3), (torch.float32, 1), (torch.bfloat16, 1)])
+def _b2_table(card, dtype, width, seed, n=5000):
+    g = torch.Generator(device=card).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-2**31, 2**31 - 1, (n, width), generator=g,
+                             device=card, dtype=torch.int32)
+    return torch.randn((n, width), generator=g, device=card).to(dtype)
+
+
+def _b2_bits(t):
+    """The rows as integers of their element size: bitwise comparison."""
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _b2_ids(card, m, n, kind, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n, m)
+    if kind == "zeros":
+        ids[:] = 0
+    elif kind == "zeros90":
+        ids[rng.random(m) < 0.9] = 0
+    return torch.from_numpy(ids.astype(np.int32)).to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("width", [1, 3, 100, 602, 768, 1025, 2052])
 def test_gather_rows_kernel_equals_plain(card, dtype, width):
-    g = torch.Generator(device=card).manual_seed(width)
-    table = torch.randn((5000, width), generator=g, device=card).to(dtype)
-    idx = torch.randint(0, 5000, (12_345,), generator=g, device=card,
-                        dtype=torch.int32)
-    for t in (table, table[1:]):  # an offset view shifts the alignment
+    """Both routes, whichever the rule picks, bitwise against the plain
+    version: the table, its ``table[1:]`` view (which shifts the rows'
+    alignment) and a one-row view; uniform ids, all 0 and 90% 0; M = 0,
+    1, 257 and 12,345.  Then the entry as ``lookup_device`` calls it: a
+    row order and int64 ids outside ``[0, N)``, one launch a call.
+    Widths 1025 and 2052 give rows of more than the 512 units a warp of
+    the grouped copy holds at once (1025 units of 4 or 2 bytes, 513 of 16
+    in fp32 and int32 at 2052), so that copy takes several passes."""
+    table = _b2_table(card, dtype, width, width)
+    for t in (table, table[1:], table[2:3]):
+        n = t.shape[0]
+        for m in (0, 1, 257, 12_345):
+            for kind in ("uniform", "zeros", "zeros90"):
+                idx = _b2_ids(card, m, n, kind, m + width)
+                want = _b2_bits(b2.gather_rows_plain(t, idx))
+                for which in ("direct", "grouped"):
+                    got = b2.gather_rows_route(t, idx, None, which)
+                    torch.cuda.synchronize()
+                    assert got.shape == (m, width)
+                    assert torch.equal(_b2_bits(got), want), (which, n, m,
+                                                              kind)
+        g = torch.Generator(device=card).manual_seed(n)
+        order = torch.randperm(n, generator=g, device=card).to(torch.int32)
+        idx = torch.from_numpy(np.random.default_rng(n).integers(
+            -50, n + 50, 4097)).to(card)
+        want = _b2_bits(b2.gather_rows_plain(t, idx, order))
         before = b2.gather_rows.launches
-        got = b2.gather_rows(t, idx.clamp_max(t.shape[0] - 1))
+        got = b2.gather_rows(t, idx, order)
         torch.cuda.synchronize()
         assert b2.gather_rows.launches == before + 1
-        assert torch.equal(got, b2.gather_rows_plain(
-            t, idx.clamp_max(t.shape[0] - 1)))
-    assert b2.gather_rows(table, idx[:0]).shape == (0, width)
+        assert torch.equal(_b2_bits(got), want)
+        for which in ("direct", "grouped"):
+            got = b2.gather_rows_route(t, idx, order, which)
+            assert torch.equal(_b2_bits(got), want), which
+    assert b2.gather_rows(table, torch.zeros(0, dtype=torch.int64,
+                                             device=card)).shape == (0, width)
 
 
 def test_kernels_refuse_bad_input(card):
@@ -205,7 +252,16 @@ def test_kernels_refuse_bad_input(card):
         b2.gather_rows(table[:, 1:], torch.zeros(3, dtype=torch.int32,
                                                   device=card))
     with pytest.raises(ValueError):
-        b2.gather_rows(table, torch.zeros(3, dtype=torch.int64, device=card))
+        b2.gather_rows(table, torch.zeros(3, dtype=torch.int16, device=card))
+    with pytest.raises(ValueError):
+        b2.gather_rows(table, torch.zeros((3, 1), dtype=torch.int32,
+                                          device=card))
+    with pytest.raises(ValueError):  # an order must be int32 [N]
+        b2.gather_rows(table, torch.zeros(3, dtype=torch.int32, device=card),
+                       torch.arange(10, device=card))
+    with pytest.raises(ValueError):
+        b2.gather_rows_route(table, torch.zeros(3, dtype=torch.int32,
+                                                device=card), None, "sorted")
     ip, ix = _graph().to_device(card)
     with pytest.raises(ValueError):
         b1.window_sample(ip, ix, torch.zeros(3, dtype=torch.int64,
@@ -300,7 +356,7 @@ def test_fused_forward_card_matches_cpu(card):
     feat = np.random.default_rng(1).standard_normal(
         (2000, 24)).astype(np.float32)
     torch.manual_seed(0)
-    model = qt.GraphSAGE(24, 32, 7, num_layers=2)
+    model = qt.GraphSAGE(24, 32, 7, num_layers=2, device="cpu")
     kw = np.array([[1, 2], [3, 4]], np.uint32)
     ids = np.arange(0, 2000, 61)
     outs, frontiers = [], []
@@ -567,12 +623,14 @@ def test_fused_train_step_card_matches_cpu(card):
         (2000, 24)).astype(np.float32)
     labels = torch.from_numpy(np.random.default_rng(3).integers(0, 7, 2000))
     torch.manual_seed(0)
-    base = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0)
+    base = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0,
+                        device="cpu")
     kws = [np.array([[1, i], [2, i], [3, i]], np.uint32) for i in range(2)]
     ids = np.arange(0, 2000, 7)
     out = []
     for dev in ("cpu", card):
-        model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0).to(dev)
+        model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0,
+                             device=dev)
         model.load_state_dict(base.state_dict())
         s = qt.GraphSageSampler(topo, [6, 4, 3], device=dev,
                                 gather_mode="pallas")
@@ -787,7 +845,8 @@ def test_full_graph_inference_card_matches_cpu(card, family):
     x = np.random.default_rng(4).standard_normal((2000, 24)).astype(
         np.float32)
     torch.manual_seed(0)
-    model = {"sage": lambda: qt.GraphSAGE(24, 32, 7, num_layers=3),
+    model = {"sage": lambda: qt.GraphSAGE(24, 32, 7, num_layers=3,
+                                           device="cpu"),
              "gcn": lambda: qt.GCN(24, 32, 7, num_layers=3, device="cpu"),
              "gat": lambda: qt.GAT(24, 16, 7, num_layers=3, heads=4,
                                    device="cpu")}[family]()

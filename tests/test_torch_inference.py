@@ -58,7 +58,8 @@ def data():
 
 FAMILIES = {
     "sage": (lambda: FlaxSAGE(hidden=HIDDEN, out_dim=CLASSES, num_layers=2),
-             lambda: qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=2),
+             lambda: qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=2,
+                                  device="cpu"),
              qt.sage_params_from_flax),
     "gcn": (lambda: FlaxGCN(hidden=HIDDEN, out_dim=CLASSES, num_layers=2),
             lambda: qt.GCN(D, HIDDEN, CLASSES, num_layers=2, device="cpu"),

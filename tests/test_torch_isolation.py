@@ -184,3 +184,16 @@ def test_model_families_default_to_the_card(monkeypatch):
                      np.array([1, 0]))):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_graphsage_defaults_to_the_card(monkeypatch):
+    """``GraphSAGE`` and ``SAGEConv`` resolve their device as the other
+    families do: the card by default, raising where there is none; the
+    CPU only when named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: qt.SAGEConv(4, 4), lambda: qt.GraphSAGE(4, 4, 2),
+                 lambda: qt.GraphSAGE(4, 4, 2, edge_dim=3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    model = qt.GraphSAGE(4, 8, 2, num_layers=2, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

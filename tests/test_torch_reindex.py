@@ -316,7 +316,8 @@ def test_fused_train_step_hop_matches_jax(csr):
     jstep = jax_fused_step(
         js, jf, lambda p, x, blocks, train=False, rngs=None: flax.apply(
             p, x, blocks, train=train, rngs=rngs), optax.adam(3e-3))
-    model = qt.GraphSAGE(D, 16, C, num_layers=3, dropout=0.0)
+    model = qt.GraphSAGE(D, 16, C, num_layers=3, dropout=0.0,
+                         device="cpu")
     model.load_state_dict(qt.sage_params_from_flax(
         jax.tree_util.tree_map(np.asarray, params)))
     pstep = qt.make_fused_train_step(

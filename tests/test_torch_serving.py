@@ -63,7 +63,8 @@ def _jax_model(world, edge_dim=0):
         etab = jnp.asarray(np.random.default_rng(8).standard_normal(
             (world["n_edges"], edge_dim)).astype(np.float32))
     params = model.init(make_key(1), x, jb.layers, edge_feat_table=etab)
-    port = qt.GraphSAGE(DIM, HIDDEN, OUT, num_layers=2, edge_dim=edge_dim)
+    port = qt.GraphSAGE(DIM, HIDDEN, OUT, num_layers=2, edge_dim=edge_dim,
+                        device="cpu")
     port.load_state_dict(
         qt.sage_params_from_flax(jax.tree.map(np.asarray, params)))
     return model, params, port.eval(), etab

@@ -67,7 +67,8 @@ def flax_params(x, blocks):
 
 
 def port_model(params):
-    m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3, dropout=0.0)
+    m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3, dropout=0.0,
+                     device="cpu")
     m.load_state_dict(qt.sage_params_from_flax(
         jax.tree_util.tree_map(np.asarray, params)))
     return m
@@ -87,10 +88,10 @@ def assert_params_close(jparams, model):
 
 def test_flax_round_trip(data):
     _, _, feat, _ = data
-    m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3)
+    m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3, device="cpu")
     tree = qt.sage_params_to_flax(m)
     assert tree["params"]["conv0"]["lin_self"]["kernel"].shape == (D, HIDDEN)
-    m2 = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3)
+    m2 = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3, device="cpu")
     m2.load_state_dict(qt.sage_params_from_flax(tree))
     for (k, a), (_, b) in zip(m.state_dict().items(),
                               m2.state_dict().items()):
@@ -183,7 +184,7 @@ def test_loss_falls_over_one_epoch():
     feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                          device="cpu").from_cpu_tensor(feat)
     torch.manual_seed(0)
-    model = qt.GraphSAGE(feat.shape[1], 32, 6, num_layers=2)
+    model = qt.GraphSAGE(feat.shape[1], 32, 6, num_layers=2, device="cpu")
     opt = torch.optim.Adam(model.parameters(), lr=3e-3)
     epoch = qt.make_scan_epoch(sampler, feature, model, opt)
     order = np.random.default_rng(0).permutation(3000)[:2048]
@@ -204,7 +205,8 @@ def test_dropout_follows_the_step_seed(data):
     losses = []
     for seed in (5, 5, 6):
         torch.manual_seed(0)
-        m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=2, dropout=0.5)
+        m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=2, dropout=0.5,
+                         device="cpu")
         step = qt.make_fused_train_step(
             sampler, feature, m, torch.optim.Adam(m.parameters()), seed=seed)
         losses.append([float(step(ids, torch.from_numpy(labels[ids]),
@@ -216,7 +218,7 @@ def test_dropout_follows_the_step_seed(data):
 def test_refusals(data):
     indptr, indices, feat, _ = data
     topo = qt.CSRTopo(indptr=indptr, indices=indices)
-    m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3)
+    m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3, device="cpu")
     opt = torch.optim.Adam(m.parameters())
     with pytest.raises(NotImplementedError, match="A13"):
         qt.make_train_step(m, opt, mesh=object())

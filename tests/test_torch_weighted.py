@@ -164,7 +164,7 @@ def test_weighted_fused_serving_matches_jax(world):
     params = model.init(make_key(1), jf.lookup_device(jb.n_id), jb.layers)
     want = np.asarray(model.apply(params, jf.lookup_device(jb.n_id),
                                   jb.layers))
-    port = qt.GraphSAGE(8, 16, 5, num_layers=2)
+    port = qt.GraphSAGE(8, 16, 5, num_layers=2, device="cpu")
     port.load_state_dict(
         qt.sage_params_from_flax(jax.tree.map(np.asarray, params)))
     server = qt.InferenceServer_Debug(ps, pf, port, queue.Queue())
