@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of quiver_tpu_torch on one CUDA card: Reddit-size serving,
+"""Smoke run of quiver_tpu_torch on one CUDA card: Reddit-size serving
+(the device lane, then both lanes with the host sampler),
 ogbn-products-size training of GraphSAGE, GAT and GCN with exact
-inference, and R-GAT at OGB-LSC MAG240M widths.
+inference, UVA and mixed sampling at products size, and R-GAT at OGB-LSC
+MAG240M widths.
 
     python3 chip_smoke.py
 
@@ -44,6 +46,19 @@ first use, with nvcc, one process per source, all at once), then:
    ``"blocked:3"`` (B3 for every read, 27 launches a hop): bitwise equal
    to ``"xla"``, its span and peak memory beside ``"auto"``'s and
    ``"xla"``'s;
+4c. host sampler phase (slice 9, (a)): the native host sampler's
+   bucket-2048 ``sample_multihop`` on the Reddit graph, host ms at the
+   default thread count and at 1, every hop checked (counts, rows,
+   distinct positions, local ids); ``mode="CPU"`` on the card bitwise
+   against ``device="cpu"``;
+4d. hybrid serving phase (slice 9, (b)): ``generate_neighbour_num`` on
+   the card (timed, against the CPU by the +-1 rule),
+   ``calibrate_threshold``, then the 64-request plan through
+   RequestBatcher(mode="Auto") -> HybridSampler(num_workers=2) ->
+   InferenceServer_Debug (at the plan's median load when the calibrated
+   threshold sends every request one way): both lanes answer, B2 once a
+   device chunk and once a CPU-lane request, a CPU-lane answer equal to a
+   direct forward, each lane's p50 and p99;
 5. B5 kernel phase (slice 2, the budgeted feature store): the feature
    under the reference's ``device_cache_size="200M"`` in degree order,
    paged, with a pool of every host page; stages the frontier of one
@@ -88,8 +103,9 @@ first use, with nvcc, one process per source, all at once), then:
    caps (slice 6: B1's literal entry once a hop, then the reindex); B2
    once a step; the loss must fall in each; per lane the step split by
    CUDA events, one step under ``torch.profiler`` (B1's kernels and the
-   sort, searchsorted and scatter kernels counted; 3 B1 kernels under
-   ``"hop"``; the dedup's whole device time is the ``"hop"`` step's
+   sort, searchsorted and scatter kernels counted; under ``"hop"`` the
+   launch counter shows B1 3 times in each profiled step and the profile
+   at least once, as a capture may drop device events; the dedup's whole device time is the ``"hop"`` step's
    device time less the ``"none"`` step's), and one batch through ``make_fused_eval_fn``
    against the plain versions on the CPU within CPU_TOL; the ``"hop"``
    lane's first sampled batch bitwise against the ``"xla"`` pipeline on
@@ -109,6 +125,13 @@ first use, with nvcc, one process per source, all at once), then:
    trained GraphSAGE, GCN and GAT over all of products' edges in chunks
    of EDGE_CHUNK (time, peak memory, finite ``[N, 47]`` logits), and on a
    20,000-node graph against the same call on the CPU within CPU_TOL;
+13b. slice 9 at products size: (c) UVA with a third of the edges hot
+   (the split's build time; 10 batches with ``overlap`` on and off, ms
+   and host ms a batch, bitwise equal, B1 3 times a batch; hop 1's hot
+   rows, ``uva_budget=None`` and an all-hot budget against the device
+   mode); (d) ``MixedGraphSageSampler`` 16 tasks for 2 epochs, each task
+   once an epoch, the CPU share; (e) three ``TorchSampleLoader`` batches
+   (``x`` the source rows, B2 once a batch);
 14. R-GAT phase (slice 7, its main path): a synthetic graph with
    MAG240M's schema and average degrees (MAG_COUNTS: papers and authors
    cut to 2,000,000) and 12.4 GB of 768-wide tables on the card;
@@ -140,6 +163,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import glob
+import itertools
 import json
 import os
 import queue
@@ -547,6 +571,25 @@ def pass_runner(forward, seed: int):
     return lambda: forward(ids, kw).cpu()
 
 
+PRIME_SPINS = 4  # spin kernels that open every profiler capture
+
+
+def prime_capture(torch):
+    """Open a ``torch.profiler`` capture with PRIME_SPINS short spin
+    kernels and a 50 ms pause.  On the card's machine a capture can lose
+    the device events of its first milliseconds (PERF.md §7); the spins
+    and the pause take that loss in place of the run's own operations,
+    and the counts leave the spins out (``is_prime``)."""
+    for _ in range(PRIME_SPINS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
+def is_prime(name: str) -> bool:
+    return "spin_kernel" in name
+
+
 def device_profile(torch, run, wall_ms: float, top: int = 8,
                    families=None, tries: int = 3) -> dict:
     """``run()`` once warm, then once under ``torch.profiler``: device time
@@ -556,7 +599,9 @@ def device_profile(torch, run, wall_ms: float, top: int = 8,
     of device operations.  ``families`` maps a label to name fragments
     (matched without case): each label gets the count and device time of
     the operations whose names hold one.  A capture with no device event
-    is taken again, up to ``tries`` times."""
+    is taken again, up to ``tries`` times.  Each capture opens with
+    ``prime_capture``; ``primes_seen`` says how many of its spins the
+    profiler kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -565,17 +610,22 @@ def device_profile(torch, run, wall_ms: float, top: int = 8,
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            prime_capture(torch)
             run()
             torch.cuda.synchronize()
         by_name: dict = {}
         counts: dict = {}
+        primes = 0
         for e in prof.events():
             # user annotations (e.g. Optimizer.step) span the kernels
             # inside them on the device track: count the kernels only
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-                by_name[e.name] = by_name.get(e.name, 0.0) \
-                    + e.device_time_total
-                counts[e.name] = counts.get(e.name, 0) + 1
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+                continue
+            if is_prime(e.name):
+                primes += 1
+                continue
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+            counts[e.name] = counts.get(e.name, 0) + 1
         if by_name:
             break
     busy_ms = sum(by_name.values()) / 1e3
@@ -585,7 +635,7 @@ def device_profile(torch, run, wall_ms: float, top: int = 8,
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = dict(device_ms=busy_ms, busy_share=busy_ms / wall_ms,
                top=[dict(name=n[:100], ms=t / 1e3) for n, t in ranked],
-               ops=sum(counts.values()))
+               ops=sum(counts.values()), primes_seen=primes)
     if families:
         out["families"] = {}
         for label, frags in families.items():
@@ -608,18 +658,32 @@ def request_plan():
     return rng, plans
 
 
-def serve(torch, qt, sampler, feature, model, kernels):
+def serve(torch, qt, sampler, feature, model, kernels, hybrid=None):
     """Warm every bucket, then serve the request plan from N_CLIENTS
     threads through RequestBatcher(mode="Device") and
     InferenceServer_Debug, with each kernel's launch count set to 0 just
-    before and read just after.  Checks every answer; returns the server,
-    the answers, the requests sent, the launches and a summary."""
+    before and read just after.  With ``hybrid``, ``(neighbour_num,
+    threshold, cpu_sampler)``, the batcher runs ``mode="Auto"`` and a
+    ``HybridSampler(num_workers=2)`` feeds the server's CPU lane.  Checks
+    every answer; returns the server, the answers, the requests sent, the
+    launches and a summary."""
     streams = [queue.Queue() for _ in range(N_CLIENTS)]
     results: "queue.Queue" = queue.Queue()
-    rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
-    server = qt.InferenceServer_Debug(sampler, feature, model,
-                                      rb.device_batched_queue,
-                                      result_queue=results, seed=SEED)
+    hs = None
+    if hybrid is None:
+        rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
+    else:
+        nn, threshold, cpu_sampler = hybrid
+        rb = qt.RequestBatcher(streams, neighbour_num=nn,
+                               threshold=threshold, mode="Auto",
+                               result_queue=results)
+        hs = qt.HybridSampler(cpu_sampler, rb.cpu_batched_queue,
+                              num_workers=2, feature=feature,
+                              result_queue=results)
+    server = qt.InferenceServer_Debug(
+        sampler, feature, model, rb.device_batched_queue,
+        cpu_sampled_queue=None if hs is None else hs.sampled_queue,
+        result_queue=results, seed=SEED)
     t0 = time.perf_counter()
     server.warmup()
     torch.cuda.synchronize()
@@ -643,6 +707,8 @@ def serve(torch, qt, sampler, feature, model, kernels):
     for fn in kernels.values():
         fn.launches = 0
     rb.start()
+    if hs is not None:
+        hs.start()
     server.start()
     t0 = time.perf_counter()
     clients = [threading.Thread(target=client, args=(c,))
@@ -660,7 +726,8 @@ def serve(torch, qt, sampler, feature, model, kernels):
         launches = {name: fn.launches for name, fn in kernels.items()}
         for t in clients:
             t.join(timeout=30)
-        leaked = rb.stop() + server.stop()
+        leaked = (rb.stop() + (hs.stop() if hs is not None else [])
+                  + server.stop())
     check(not leaked and not any(t.is_alive() for t in clients),
           "serving threads did not stop")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -1267,7 +1334,8 @@ def device_ops(torch, fn, tries: int = 3) -> tuple:
     fewer device operations than these means the capture dropped device
     events).  A capture that holds no device event at all is taken again,
     up to ``tries`` times (the profiler on the card sometimes returns an
-    empty capture); an empty list means not measured."""
+    empty capture); an empty list means not measured.  Each capture opens
+    with ``prime_capture``, whose spins and their launches are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1276,16 +1344,17 @@ def device_ops(torch, fn, tries: int = 3) -> tuple:
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            prime_capture(torch)
             fn()
             torch.cuda.synchronize()
         events = prof.events()
         ops = [e.name for e in events
                if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
+               and not e.is_user_annotation and not is_prime(e.name)]
         if ops:
             return ops, sum(e.device_type == DeviceType.CPU
                             and e.name.startswith(LAUNCH_CALLS)
-                            for e in events)
+                            for e in events) - PRIME_SPINS
     return [], 0
 
 
@@ -1605,7 +1674,8 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     through ``make_fused_eval_fn``.  The profile counts B1's kernels and
     the sort, searchsorted and scatter kernels (the reindex's largest, not
     all of its operations) and their share of the step; under
-    ``dedup="hop"`` it must show B1 once a hop.
+    ``dedup="hop"`` the launch counter and the profile must both show B1
+    once a hop in every profiled step.
     Returns the launches, a summary, and what the CPU check needs: the
     model, the eval ids and words, and the card's logits."""
     spec = spec or SAGE_LANE
@@ -1666,16 +1736,37 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
                              lab, ones)
     print(f"fused step split {lane} (CUDA events, ms, median of 5) "
           + json.dumps(split), flush=True)
-    prof = device_profile(torch, lambda: step(seeds, lab, ones),
-                          summary["step_wall_ms"], top=12,
-                          families=KERNEL_FAMILIES)
+    runs = [0]
+
+    def profiled_step():
+        runs[0] += 1
+        step(seeds, lab, ones)
+
+    b1_fn = counters.get("window_sample")
+    b1_before = b1_fn.launches if b1_fn is not None else 0
+    prof = device_profile(torch, profiled_step, summary["step_wall_ms"],
+                          top=12, families=KERNEL_FAMILIES)
+    if dedup == "hop":
+        # the launch counter holds B1 to exactly once a hop in every run
+        # of the step, the profiled ones too, and the profile must show
+        # it once a hop on the card (a capture is taken up to 3 times)
+        n_b1 = per_step["window_sample"]
+        for _ in range(2):
+            b1_ops = prof.get("families", {}).get("B1", {}).get("count") or 0
+            if b1_ops >= n_b1:
+                break
+            prof = device_profile(torch, profiled_step,
+                                  summary["step_wall_ms"], top=12,
+                                  families=KERNEL_FAMILIES)
+        b1_ops = prof.get("families", {}).get("B1", {}).get("count") or 0
+        ran = b1_fn.launches - b1_before
+        check(ran == n_b1 * runs[0], f"{lane}: B1 launched {ran} times in "
+              f"{runs[0]} profiled steps, not {n_b1} a step")
+        check(b1_ops == n_b1, f"{lane}: {b1_ops} B1 kernels in the "
+              "profile of one step")
     print(f"fused step {lane} on the card (torch.profiler) "
           + json.dumps(prof), flush=True)
     summary.update(split_ms=split, device_profile=prof)
-    if dedup == "hop":
-        b1_ops = prof.get("families", {}).get("B1", {}).get("count")
-        check(b1_ops == per_step["window_sample"], f"{lane}: {b1_ops} B1 "
-              "kernels in the profile of one step")
 
     ids = train[-size:]
     kw = sampler.draw_key_words()
@@ -2330,6 +2421,373 @@ def rgat_phase(torch, qt, b1, b2):
     return launches, summary, b1_mag, b2_mag
 
 
+# slice 9: the host sampler and the paths built on it
+HOST_BUCKET = 2048  # seeds of the timed host multi-hop sample
+HOST_CHECK_ROWS = 4096  # targets of a hop whose rows are read in full
+UVA_BATCHES = 10
+MIXED_TASKS, MIXED_WORKERS = 16, 4
+LOADER_BATCHES = 3
+
+
+def check_host_hop(indptr, indices, targets, tmask, nbrs, mask, k, rows,
+                   what: str):
+    """One hop of the host sampler: ``min(deg, k)`` neighbours a valid
+    target and none a masked one; for the targets ``rows``, a row of degree
+    at most ``k`` returned whole in CSR order, and a longer one drawn at
+    distinct positions (no id more often than the row holds it)."""
+    deg = np.diff(indptr)[targets]
+    check(np.array_equal(mask.sum(1), np.where(tmask, np.minimum(deg, k),
+                                               0)),
+          f"{what}: counts differ from min(deg, k)")
+    for b in rows:
+        if not tmask[b]:
+            continue
+        row = indices[indptr[targets[b]]: indptr[targets[b] + 1]]
+        got = nbrs[b][mask[b]]
+        if len(row) <= k:
+            check(np.array_equal(got, row), f"{what}: row {b} not whole")
+            continue
+        vals, cnt = np.unique(row, return_counts=True)
+        gv, gc = np.unique(got, return_counts=True)
+        at = np.minimum(np.searchsorted(vals, gv), len(vals) - 1)
+        check((vals[at] == gv).all(), f"{what}: row {b} has a non-neighbour")
+        check((gc <= cnt[at]).all(), f"{what}: row {b} repeats a position")
+
+
+def check_same_batch(torch, a, b, what: str):
+    """Two ``SampledBatch``es bit for bit, on any devices."""
+    for name in ("n_id", "n_id_mask", "num_nodes"):
+        check(torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()),
+              f"{what}: {name} differs")
+    check(len(a.layers) == len(b.layers), f"{what}: block counts differ")
+    for i, (x, y) in enumerate(zip(a.layers, b.layers)):
+        for name in ("nbr_local", "mask", "num_targets"):
+            check(torch.equal(getattr(x, name).cpu(), getattr(y, name).cpu()),
+                  f"{what}: block {i} {name} differs")
+
+
+def host_sampler_phase(torch, qt, topo) -> dict:
+    """(a) The native host sampler at Reddit size: a bucket-2048
+    ``sample_multihop`` with fanouts [25, 10], host ms (median of 5) at the
+    default thread count and at 1, each hop checked (``check_host_hop``;
+    local ids index the valid part of ``n_id``); then ``mode="CPU"`` on
+    the card bitwise against the same calls with ``device="cpu"``."""
+    from quiver_tpu_torch.cpp.native import CPUSampler
+
+    indptr, indices = topo.indptr, topo.indices
+    rng = np.random.default_rng(SEED + 20)
+    seeds = rng.integers(0, N_NODES, HOST_BUCKET)
+    out = {}
+    for threads in (0, 1):
+        s = CPUSampler(indptr, indices, n_threads=threads)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = s.sample_multihop(seeds, FANOUTS)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["ms_default_threads" if threads == 0 else "ms_1_thread"] = \
+            float(np.median(times))
+    out["threads_default"] = os.cpu_count()
+    n_id, n_mask, num, blocks = res
+    check(num == int(n_mask.sum()), "host num_nodes")
+    t0 = time.perf_counter()
+    for h, ((local, mask, nt), k) in enumerate(zip(blocks[::-1], FANOUTS)):
+        t = local.shape[0]
+        targets, tmask = n_id[:t], n_mask[:t]
+        check(nt == int(tmask.sum()), f"host hop {h + 1}: num_targets")
+        check((local[mask] < len(n_id)).all() and n_mask[local[mask]].all(),
+              f"host hop {h + 1}: local ids outside the valid n_id")
+        rows = (range(t) if t <= HOST_CHECK_ROWS else
+                rng.choice(t, HOST_CHECK_ROWS, replace=False))
+        check_host_hop(indptr, indices, targets, tmask, n_id[local], mask, k,
+                       rows, f"host hop {h + 1}")
+    out["check_s"] = time.perf_counter() - t0
+    out["frontier"] = int(len(n_id))
+    on_card = qt.GraphSageSampler(topo, FANOUTS, device=DEV, mode="CPU")
+    on_host = qt.GraphSageSampler(topo, FANOUTS, device="cpu", mode="CPU")
+    for i in range(3):
+        ids = rng.integers(0, N_NODES, 512)
+        got = on_card.sample(ids)
+        check(got.n_id.device.type == "cuda", "CPU mode batch not on the card")
+        check_same_batch(torch, got, on_host.sample(ids),
+                         f"CPU mode call {i} on the card against the CPU")
+    print("host sampler at Reddit size (bucket 2048, fanouts "
+          f"{FANOUTS}) " + json.dumps(out), flush=True)
+    return out
+
+
+def hybrid_serving_phase(torch, qt, topo, feature, b1, b2):
+    """(b) Reddit serving through both lanes: ``generate_neighbour_num``
+    (``"expected"``) on the card, timed and held against the CPU by the
+    rule of the tests (equal, or 1 off where the CPU's float is within
+    1e-5 relative of an integer); ``calibrate_threshold``; then the
+    64-request plan through RequestBatcher(mode="Auto") ->
+    HybridSampler(num_workers=2) -> InferenceServer_Debug (at the plan's
+    median load when the calibrated threshold sends every request one
+    way).  Both lanes must answer; B2 launches once a device chunk and
+    once a CPU-lane request, B1 twice a device chunk; one CPU-lane answer
+    equals a direct forward of its batch within CPU_TOL, and a replay of
+    the CPU lane's forwards launches B2 once each.  Returns the launches
+    and a summary."""
+    from quiver_tpu_torch.neighbour_num import expected_counts
+
+    out = {}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nn = qt.generate_neighbour_num(topo, FANOUTS, device=DEV)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["neighbour_num_card_ms"] = times
+    ip, ix = topo.to_device(DEV)
+    n, e = topo.node_count, topo.edge_count
+    g_card = expected_counts(ip[: n + 1], ix[:e], n, FANOUTS).cpu().numpy()
+    t0 = time.perf_counter()
+    ipc = torch.from_numpy(topo.indptr.astype(np.int32))
+    ixc = torch.from_numpy(topo.indices)
+    g_host = expected_counts(ipc, ixc, n, FANOUTS).numpy()
+    out["neighbour_num_host_ms"] = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(nn, g_card.astype(np.int64)),
+          "neighbour_num differs from its own floats")
+    host = g_host.astype(np.int64)
+    diff = np.abs(nn - host)
+    near = (np.abs(g_host - np.round(g_host))
+            <= 1e-5 * np.maximum(np.abs(g_host), 1.0))
+    check(not ((diff > 1) | ((diff == 1) & ~near)).any(),
+          "neighbour_num on the card breaks the +-1 rule against the CPU")
+    out["neighbour_num_off_by_one"] = int((diff == 1).sum())
+    out["neighbour_num_max_rel_err"] = float(
+        (np.abs(g_card - g_host) / np.maximum(np.abs(g_host), 1.0)).max())
+
+    model = seeded_model(torch, qt).to(DEV).eval()
+    dev_s = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+    cpu_s = qt.GraphSageSampler(topo, FANOUTS, device=DEV, mode="CPU")
+    t0 = time.perf_counter()
+    calibrated = qt.calibrate_threshold(dev_s, cpu_s, feature, model, nn,
+                                        N_NODES, seed=SEED)
+    out["calibrate_s"] = time.perf_counter() - t0
+    out["calibrated_threshold"] = calibrated
+    _, plans = request_plan()
+    loads = [float(nn[ids].sum()) for plan in plans for ids in plan]
+    threshold = calibrated
+    if threshold < min(loads) or threshold >= max(loads):
+        threshold = float(np.median(loads))
+    out["threshold"] = threshold
+    print(f"calibrated threshold {calibrated:.1f}, served at "
+          f"{threshold:.1f} (plan loads {min(loads):.0f}..{max(loads):.0f})",
+          flush=True)
+
+    kernels = {"window_sample": b1.window_sample, "gather_rows": b2.gather_rows}
+    server, answers, sent, launches, _, summary = serve(
+        torch, qt, dev_s, feature, model, kernels,
+        hybrid=(nn, threshold, cpu_s))
+    cpu_log = list(server.cpu_log)
+    chunks = sum(len(c) for _, c in server.pass_log)
+    lanes = {lane: h.count for lane, h in server.lane_latency.items()}
+    check(lanes["cpu"] >= 1 and lanes["device"] >= 1,
+          f"a lane answered nothing: {lanes}")
+    check(lanes["cpu"] == len(cpu_log), "CPU-lane log")
+    check(launches["gather_rows"] == chunks + len(cpu_log),
+          f"B2 launched {launches['gather_rows']} times for {chunks} "
+          f"device chunks and {len(cpu_log)} CPU-lane requests")
+    check(launches["window_sample"] == len(FANOUTS) * chunks,
+          f"B1 launched {launches['window_sample']} times for {chunks} "
+          "device chunks")
+    client, seq, batch = cpu_log[0]
+    with torch.inference_mode():
+        direct = model(feature[batch.n_id], batch.layers)[
+            : len(sent[(client, seq)].ids)].cpu().numpy()
+    err = float(np.abs(answers[(client, seq)] - direct).max())
+    check(np.allclose(answers[(client, seq)], direct, **CPU_TOL),
+          f"CPU-lane answer differs from its direct forward by {err}")
+    # the served count mixes both lanes' threads: replay the CPU lane's
+    # forward alone on its logged batches, B2 counted (once a request)
+    b2.gather_rows.launches = 0
+    for client, seq, batch in cpu_log:
+        again = qt.InferenceServer._infer_presampled(
+            server, sent[(client, seq)], batch)
+        check(np.allclose(again, answers[(client, seq)], **CPU_TOL),
+              f"CPU-lane answer {(client, seq)} differs on a replay")
+    replayed = b2.gather_rows.launches
+    check(replayed == len(cpu_log), f"B2 launched {replayed} times in "
+          f"{len(cpu_log)} replayed CPU-lane forwards")
+    for lane, h in server.lane_latency.items():
+        out[f"{lane}_lane"] = dict(requests=h.count,
+                                   p50_ms=h.percentile(50) * 1e3,
+                                   p99_ms=h.percentile(99) * 1e3)
+    out.update(cpu_answer_max_abs_err=err, device_chunks=chunks,
+               cpu_lane_replay_b2_launches=replayed, serving=summary)
+    print("hybrid serving summary " + json.dumps(out), flush=True)
+    return launches, out
+
+
+def uva_phase(torch, qt, topo, train, b1) -> dict:
+    """(c) UVA at ogbn-products size: ``uva_budget = edge_count * 4 // 3``
+    (as ``bench.py``'s ``sampling_uva`` section sets it), fanouts
+    [15, 10, 5], batches of P_BATCH train seeds.  Times the ``UVAGraph``
+    build, then UVA_BATCHES batches with ``overlap=True`` (B1 counted: 3 a
+    batch), the same batches with ``overlap=False``, and again with
+    ``gather_mode="xla"`` (the plain hop on the hot tier, B1 never), all
+    three bitwise equal; hop 1's hot rows against the device mode's hop 1,
+    and ``uva_budget=None`` and an all-hot budget bitwise against the
+    device mode, for the same words."""
+    e = topo.edge_count
+    budget = e * 4 // 3
+    rng = np.random.default_rng(SEED + 30)
+    kws = rng.integers(0, 2**32, (UVA_BATCHES, len(P_FANOUTS), 3),
+                       dtype=np.uint32)
+    seeds = [train[i * P_BATCH: (i + 1) * P_BATCH]
+             for i in range(UVA_BATCHES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uva = qt.UVAGraph(topo, budget, device=DEV)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0, budget_bytes=budget,
+               **uva.stats())
+    runs = {}
+    for label, overlap, mode, per_batch in (
+            ("overlap", True, "auto", len(P_FANOUTS)),
+            ("serial", False, "auto", len(P_FANOUTS)),
+            ("plain", True, "xla", 0)):
+        timings = {}
+        s = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, mode="UVA",
+                                uva_budget=budget, uva_overlap=overlap,
+                                uva_timings=timings, gather_mode=mode)
+        s._uva = uva  # the runs share the split built and timed above
+        s.sample(seeds[0], key_words=kws[0])  # warm
+        timings.clear()
+        for key in uva.counters:
+            uva.counters[key] = 0.0
+        b1.window_sample.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = [s.sample(seeds[i], key_words=kws[i])
+                   for i in range(UVA_BATCHES)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = b1.window_sample.launches
+        check(launches == per_batch * UVA_BATCHES,
+              f"UVA {label}: B1 launched {launches} times for "
+              f"{UVA_BATCHES} batches")
+        hot = uva.counters["uva_seeds_total{tier=hot}"]
+        cold = uva.counters["uva_seeds_total{tier=cold}"]
+        runs[label] = batches
+        out[label] = dict(
+            ms_per_batch=wall * 1e3 / UVA_BATCHES,
+            host_ms_per_batch=timings.get("host_s", 0.0) * 1e3 / UVA_BATCHES,
+            hot_seed_share=hot / max(hot + cold, 1.0),
+            cold_seed_share=cold / max(hot + cold, 1.0), b1_launches=launches)
+    out["serial_over_overlap"] = (out["serial"]["ms_per_batch"]
+                                  / out["overlap"]["ms_per_batch"])
+    for i, a in enumerate(runs["overlap"]):
+        check_same_batch(torch, a, runs["serial"][i],
+                         f"UVA batch {i}, overlap on and off")
+        check_same_batch(torch, a, runs["plain"][i],
+                         f"UVA batch {i}, B1 against the plain hop")
+    # hop 1: the hot seeds' rows equal the device mode's for the same words
+    hop1 = qt.GraphSageSampler(topo, P_FANOUTS[:1], device=DEV,
+                               gather_mode="xla")
+    d = hop1.sample(seeds[0], key_words=kws[0][:1, :2])
+    u = runs["overlap"][0]
+    hot = torch.from_numpy(uva.is_hot[seeds[0]]).to(DEV)
+    ub, db = u.layers[-1], d.layers[-1]
+    check(torch.equal(ub.mask[hot], db.mask[hot]),
+          "UVA hop 1 hot-row masks differ from the device mode's")
+    check(torch.equal(u.n_id[ub.nbr_local.long()][hot],
+                      d.n_id[db.nbr_local.long()][hot]),
+          "UVA hop 1 hot-row neighbours differ from the device mode's")
+    out["hop1_hot_rows_checked"] = int(hot.sum())
+    device_mode = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV)
+    want = device_mode.sample(seeds[0], key_words=kws[0][:, :2])
+    none = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, mode="UVA")
+    check(none.mode == "GPU", "uva_budget=None is not the device mode")
+    check_same_batch(torch, none.sample(seeds[0], key_words=kws[0][:, :2]),
+                     want, "uva_budget=None against the device mode")
+    allhot = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, mode="UVA",
+                                 uva_budget=e * 4)
+    check_same_batch(torch, allhot.sample(seeds[0], key_words=kws[0]), want,
+                     "an all-hot UVA budget against the device mode")
+    check(allhot._uva.cold_edges == 0, "all-hot budget left cold edges")
+    print("UVA at ogbn-products size " + json.dumps(out), flush=True)
+    return out
+
+
+def mixed_phase(torch, qt, topo, train) -> dict:
+    """(d) ``MixedGraphSageSampler("TPU_CPU_MIXED")`` at products size:
+    MIXED_TASKS tasks of P_BATCH seeds for 2 epochs, every task yielded
+    once an epoch; the CPU share each epoch."""
+    from quiver_tpu_torch.mixed import RangeSampleJob
+
+    job = RangeSampleJob(train[: MIXED_TASKS * P_BATCH].copy(), P_BATCH,
+                         seed=SEED)
+    mixed = qt.MixedGraphSageSampler(topo, P_FANOUTS, job, device=DEV,
+                                     mode="TPU_CPU_MIXED",
+                                     num_workers=MIXED_WORKERS)
+    out = []
+    for epoch in range(2):
+        share = mixed._decide_cpu_share(len(job))
+        seen, sources = [], {"tpu": 0, "cpu": 0}
+        t0 = time.perf_counter()
+        for batch, src in mixed:
+            seen.append(tuple(batch.n_id[: batch.batch_size].cpu().tolist()))
+            sources[src] += 1
+            check(batch.n_id.device.type == "cuda",
+                  f"mixed {src} batch not on the card")
+        wall = time.perf_counter() - t0
+        tasks = sorted(tuple(job[i].tolist()) for i in range(len(job)))
+        check(sorted(seen) == tasks,
+              f"mixed epoch {epoch}: tasks not yielded once each")
+        check(sources["cpu"] == share, f"mixed epoch {epoch}: CPU share")
+        out.append(dict(epoch=epoch, cpu_share=share / len(job),
+                        sources=sources, epoch_s=wall,
+                        avg_device_task_ms=mixed.avg_tpu_time * 1e3,
+                        avg_cpu_task_ms=mixed.avg_cpu_time * 1e3))
+    print("mixed sampler at ogbn-products size " + json.dumps(out),
+          flush=True)
+    return {"epochs": out}
+
+
+def interop_phase(torch, qt, topo, feat, labels, train, b2) -> dict:
+    """(e) LOADER_BATCHES ``TorchSampleLoader`` batches at products size
+    on the card (the whole table in degree order: B2 once a batch): ``x``
+    bitwise the source rows of ``n_id``, ``y`` the seeds' labels, the
+    edge lists int64 on the card."""
+    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                         device=DEV).from_cpu_tensor(feat)
+    sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED)
+    loader = qt.TorchSampleLoader(train, sampler, feature, labels=labels,
+                                  batch_size=P_BATCH, seed=SEED)
+    b2.gather_rows.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # islice asks the loader for no batch past the last one kept
+    got = list(itertools.islice(loader, LOADER_BATCHES))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = b2.gather_rows.launches
+    for i, (n_id, bs, adjs, x, y) in enumerate(got):
+        host_ids = n_id.cpu().numpy()
+        check(x.device.type == "cuda" and n_id.device.type == "cuda",
+              "loader batch not on the card")
+        check(torch.equal(x.cpu(), torch.from_numpy(feat[host_ids])),
+              f"loader batch {i}: x differs from the source rows")
+        check(np.array_equal(y.cpu().numpy(), labels[host_ids[:bs]]),
+              f"loader batch {i}: labels differ")
+        check(len(adjs) == len(P_FANOUTS) and all(
+            ei.dtype == torch.int64 for ei, _, _ in adjs),
+              f"loader batch {i}: edge lists")
+        check(all(ei.device.type == "cuda" for ei, _, _ in adjs),
+              f"loader batch {i}: edge lists not on the card")
+    check(len(got) == LOADER_BATCHES, "loader batches")
+    check(launches == LOADER_BATCHES,
+          f"B2 launched {launches} times for {LOADER_BATCHES} loader batches")
+    out = dict(batches=LOADER_BATCHES, ms_per_batch=wall * 1e3 / len(got),
+               b2_launches=launches)
+    print("TorchSampleLoader at ogbn-products size " + json.dumps(out),
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2389,6 +2847,21 @@ def main() -> int:
     launches_w, summary_w = weighted_serving_phase(torch, qt, topo, feature,
                                                    b2, b3)
     kernels[1]["launches_weighted_serving"] = launches_w["gather_rows"]
+    torch.cuda.empty_cache()
+
+    # slice 9: the host sampler, then serving through both lanes
+    phase_s = {}
+    t0 = time.perf_counter()
+    host = host_sampler_phase(torch, qt, topo)
+    phase_s["host_sampler"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches_h, summary_h9 = hybrid_serving_phase(torch, qt, topo, feature,
+                                                  b1, b2)
+    phase_s["hybrid_serving"] = time.perf_counter() - t0
+    kernels[0]["launches_hybrid_serving"] = launches_h["window_sample"]
+    kernels[1]["launches_hybrid_serving"] = launches_h["gather_rows"]
+    kernels[1]["hybrid_cpu_lane_requests"] = \
+        summary_h9["cpu_lane"]["requests"]
     torch.cuda.empty_cache()
 
     # slice 2: every feature below compares with the source table by its
@@ -2502,6 +2975,26 @@ def main() -> int:
     # slice 7: exact inference of the trained models, then R-GAT
     full = full_graph_phase(torch, qt, ptopo, pfeat, models)
     print("full_graph_inference summary " + json.dumps(full), flush=True)
+
+    # slice 9 at products size: UVA, the mixed sampler, the torch loader
+    t0 = time.perf_counter()
+    uva = uva_phase(torch, qt, ptopo, ptrain, b1)
+    phase_s["uva"] = time.perf_counter() - t0
+    kernels[0]["launches_uva"] = uva["overlap"]["b1_launches"]
+    t0 = time.perf_counter()
+    mixed = mixed_phase(torch, qt, ptopo, ptrain)
+    phase_s["mixed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = interop_phase(torch, qt, ptopo, pfeat, plabels, ptrain, b2)
+    phase_s["torch_loader"] = time.perf_counter() - t0
+    kernels[1]["launches_torch_loader"] = loader["b2_launches"]
+    print("slice 9 summary " + json.dumps(dict(
+        host_sampler=host, hybrid_serving={
+            k: v for k, v in summary_h9.items()
+            if k != "serving"},
+        uva=uva, mixed=mixed, torch_loader=loader, phase_s=phase_s)),
+        flush=True)
+    torch.cuda.empty_cache()
     del models, lanes, ptopo, pfeat, pip, pix, pseeds
     torch.cuda.empty_cache()
     launches_r, summary_r, b1_mag, b2_mag = rgat_phase(torch, qt, b1, b2)

@@ -21,8 +21,16 @@ from .parallel import Prefetcher, TrainState, make_train_step
 from .pipeline import make_fused_eval_fn, make_fused_train_step, make_scan_epoch
 from .ops.sample import SampleOut, sample_neighbors, to_ragged
 from .sampler import GraphSageSampler, LayerBlock, SampledBatch, run_pipeline
-from .serving import (InferenceServer, InferenceServer_Debug, RequestBatcher,
-                      ServingRequest)
+from .serving import (HybridSampler, InferenceServer, InferenceServer_Debug,
+                      RequestBatcher, ServingRequest, calibrate_threshold)
+from .mixed import MixedGraphSageSampler, SampleJob
+from .uva import UVAGraph
+from .interop import TorchSampleLoader, to_torch_adjs
+from .partition import (load_quiver_feature_partition,
+                        partition_without_replication,
+                        quiver_partition_feature)
+from .neighbour_num import generate_neighbour_num
+from . import multiprocessing  # registers the ForkingPickler reducers
 from .utils import (CSRTopo, community_graph, coo_to_csr, parse_size,
                     reindex_by_config, reindex_feature, synthetic_csr,
                     synthetic_products, synthetic_reddit)
@@ -31,15 +39,18 @@ __all__ = [
     "CSRTopo", "Feature", "GAT", "GATConv", "GCN", "GCNConv", "GraphSAGE",
     "GraphSageSampler", "HeteroCSRTopo", "HeteroFeature",
     "HeteroGraphSageSampler", "HeteroLayerBlock", "HeteroSampledBatch",
-    "InferenceServer", "InferenceServer_Debug", "LayerBlock", "Prefetcher",
-    "RGAT", "RequestBatcher", "SAGEConv", "SampleOut", "SampledBatch",
-    "SeedLoader", "ServingRequest", "TrainState", "community_graph",
-    "coo_to_csr", "full_graph_inference", "gat_params_from_flax",
-    "gat_params_to_flax", "gcn_params_from_flax", "gcn_params_to_flax",
-    "make_fused_eval_fn", "make_fused_train_step", "make_scan_epoch",
-    "make_train_step", "parse_size", "reindex_by_config", "reindex_feature",
-    "rgat_params_from_flax", "rgat_params_to_flax", "run_pipeline",
-    "sage_params_from_flax", "sage_params_to_flax",
-    "sample_neighbors", "synthetic_csr", "synthetic_products",
-    "synthetic_reddit", "to_ragged",
+    "HybridSampler", "InferenceServer", "InferenceServer_Debug",
+    "LayerBlock", "MixedGraphSageSampler", "Prefetcher", "RGAT",
+    "RequestBatcher", "SAGEConv", "SampleJob", "SampleOut", "SampledBatch",
+    "SeedLoader", "ServingRequest", "TorchSampleLoader", "TrainState",
+    "UVAGraph", "calibrate_threshold", "community_graph", "coo_to_csr",
+    "full_graph_inference", "gat_params_from_flax", "gat_params_to_flax",
+    "gcn_params_from_flax", "gcn_params_to_flax", "generate_neighbour_num",
+    "load_quiver_feature_partition", "make_fused_eval_fn",
+    "make_fused_train_step", "make_scan_epoch", "make_train_step",
+    "parse_size", "partition_without_replication", "quiver_partition_feature",
+    "reindex_by_config", "reindex_feature", "rgat_params_from_flax",
+    "rgat_params_to_flax", "run_pipeline", "sage_params_from_flax",
+    "sage_params_to_flax", "sample_neighbors", "synthetic_csr",
+    "synthetic_products", "synthetic_reddit", "to_ragged", "to_torch_adjs",
 ]

@@ -123,6 +123,7 @@ class Feature:
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: dict = {}
         self._inflight: collections.deque = collections.deque()
+        self._lazy_state = None  # a handle lazy_from_ipc_handle left
 
     def _budget_rows(self, row_bytes: int) -> int:
         budget = parse_size(self.device_cache_size)
@@ -157,25 +158,66 @@ class Feature:
             topo_order = True
 
         table = torch.from_numpy(np.ascontiguousarray(tensor)).to(dt)
-        hot = table[:cache_count].to(self.device).contiguous()
-        cold = table[cache_count:]
+        self._install(table[:cache_count], table[cache_count:], new_order,
+                      cache_count, node_count, dim)
+        if topo_order:
+            self.csr_topo.feature_order = new_order
+        self._maybe_enable_cold_cache()
+        self._maybe_enable_paging()
+        return self
+
+    def _install(self, hot, cold, order, cache_count, node_count, dim):
+        """Take the tiers (host tensors) and the row order: the hot prefix
+        to the device, the cold tail pinned when the device is the card."""
+        hot = hot.to(self.device).contiguous()
         cold = (cold.pin_memory() if self.device.type == "cuda"
                 else cold.clone())
         with self._plock:
             self.node_count, self.dim = node_count, dim
             self.cache_count = cache_count
             self.hot, self.cold = hot, cold
-            self.feature_order = new_order
+            self.feature_order = order
             self._order_dev = (
-                None if new_order is None else
-                torch.from_numpy(new_order.astype(np.int32)).to(self.device))
+                None if order is None else
+                torch.from_numpy(order.astype(np.int32)).to(self.device))
             self.cold_cache = self._overlay = self.paged = None
             self._pending.clear()
-        if topo_order:
-            self.csr_topo.feature_order = new_order
-        self._maybe_enable_cold_cache()
-        self._maybe_enable_paging()
+
+    # -- process hand-off (``quiver_tpu_torch.multiprocessing``) ----------
+    def share_ipc(self):
+        """The JAX package's handle, ``(config, hot, cold, feature_order,
+        cache_count, node_count, dim)``, with host copies of both tiers;
+        ``config`` names the device.  The overlay and the paged store are
+        not carried."""
+        self._check_built()
+        cfg = dict(rank=self.rank, device_cache_size=self.device_cache_size,
+                   cache_policy=self.cache_policy,
+                   cache_unit=self.cache_unit, device=str(self.device))
+        return (cfg, self.hot.cpu(), self.cold.clone(), self.feature_order,
+                self.cache_count, self.node_count, self.dim)
+
+    @classmethod
+    def new_from_ipc_handle(cls, rank, ipc_handle) -> "Feature":
+        """A feature built from ``ipc_handle`` at once, on the handle's
+        device, with ``rank``."""
+        cfg, hot, cold, order, cc, nc, dim = ipc_handle
+        self = cls(**dict(cfg, rank=rank))
+        self._install(hot, cold, order, cc, nc, dim)
         return self
+
+    @classmethod
+    def lazy_from_ipc_handle(cls, ipc_handle) -> "Feature":
+        """A feature that installs ``ipc_handle`` on its device at first
+        use (:meth:`lazy_init_from_ipc_handle`)."""
+        cfg = ipc_handle[0]
+        self = cls(**dict(cfg, rank=0))
+        self._lazy_state = ipc_handle
+        return self
+
+    def lazy_init_from_ipc_handle(self):
+        state, self._lazy_state = self._lazy_state, None
+        if state is not None:
+            self._install(*state[1:])
 
     # -- cold-row overlay ----------------------------------------------
     def _maybe_enable_cold_cache(self):
@@ -311,6 +353,8 @@ class Feature:
 
     # -- gathers -------------------------------------------------------
     def _check_built(self):
+        if self._lazy_state is not None:
+            self.lazy_init_from_ipc_handle()
         if self.hot is None or self.node_count == 0:
             raise RuntimeError("Feature is empty: call from_cpu_tensor first")
 

@@ -18,6 +18,18 @@ With ``edge_weights`` every hop draws weight-proportionally
 Key words: the JAX pipeline splits one key per hop and folds each into two
 uint32 words.  The port takes those words directly, ``[L, 2]`` uint32, one
 pair per hop, so the same words give the same batch in both packages.
+
+Two more modes sample on the host, as in the JAX package:
+
+- ``mode="CPU"``: the native host sampler (``cpp/native.py``), exact dedup
+  every hop, its RNG seeded from the sampler's own call counter (key words
+  are not read).  The batch is copied to ``device``.
+- ``mode="UVA"`` with a ``uva_budget``: the hot/cold split of ``uva.py``.
+  Each hop's hot rows are sampled on the device from a compacted sub-CSR
+  (kernel B1's literal entry under ``"auto"``), its cold rows by the
+  native sampler meanwhile; the hop's key words drive the device tier and
+  a third word per hop seeds the host tier (JAX seeds it with the last
+  word of the hop's split key).
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ import numpy as np
 import torch
 
 from .config import resolve_dedup, resolve_gather_mode, resolve_sample_rng
+from .cpp.native import CPUSampler
+from .interop import to_torch_adjs
 from .ops.cuda.window_sample import window_sample_frontier
 from .ops.fastgather import pad_table_128
 from .ops.prob import sample_prob
@@ -62,24 +76,15 @@ class SampledBatch(NamedTuple):
 
     def to_pyg_adjs(self):
         """Ragged ``(n_id, batch_size, [Adj])`` view on the host, each Adj
-        ``(edge_index[2, e], e_id[e], (n_src, n_dst))``.  Sizes are the
-        padded frontier lengths: each hop's targets are a prefix of its
-        sources, so PyG's ``x = x[:size[1]]`` loop slices exactly."""
-        adjs = []
-        n_src = int(self.n_id.shape[0])
-        for blk in self.layers:
-            m = blk.mask.cpu().numpy()
-            nbr = blk.nbr_local.cpu().numpy()
-            t, k = m.shape
-            row = np.repeat(np.arange(t, dtype=np.int64), k).reshape(t, k)
-            col = nbr.astype(np.int64)
-            e = m.reshape(-1)
-            edge_index = np.stack([col.reshape(-1)[e], row.reshape(-1)[e]])
-            e_id = (blk.eid.cpu().numpy().reshape(-1)[e]
-                    if blk.eid is not None else np.empty(0, np.int64))
-            adjs.append((edge_index, e_id, (n_src, t)))
-            n_src = t
-        return self.n_id.cpu().numpy(), self.batch_size, adjs
+        ``(edge_index[2, e], e_id[e], (n_src, n_dst))``: the host copy of
+        :func:`~quiver_tpu_torch.interop.to_torch_adjs`, with ``n_id`` in
+        the batch's int32.  Sizes are the padded frontier lengths: each
+        hop's targets are a prefix of its sources, so PyG's ``x =
+        x[:size[1]]`` loop slices exactly."""
+        _, bs, adjs = to_torch_adjs(self)
+        return self.n_id.cpu().numpy(), bs, [
+            (edge_index.cpu().numpy(), e_id.cpu().numpy(), size)
+            for edge_index, e_id, size in adjs]
 
 
 def _hop(indptr, indices, frontier, k, key_words, fmask, gather_mode,
@@ -248,8 +253,10 @@ class GraphSageSampler:
       csr_topo: :class:`CSRTopo`.
       sizes: fanout per layer, outward order, e.g. ``[25, 10]``.
       device: where the topology lives and hops run (``None``: the card).
-      mode: ``"GPU"``, the reference's name for the device mode.  The host
-        sampler (``"CPU"``) is not ported yet (ROADMAP A10).
+      mode: ``"GPU"`` (the device mode; JAX's ``"TPU"`` is an alias),
+        ``"CPU"`` (the native host sampler, batches copied to ``device``)
+        or ``"UVA"`` (the hot/cold split under ``uva_budget``; without a
+        budget the device mode).
       return_eid: fill ``LayerBlock.eid`` with global edge positions.
       seed: seed of the generator that draws key words when a call gives
         none.
@@ -269,9 +276,14 @@ class GraphSageSampler:
         weight-proportionally, with replacement.
       sample_rng: ``"auto"`` or ``"hash"``, the counter hash; JAX's
         ``"key"`` is refused (``config.resolve_sample_rng``).
-      uva_budget, uva_overlap, uva_timings: the hot/cold split of a graph
-        larger than the card (ROADMAP A10), not ported: any value but the
-        defaults raises.
+      uva_budget: device bytes for the hot rows' edge lists in UVA mode
+        (``parse_size``).  UVA mode takes the positional pipeline only
+        (``dedup="auto"`` resolves to ``"none"``) and refuses
+        ``dedup="hop"``, ``edge_weights`` and ``return_eid``, as JAX does.
+      uva_overlap: ``False`` waits for the device tier before the host
+        tier runs (the serialized baseline).
+      uva_timings: a dict that accumulates the host tier's seconds under
+        ``"host_s"``.
     """
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
@@ -282,15 +294,15 @@ class GraphSageSampler:
                  uva_budget: Union[int, str, None] = None,
                  uva_overlap: bool = True,
                  uva_timings: Optional[dict] = None):
-        if (uva_budget is not None or not uva_overlap
-                or uva_timings is not None):
-            raise NotImplementedError(
-                "uva_budget, uva_overlap, uva_timings: the hot/cold graph "
-                "split is not ported yet (ROADMAP A10)")
-        if mode != "GPU":
-            raise NotImplementedError(
-                f"mode={mode!r}: only the device mode 'GPU' is ported "
-                "(the host sampler is ROADMAP A10)")
+        if mode not in ("GPU", "TPU", "CPU", "UVA"):
+            raise ValueError(f"mode must be 'GPU', 'TPU', 'CPU' or 'UVA', "
+                             f"got {mode!r}")
+        if mode == "TPU":  # the JAX package's name for the device mode
+            mode = "GPU"
+        if mode == "UVA" and uva_budget is None:
+            mode = "GPU"  # the whole graph fits the (unbounded) budget
+        if mode == "UVA" and dedup == "auto":
+            dedup = "none"
         self.sizes = list(sizes)
         self.frontier_caps = (list(frontier_caps) if frontier_caps is not None
                               else [None] * len(self.sizes))
@@ -301,12 +313,28 @@ class GraphSageSampler:
         self.gather_mode = resolve_gather_mode(gather_mode)
         resolve_sample_rng(sample_rng)  # validates: the port has one RNG
         self.dedup = resolve_dedup(dedup)
+        if mode == "UVA" and (self.dedup != "none" or edge_weights is not None
+                              or return_eid):
+            raise ValueError(
+                "UVA mode samples the positional pipeline, uniformly, "
+                "without edge ids (hot-tier positions are sub-CSR local): "
+                "dedup='hop', edge_weights and return_eid are refused")
         self.csr_topo = csr_topo
         self.mode = mode
         self.return_eid = return_eid
+        self.seed = seed
         self._rng = np.random.default_rng(seed)
+        self._fanout_frac = 1.0
+        self._edge_weights = edge_weights
+        self.uva_budget = uva_budget
+        self.uva_overlap = uva_overlap
+        self.uva_timings = uva_timings
+        self._uva = None
+        self._cpu = (CPUSampler(csr_topo.indptr, csr_topo.indices,
+                                edge_weights=edge_weights)
+                     if mode == "CPU" else None)
         self._cum_weights = None
-        if edge_weights is not None:
+        if edge_weights is not None and mode == "GPU":
             cw = row_cumsum_weights(csr_topo.indptr, edge_weights)
             # the last value fills the pad: a clipped read past E is harmless
             self._cum_weights = torch.from_numpy(pad_table_128(
@@ -314,21 +342,22 @@ class GraphSageSampler:
         self.last_drops: Optional[torch.Tensor] = None
         self._drops_recorded = True
         self.frontier_drops = Counter("sampler_frontier_drops_total")
-        csr_topo.to_device(self.device)
+        if mode == "GPU":
+            csr_topo.to_device(self.device)
 
     def draw_key_words(self) -> np.ndarray:
-        """``[L, 2]`` uint32 key words from the sampler's own generator."""
-        return self._rng.integers(0, 2**32, size=(len(self.sizes), 2),
+        """Key words from the sampler's own generator: ``[L, 2]`` uint32,
+        or ``[L, 3]`` in UVA mode (the third word seeds each hop's host
+        tier)."""
+        width = 3 if self.mode == "UVA" else 2
+        return self._rng.integers(0, 2**32, size=(len(self.sizes), width),
                                   dtype=np.uint32)
 
     def seed_tensor(self, input_nodes) -> torch.Tensor:
         if isinstance(input_nodes, torch.Tensor):
             return input_nodes.to(self.device, torch.int32)
-        ids = np.asarray(input_nodes)
-        n = self.csr_topo.node_count
-        if ids.size and (ids.min() < 0 or ids.max() >= n):
-            raise ValueError(f"node ids must lie in [0, {n})")
-        return torch.from_numpy(ids.astype(np.int32)).to(self.device)
+        return torch.from_numpy(
+            self._host_seeds(input_nodes).astype(np.int32)).to(self.device)
 
     def pipeline(self, seeds: torch.Tensor, key_words, weighted: bool = True):
         """``run_pipeline`` over this sampler's graph, fanouts, dedup,
@@ -341,11 +370,20 @@ class GraphSageSampler:
             gather_mode=self.gather_mode,
             cum_weights=self._cum_weights if weighted else None)
 
-    def sample(self, input_nodes, key_words=None) -> SampledBatch:
+    def sample(self, input_nodes, key_words=None,
+               host_seeds=None) -> SampledBatch:
         """Sample the k-hop neighbourhood of ``input_nodes`` under per-hop
-        ``key_words`` (``[L, 2]`` uint32; drawn here when ``None``)."""
+        ``key_words`` (``[L, 2]`` uint32; drawn here when ``None``).
+
+        CPU mode reads no key words.  UVA mode takes ``[L, 2]`` words with
+        ``host_seeds`` (``[L]``, each hop's host-tier seed) or ``[L, 3]``
+        words whose last column is the host seeds."""
+        if self.mode == "CPU":
+            return self._sample_cpu(input_nodes)
         if key_words is None:
             key_words = self.draw_key_words()
+        if self.mode == "UVA":
+            return self._sample_uva(input_nodes, key_words, host_seeds)
         seeds = self.seed_tensor(input_nodes)
         n_id, n_mask, num_nodes, blocks, drops = self.pipeline(seeds,
                                                                key_words)
@@ -374,6 +412,68 @@ class GraphSageSampler:
             if total:
                 self.frontier_drops.inc(total)
         return arr
+
+    # -- host modes -----------------------------------------------------
+    def set_fanout_frac(self, frac: float) -> None:
+        """Scale the CPU mode's fanouts to ``frac`` of ``sizes`` (each at
+        least 1); ``1.0`` restores them.  The device and UVA modes keep
+        ``sizes``, as in the JAX package."""
+        self._fanout_frac = float(min(max(frac, 0.0), 1.0))
+
+    def _effective_sizes(self):
+        frac = self._fanout_frac
+        if frac >= 1.0:
+            return self.sizes
+        return [max(1, int(s * frac)) for s in self.sizes]
+
+    def _host_batch(self, n_id, n_mask, num_nodes, batch_size,
+                    blocks) -> SampledBatch:
+        """A :class:`SampledBatch` on ``self.device`` from host arrays,
+        with the device mode's dtypes."""
+        def dev(a, dtype):
+            return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+
+        return SampledBatch(
+            n_id=dev(n_id, torch.int32), n_id_mask=dev(n_mask, torch.bool),
+            num_nodes=dev(num_nodes, torch.int32), batch_size=batch_size,
+            layers=tuple(LayerBlock(dev(nl, torch.int32), dev(m, torch.bool),
+                                    dev(t, torch.int32))
+                         for nl, m, t in blocks))
+
+    def _host_seeds(self, input_nodes) -> np.ndarray:
+        if isinstance(input_nodes, torch.Tensor):
+            input_nodes = input_nodes.cpu().numpy()
+        ids = np.asarray(input_nodes)
+        n = self.csr_topo.node_count
+        if ids.size and (ids.min() < 0 or ids.max() >= n):
+            raise ValueError(f"node ids must lie in [0, {n})")
+        return ids
+
+    def _sample_cpu(self, input_nodes) -> SampledBatch:
+        seeds = self._host_seeds(input_nodes)
+        n_id, n_mask, num_nodes, blocks = self._cpu.sample_multihop(
+            seeds, self._effective_sizes())
+        return self._host_batch(n_id, n_mask, num_nodes, len(seeds), blocks)
+
+    def _sample_uva(self, input_nodes, key_words, host_seeds) -> SampledBatch:
+        from .uva import UVAGraph, sample_uva
+
+        words = np.asarray(key_words, dtype=np.uint32).reshape(
+            len(self.sizes), -1)
+        if host_seeds is None:
+            if words.shape[1] != 3:
+                raise ValueError("UVA mode needs host_seeds with [L, 2] key "
+                                 "words, or [L, 3] words")
+            host_seeds = words[:, 2]
+        if self._uva is None:
+            self._uva = UVAGraph(self.csr_topo, self.uva_budget,
+                                 device=self.device)
+        seeds = self._host_seeds(input_nodes)
+        n_id, n_mask, num, blocks = sample_uva(
+            self._uva, self.sizes, seeds, words[:, :2], host_seeds,
+            gather_mode=self.gather_mode, overlap=self.uva_overlap,
+            timings=self.uva_timings)
+        return self._host_batch(n_id, n_mask, num, len(seeds), blocks)
 
     # -- the single-hop API (the reference's sample_layer / reindex /
     #    sample_sub) --------------------------------------------------
@@ -411,6 +511,26 @@ class GraphSageSampler:
         return sample_prob(indptr, indices, np.asarray(train_idx),
                            total_node_count, self.sizes,
                            num_edges=self.csr_topo.edge_count)
+
+    # -- process hand-off (``quiver_tpu_torch.multiprocessing``) ----------
+    def share_ipc(self):
+        """``(csr_topo, sizes, mode, options)``: what rebuilds this sampler
+        in another process, the topology on the host (its device copies
+        are dropped when pickled).  The rebuilt sampler puts its tables on
+        ``options["device"]`` and starts its generator from ``seed``."""
+        options = dict(
+            device=str(self.device), return_eid=self.return_eid,
+            seed=self.seed, gather_mode=self.gather_mode, dedup=self.dedup,
+            frontier_caps=self.frontier_caps,
+            edge_weights=(None if self._edge_weights is None
+                          else np.asarray(self._edge_weights)),
+            uva_budget=self.uva_budget, uva_overlap=self.uva_overlap)
+        return self.csr_topo, self.sizes, self.mode, options
+
+    @classmethod
+    def lazy_from_ipc_handle(cls, ipc_handle) -> "GraphSageSampler":
+        csr_topo, sizes, mode, options = ipc_handle
+        return cls(csr_topo, sizes, mode=mode, **options)
 
     def __repr__(self):
         return (f"GraphSageSampler(sizes={self.sizes}, mode={self.mode!r}, "

@@ -78,6 +78,11 @@ class CSRTopo:
         self.feature_order_: Optional[np.ndarray] = None
         self._device_arrays: dict = {}
 
+    def __getstate__(self):
+        # the device copies stay behind: an unpickled topology places its
+        # own at its first to_device
+        return dict(self.__dict__, _device_arrays={})
+
     @property
     def indptr(self) -> np.ndarray:
         return self.indptr_

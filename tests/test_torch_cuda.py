@@ -857,3 +857,96 @@ def test_full_graph_inference_card_matches_cpu(card, family):
                                   topo.indices, edge_chunk=300_000)
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# -- slice 9: the host sampler and the paths built on it ------------------
+
+def _same_batch_on(a, b):
+    """Two ``SampledBatch``es equal bitwise, whatever their devices."""
+    assert torch.equal(a.n_id.cpu(), b.n_id.cpu())
+    assert torch.equal(a.n_id_mask.cpu(), b.n_id_mask.cpu())
+    assert int(a.num_nodes) == int(b.num_nodes)
+    for la, lb in zip(a.layers, b.layers):
+        assert torch.equal(la.nbr_local.cpu(), lb.nbr_local.cpu())
+        assert torch.equal(la.mask.cpu(), lb.mask.cpu())
+        assert int(la.num_targets) == int(lb.num_targets)
+
+
+@pytest.mark.parametrize("budget", ["third", "zero", "all"])
+def test_uva_card_matches_cpu(card, budget):
+    """UVA on the card (the hot tier through B1's literal entry under
+    ``"auto"``) equals UVA on the CPU (B1's plain version) for the same
+    words and host seeds; B1 launches once a hop."""
+    topo = _graph(6, n=3000)
+    e = topo.edge_count
+    b = {"third": e * 4 // 3, "zero": 0, "all": e * 4}[budget]
+    kw = np.random.default_rng(2).integers(0, 2**32, (3, 3), dtype=np.uint32)
+    ids = np.concatenate([np.arange(12), np.arange(2900, 3000)])
+    out = []
+    for dev in ("cpu", card):
+        s = qt.GraphSageSampler(topo, [10, 5, 3], device=dev, mode="UVA",
+                                uva_budget=b)
+        before = b1.window_sample.launches
+        out.append(s.sample(ids, key_words=kw))
+        if dev == card:
+            assert b1.window_sample.launches == before + 3
+            assert out[-1].n_id.device.type == "cuda"
+    _same_batch_on(out[1], out[0])
+
+
+def test_cpu_mode_card_matches_cpu(card):
+    """``mode="CPU"`` copies the host sampler's batch to the card: equal
+    to the same calls with ``device="cpu"``."""
+    topo = _graph(7, n=3000)
+    a = qt.GraphSageSampler(topo, [10, 5], device=card, mode="CPU")
+    c = qt.GraphSageSampler(topo, [10, 5], device="cpu", mode="CPU")
+    for i in range(3):
+        ids = np.arange(i, 3000, 37)
+        ga, gc = a.sample(ids), c.sample(ids)
+        assert ga.n_id.device.type == "cuda"
+        _same_batch_on(ga, gc)
+
+
+def test_cpu_lane_answer_equals_direct_forward(card):
+    """A CPU-lane request on the card: the answer equals the model on its
+    batch (B2 for the rows), and the CPU's answer on the same batch within
+    fp32 tolerance."""
+    import queue
+
+    topo = _graph(8, n=2000)
+    feat = np.random.default_rng(1).standard_normal(
+        (2000, 24)).astype(np.float32)
+    torch.manual_seed(0)
+    model = qt.GraphSAGE(24, 32, 7, num_layers=2, device="cpu")
+    model_cpu = qt.GraphSAGE(24, 32, 7, num_layers=2, device="cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    model_cpu.eval()  # the server puts its model in eval mode
+    f = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                   device=card).from_cpu_tensor(feat)
+    fc = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                    device="cpu").from_cpu_tensor(feat)
+    cpu = qt.GraphSageSampler(topo, [10, 5], device=card, mode="CPU")
+    dev = qt.GraphSageSampler(topo, [10, 5], device=card)
+    results = queue.Queue()
+    rb = qt.RequestBatcher([queue.Queue()], mode="CPU")
+    hs = qt.HybridSampler(cpu, rb.cpu_batched_queue, num_workers=1)
+    srv = qt.InferenceServer_Debug(dev, f, model, rb.device_batched_queue,
+                                   cpu_sampled_queue=hs.sampled_queue,
+                                   result_queue=results)
+    hs.start()
+    srv.start()
+    ids = np.arange(5, 2000, 97)
+    before = b2.gather_rows.launches
+    rb._route(qt.ServingRequest(ids=ids, client=0, seq=0))
+    req, out = results.get(timeout=120)
+    assert hs.stop() == [] and srv.stop() == []
+    assert not isinstance(out, Exception), out
+    assert b2.gather_rows.launches > before
+    (_, _, batch), = srv.cpu_log
+    with torch.inference_mode():
+        direct = model(f[batch.n_id], batch.layers)[: len(ids)].cpu()
+        on_cpu = model_cpu(fc[batch.n_id.cpu()], tuple(
+            type(l)(*(t.cpu() if torch.is_tensor(t) else t for t in l))
+            for l in batch.layers))[: len(ids)]
+    assert torch.equal(torch.from_numpy(out), direct)
+    torch.testing.assert_close(direct, on_cpu, rtol=1e-5, atol=1e-5)

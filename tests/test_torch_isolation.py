@@ -4,6 +4,7 @@ none instead of running on the CPU."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -26,7 +27,34 @@ def _forbidden(module: str) -> bool:
 def _port_files():
     files = sorted((ROOT / "quiver_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "walk_sweep.py",
-                    ROOT / "pipeline_compare.py"]
+                    ROOT / "pipeline_compare.py", ROOT / "b2_sweep.py"]
+
+
+# the JAX package named as a word ("quiver_tpu", "quiver_tpu/cpp", but not
+# "quiver_tpu_torch"), and the one form a port string may take: a
+# ``file.py:line`` citation of a TPU kernel, which nothing opens
+_JAX_PKG = re.compile(r"(?<![\w])quiver_tpu(?![\w])")
+_CITATION = re.compile(r"^quiver_tpu/[\w/]+\.py:\d+$")
+
+
+def _strings_into_jax_package(source: str, name: str = "<src>"):
+    """Every string constant of ``source`` but docstrings that names the
+    JAX package (a path or module string: a build reading its sources is
+    an import by another name), citations excepted."""
+    tree = ast.parse(source, filename=name)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)):
+                docs.add(id(first.value))
+    return [f"{name}:{node.lineno} {node.value[:80]!r}"
+            for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs and _JAX_PKG.search(node.value)
+            and not _CITATION.match(node.value)]
 
 
 def test_import_leaves_jax_out():
@@ -197,3 +225,72 @@ def test_graphsage_defaults_to_the_card(monkeypatch):
             make()
     model = qt.GraphSAGE(4, 8, 2, num_layers=2, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_no_strings_point_into_the_jax_package():
+    bad = []
+    for path in _port_files():
+        bad += _strings_into_jax_package(path.read_text(), path.name)
+    assert not bad, bad
+
+
+def test_jax_package_string_matcher():
+    src = ('"""Counterpart of ``quiver_tpu/cpp/native.py``."""\n'
+           'A = ROOT / "quiver_tpu" / "cpp" / "csrc"\n'
+           'B = "quiver_tpu/cpp/csrc/quiver_cpu.cpp"\n'
+           'C = f"{ROOT}/quiver_tpu/cpp"\n'
+           'D = "quiver_tpu.cpp.native"\n'
+           'E = "quiver_tpu/ops/pallas/gather_kernel.py:63"\n'
+           'F = "quiver_tpu_torch/cpp/csrc"\n'
+           'def f():\n    """reads quiver_tpu/serving.py"""\n')
+    found = _strings_into_jax_package(src)
+    assert sorted(f.split()[0] for f in found) == [
+        "<src>:2", "<src>:3", "<src>:4", "<src>:5"], found
+
+
+def test_native_source_is_the_jax_copy():
+    """The port builds its own copy of the host sampler's source, byte for
+    byte the JAX package's, so a later change to either one shows here."""
+    from quiver_tpu_torch.cpp import native
+
+    port = ROOT / "quiver_tpu_torch" / "cpp" / "csrc" / "quiver_cpu.cpp"
+    assert native.SRC == port.resolve()
+    assert port.read_bytes() == (
+        ROOT / "quiver_tpu" / "cpp" / "csrc" / "quiver_cpu.cpp").read_bytes()
+
+
+def test_walk_covers_the_host_sampler_slice():
+    """The source walk and the subprocess import reach the host sampler,
+    UVA, the CPU lane, the mixed sampler, interop, partitioning and the
+    process hand-off."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = ("cpp/native.py", "uva.py", "neighbour_num.py", "mixed.py",
+            "serving.py", "interop.py", "partition.py",
+            "multiprocessing/reductions.py")
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+    assert "b2_sweep.py" in walked
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_host_slice_defaults_to_the_card(monkeypatch):
+    """The new entry points resolve their device as the others do."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = qt.CSRTopo(indptr=np.array([0, 1, 2]), indices=np.array([1, 0]))
+    for make in (lambda: qt.GraphSageSampler(topo, [2], mode="CPU"),
+                 lambda: qt.GraphSageSampler(topo, [2], mode="UVA",
+                                             uva_budget=4),
+                 lambda: qt.UVAGraph(topo, 4),
+                 lambda: qt.generate_neighbour_num(topo, [2]),
+                 lambda: qt.MixedGraphSageSampler(topo, [2], None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

@@ -227,12 +227,18 @@ def test_full_surface_sampler_matches_jax(csr):
                          ids=["uva_budget", "uva_overlap", "uva_timings",
                               "mode"])
 def test_host_tier_arguments_refused(csr, kw):
-    """The hot/cold split and the host sampler are not ported: any value
-    but the defaults raises, naming ROADMAP A10, instead of being
-    ignored."""
+    """The hot/cold split and the host sampler are ported (ROADMAP A10):
+    each argument is taken and kept, not ignored; what UVA mode cannot
+    serve (edge ids of hot-tier positions) is refused, as in JAX."""
     _, pt = _topos(csr)
-    with pytest.raises(NotImplementedError, match="A10"):
-        qt.GraphSageSampler(pt, [3], device="cpu", **kw)
+    s = qt.GraphSageSampler(pt, [3], device="cpu", **kw)
+    assert s.mode == kw.get("mode", "GPU")  # a budget needs mode="UVA"
+    assert s.uva_budget == kw.get("uva_budget")
+    assert s.uva_overlap == kw.get("uva_overlap", True)
+    assert s.uva_timings is kw.get("uva_timings")
+    uva = dict(kw, mode="UVA", uva_budget=kw.get("uva_budget", "1M"))
+    with pytest.raises(ValueError, match="UVA"):
+        qt.GraphSageSampler(pt, [3], device="cpu", return_eid=True, **uva)
 
 
 def test_refusals_and_resolution(csr, monkeypatch):

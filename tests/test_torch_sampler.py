@@ -106,8 +106,11 @@ def test_sampler_draws_words_from_its_seed(csr):
         assert torch.equal(ba.n_id, bb.n_id)
     with pytest.raises(ValueError):
         a.sample(np.array([N_NODES]))
-    with pytest.raises(NotImplementedError):
-        qt.GraphSageSampler(topo, [5], device="cpu", mode="CPU")
+    # the host mode is ported; an unknown mode is refused
+    assert qt.GraphSageSampler(topo, [5], device="cpu",
+                               mode="CPU").mode == "CPU"
+    with pytest.raises(ValueError, match="mode"):
+        qt.GraphSageSampler(topo, [5], device="cpu", mode="XPU")
 
 
 # -- feature store -------------------------------------------------------

@@ -205,8 +205,20 @@ def test_histogram_matches_jax_registry():
 
 
 def test_batcher_modes():
+    """The JAX package's four modes, ``"Auto"`` by default (every request
+    to the device lane without ``neighbour_num``); any other name raises,
+    and so does ``qos=``, which is not ported yet (A11)."""
+    rb = qt.RequestBatcher([queue.Queue()])
+    assert rb.mode == "Auto"
+    rb._route(qt.ServingRequest(ids=np.arange(3), client=0, seq=0))
+    assert rb.device_batched_queue.qsize() == 1
+    assert rb.cpu_batched_queue.qsize() == 0
+    for mode in ("Auto", "CPU", "Device", "Preparation"):
+        assert qt.RequestBatcher([queue.Queue()], mode=mode).mode == mode
+    with pytest.raises(ValueError, match="mode"):
+        qt.RequestBatcher([queue.Queue()], mode="GPU")
     with pytest.raises(NotImplementedError, match="A11"):
-        qt.RequestBatcher([queue.Queue()], mode="Auto")
+        qt.RequestBatcher([queue.Queue()], qos=object())
 
 
 # -- the unfused lane over a budgeted feature ----------------------------------
