@@ -59,6 +59,25 @@ first use, with nvcc, one process per source, all at once), then:
    threshold sends every request one way): both lanes answer, B2 once a
    device chunk and once a CPU-lane request, a CPU-lane answer equal to a
    direct forward, each lane's p50 and p99;
+4e. resilient serving phase (slice 10): the same graph and model with
+   the native host sampler as the failover route
+   (``resilient_serving_phase``): the 64-request plan under QoS
+   (QOS_TENANTS) and a 60 s deadline, every answer ok and recomputed;
+   a ChaosPlan failing ``serving.device_lane`` BREAKER_FAILURES times
+   (breaker closed -> open -> half_open -> closed, each failover answer
+   equal to ``_infer_presampled`` of its batch, one no-route fault
+   answered with ``ChaosFault``); a burst of BURST requests into lanes
+   of BURST_DEPTH under 3x the bucket-2048 pass as deadline (every
+   request answered, sheds by stage); ``/metrics`` and the debug routes
+   on 127.0.0.1:0, the flight recorder's records, one request on the
+   timeline, the profile's device rows for B1 and B2;
+   ``serving_failover_total`` stays 0 in every step without a fault;
+   then the plan's latency all at once and in phase 4's bursts, with
+   QoS and telemetry on and off, each twice (``serving_overhead_ab``).
+   Phase 4 also holds ``trace_scope(block=)`` around a bucket-2048
+   lookup (B2) to the call's CUDA-event time, and the products
+   ``"auto"`` lane (11) saves a checkpoint, restores it into a fresh
+   model and Adam, and takes one more step from each: equal losses;
 5. B5 kernel phase (slice 2, the budgeted feature store): the feature
    under the reference's ``device_cache_size="200M"`` in degree order,
    paged, with a pool of every host page; stages the frontier of one
@@ -703,6 +722,13 @@ def serve(torch, qt, sampler, feature, model, kernels, hybrid=None):
             if seq % 4 == 3:
                 time.sleep(0.02)
 
+    from quiver_tpu_torch import telemetry
+
+    def failovers():
+        return sum(v for k, v in telemetry.snapshot()["counters"].items()
+                   if k.startswith("serving_failover_total"))
+
+    failovers_before = failovers()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -745,6 +771,8 @@ def serve(torch, qt, sampler, feature, model, kernels, hybrid=None):
               f"answer {key} has shape {out.shape}")
         check(np.isfinite(out).all(), f"answer {key} is not finite")
     check(stats["count"] == len(answers), "stats count")
+    check(failovers() == failovers_before,
+          "serving_failover_total moved in a run that injects no fault")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched while serving")
     summary = dict(stats=stats, warmup_s=warmup_s, served_s=served_s,
@@ -823,7 +851,11 @@ def serving_phase(torch, qt, topo, feat, feature, b1, b2):
                           stages["pass_wall"])
     print("bucket-2048 pass on the card (torch.profiler) " + json.dumps(prof),
           flush=True)
-    summary.update(stages_ms=stages, device_profile=prof)
+    # slice 10: trace_scope(block=) around a bucket-2048 pass's lookup
+    n_id = sampler.sample(rng.integers(0, N_NODES, 2048),
+                          key_words=server.draw_key_words()).n_id
+    summary.update(stages_ms=stages, device_profile=prof,
+                   trace_scope=trace_scope_check(torch, feature, n_id))
     return launches, summary
 
 
@@ -1729,6 +1761,10 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
                    step_event_ms=float(np.median(dev_ms[2:])),
                    launches=launches, peak_gib=peak_gib)
     print(f"fused training {lane} " + json.dumps(summary), flush=True)
+    if spec is SAGE_LANE and dedup == "none" and mode == "auto":
+        summary["checkpoint"] = checkpoint_check(torch, qt, sampler, feature,
+                                                 model, opt, train, labels_d,
+                                                 steps, spec)
 
     # the step split and one step under the profiler
     seeds, lab = next(batches(torch, train, labels_d, 1, SEED + 13, size))
@@ -1772,6 +1808,52 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     kw = sampler.draw_key_words()
     y_card = qt.make_fused_eval_fn(sampler, feature, model)(ids, kw).cpu()
     return launches, summary, (model, ids, kw, y_card)
+
+
+def checkpoint_check(torch, qt, sampler, feature, model, opt, train,
+                     labels_d, steps: int, spec) -> dict:
+    """Slice 10's checkpoint on the card: ``save_checkpoint`` of the
+    trained model and its Adam state into ``build/chip_smoke_ckpt``, a
+    fresh seeded model and optimizer restored from it with
+    ``load_checkpoint``, then one more fused step from each on the same
+    batch, key words and dropout seed: the losses must be equal bit for
+    bit."""
+    import shutil
+
+    from quiver_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                   load_checkpoint,
+                                                   save_checkpoint)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = save_checkpoint(root, qt.TrainState(model, opt), steps,
+                           extra={"lane": spec["family"]})
+    save_s = time.perf_counter() - t0
+    fresh = spec["model"](torch, qt)
+    fresh_opt = torch.optim.Adam(fresh.parameters(), lr=spec["lr"])
+    t0 = time.perf_counter()
+    _, step = load_checkpoint(root, qt.TrainState(fresh, fresh_opt))
+    load_s = time.perf_counter() - t0
+    check(latest_checkpoint(root) == path and step == steps,
+          f"checkpoint resolved {latest_checkpoint(root)} at step {step}")
+    seeds, lab = next(batches(torch, train, labels_d, 1, SEED + 14,
+                              spec["batch"]))
+    ones = torch.ones((spec["batch"],), dtype=torch.bool, device=DEV)
+    kw = sampler.draw_key_words()
+    losses = [qt.make_fused_train_step(sampler, feature, m, o,
+                                       seed=SEED + 15)(seeds, lab, ones, kw)
+              for m, o in ((model, opt), (fresh, fresh_opt))]
+    check(torch.equal(losses[0], losses[1]),
+          f"the restored model's next loss {float(losses[1])!r} differs "
+          f"from the original's {float(losses[0])!r}")
+    out = dict(path=os.path.relpath(path, os.path.dirname(root)),
+               bytes=os.path.getsize(path), save_s=save_s, load_s=load_s,
+               next_loss=float(losses[0]), bitwise_equal=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print("checkpoint round trip " + json.dumps(out), flush=True)
+    return out
 
 
 def hop_caps(batch_size: int, sizes) -> list:
@@ -2621,6 +2703,558 @@ def hybrid_serving_phase(torch, qt, topo, feature, b1, b2):
     return launches, out
 
 
+# slice 10: serving's safeguards and telemetry on the Reddit slice
+QOS_TENANTS = ("gold:rate=2000,burst=64,weight=8,priority=3;"
+               "bronze:rate=2000,burst=64,weight=1,priority=0")
+BREAKER_FAILURES, BREAKER_RESET_S = 3, 0.5
+FAULT_REQUESTS = 10  # sent one at a time through the device fault
+BURST, BURST_DEPTH = 256, 8
+
+
+def trace_scope_check(torch, feature, n_id) -> dict:
+    """``utils.trace.trace_scope(block=)`` around one B2 lookup of
+    ``n_id`` must last at least the lookup's device time (CUDA events
+    around the same call, inside the scope); without ``block`` the scope
+    measures the launch."""
+    from quiver_tpu_torch.utils import trace
+
+    feature.lookup_device(n_id)
+    torch.cuda.synchronize()
+    trace.set_enabled(True)
+    trace.reset_trace()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    try:
+        torch.cuda.synchronize()
+        # both events inside the scope: the host opens it before the card
+        # reaches a, and closes it after the card passed b
+        with trace.trace_scope("blocked", block=feature.hot):
+            a.record()
+            feature.lookup_device(n_id)
+            b.record()
+        torch.cuda.synchronize()
+        event_ms = a.elapsed_time(b)
+        with trace.trace_scope("launch"):
+            feature.lookup_device(n_id)
+        torch.cuda.synchronize()
+        summary = trace.trace_summary()
+    finally:
+        trace.set_enabled(False)
+        trace.reset_trace()
+    out = dict(ids=int(n_id.shape[0]), event_ms=event_ms,
+               blocked_scope_ms=summary["blocked"]["total_s"] * 1e3,
+               launch_scope_ms=summary["launch"]["total_s"] * 1e3)
+    check(out["blocked_scope_ms"] >= event_ms,
+          f"trace_scope(block=) lasted {out['blocked_scope_ms']:.4f} ms, "
+          f"under the B2 call's {event_ms:.4f} ms on the card")
+    print("trace_scope(block=) around B2 " + json.dumps(out), flush=True)
+    return out
+
+
+def _take(results, n: int, ok: dict, errors: dict, timeout: float = 120.0):
+    """Move ``n`` answers from ``results`` into ``ok`` (logits) and
+    ``errors`` (exceptions), keyed by ``(client, seq)``."""
+    for _ in range(n):
+        req, out = results.get(timeout=timeout)
+        (errors if isinstance(out, Exception) else ok)[
+            (req.client, req.seq)] = out
+
+
+def _counter(tel, name: str, **labels) -> float:
+    from quiver_tpu_torch.telemetry.registry import metric_key
+
+    return tel.snapshot()["counters"].get(metric_key(name, labels), 0.0)
+
+
+def _pass_ms(torch, server) -> float:
+    """Median host ms of five bucket-2048 passes through the server's
+    forward, read back (after two warm)."""
+    ids = np.random.default_rng(SEED + 20).integers(0, N_NODES, 2048)
+    times = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server._run_bucketed(ids)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[2:]))
+
+
+def _get(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+# the overhead A/B's configurations, run in this order and then reversed:
+# (QoS, telemetry, phase 4's bursts of four rather than all at once)
+OVERHEAD_RUNS = {"qos": (True, True, False), "plain": (False, True, False),
+                 "off": (False, False, False), "bursts": (False, True, True),
+                 "bursts_off": (False, False, True)}
+
+
+def serve_plan_once(torch, qt, dev_s, feature, model, qos_on: bool,
+                    telemetry_on: bool, bursts: bool) -> dict:
+    """The 64-request plan once through a fresh RequestBatcher and
+    InferenceServer_Debug, with QoS as in the resilient step (1) or none,
+    with telemetry on or off, sent all at once (step (1)'s arrival) or by
+    N_CLIENTS threads in bursts of four 20 ms apart (phase 4's).  Returns
+    the exact p50 and p99 of the requests' latencies, admission to the
+    answer's read, the server's own (``stats()``, admission to the end of
+    the pass, from its histogram) and the passes."""
+    from quiver_tpu_torch import config, telemetry as tel
+    from quiver_tpu_torch.resilience import qos
+
+    streams = [queue.Queue() for _ in range(N_CLIENTS)]
+    results = queue.Queue()
+    _, plans = request_plan()
+    lat = []
+    qos.reset()
+    tel.set_enabled(telemetry_on)
+    try:
+        with config.override(qos_enabled=qos_on, qos_tenants=QOS_TENANTS,
+                             qos_default_tenant="bronze",
+                             serving_deadline_ms=60_000.0):
+            rb = qt.RequestBatcher(streams, mode="Device",
+                                   result_queue=results)
+            server = qt.InferenceServer_Debug(
+                dev_s, feature, model, rb.device_batched_queue,
+                result_queue=results, seed=SEED)
+            server.warmup()
+            server.pass_log.clear()
+
+            def client(c):
+                for seq, ids in enumerate(plans[c]):
+                    streams[c].put(qt.ServingRequest(
+                        ids=ids, client=c, seq=seq,
+                        tenant="gold" if c % 2 == 0 else "bronze"))
+                    if bursts and seq % 4 == 3:
+                        time.sleep(0.02)
+
+            rb.start()
+            server.start()
+            clients = []
+            try:
+                if bursts:
+                    clients = [threading.Thread(target=client, args=(c,))
+                               for c in range(N_CLIENTS)]
+                    for t in clients:
+                        t.start()
+                else:
+                    for c in range(N_CLIENTS):
+                        client(c)
+                for _ in range(N_CLIENTS * PER_CLIENT):
+                    req, o = results.get(timeout=120)
+                    lat.append(time.perf_counter() - req.t_enqueue)
+                    check(not isinstance(o, Exception),
+                          f"overhead A/B: a request failed: {o!r}")
+            finally:
+                for t in clients:
+                    t.join(timeout=30)
+                leaked = rb.stop() + server.stop()
+    finally:
+        tel.set_enabled(True)
+        qos.reset()
+    check(not leaked, "overhead A/B threads did not stop")
+    check(not server.failover_log, "a failover in the overhead A/B")
+    p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+    stats = server.stats()
+    return dict(p50_ms=float(p50), p99_ms=float(p99),
+                server_p50_ms=stats["p50_latency_ms"],
+                server_p99_ms=stats["p99_latency_ms"],
+                passes=len(server.pass_log))
+
+
+def serving_overhead_ab(torch, qt, dev_s, feature, model) -> dict:
+    """Each OVERHEAD_RUNS configuration twice, in the order given and then
+    reversed, so a drift of the host over the runs falls on every
+    configuration alike; the registry and the flight recorder start empty,
+    at their configured defaults.  Returns each one's numbers
+    (``serve_plan_once``), a list of two each."""
+    from quiver_tpu_torch import telemetry as tel
+
+    tel.reset()
+    order = list(OVERHEAD_RUNS) + list(reversed(OVERHEAD_RUNS))
+    out = {name: {} for name in order}
+    for name in order:
+        qos_on, telemetry_on, bursts = OVERHEAD_RUNS[name]
+        got = serve_plan_once(torch, qt, dev_s, feature, model, qos_on,
+                              telemetry_on, bursts)
+        for key, v in got.items():
+            out[name].setdefault(key, []).append(v)
+    print("serving overhead A/B (ms, two runs each) " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def resilient_serving_phase(torch, qt, topo, feature, b1, b2):
+    """Slice 10: the Reddit slice served with its safeguards and
+    telemetry, the native host sampler (``mode="CPU"``) as the failover
+    route.  (1) QoS with two classes (QOS_TENANTS) and a 60 s deadline:
+    the 64-request plan, every answer ok, recomputed passes equal, no
+    failover; (2) a ChaosPlan fails ``serving.device_lane``
+    BREAKER_FAILURES times: the breaker goes closed -> open -> half_open
+    -> closed, each failover answer equals ``_infer_presampled`` of its
+    logged batch (B2), then one fault with no route is answered with the
+    typed error; (3) a burst of BURST requests into lanes of BURST_DEPTH
+    under a deadline of 3x the median bucket-2048 pass: every request
+    answered, with logits, ``LoadShed`` or ``DeadlineExceeded``, no
+    failover; (4) ``/metrics`` and the debug routes served on
+    127.0.0.1:0, the registry's device-lane count against the ok device
+    answers, the flight recorder's error, slow and shed records, one
+    request on the timeline, and the profile's rows for B1 and B2 on the
+    card; (5) the plan's latency all at once and in bursts, with QoS and
+    telemetry on and off (``serving_overhead_ab``).  Returns the launches
+    of (1)-(3) (each kernel's count set to 0
+    before each step and read after) and a summary."""
+    from quiver_tpu_torch import config, telemetry as tel
+    from quiver_tpu_torch.resilience import ChaosPlan, CircuitBreaker, \
+        chaos, qos
+    from quiver_tpu_torch.telemetry import export, flightrec, profile, \
+        timeline
+
+    class LoggedBreaker(CircuitBreaker):
+        """The device lane's breaker, keeping its transitions."""
+
+        def __init__(self, *a, **k):
+            self.transitions = []
+            super().__init__(*a, **k)
+
+        def _transition(self, to):
+            self.transitions.append(to)
+            super()._transition(to)
+
+    kernels = {"window_sample": b1.window_sample,
+               "gather_rows": b2.gather_rows}
+    launches = {name: 0 for name in kernels}
+
+    def zero_launches():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def read_launches() -> dict:
+        got = {name: fn.launches for name, fn in kernels.items()}
+        for name, n in got.items():
+            launches[name] += n
+        zero_launches()
+        return got
+
+    def failovers() -> float:
+        return _counter(tel, "serving_failover_total",
+                        direction="device_to_cpu")
+
+    t_phase = time.perf_counter()
+    tel.reset()
+    qos.reset()
+    model = seeded_model(torch, qt).to(DEV).eval()
+    dev_s = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+    cpu_s = qt.GraphSageSampler(topo, FANOUTS, device=DEV, mode="CPU")
+    out, steps_s, device_ok = {}, {}, 0
+
+    # (1) QoS and deadlines, no fault
+    t0 = time.perf_counter()
+    with config.override(qos_enabled=True, qos_tenants=QOS_TENANTS,
+                         qos_default_tenant="bronze",
+                         serving_deadline_ms=60_000.0):
+        streams = [queue.Queue() for _ in range(N_CLIENTS)]
+        results = queue.Queue()
+        rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
+        server = qt.InferenceServer_Debug(
+            dev_s, feature, model, rb.device_batched_queue,
+            result_queue=results, seed=SEED, cpu_sampler=cpu_s)
+        server.warmup()
+        pass_ms = _pass_ms(torch, server)
+        server.pass_log.clear()
+        _, plans = request_plan()
+        sent, ok, errors = {}, {}, {}
+        tel.reset()
+        zero_launches()
+        rb.start()
+        server.start()
+        try:
+            for c in range(N_CLIENTS):
+                for seq, ids in enumerate(plans[c]):
+                    req = qt.ServingRequest(
+                        ids=ids, client=c, seq=seq,
+                        tenant="gold" if c % 2 == 0 else "bronze")
+                    sent[(c, seq)] = req
+                    streams[c].put(req)
+            _take(results, len(sent), ok, errors)
+        finally:
+            leaked = rb.stop() + server.stop()
+        got = read_launches()
+        check(not leaked, "QoS serving threads did not stop")
+        check(not errors, f"the QoS step answered errors: "
+              f"{list(errors.values())[:3]!r}")
+        check(len(ok) == N_CLIENTS * PER_CLIENT, "the QoS step lost answers")
+        for key, o in ok.items():
+            check(o.shape == (len(sent[key].ids), CLASSES)
+                  and np.isfinite(o).all(), f"QoS answer {key}")
+        top = server.BUCKETS[-1]
+        picks = picked_passes(server)
+        for members, chunks in picks:
+            total_ids = sum(len(sent[m].ids) for m in members)
+            direct = np.concatenate([
+                server.fused_forward(p, kw)[:min(top, total_ids - top * i)]
+                .cpu().numpy() for i, (p, kw) in enumerate(chunks)])
+            off = 0
+            for m in members:
+                n = len(sent[m].ids)
+                check(np.array_equal(ok[m], direct[off: off + n]),
+                      f"QoS answer {m} differs from its pass's recompute")
+                off += n
+        zero_launches()  # the recomputes are not the served run
+        admitted = {t: _counter(tel, "serving_qos_admitted_total", tenant=t)
+                    for t in ("gold", "bronze")}
+        check(sum(admitted.values()) == len(sent),
+              f"QoS admitted {admitted} of {len(sent)}")
+        check(failovers() == 0,
+              "a failover in the QoS step, which injects no fault")
+        chunks = sum(len(c) for _, c in server.pass_log)
+        check(got["window_sample"] == len(FANOUTS) * chunks
+              and got["gather_rows"] == chunks,
+              f"QoS step launches {got} for {chunks} chunks")
+        device_ok += len(ok)
+        stats = server.stats()
+    out["qos"] = dict(tenants=QOS_TENANTS, deadline_ms=60_000.0,
+                      p50_ms=stats["p50_latency_ms"],
+                      p99_ms=stats["p99_latency_ms"],
+                      admitted=admitted, answered_ok=len(ok),
+                      passes=len(server.pass_log), chunks=chunks,
+                      recomputed_passes=len(picks),
+                      admit_window_ms=server._admit_window_s * 1e3,
+                      launches=got, pass_2048_ms=pass_ms)
+    qos.reset()
+    steps_s["qos"] = time.perf_counter() - t0
+
+    # (2) a device fault: breaker and failover through the host sampler
+    t0 = time.perf_counter()
+    slow_ms = 2 * pass_ms
+    with config.override(serving_breaker_failures=BREAKER_FAILURES,
+                         serving_breaker_reset_s=BREAKER_RESET_S,
+                         flightrec_slow_ms=slow_ms, flightrec_capacity=2048):
+        flightrec.reset()
+        results = queue.Queue()
+        q = queue.Queue()
+        server = qt.InferenceServer_Debug(dev_s, feature, model, q,
+                                          result_queue=results, seed=SEED,
+                                          max_coalesce=1, cpu_sampler=cpu_s)
+        br = server._breakers["device"] = LoggedBreaker("serving.device")
+        plan = ChaosPlan(seed=SEED).fail("serving.device_lane",
+                                         times=BREAKER_FAILURES)
+        rng = np.random.default_rng(SEED + 21)
+        sent, ok, errors = {}, {}, {}
+        zero_launches()
+        server.start()
+        try:
+            with chaos.active(plan):
+                for seq in range(FAULT_REQUESTS):
+                    if seq == 2 * BREAKER_FAILURES:
+                        time.sleep(BREAKER_RESET_S * 1.2)
+                    n = int(rng.integers(1, MAX_IDS + 1))
+                    req = qt.ServingRequest(
+                        ids=rng.integers(0, N_NODES, n), client=9, seq=seq)
+                    sent[(9, seq)] = req
+                    q.put(req)
+                    _take(results, 1, ok, errors)  # one at a time
+        finally:
+            leaked = server.stop()
+        got = read_launches()
+        check(not leaked, "fault-step server threads did not stop")
+        check(len(ok) + len(errors) == len(sent) and not errors,
+              f"fault step: {len(ok)} ok and {len(errors)} errors for "
+              f"{len(sent)} requests")
+        check(br.transitions == ["open", "half_open", "closed"],
+              f"the breaker went {['closed'] + br.transitions}")
+        n_fail = len(server.failover_log)
+        check(n_fail == 2 * BREAKER_FAILURES,
+              f"{n_fail} failover answers, not {2 * BREAKER_FAILURES}")
+        check(failovers() == n_fail,
+              "serving_failover_total against the failover log")
+        dev_chunks = sum(len(c) for _, c in server.pass_log)
+        check(got["window_sample"] == len(FANOUTS) * dev_chunks
+              and got["gather_rows"] == dev_chunks + n_fail,
+              f"fault step launches {got} for {dev_chunks} device chunks "
+              f"and {n_fail} failovers")
+        device_ok += len(ok) - n_fail
+        # each failover answer against a recompute of its logged batch
+        for client, seq, batch in server.failover_log:
+            req = sent[(client, seq)]
+            again = qt.InferenceServer._infer_presampled(server, req, batch)
+            check(np.array_equal(again, ok[(client, seq)]),
+                  f"failover answer {seq} differs from its recompute")
+        replayed = b2.gather_rows.launches
+        zero_launches()
+        check(replayed == n_fail, f"B2 launched {replayed} times in "
+              f"{n_fail} failover recomputes")
+        # one fault with no failover route: the typed error itself
+        server = qt.InferenceServer_Debug(dev_s, feature, model, q,
+                                          result_queue=results, seed=SEED,
+                                          max_coalesce=1)
+        server.start()
+        try:
+            with chaos.active(ChaosPlan().fail("serving.device_lane")):
+                q.put(qt.ServingRequest(ids=np.arange(7), client=9,
+                                        seq=FAULT_REQUESTS))
+                _, err = results.get(timeout=120)
+        finally:
+            check(not server.stop(), "no-route server threads did not stop")
+        read_launches()
+        check(type(err).__name__ == "ChaosFault",
+              f"the no-route fault was answered with {err!r}")
+        out["fault"] = dict(requests=len(sent) + 1,
+                            breaker=["closed"] + br.transitions,
+                            failover_answers=n_fail,
+                            device_chunks=dev_chunks,
+                            failover_recompute_b2=replayed,
+                            no_route_answer=type(err).__name__,
+                            launches=got)
+        steps_s["fault"] = time.perf_counter() - t0
+
+        # (3) overload: a burst into small lanes under a tight deadline
+        t0 = time.perf_counter()
+        deadline_ms = 3 * pass_ms
+        before = failovers()
+        with config.override(serving_queue_depth=BURST_DEPTH,
+                             serving_deadline_ms=deadline_ms):
+            stream, results = queue.Queue(), queue.Queue()
+            rb = qt.RequestBatcher([stream], mode="Device",
+                                   result_queue=results)
+            server = qt.InferenceServer_Debug(
+                dev_s, feature, model, rb.device_batched_queue,
+                result_queue=results, seed=SEED, cpu_sampler=cpu_s)
+            rng = np.random.default_rng(SEED + 22)
+            burst = [qt.ServingRequest(
+                ids=rng.integers(0, N_NODES, int(rng.integers(1, MAX_IDS))),
+                client=10, seq=i) for i in range(BURST)]
+            zero_launches()
+            rb.start()
+            server.start()
+            ok, errors = {}, {}
+            try:
+                for req in burst:
+                    stream.put(req)
+                _take(results, BURST, ok, errors)
+            finally:
+                leaked = rb.stop() + server.stop()
+        got = read_launches()
+        check(not leaked, "overload threads did not stop")
+        kinds = {}
+        for e in errors.values():
+            kinds[type(e).__name__] = kinds.get(type(e).__name__, 0) + 1
+        check(len(ok) + len(errors) == BURST,
+              f"{len(ok) + len(errors)} answers to {BURST} requests")
+        check(set(kinds) <= {"LoadShed", "DeadlineExceeded"},
+              f"overload answered {kinds}")
+        check(errors, "the burst shed nothing")
+        check(failovers() == before,
+              "a failover in the overload step, which injects no fault")
+        shed = {k: v for k, v in tel.snapshot()["counters"].items()
+                if k.startswith("serving_shed_total")}
+        chunks = sum(len(c) for _, c in server.pass_log)
+        check(got["window_sample"] == len(FANOUTS) * chunks
+              and got["gather_rows"] == chunks,
+              f"overload launches {got} for {chunks} chunks")
+        device_ok += len(ok)
+        out["overload"] = dict(burst=BURST, depth=BURST_DEPTH,
+                               deadline_ms=deadline_ms, answered_ok=len(ok),
+                               answered_errors=kinds, shed_by_stage=shed,
+                               passes=len(server.pass_log), launches=got)
+        print("overload: " + json.dumps(out["overload"]), flush=True)
+        steps_s["overload"] = time.perf_counter() - t0
+
+        # (4) observability
+        t0 = time.perf_counter()
+        snap = tel.snapshot()
+        h = snap["histograms"].get("serving_request_seconds{lane=device}")
+        n_hist = sum(h["counts"]) if h else 0
+        n_ok = _counter(tel, "serving_requests_total", lane="device",
+                        status="ok")
+        check(n_hist == n_ok == device_ok,
+              f"serving_request_seconds{{lane=device}} counts {n_hist}, "
+              f"serving_requests_total {n_ok}, answers {device_ok}")
+        reasons = {}
+        for rec in flightrec.get_recorder().records():
+            reasons[rec["reason"]] = reasons.get(rec["reason"], 0) + 1
+        check({"error", "slow", "shed"} <= set(reasons),
+              f"the flight recorder kept {reasons}")
+        # one request on the timeline
+        results, q = queue.Queue(), queue.Queue()
+        server = qt.InferenceServer_Debug(dev_s, feature, model, q,
+                                          result_queue=results, seed=SEED)
+        server.start()
+        try:
+            check(timeline.enable(), "the timeline did not start")
+            req = qt.ServingRequest(ids=np.arange(100), client=11, seq=0)
+            q.put(req)
+            _, o = results.get(timeout=120)
+            timeline.disable()
+            profile.enable()
+            for i in range(3):
+                server._run_bucketed(np.random.default_rng(i).integers(
+                    0, N_NODES, 2048))
+            profile.disable()
+            srv = server.expose_metrics(port=0, host="127.0.0.1")
+            pages = {}
+            for route in ("/metrics", "/metrics.json", "/debug/requests",
+                          "/debug/breakers", "/debug/qos",
+                          "/debug/programs"):
+                code, body = _get(srv.url + route)
+                check(code == 200, f"{route} answered {code}")
+                pages[route] = body
+        finally:
+            timeline.disable()
+            profile.disable()
+            check(not server.stop(), "observability threads did not stop")
+        zero_launches()
+        check("serving_requests_total{" in pages["/metrics"],
+              "/metrics lacks serving_requests_total")
+        for route in ("/metrics.json", "/debug/requests", "/debug/breakers",
+                      "/debug/qos", "/debug/programs"):
+            json.loads(pages[route])
+        mine = [(e["name"], e["ph"])
+                for e in timeline.chrome_trace()["traceEvents"]
+                if e.get("args", {}).get("trace_id") == req.trace.trace_id]
+        for want in (("request.enqueue", "i"), ("dequeue", "i"),
+                     ("infer", "X"), ("request", "X")):
+            check(want in mine, f"the timeline lacks {want}: {mine}")
+        rows = {r["key"].strip("'"): r for r in profile.top_programs(50)}
+        for name in ("window_sample_frontier", "gather_rows"):
+            check(name in rows and rows[name]["device"],
+                  f"no device row for {name} in the profile: {list(rows)}")
+        out["observability"] = dict(
+            device_lane_count=n_hist, flight_records=reasons,
+            breakers=json.loads(pages["/debug/breakers"]),
+            timeline_events=len(mine),
+            profile={k: {f: v[f] for f in ("calls", "device", "mean_ms",
+                                           "device_mean_ms")}
+                     for k, v in rows.items()},
+            metrics_bytes=len(pages["/metrics"]))
+        steps_s["observability"] = time.perf_counter() - t0
+    lanes = {}
+    for key, d in tel.snapshot()["histograms"].items():
+        if key.startswith("serving_request_seconds{"):
+            hh = tel.Histogram(bounds=d["bounds"])
+            hh.merge_dict(d)
+            lanes[key] = dict(count=hh.count, p50_ms=hh.percentile(50) * 1e3,
+                              p99_ms=hh.percentile(99) * 1e3)
+    out.update(lanes=lanes, counters={
+        k: v for k, v in tel.snapshot()["counters"].items()
+        if k.startswith(("serving_", "chaos_"))})
+    # (5) the plan's latency by arrival, QoS and telemetry; its launches
+    # are not the phase's
+    t0 = time.perf_counter()
+    out["overhead"] = serving_overhead_ab(torch, qt, dev_s, feature, model)
+    zero_launches()
+    steps_s["overhead_ab"] = time.perf_counter() - t0
+    out.update(steps_s=steps_s, phase_s=time.perf_counter() - t_phase,
+               launches=dict(launches))
+    print("resilient serving summary " + json.dumps(out), flush=True)
+    flightrec.reset()
+    tel.reset()
+    return launches, out
+
+
 def uva_phase(torch, qt, topo, train, b1) -> dict:
     """(c) UVA at ogbn-products size: ``uva_budget = edge_count * 4 // 3``
     (as ``bench.py``'s ``sampling_uva`` section sets it), fanouts
@@ -2862,6 +3496,13 @@ def main() -> int:
     kernels[1]["launches_hybrid_serving"] = launches_h["gather_rows"]
     kernels[1]["hybrid_cpu_lane_requests"] = \
         summary_h9["cpu_lane"]["requests"]
+    torch.cuda.empty_cache()
+
+    # slice 10: serving's safeguards and telemetry
+    launches_r10, summary_r10 = resilient_serving_phase(torch, qt, topo,
+                                                        feature, b1, b2)
+    kernels[0]["launches_resilient_serving"] = launches_r10["window_sample"]
+    kernels[1]["launches_resilient_serving"] = launches_r10["gather_rows"]
     torch.cuda.empty_cache()
 
     # slice 2: every feature below compares with the source table by its

@@ -2,8 +2,10 @@
 
 Kept: the bucketed batch shapes every serving pass is padded to, how many
 queued requests one pass may coalesce, the sampler's element-gather mode
-and frontier dedup, and the feature-store knobs of the budgeted path
-(cold-row overlay and paged store).  Defaults are the JAX package's, and
+and frontier dedup, the feature-store knobs of the budgeted path
+(cold-row overlay and paged store), and serving's safeguards and
+telemetry (deadlines, bounded lanes, breakers, QoS, the flight recorder,
+the SLO objectives and the timeline).  Defaults are the JAX package's, and
 each field that JAX reads from the environment reads the same
 ``QUIVER_TPU_*`` name here, so a deployment's setting means the same to
 both packages.  The one default
@@ -33,7 +35,11 @@ _GATHER_MODES = ("auto", "xla", "lanes", "lanes_fused", "pallas")
 
 def _env(name: str, default, cast=str):
     v = os.environ.get(f"QUIVER_TPU_{name}")
-    return default if v is None else cast(v)
+    if v is None:
+        return default
+    if cast is bool:
+        return v not in ("0", "", "false", "False")
+    return cast(v)
 
 
 @dataclass(frozen=True)
@@ -64,6 +70,77 @@ class Config:
         default_factory=lambda: _env("FEATURE_PAGE_ROWS", 0, int))
     feature_page_pool: int = field(
         default_factory=lambda: _env("FEATURE_PAGE_POOL", 0, int))
+    # per-request deadline budget in ms (0: no deadlines), bounded-lane
+    # capacity and shed watermarks (fractions of capacity: shed above
+    # high until drained below low), and each lane's circuit breaker
+    # (consecutive failures to open, seconds to a half-open probe,
+    # probes admitted)
+    serving_deadline_ms: float = field(
+        default_factory=lambda: _env("SERVING_DEADLINE_MS", 0.0, float))
+    serving_queue_depth: int = field(
+        default_factory=lambda: _env("SERVING_QUEUE_DEPTH", 1024, int))
+    serving_queue_high_watermark: float = field(
+        default_factory=lambda: _env("SERVING_QUEUE_HIGH_WATERMARK", 0.9,
+                                     float))
+    serving_queue_low_watermark: float = field(
+        default_factory=lambda: _env("SERVING_QUEUE_LOW_WATERMARK", 0.5,
+                                     float))
+    serving_breaker_failures: int = field(
+        default_factory=lambda: _env("SERVING_BREAKER_FAILURES", 5, int))
+    serving_breaker_reset_s: float = field(
+        default_factory=lambda: _env("SERVING_BREAKER_RESET_S", 30.0, float))
+    serving_breaker_probes: int = field(
+        default_factory=lambda: _env("SERVING_BREAKER_PROBES", 1, int))
+    # multi-tenant QoS, off by default: classes "name:rate=R,burst=B,
+    # weight=W,priority=P" joined by ";" (the tenant-label allowlist);
+    # unlabelled traffic maps to qos_default_tenant.  The admit window
+    # holds a coalesced device pass open for late arrivals; the quantum
+    # is the fair lanes' refill in ids a round per unit weight; the
+    # ladder steps down after breach_ticks breaching SLO ticks and back
+    # up after recover_ticks healthy ones
+    qos_enabled: bool = field(
+        default_factory=lambda: _env("QOS_ENABLED", False, bool))
+    qos_tenants: str = field(
+        default_factory=lambda: _env(
+            "QOS_TENANTS",
+            "gold:rate=200,burst=50,weight=8,priority=3;"
+            "silver:rate=100,burst=25,weight=4,priority=2;"
+            "bronze:rate=50,burst=15,weight=2,priority=1;"
+            "ingest:rate=100,burst=50,weight=1,priority=0"))
+    qos_default_tenant: str = field(
+        default_factory=lambda: _env("QOS_DEFAULT_TENANT", "bronze"))
+    qos_ingest_tenant: str = field(
+        default_factory=lambda: _env("QOS_INGEST_TENANT", "ingest"))
+    qos_admit_window_ms: float = field(
+        default_factory=lambda: _env("QOS_ADMIT_WINDOW_MS", 2.0, float))
+    qos_quantum: int = field(
+        default_factory=lambda: _env("QOS_QUANTUM", 64, int))
+    qos_degrade_fanout_frac: float = field(
+        default_factory=lambda: _env("QOS_DEGRADE_FANOUT_FRAC", 0.5, float))
+    qos_breach_ticks: int = field(
+        default_factory=lambda: _env("QOS_BREACH_TICKS", 2, int))
+    qos_recover_ticks: int = field(
+        default_factory=lambda: _env("QOS_RECOVER_TICKS", 2, int))
+    # flight recorder: retained records, and the e2e latency above which
+    # a healthy request counts as slow and is kept
+    flightrec_capacity: int = field(
+        default_factory=lambda: _env("FLIGHTREC_CAPACITY", 256, int))
+    flightrec_slow_ms: float = field(
+        default_factory=lambda: _env("FLIGHTREC_SLOW_MS", 100.0, float))
+    # SLO objectives: p99 e2e ceiling, error-ratio ceiling, overlay
+    # hit-rate floor (0: off), and the watchdog's interval
+    slo_p99_ms: float = field(
+        default_factory=lambda: _env("SLO_P99_MS", 250.0, float))
+    slo_error_ratio: float = field(
+        default_factory=lambda: _env("SLO_ERROR_RATIO", 0.01, float))
+    slo_coldcache_hit_floor: float = field(
+        default_factory=lambda: _env("SLO_COLDCACHE_HIT_FLOOR", 0.0, float))
+    slo_interval_s: float = field(
+        default_factory=lambda: _env("SLO_INTERVAL_S", 5.0, float))
+    # timeline: events a thread's ring holds before it overwrites its
+    # oldest
+    timeline_ring_capacity: int = field(
+        default_factory=lambda: _env("TIMELINE_RING_CAPACITY", 8192, int))
 
 
 _lock = threading.Lock()

@@ -27,9 +27,11 @@ arrays, cannot change it.
 ``feature[ids]`` call, which then claims the staged rows (the JAX
 package's ``Feature.prefetch``); ``SeedLoader`` calls it one batch ahead.
 
-Counters use the JAX package's telemetry names (``stats()``), apart from
-``feature_h2d_bytes_total``: the port ships only real rows and pages,
-where JAX pads each copy to a shape bucket.
+Counters use the JAX package's telemetry names and land in the port's
+metrics registry where JAX ticks them; ``stats()["counters"]`` keeps
+this feature's own copy.  ``feature_h2d_bytes_total`` differs from JAX's:
+the port ships only real rows and pages, where JAX pads each copy to a
+shape bucket.
 """
 
 from __future__ import annotations
@@ -42,10 +44,12 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import telemetry
 from .config import get_config
 from .ops.coldcache import ColdRowCache
 from .ops.cuda.gather_rows import gather_rows
 from .ops.paged import PagedStore, PageTable, default_page_rows
+from .telemetry.registry import metric_key
 from .utils.device import resolve_device
 from .utils.staging import HostStaging
 from .utils.topology import CSRTopo, parse_size, reindex_feature
@@ -361,9 +365,12 @@ class Feature:
     def _row_bytes(self) -> int:
         return self.hot.element_size() * self.dim
 
-    def _count(self, key: str, n) -> None:
-        """Caller holds ``_plock``."""
+    def _count(self, name: str, n, **labels) -> None:
+        """Add ``n`` to the counter ``name{labels}`` here (under its
+        registry key) and in the registry.  Caller holds ``_plock``."""
+        key = metric_key(name, labels)
         self._counts[key] = self._counts.get(key, 0) + n
+        telemetry.counter(name, **labels).inc(float(n))
 
     def __getitem__(self, node_idx) -> torch.Tensor:
         """Rows by (old) node id, on the device.  With the whole table on
@@ -371,10 +378,15 @@ class Feature:
         otherwise ids are read on the host and the budgeted path runs."""
         self._check_built()
         full = self.cache_count >= self.node_count
+        tier = "hot" if full else "cold" if self.cache_count == 0 else "mixed"
+        with telemetry.span("feature.getitem"), telemetry.histogram(
+                "feature_gather_seconds", tier=tier).time():
+            rows = self._getitem(node_idx, full)
         with self._plock:
-            tier = ("hot" if full else
-                    "cold" if self.cache_count == 0 else "mixed")
-            self._count(f"feature_gather_batches_total{{tier={tier}}}", 1)
+            self._count("feature_gather_batches_total", 1, tier=tier)
+        return rows
+
+    def _getitem(self, node_idx, full: bool) -> torch.Tensor:
         if full and isinstance(node_idx, torch.Tensor):
             return self.lookup_device(node_idx)
         idx = _host_ids(node_idx)
@@ -385,8 +397,8 @@ class Feature:
         rows = self._take_staged(idx.tobytes())
         if self._pool is not None:
             with self._plock:
-                self._count("feature_prefetch_total{result=%s}" % (
-                    "hit" if rows is not None else "miss"), 1)
+                self._count("feature_prefetch_total", 1,
+                            result="hit" if rows is not None else "miss")
         if rows is None:
             flat = self._rows_of(idx)
             with self._plock:
@@ -493,14 +505,15 @@ class Feature:
             return self._stage_overlay(idx)
         cc = self.cache_count
         if cc == 0:
-            self._count("feature_rows_total{tier=cold}", len(idx))
+            self._count("feature_rows_total", len(idx), tier="cold")
             return self._upload_cold(idx)
         hot_mask = idx < cc
         cold_pos = np.nonzero(~hot_mask)[0]
-        self._count("feature_rows_total{tier=hot}", len(idx) - len(cold_pos))
+        self._count("feature_rows_total", len(idx) - len(cold_pos),
+                    tier="hot")
         out = self._hot_rows(np.where(hot_mask, idx, 0))
         if len(cold_pos):
-            self._count("feature_rows_total{tier=cold}", len(cold_pos))
+            self._count("feature_rows_total", len(cold_pos), tier="cold")
             rows = self._upload_cold(idx[cold_pos] - cc)
             out.index_copy_(0, self._to_device("cold_pos", cold_pos), rows)
         return out
@@ -515,10 +528,10 @@ class Feature:
         hot_mask = idx < cc
         cold_pos = np.nonzero(~hot_mask)[0]
         if cc > 0:
-            self._count("feature_rows_total{tier=hot}", B - len(cold_pos))
+            self._count("feature_rows_total", B - len(cold_pos), tier="hot")
         if len(cold_pos) == 0:
             return self._hot_rows(np.where(hot_mask, idx, 0))
-        self._count("feature_rows_total{tier=cold}", len(cold_pos))
+        self._count("feature_rows_total", len(cold_pos), tier="cold")
         rel = idx[cold_pos] - cc
         cache = self.cold_cache
         hit, slots = cache.probe(rel)
@@ -545,9 +558,9 @@ class Feature:
                 self._overlay.index_copy_(
                     0, self._to_device("adm_slot", slot.astype(np.int64)),
                     rows.index_select(0, self._to_device("adm_src", src)))
-        self._count("feature_coldcache_rows_total{result=hit}", n_hit)
-        self._count("feature_coldcache_rows_total{result=miss}",
-                    len(rel) - n_hit)
+        self._count("feature_coldcache_rows_total", n_hit, result="hit")
+        self._count("feature_coldcache_rows_total", len(rel) - n_hit,
+                    result="miss")
         if n_evicted:
             self._count("feature_coldcache_evictions_total", n_evicted)
         return out

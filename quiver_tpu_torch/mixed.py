@@ -9,7 +9,10 @@ the measured mean task times set the next epoch's CPU share so that both
 lanes finish together, as the reference's ``decide_task_num`` does.
 
 The mode names and the ``"tpu"``/``"cpu"`` source labels are the JAX
-package's; ``"tpu"`` names the device lane, here the card.
+package's; ``"tpu"`` names the device lane, here the card.  Each task
+ticks ``mixed_tasks_total{lane}`` and ``mixed_task_seconds{lane}``, and
+each epoch sets ``mixed_avg_task_seconds{lane}``, in the registry under
+the same labels.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Generic, Iterator, List, Sequence, TypeVar
 import numpy as np
 import torch
 
+from . import telemetry
 from .sampler import GraphSageSampler
 from .utils.shutdown import join_and_reap
 from .utils.topology import CSRTopo
@@ -145,6 +149,9 @@ class MixedGraphSageSampler:
                     batch = self.cpu_sampler.sample(self.job[t])
                     dt = time.perf_counter() - t0
                     cpu_times.append(dt)
+                    telemetry.counter("mixed_tasks_total", lane="cpu").inc()
+                    telemetry.histogram("mixed_task_seconds",
+                                        lane="cpu").observe(dt)
                     results.put((batch, "cpu"))
                 except Exception as e:  # noqa: BLE001 -- the consumer raises it
                     results.put((e, "error"))
@@ -172,6 +179,9 @@ class MixedGraphSageSampler:
                     torch.cuda.current_stream(dev).synchronize()
                 dt = time.perf_counter() - t0
                 tpu_times.append(dt)
+                telemetry.counter("mixed_tasks_total", lane="tpu").inc()
+                telemetry.histogram("mixed_task_seconds",
+                                    lane="tpu").observe(dt)
                 yield batch, "tpu"
                 produced += 1
                 while not results.empty():
@@ -191,5 +201,9 @@ class MixedGraphSageSampler:
             join_and_reap(threads, 5.0, component="mixed.cpu_workers")
         if tpu_times:
             self.avg_tpu_time = float(np.mean(tpu_times))
+            telemetry.gauge("mixed_avg_task_seconds", lane="tpu").set(
+                self.avg_tpu_time)
         if cpu_times:
             self.avg_cpu_time = float(np.mean(cpu_times))
+            telemetry.gauge("mixed_avg_task_seconds", lane="cpu").set(
+                self.avg_cpu_time)

@@ -71,6 +71,9 @@ class ColdRowCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # the QoS ladder's second step: while True, admit() takes no new
+        # rows (probes and hits still serve; no slot churn, no row writes)
+        self.admission_paused = False
 
     def probe(self, ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """``(hit_mask, slots)`` aligned with ``ids``; ``slots`` means
@@ -106,7 +109,7 @@ class ColdRowCache:
         """
         ids = np.asarray(ids, dtype=np.int64)
         out = np.full(len(ids), -1, dtype=np.int32)
-        if not len(ids):
+        if not len(ids) or self.admission_paused:
             return out, 0
         cand = np.unique(ids[self.touches[ids] >= self.admit_threshold])
         n_prot = (len(np.unique(protect_slots))

@@ -11,7 +11,10 @@ all.  Importing this module needs no ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` calls one on the tensor's device and current stream and
-raises when it is not 0.
+raises when it is not 0.  A failed build, load or launch raises
+:class:`KernelError` (an ``OSError`` where ``nvcc`` cannot be started):
+serving answers it as a fault of the kernel, never as a fault of its lane
+(no breaker counts it, no failover hides it).
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "check",
-           "launch"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KernelError",
+           "KernelArgumentError", "build_all",
+           "load_libraries", "load", "check", "launch"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -47,11 +51,20 @@ _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build, load or launch."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A kernel's wrapper refused its arguments (dtype, shape, device or a
+    size the kernel cannot index): a fault of the caller's program."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+        raise KernelError("nvcc not found: set CUDA_HOME to the CUDA "
                            "toolkit to build the kernels")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
@@ -102,7 +115,7 @@ def _finish(name: str, job) -> None:
     proc, _, tmp, out = job
     rc = proc.wait()
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed on {name}.cu (rc {rc}):\n"
             + out.with_suffix(".log").read_text())
     os.replace(tmp, out)
@@ -137,6 +150,20 @@ def build_log(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
+def load_libraries(names: Sequence[str]) -> None:
+    """Build (in parallel) and load every named kernel library that is not
+    loaded yet; raises :class:`KernelError` on the first that fails."""
+    missing = [n for n in names if n not in _libs]
+    for name, path in zip(missing, build_all(missing)):
+        try:
+            loaded = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"cannot load kernel library {path}: {e}") \
+                from e
+        with _lock:
+            _libs.setdefault(name, loaded)
+
+
 def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C function ``fn`` of kernel library ``name``, built at first
     use, with its argument types set and an ``int`` result.  Resolved once:
@@ -144,12 +171,9 @@ def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     f = _fns.get((name, fn))
     if f is not None:
         return f
-    lib = _libs.get(name)
-    if lib is None:
-        path = build_all([name])[0]
-        with _lock:
-            lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
-    f = getattr(lib, fn)
+    if name not in _libs:
+        load_libraries([name])
+    f = getattr(_libs[name], fn)
     f.argtypes = list(argtypes)
     f.restype = ctypes.c_int
     with _lock:
@@ -159,7 +183,7 @@ def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
 def check(rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
+        raise KernelError(f"{what}: CUDA error {rc}")
 
 
 def launch(fn: ctypes._CFuncPtr, device: torch.device, *args) -> None:

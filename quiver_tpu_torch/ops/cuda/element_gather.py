@@ -30,6 +30,8 @@ from typing import Tuple
 import torch
 
 from . import build
+from .build import KernelArgumentError
+from ...telemetry.profile import profiled
 
 __all__ = ["element_gather", "element_gather_pair", "element_gather_plain",
            "element_gather_pair_plain", "SOURCE", "REPLACES"]
@@ -65,17 +67,21 @@ def element_gather_pair_plain(table2d: torch.Tensor, idx: torch.Tensor
 
 def _check(what: str, table2d: torch.Tensor, idx: torch.Tensor) -> None:
     if table2d.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {table2d.device}")
+        raise KernelArgumentError(
+            f"{what}: unsupported device {table2d.device}")
     if (table2d.dtype not in _DTYPES or table2d.dim() != 2
             or not table2d.is_contiguous() or table2d.numel() == 0):
-        raise ValueError(f"{what}: table2d must be a non-empty contiguous "
-                         "2-D int32 or float32 tensor, got "
-                         f"{table2d.dtype} {tuple(table2d.shape)}")
+        raise KernelArgumentError(
+            f"{what}: table2d must be a non-empty contiguous "
+            "2-D int32 or float32 tensor, got "
+            f"{table2d.dtype} {tuple(table2d.shape)}")
     if idx.dtype != torch.int32 or idx.device != table2d.device:
-        raise ValueError(f"{what}: idx must be an int32 tensor on the "
-                         "table's device")
+        raise KernelArgumentError(
+            f"{what}: idx must be an int32 tensor on the "
+            "table's device")
 
 
+@profiled("kernel")
 def element_gather(table2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Elements of the flattened contiguous ``table2d`` (int32 or fp32 on
     the card) at int32 ``idx`` of any shape, each clamped into the table;
@@ -93,6 +99,7 @@ def element_gather(table2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@profiled("kernel")
 def element_gather_pair(table2d: torch.Tensor, idx: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(flat[clamp(idx)], flat[clamp(idx + 1)])`` over the flattened

@@ -28,6 +28,8 @@ from typing import Optional
 import torch
 
 from . import build
+from .build import KernelArgumentError
+from ...telemetry.profile import profiled
 
 __all__ = ["gather_rows", "gather_rows_plain", "gather_rows_route", "route",
            "vector_bytes", "SOURCE", "REPLACES"]
@@ -87,6 +89,7 @@ def route(m: int, n: int, row_bytes: int) -> str:
     return "direct"
 
 
+@profiled("kernel")
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows ``table[order[clamp(idx, 0, N - 1)]]`` of a 2-D ``table
@@ -106,30 +109,35 @@ def gather_rows_route(table: torch.Tensor, idx: torch.Tensor,
     on one call's inputs."""
     n, _ = _check(table, idx, order)
     if which not in ("direct", "grouped"):
-        raise ValueError(f"gather_rows: unknown route {which!r}")
+        raise KernelArgumentError(f"gather_rows: unknown route {which!r}")
     if which == "grouped" and max(idx.shape[0], n) >= 2**31:
-        raise ValueError("gather_rows: the grouped route takes under 2**31 "
-                         "ids and rows")
+        raise KernelArgumentError(
+            "gather_rows: the grouped route takes under 2**31 "
+            "ids and rows")
     return _launch(table, idx, order, which)
 
 
 def _check(table, idx, order):
     if table.device.type != "cuda":
-        raise ValueError(f"gather_rows: unsupported device {table.device}")
+        raise KernelArgumentError(
+            f"gather_rows: unsupported device {table.device}")
     if table.dim() != 2 or not table.is_contiguous():
-        raise ValueError("gather_rows: table must be a contiguous 2-D tensor")
+        raise KernelArgumentError(
+            "gather_rows: table must be a contiguous 2-D tensor")
     if (idx.dtype not in (torch.int32, torch.int64) or idx.dim() != 1
             or idx.device != table.device):
-        raise ValueError("gather_rows: idx must be a 1-D int32 or int64 "
-                         "tensor on the table's device")
+        raise KernelArgumentError(
+            "gather_rows: idx must be a 1-D int32 or int64 "
+            "tensor on the table's device")
     n = table.shape[0]
     if order is not None and (order.dtype != torch.int32
                               or order.shape != (n,)
                               or order.device != table.device):
-        raise ValueError("gather_rows: order must be an int32 [N] tensor on "
-                         "the table's device")
+        raise KernelArgumentError(
+            "gather_rows: order must be an int32 [N] tensor on "
+            "the table's device")
     if n == 0 and idx.shape[0]:
-        raise ValueError("gather_rows: ids into a table with no rows")
+        raise KernelArgumentError("gather_rows: ids into a table with no rows")
     return n, table.shape[1] * table.element_size()
 
 

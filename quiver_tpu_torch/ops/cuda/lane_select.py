@@ -32,6 +32,8 @@ import ctypes
 import torch
 
 from . import build
+from .build import KernelArgumentError
+from ...telemetry.profile import profiled
 
 __all__ = ["lane_select", "lane_select_rows", "lane_select_plain",
            "SOURCE", "REPLACES"]
@@ -63,21 +65,24 @@ def lane_select_plain(rows: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
 
 def _check_table(what: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {t.device}")
+        raise KernelArgumentError(f"{what}: unsupported device {t.device}")
     if (t.dtype not in _DTYPES or t.dim() != 2 or t.shape[1] != LANES
             or not t.is_contiguous()):
-        raise ValueError(f"{what}: the table must be a contiguous [R, 128] "
-                         f"int32 or float32 tensor, got {t.dtype} "
-                         f"{tuple(t.shape)}")
+        raise KernelArgumentError(
+            f"{what}: the table must be a contiguous [R, 128] "
+            f"int32 or float32 tensor, got {t.dtype} "
+            f"{tuple(t.shape)}")
 
 
 def _check_ids(what: str, t: torch.Tensor, m: int, dev) -> None:
     if (t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != m
             or t.device != dev):
-        raise ValueError(f"{what}: ids must be 1-D int32 tensors of one "
-                         "length, on the table's device")
+        raise KernelArgumentError(
+            f"{what}: ids must be 1-D int32 tensors of one "
+            "length, on the table's device")
 
 
+@profiled("kernel")
 def lane_select(rows: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     """One lane of each row of contiguous ``rows [M, 128]`` (int32 or fp32
     on the card) at int32 ``lanes [M]``, for any ``M``."""
@@ -95,6 +100,7 @@ def lane_select(rows: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@profiled("kernel")
 def lane_select_rows(table2d: torch.Tensor, row: torch.Tensor,
                      lane: torch.Tensor) -> torch.Tensor:
     """``table2d[row[i], lane[i]]`` for int32 ``row [M]`` and ``lane [M]``

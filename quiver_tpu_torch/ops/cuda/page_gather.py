@@ -26,6 +26,8 @@ import ctypes
 import torch
 
 from . import build
+from .build import KernelArgumentError
+from ...telemetry.profile import profiled
 from .gather_rows import vector_bytes
 
 __all__ = ["page_gather", "page_gather_plain", "SOURCE", "REPLACES"]
@@ -52,6 +54,7 @@ def page_gather_plain(frames: torch.Tensor, blk_pages: torch.Tensor,
     return padded.index_select(0, rank.long())
 
 
+@profiled("kernel")
 def page_gather(frames: torch.Tensor, blk_pages: torch.Tensor,
                 row_lp: torch.Tensor, row_off: torch.Tensor,
                 rank: torch.Tensor, block: int, ppb: int) -> torch.Tensor:
@@ -62,23 +65,29 @@ def page_gather(frames: torch.Tensor, blk_pages: torch.Tensor,
         return page_gather_plain(frames, blk_pages, row_lp, row_off, rank,
                                  block, ppb)
     if frames.device.type != "cuda":
-        raise ValueError(f"page_gather: unsupported device {frames.device}")
+        raise KernelArgumentError(
+            f"page_gather: unsupported device {frames.device}")
     if frames.dim() != 3 or not frames.is_contiguous():
-        raise ValueError("page_gather: frames must be a contiguous 3-D "
-                         "tensor [F, R, D]")
+        raise KernelArgumentError(
+            "page_gather: frames must be a contiguous 3-D "
+            "tensor [F, R, D]")
     if block < 1 or ppb < 1:
-        raise ValueError(f"page_gather: block {block} and ppb {ppb} must be "
-                         ">= 1")
+        raise KernelArgumentError(
+            f"page_gather: block {block} and ppb {ppb} must be "
+            ">= 1")
     for name, t in (("blk_pages", blk_pages), ("row_lp", row_lp),
                     ("row_off", row_off), ("rank", rank)):
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"page_gather: {name} must be a contiguous 1-D "
-                             f"int32 tensor, got {t.dtype} {tuple(t.shape)}")
+            raise KernelArgumentError(
+                f"page_gather: {name} must be a contiguous 1-D "
+                f"int32 tensor, got {t.dtype} {tuple(t.shape)}")
         if t.device != frames.device:
-            raise ValueError(f"page_gather: {name} on {t.device}, frames on "
-                             f"{frames.device}")
+            raise KernelArgumentError(
+                f"page_gather: {name} on {t.device}, frames on "
+                f"{frames.device}")
     if row_off.shape != row_lp.shape:
-        raise ValueError("page_gather: row_lp and row_off differ in length")
+        raise KernelArgumentError(
+            "page_gather: row_lp and row_off differ in length")
     B = rank.shape[0]
     _, R, D = frames.shape
     out = torch.empty((B, D), dtype=frames.dtype, device=frames.device)

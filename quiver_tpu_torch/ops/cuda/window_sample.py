@@ -31,6 +31,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import build
+from .build import KernelArgumentError
+from ...telemetry.profile import profiled
 from ..sample import SampleOut, sample_hop_plain
 
 __all__ = ["window_sample", "window_sample_plain", "window_sample_frontier",
@@ -73,15 +75,17 @@ def div_magic(k: int) -> Tuple[int, int]:
 def _check_tables(what: str, indptr: torch.Tensor, indices: torch.Tensor,
                   seeds: torch.Tensor) -> None:
     if seeds.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {seeds.device}")
+        raise KernelArgumentError(f"{what}: unsupported device {seeds.device}")
     for name, t in (("indptr", indptr), ("indices", indices),
                     ("seeds", seeds)):
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous 1-D int32 "
-                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+            raise KernelArgumentError(
+                f"{what}: {name} must be a contiguous 1-D int32 "
+                f"tensor, got {t.dtype} {tuple(t.shape)}")
         if t.device != seeds.device:
-            raise ValueError(f"{what}: {name} on {t.device}, seeds on "
-                             f"{seeds.device}")
+            raise KernelArgumentError(
+                f"{what}: {name} on {t.device}, seeds on "
+                f"{seeds.device}")
 
 
 def _launch(indptr, indices, seeds, seed_mask, n_seeds, k, k0, k1, *,
@@ -99,6 +103,7 @@ def _launch(indptr, indices, seeds, seed_mask, n_seeds, k, k0, k1, *,
     window_sample.launches += 1
 
 
+@profiled("kernel")
 def window_sample(indptr: torch.Tensor, indices: torch.Tensor,
                   seeds: torch.Tensor, k: int, k0: int, k1: int,
                   seed_mask: Optional[torch.Tensor] = None) -> SampleOut:
@@ -107,17 +112,19 @@ def window_sample(indptr: torch.Tensor, indices: torch.Tensor,
     if seeds.device.type == "cpu":
         return sample_hop_plain(indptr, indices, seeds, k, k0, k1, seed_mask)
     if not 1 <= k <= _MAX_K:
-        raise ValueError(f"window_sample: fanout {k} out of range")
+        raise KernelArgumentError(f"window_sample: fanout {k} out of range")
     _check_tables("window_sample", indptr, indices, seeds)
     if seeds.shape[0] * k > _INT32_MAX:
-        raise ValueError(f"window_sample: {seeds.shape[0]} seeds x fanout "
-                         f"{k} draws reach 2**31 (the kernel's index math "
-                         "is 32-bit)")
+        raise KernelArgumentError(
+            f"window_sample: {seeds.shape[0]} seeds x fanout "
+            f"{k} draws reach 2**31 (the kernel's index math "
+            "is 32-bit)")
     if seed_mask is not None:
         if (seed_mask.dtype != torch.bool or seed_mask.shape != seeds.shape
                 or seed_mask.device != seeds.device):
-            raise ValueError("window_sample: seed_mask must be a bool tensor "
-                             "shaped and placed like seeds")
+            raise KernelArgumentError(
+                "window_sample: seed_mask must be a bool tensor "
+                "shaped and placed like seeds")
         seed_mask = seed_mask.contiguous()
     B = seeds.shape[0]
     dev = seeds.device
@@ -138,26 +145,32 @@ window_sample.launches = 0
 def _check_frontier(frontier: torch.Tensor, fmask: torch.Tensor, t: int,
                     k: int) -> None:
     if not 1 <= k <= _MAX_K:
-        raise ValueError(f"window_sample_frontier: fanout {k} out of range")
+        raise KernelArgumentError(
+            f"window_sample_frontier: fanout {k} out of range")
     if (frontier.dtype != torch.int32 or frontier.dim() != 1
             or not frontier.is_contiguous()):
-        raise ValueError("window_sample_frontier: frontier must be a "
-                         "contiguous 1-D int32 tensor, got "
-                         f"{frontier.dtype} {tuple(frontier.shape)}")
+        raise KernelArgumentError(
+            "window_sample_frontier: frontier must be a "
+            "contiguous 1-D int32 tensor, got "
+            f"{frontier.dtype} {tuple(frontier.shape)}")
     if (fmask.dtype != torch.bool or fmask.shape != frontier.shape
             or not fmask.is_contiguous() or fmask.device != frontier.device):
-        raise ValueError("window_sample_frontier: fmask must be a contiguous "
-                         "bool tensor shaped and placed like frontier")
+        raise KernelArgumentError(
+            "window_sample_frontier: fmask must be a contiguous "
+            "bool tensor shaped and placed like frontier")
     if not 0 <= t <= frontier.shape[0]:
-        raise ValueError(f"window_sample_frontier: t={t} outside the "
-                         f"frontier of {frontier.shape[0]}")
+        raise KernelArgumentError(
+            f"window_sample_frontier: t={t} outside the "
+            f"frontier of {frontier.shape[0]}")
     if t * (k + 1) > _INT32_MAX:
-        raise ValueError(f"window_sample_frontier: a frontier of {t} + "
-                         f"{t} x {k} ids reaches 2**31 (local ids are int32)")
+        raise KernelArgumentError(
+            f"window_sample_frontier: a frontier of {t} + "
+            f"{t} x {k} ids reaches 2**31 (local ids are int32)")
     if frontier.shape[0] < t * (k + 1):
-        raise ValueError(f"window_sample_frontier: buffers of "
-                         f"{frontier.shape[0]} are too short for {t} + {t} "
-                         f"x {k} ids")
+        raise KernelArgumentError(
+            f"window_sample_frontier: buffers of "
+            f"{frontier.shape[0]} are too short for {t} + {t} "
+            f"x {k} ids")
 
 
 def window_sample_frontier_plain(indptr: torch.Tensor, indices: torch.Tensor,
@@ -184,6 +197,7 @@ def window_sample_frontier_plain(indptr: torch.Tensor, indices: torch.Tensor,
         eid=out.eid if return_eid else None)
 
 
+@profiled("kernel")
 def window_sample_frontier(indptr: torch.Tensor, indices: torch.Tensor,
                            frontier: torch.Tensor, fmask: torch.Tensor,
                            t: int, k: int, k0: int, k1: int,

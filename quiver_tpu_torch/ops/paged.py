@@ -35,6 +35,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..utils.staging import HostStaging
 from .coldcache import ColdRowCache
 from .cuda.page_gather import page_gather
@@ -236,6 +237,8 @@ class PagedStore:
                     * buf.element_size())
         if n_evicted:
             self._count("feature_page_evictions_total", n_evicted)
+        telemetry.gauge("feature_page_resident_bytes").set(
+            float(self.table.resident_pages() * self.page_bytes))
         return k
 
     def stage(self, idx: np.ndarray):
@@ -304,7 +307,11 @@ class PagedStore:
         if t.cache is None or rel_ids.size == 0:
             return 0
         pages = np.unique((rel_ids + self._cc) // t.page_rows) - t.hot_pages
-        return t.cache.invalidate_rows(pages[pages >= 0])
+        dropped = t.cache.invalidate_rows(pages[pages >= 0])
+        if dropped:
+            telemetry.gauge("feature_page_resident_bytes").set(
+                float(t.resident_pages() * self.page_bytes))
+        return dropped
 
     def stats(self) -> dict:
         t = self.table

@@ -48,6 +48,7 @@ from .ops.prob import sample_prob
 from .ops.reindex import ReindexOut, reindex
 from .ops.sample import (SampleOut, key_words_pair, row_cumsum_weights,
                          run_hop, sample_neighbors_weighted)
+from . import telemetry
 from .telemetry import Counter
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo
@@ -377,7 +378,24 @@ class GraphSageSampler:
 
         CPU mode reads no key words.  UVA mode takes ``[L, 2]`` words with
         ``host_seeds`` (``[L]``, each hop's host-tier seed) or ``[L, 3]``
-        words whose last column is the host seeds."""
+        words whose last column is the host seeds.
+
+        Telemetry, as in the JAX package: each call folds into the
+        ``sampler.sample`` span and ``sampler_sample_seconds{mode}`` (the
+        device mode times the launches, not the card's work), and ticks
+        ``sampler_batches_total{mode}`` and ``sampler_seeds_total{mode}``;
+        ``mode`` is the sampler's mode in lower case (``gpu``, ``cpu``,
+        ``uva``)."""
+        mode = self.mode.lower()
+        with telemetry.span("sampler.sample"), telemetry.histogram(
+                "sampler_sample_seconds", mode=mode).time():
+            batch = self._sample(input_nodes, key_words, host_seeds)
+        telemetry.counter("sampler_batches_total", mode=mode).inc()
+        telemetry.counter("sampler_seeds_total", mode=mode).inc(
+            float(batch.batch_size))
+        return batch
+
+    def _sample(self, input_nodes, key_words, host_seeds) -> SampledBatch:
         if self.mode == "CPU":
             return self._sample_cpu(input_nodes)
         if key_words is None:
@@ -399,8 +417,9 @@ class GraphSageSampler:
         """``[L]`` per-hop counts of frontier nodes the caps dropped, as
         numpy: ``batch``'s, or the last :meth:`sample` call's (``None``
         before any).  The second form adds the dropped count to
-        ``frontier_drops`` (``sampler_frontier_drops_total``) once per
-        ``sample`` call; a loader that samples ahead should pass the batch."""
+        ``sampler_frontier_drops_total{mode}`` in the registry (and to
+        ``frontier_drops``, this sampler's own count) once per ``sample``
+        call; a loader that samples ahead should pass the batch."""
         if batch is not None:
             return None if batch.drops is None else batch.drops.cpu().numpy()
         if self.last_drops is None:
@@ -411,6 +430,8 @@ class GraphSageSampler:
             total = float(arr.sum())
             if total:
                 self.frontier_drops.inc(total)
+                telemetry.counter("sampler_frontier_drops_total",
+                                  mode=self.mode.lower()).inc(total)
         return arr
 
     # -- host modes -----------------------------------------------------

@@ -1,27 +1,8 @@
-"""Joining worker threads with one deadline (copy of
-``quiver_tpu/resilience/shutdown.py::join_and_reap``, logging only: the
-port has no metrics registry)."""
+"""Joining worker threads with one deadline: :func:`join_and_reap` lives
+in :mod:`quiver_tpu_torch.resilience.shutdown` (it ticks
+``serving_thread_leak_total{component}``); this module re-exports it for
+the modules that import it from here."""
 
-from __future__ import annotations
-
-import logging
-import time
-from typing import List, Sequence
+from ..resilience.shutdown import join_and_reap
 
 __all__ = ["join_and_reap"]
-
-_log = logging.getLogger("quiver_tpu_torch")
-
-
-def join_and_reap(threads: Sequence, timeout: float,
-                  component: str) -> List:
-    """Join every thread within one shared ``timeout`` (a total budget, not
-    per thread); log and return the threads still alive."""
-    deadline = time.monotonic() + timeout
-    for t in threads:
-        t.join(timeout=max(deadline - time.monotonic(), 0.0))
-    leaked = [t for t in threads if t.is_alive()]
-    for t in leaked:
-        _log.warning("thread %r leaked at %s shutdown (join timed out "
-                     "after %.1fs total)", t.name, component, timeout)
-    return leaked

@@ -15,9 +15,11 @@ next hop copies that frontier back up.
 Activated by ``GraphSageSampler(..., mode="UVA", uva_budget=...)``.
 Without a budget, or with one that covers every edge, every row is hot.
 
-Counters use the JAX package's telemetry names: ``UVAGraph.counters``
-holds ``uva_seeds_total{tier=hot|cold}`` and
-``UVAGraph.host_tier_seconds`` is the ``uva_host_tier_seconds`` histogram.
+Counters land in the port's metrics registry under the JAX package's
+names, where JAX ticks them: ``uva_seeds_total{tier=hot|cold}`` and the
+``uva_host_tier_seconds`` histogram.  The object keeps its own copies too
+(``UVAGraph.counters``, ``UVAGraph.host_tier_seconds``), counted since it
+was built.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from .cpp.native import CPUSampler
 from .ops.sample import sample_neighbors
+from . import telemetry
 from .telemetry import Histogram
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo, parse_size
@@ -99,6 +102,8 @@ class UVAGraph:
         with self._lock:
             self.counters["uva_seeds_total{tier=hot}"] += float(hot)
             self.counters["uva_seeds_total{tier=cold}"] += float(cold)
+        telemetry.counter("uva_seeds_total", tier="hot").inc(float(hot))
+        telemetry.counter("uva_seeds_total", tier="cold").inc(float(cold))
 
 
 def sample_uva(uva: UVAGraph, sizes: Sequence[int], input_nodes, key_words,
@@ -135,6 +140,7 @@ def sample_uva(uva: UVAGraph, sizes: Sequence[int], input_nodes, key_words,
             if timings is not None:
                 timings["host_s"] = timings.get("host_s", 0.0) + host_dt
             uva.host_tier_seconds.observe(host_dt)
+            telemetry.histogram("uva_host_tier_seconds").observe(host_dt)
         uva._count(hot.sum(), len(cold_idx))
         # the hop's one read-back: the tiers merge on the host
         nbrs = out.nbrs.cpu().numpy().copy()

@@ -950,3 +950,169 @@ def test_cpu_lane_answer_equals_direct_forward(card):
             for l in batch.layers))[: len(ids)]
     assert torch.equal(torch.from_numpy(out), direct)
     torch.testing.assert_close(direct, on_cpu, rtol=1e-5, atol=1e-5)
+
+
+def _card_server(card, **kw):
+    """A small whole-table server on the card (the failover route
+    ``cpu_sampler`` samples on the host and puts its batch on the card)."""
+    import queue
+
+    topo = _graph(9, n=2000)
+    feat = np.random.default_rng(2).standard_normal(
+        (2000, 24)).astype(np.float32)
+    torch.manual_seed(0)
+    model = qt.GraphSAGE(24, 32, 7, num_layers=2, device=card)
+    f = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                   device=card).from_cpu_tensor(feat)
+    dev = qt.GraphSageSampler(topo, [10, 5], device=card)
+    srv = qt.InferenceServer_Debug(dev, f, model, queue.Queue(),
+                                   max_coalesce=1, **kw)
+    srv.BUCKETS = (8, 16, 32, 64)
+    return srv, f, model
+
+
+def test_failover_answer_on_card(card):
+    """A failed device pass (chaos) fails over through the host sampler:
+    the answer is the CPU lane's forward of the sampled batch (B2 on the
+    card), counted as a failover, with no B1 launch."""
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.resilience import ChaosPlan, chaos
+
+    telemetry.reset()
+    srv, f, model = _card_server(card)
+    cpu = qt.GraphSageSampler(srv.sampler.csr_topo, [10, 5], device=card,
+                              mode="CPU")
+    srv.cpu_sampler = cpu
+    ids = np.arange(3, 2000, 151)
+    srv.start()
+    try:
+        b1_before = b1.window_sample.launches
+        b2_before = b2.gather_rows.launches
+        with chaos.active(ChaosPlan().fail("serving.device_lane")):
+            srv.device_q.put(qt.ServingRequest(ids=ids, client=0, seq=0))
+            req, out = srv.result_queue.get(timeout=120)
+    finally:
+        assert srv.stop() == []
+    assert not isinstance(out, Exception), out
+    assert b1.window_sample.launches == b1_before
+    assert b2.gather_rows.launches == b2_before + 1
+    (_, _, batch), = srv.failover_log
+    assert batch.n_id.device.type == "cuda"
+    with torch.inference_mode():
+        direct = model(f[batch.n_id], batch.layers)[: len(ids)].cpu()
+    assert torch.equal(torch.from_numpy(out), direct)
+    c = telemetry.snapshot()["counters"]
+    assert c["serving_failover_total{direction=device_to_cpu}"] == 1
+    telemetry.reset()
+
+
+def test_launch_error_is_not_failed_over(card, monkeypatch):
+    """A kernel that fails to launch is answered as the error itself: the
+    breaker does not count it, no failover serves around it, and stop()
+    raises it."""
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.ops.cuda import build
+
+    telemetry.reset()
+    srv, _, _ = _card_server(card)
+    srv.cpu_sampler = qt.GraphSageSampler(srv.sampler.csr_topo, [10, 5],
+                                          device=card, mode="CPU")
+
+    def broken(*a, **k):
+        raise build.KernelError("window_sample launch: CUDA error 700")
+
+    monkeypatch.setattr(b1, "_launch", broken)
+    srv.start()
+    srv.device_q.put(qt.ServingRequest(ids=np.arange(9), client=0, seq=0))
+    req, out = srv.result_queue.get(timeout=120)
+    with pytest.raises(build.KernelError):
+        srv.stop()
+    assert isinstance(out, build.KernelError)
+    assert srv._breakers["device"].state == "closed"
+    assert not srv.failover_log
+    c = telemetry.snapshot()["counters"]
+    assert "serving_failover_total{direction=device_to_cpu}" not in c
+    telemetry.reset()
+
+
+def test_wrapper_refusal_is_not_failed_over(card, monkeypatch):
+    """B1's wrapper refusing its arguments on the card (every fanout out
+    of range) is answered as that refusal: no breaker counts it, the host
+    sampler does not serve the request, and stop() raises it."""
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.ops.cuda import build
+
+    telemetry.reset()
+    srv, _, _ = _card_server(card)
+    srv.cpu_sampler = qt.GraphSageSampler(srv.sampler.csr_topo, [10, 5],
+                                          device=card, mode="CPU")
+    monkeypatch.setattr(b1, "_MAX_K", 1)
+    launches = b1.window_sample.launches
+    srv.start()
+    srv.device_q.put(qt.ServingRequest(ids=np.arange(9), client=0, seq=0))
+    req, out = srv.result_queue.get(timeout=120)
+    with pytest.raises(build.KernelArgumentError):
+        srv.stop()
+    assert isinstance(out, build.KernelArgumentError)
+    assert b1.window_sample.launches == launches
+    assert srv._breakers["device"].status()["failures"] == 0
+    assert not srv.failover_log
+    c = telemetry.snapshot()["counters"]
+    assert "serving_failover_total{direction=device_to_cpu}" not in c
+    telemetry.reset()
+
+
+def test_profile_rows_on_card(card):
+    """With the profile on, the fused forward and the kernels it launches
+    are recorded with ``device: true`` and device seconds from events."""
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.telemetry import profile
+
+    telemetry.reset()
+    srv, _, _ = _card_server(card)
+    srv.warmup()
+    assert profile.enable()
+    try:
+        srv._run_bucketed(np.arange(40))
+    finally:
+        profile.disable()
+    rows = {(r["subsystem"], r["key"]): r for r in profile.top_programs(50)}
+    for key in (("kernel", "'window_sample_frontier'"),
+                ("kernel", "'gather_rows'"), ("serving", "('fused', 64)")):
+        assert rows[key]["device"] is True, key
+        assert rows[key]["device_s"] > 0, key
+    assert rows[("kernel", "'window_sample_frontier'")]["calls"] == 2
+    telemetry.reset()
+
+
+def test_span_block_covers_device_time(card):
+    """``trace_scope(block=)`` waits for the card's stream: its span covers
+    the device time of a B2 call queued behind a spin (CUDA events), where
+    a span without ``block`` covers only the launches."""
+    from quiver_tpu_torch.utils import trace
+
+    table = torch.randn(200_000, 256, device=card)
+    idx = torch.randint(0, 200_000, (400_000,), device=card)
+    b2.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    trace.set_enabled(True)
+    trace.reset_trace()
+    try:
+        with trace.trace_scope("blocked", block=table):
+            start.record()
+            torch.cuda._sleep(20_000_000)
+            b2.gather_rows(table, idx)
+            end.record()
+        torch.cuda.synchronize()
+        device_ms = start.elapsed_time(end)
+        with trace.trace_scope("unblocked"):
+            torch.cuda._sleep(20_000_000)
+            b2.gather_rows(table, idx)
+        torch.cuda.synchronize()
+        summary = trace.trace_summary()
+    finally:
+        trace.set_enabled(False)
+    assert summary["blocked"]["total_s"] * 1e3 >= device_ms
+    assert summary["unblocked"]["total_s"] * 1e3 < 0.5 * device_ms

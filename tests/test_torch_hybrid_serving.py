@@ -288,10 +288,49 @@ def test_calibrate_threshold_fits_its_points(world, monkeypatch):
 
 
 def test_unported_arguments_cite_a11(world):
-    with pytest.raises(NotImplementedError, match="A11"):
-        qt.RequestBatcher([], qos=object())
+    """``qos=`` and ``cpu_sampler=`` once raised, citing ROADMAP A11; now
+    both are taken and act.  QoS: the batcher admits by tenant class and
+    answers an over-quota tenant with ``QuotaExceeded``; the server takes
+    its admit window.  ``cpu_sampler``: a device pass that fails is served
+    through the host sampler instead (``lane="failover"``), its answer the
+    CPU lane's forward of the sampled batch."""
+    from quiver_tpu_torch import telemetry as ptel
+    from quiver_tpu_torch.resilience import (ChaosPlan, QoSController,
+                                             QuotaExceeded, TenantClass,
+                                             chaos)
+
+    ptel.reset()
+    ctl = QoSController({"t": TenantClass("t", rate=1e-3, burst=1)},
+                        default="t", ingest="none")
+    results = queue.Queue()
+    rb = qt.RequestBatcher([], mode="Device", result_queue=results, qos=ctl)
+    for seq in range(2):
+        rb._route(qt.ServingRequest(ids=np.arange(3), client=0, seq=seq))
+    req, exc = results.get_nowait()
+    assert req.seq == 1 and isinstance(exc, QuotaExceeded)
+    assert rb.device_batched_queue.qsize() == 1
+
     ps = qt.GraphSageSampler(world["pt"], SIZES, device="cpu")
+    cpu = qt.GraphSageSampler(world["pt"], SIZES, mode="CPU", device="cpu")
     port = qt.GraphSAGE(DIM, HIDDEN, OUT, num_layers=2, device="cpu")
-    for kw in (dict(cpu_sampler=ps), dict(qos=object())):
-        with pytest.raises(NotImplementedError, match="A11"):
-            qt.InferenceServer(ps, world["pfeat"], port, None, **kw)
+    server = qt.InferenceServer_Debug(ps, world["pfeat"], port, queue.Queue(),
+                                      cpu_sampler=cpu, qos=ctl,
+                                      max_coalesce=1)
+    assert server._admit_window_s > 0
+    ids = np.random.default_rng(5).integers(0, N, 6)
+    server.device_q.put(qt.ServingRequest(ids=ids, client=0, seq=0))
+    try:
+        with chaos.active(ChaosPlan(seed=1).fail("serving.device_lane")):
+            server.start()
+            req, out = server.result_queue.get(timeout=60)
+    finally:
+        assert server.stop() == []
+    assert not isinstance(out, Exception), out
+    (client, seq, batch), = server.failover_log
+    with torch.inference_mode():
+        want = port(world["pfeat"][batch.n_id], batch.layers)[:6].numpy()
+    np.testing.assert_array_equal(out, want)
+    snap = ptel.snapshot()["counters"]
+    assert snap["serving_failover_total{direction=device_to_cpu}"] == 1
+    assert snap["serving_requests_total{lane=failover,status=ok}"] == 1
+    ptel.reset()

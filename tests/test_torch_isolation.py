@@ -294,3 +294,36 @@ def test_host_slice_defaults_to_the_card(monkeypatch):
                  lambda: qt.MixedGraphSageSampler(topo, [2], None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+
+
+def test_walk_covers_the_safeguards_slice():
+    """The source walk and the subprocess import reach serving's
+    safeguards and telemetry (every module of ``resilience/`` and
+    ``telemetry/``) and the last utilities (trace, rng, checkpoint); no
+    string of theirs points into the JAX package."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = tuple(
+        f"{pkg}/{name}.py" for pkg, names in (
+            ("resilience", ("__init__", "errors", "retry", "deadline",
+                            "lanes", "breaker", "chaos", "shutdown", "qos")),
+            ("telemetry", ("__init__", "registry", "noop", "spans",
+                           "flightrec", "timeline", "slo", "export",
+                           "profile")),
+            ("utils", ("trace", "rng", "checkpoint", "shutdown")))
+        for name in names)
+    bad = []
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+        path = ROOT / "quiver_tpu_torch" / mod
+        bad += _strings_into_jax_package(path.read_text(), mod)
+    assert not bad, bad
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      .replace(".__init__", "") for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -206,8 +206,9 @@ def test_histogram_matches_jax_registry():
 
 def test_batcher_modes():
     """The JAX package's four modes, ``"Auto"`` by default (every request
-    to the device lane without ``neighbour_num``); any other name raises,
-    and so does ``qos=``, which is not ported yet (A11)."""
+    to the device lane without ``neighbour_num``); any other name raises.
+    ``qos=`` is taken: with a result queue the lanes become weighted-fair
+    lanes over its classes, and admission stamps each request's class."""
     rb = qt.RequestBatcher([queue.Queue()])
     assert rb.mode == "Auto"
     rb._route(qt.ServingRequest(ids=np.arange(3), client=0, seq=0))
@@ -217,8 +218,21 @@ def test_batcher_modes():
         assert qt.RequestBatcher([queue.Queue()], mode=mode).mode == mode
     with pytest.raises(ValueError, match="mode"):
         qt.RequestBatcher([queue.Queue()], mode="GPU")
-    with pytest.raises(NotImplementedError, match="A11"):
-        qt.RequestBatcher([queue.Queue()], qos=object())
+    from quiver_tpu_torch.resilience import (QoSController, TenantClass,
+                                             WeightedFairLane)
+
+    ctl = QoSController({"gold": TenantClass("gold", weight=8, priority=3),
+                         "bronze": TenantClass("bronze", priority=0)},
+                        default="bronze", ingest="none")
+    results = queue.Queue()
+    rb = qt.RequestBatcher([queue.Queue()], mode="Device",
+                           result_queue=results, qos=ctl)
+    assert isinstance(rb.device_batched_queue, WeightedFairLane)
+    req = qt.ServingRequest(ids=np.arange(3), client=0, seq=0, tenant="gold")
+    rb._route(req)
+    assert req.tenant_class == "gold" and req.priority == 3
+    assert rb.device_batched_queue.class_depths() == {"gold": 1}
+    assert results.empty()
 
 
 # -- the unfused lane over a budgeted feature ----------------------------------
