@@ -78,6 +78,35 @@ first use, with nvcc, one process per source, all at once), then:
    lookup (B2) to the call's CUDA-event time, and the products
    ``"auto"`` lane (11) saves a checkpoint, restores it into a fresh
    model and Adam, and takes one more step from each: equal losses;
+4f. streaming serving phase (slice 11, ``streaming_phase``): the Reddit
+   graph as a ``StreamingGraph`` with per-edge int32 timestamps from
+   SEED and the default delta capacity (65,536); (1) with no deltas a
+   bucket-2048 pass through the overlay (B3, 5 launches a hop) bitwise
+   against the frozen ``"pwindow"`` pass (B1) on the same key words,
+   ``eid`` included, both timed; (2) after 2,112 inserts (64 onto the
+   four largest rows), 256 base and 32 delta deletes, the overlay hop
+   at both hops, windowed and not, bitwise against its plain version on
+   the card (B3 5 or 7 launches a hop), the whole pass too, the snapshot
+   build time, then a fold; (3) the 64-request plan served while an
+   ``IngestLane`` with a WAL (``RecoveryManager`` under
+   ``build/chip_smoke_stream``, fsync per append) applies STREAM_INSERTS
+   inserts in batches of STREAM_BATCH and deletes STREAM_DELETES base
+   edges, with one ``compact()`` at half the ingest: every request answered,
+   every update acked ok, and a probe sampler (the plain hop) checks at
+   every version it sees that each of STREAM_PROBES low-degree rows
+   draws exactly its live neighbours (every acked insert at or before
+   the version, no acked delete) and that no tombstoned edge is drawn in
+   either hop; drained, a fold with a padded pass arriving 50 ms into it
+   (timed: it waits for the graph lock), and the stream pass bitwise
+   equal to a frozen pass on ``g.base``; (4) a checkpoint through the lane's
+   barrier with a ``"200M"`` paged feature's page residency, a tail of
+   STREAM_TAIL inserts and STREAM_TAIL_DELETES deletes, the manager
+   closed and the graph dropped, ``boot()`` from the directory: base,
+   tombstones, delta order and version equal the live ones, the same
+   pass bitwise, and the restored pages serve rows (B5) bitwise equal
+   to the source with no fault; snapshot build, overlay and frozen pass
+   ms, fold pauses, WAL append p50, checkpoint bytes, write and verify
+   seconds, replay seconds and serving p50/p99 under ingest printed;
 5. B5 kernel phase (slice 2, the budgeted feature store): the feature
    under the reference's ``device_cache_size="200M"`` in degree order,
    paged, with a pool of every host page; stages the frontier of one
@@ -677,15 +706,17 @@ def request_plan():
     return rng, plans
 
 
-def serve(torch, qt, sampler, feature, model, kernels, hybrid=None):
+def serve(torch, qt, sampler, feature, model, kernels, hybrid=None,
+          during=None):
     """Warm every bucket, then serve the request plan from N_CLIENTS
     threads through RequestBatcher(mode="Device") and
     InferenceServer_Debug, with each kernel's launch count set to 0 just
     before and read just after.  With ``hybrid``, ``(neighbour_num,
     threshold, cpu_sampler)``, the batcher runs ``mode="Auto"`` and a
-    ``HybridSampler(num_workers=2)`` feeds the server's CPU lane.  Checks
-    every answer; returns the server, the answers, the requests sent, the
-    launches and a summary."""
+    ``HybridSampler(num_workers=2)`` feeds the server's CPU lane.
+    ``during()`` (which must not block) is called once the clients have
+    started.  Checks every answer; returns the server, the answers, the
+    requests sent, the launches and a summary."""
     streams = [queue.Queue() for _ in range(N_CLIENTS)]
     results: "queue.Queue" = queue.Queue()
     hs = None
@@ -741,6 +772,8 @@ def serve(torch, qt, sampler, feature, model, kernels, hybrid=None):
                for c in range(N_CLIENTS)]
     for t in clients:
         t.start()
+    if during is not None:
+        during()
     answers = {}
     try:
         for _ in range(N_CLIENTS * PER_CLIENT):
@@ -3422,6 +3455,477 @@ def interop_phase(torch, qt, topo, feat, labels, train, b2) -> dict:
     return out
 
 
+# slice 11: streaming serving under ingest, durability, warm restart
+STREAM_INSERTS = 8192       # edge inserts ingested while the plan is served
+STREAM_BATCH = 64           # edges an insert or delete request carries
+STREAM_DELETES = 1024       # existing base edges deleted while serving
+STREAM_PROBES = 256         # seeds whose every live neighbour a hop draws
+STREAM_PROBE_INSERTS = 8    # inserts onto each probe seed (degree <= 17)
+STREAM_TAIL = 1024          # inserts after the checkpoint, replayed at boot
+STREAM_TAIL_DELETES = 64    # base deletes after the checkpoint, replayed
+STREAM_TS_MAX = 2**30       # per-edge timestamps in [0, STREAM_TS_MAX)
+STREAM_WINDOW = (STREAM_TS_MAX // 4, 3 * STREAM_TS_MAX // 4)
+STREAM_INFLIGHT = 16        # ingest requests in flight at once
+STREAM_RESTORE_IDS = 256   # rows gathered through the "200M" feature
+
+
+def same_draws(torch, got, want, what: str):
+    """``check_same_sample`` and every block's ``eid``."""
+    check_same_sample(torch, got, want, what)
+    for i, (a, b) in enumerate(zip(got[3], want[3])):
+        check(torch.equal(a.eid, b.eid), f"{what}: block {i} eid differs")
+
+
+def _delete_positions(rng, base, rows, n):
+    """``n`` distinct base edge positions: one of each of ``rows`` that
+    has an edge, the rest random."""
+    first = base.indptr[rows][base.degree[rows] > 0]
+    rest = rng.choice(base.edge_count, 4 * n, replace=False)
+    pos = np.concatenate([first, rest[~np.isin(rest, first)]])[:n]
+    check(len(np.unique(pos)) == n, "delete positions repeat")
+    return pos
+
+
+def _row_of(base, pos):
+    return np.searchsorted(base.indptr, pos, side="right") - 1
+
+
+def overlay_hop_case(torch, snap, seeds, fmask, k, kw, window, b3) -> dict:
+    """One overlay hop through B3 (``"pwindow"``) against its plain
+    version (``"xla"``) on the card, bitwise, with its launches."""
+    from quiver_tpu_torch.ops.sample import sample_neighbors_overlay
+
+    args = (snap.indptr, snap.indices, snap.tomb, snap.d_indptr,
+            snap.d_indices, seeds, k, int(kw[0]), int(kw[1]), fmask,
+            snap.base_ts, snap.d_ts, window)
+    b3.element_gather.launches = 0
+    got = sample_neighbors_overlay(*args, "pwindow")
+    launches = b3.element_gather.launches
+    check(launches == (7 if window else 5),
+          f"overlay hop launched B3 {launches} times")
+    want = sample_neighbors_overlay(*args, "xla")
+    for name, a, b in zip(("nbrs", "mask", "counts", "eid"), got, want):
+        check(torch.equal(a, b), f"overlay hop k={k}: {name} differs "
+              "from its plain version")
+    m = got.mask
+    return dict(
+        k=k, seeds=int(seeds.shape[0]), windowed=window is not None,
+        b3_launches=launches, max_abs_err=0,
+        delta_draws=int((got.eid[m] >= snap.epad).sum()),
+        masked=int((~m).sum()),
+        ms=cuda_ms(torch, lambda: sample_neighbors_overlay(*args,
+                                                           "pwindow")),
+        plain_ms=cuda_ms(torch, lambda: sample_neighbors_overlay(*args,
+                                                                 "xla")))
+
+
+def streaming_phase(torch, qt, topo, feat, feature, b1, b2, b3, b5):
+    """Slice 11 on the card: Reddit as a ``StreamingGraph`` with per-edge
+    timestamps, served while it ingests, folded, checkpointed and booted
+    again.  Returns the main path's launches and a summary."""
+    import shutil
+    from collections import Counter
+
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.recovery.checkpoint import read_checkpoint
+    from quiver_tpu_torch.telemetry.registry import metric_key
+    from quiver_tpu_torch.recovery.manager import RecoveryManager
+    from quiver_tpu_torch.stream import IngestLane, StreamingGraph, compact
+
+    dev = torch.device(DEV)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_stream")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 11)
+    out = dict(card=card_line())
+    # its own CSRTopo over the same host arrays: a fold invalidates the
+    # base it replaces, and the other phases keep theirs
+    base = qt.CSRTopo(indptr=topo.indptr, indices=topo.indices)
+    ts = rng.integers(0, STREAM_TS_MAX, base.edge_count, dtype=np.int32)
+    g = StreamingGraph(base, edge_ts=ts, device=DEV)
+    check(g._delta.capacity == 65_536, "delta capacity is not the default")
+    g.attach_feature(feature)
+    t0 = time.perf_counter()
+    g.snapshot()
+    torch.cuda.synchronize()
+    out["first_snapshot_s"] = time.perf_counter() - t0
+    try:
+        # (1) zero deltas: the overlay (B3) against the frozen pass (B1)
+        seeds = torch.from_numpy(
+            rng.integers(0, N_NODES, 2048).astype(np.int32)).to(dev)
+        kw = rng.integers(0, 2**32, (2, 2), dtype=np.uint32)
+        stream = qt.GraphSageSampler(g, FANOUTS, device=DEV, return_eid=True)
+        frozen = qt.GraphSageSampler(base, FANOUTS, device=DEV, dedup="none",
+                                     return_eid=True)
+        check(stream.gather_mode == "pwindow", stream.gather_mode)
+        b3.element_gather.launches = 0
+        got = stream.pipeline(seeds, kw)
+        b3_zero = b3.element_gather.launches
+        b1.window_sample.launches = 0
+        want = frozen.pipeline(seeds, kw)
+        b1_zero = b1.window_sample.launches
+        check(b3_zero == 5 * len(FANOUTS) and b1_zero == len(FANOUTS),
+              f"zero-delta pass: B3 {b3_zero}, B1 {b1_zero} launches")
+        same_draws(torch, got, want, "zero-delta overlay (B3) vs B1")
+        out["zero_delta"] = dict(
+            bitwise_equal=True, b3_launches=b3_zero, b1_launches=b1_zero,
+            overlay_pass_ms=cuda_ms(torch, lambda: stream.pipeline(seeds,
+                                                                   kw)),
+            frozen_pass_ms=cuda_ms(torch, lambda: frozen.pipeline(seeds,
+                                                                  kw)))
+        print("zero-delta overlay pass " + json.dumps(out["zero_delta"]),
+              flush=True)
+
+        # (2) the overlay hop against its plain version, with deltas,
+        # tombstones and a window; the snapshot build time
+        hubs = np.argsort(base.degree)[-4:]
+        src = np.concatenate([rng.integers(0, N_NODES, 2048),
+                              np.repeat(hubs, 16)])
+        dst = rng.integers(0, N_NODES, len(src))
+        g.add_edges(src, dst, ts=rng.integers(0, STREAM_TS_MAX, len(src)))
+        pos = _delete_positions(rng, base, np.array([], np.int64), 256)
+        check(g.remove_edges(_row_of(base, pos), base.indices[pos]) == 256,
+              "base deletes")
+        g.remove_edges(src[:32], dst[:32])
+        build = []
+        for i in range(3):
+            g.add_edges([i], [i + 1], ts=[0])
+            t0 = time.perf_counter()
+            snap = g.snapshot()
+            torch.cuda.synchronize()
+            build.append(time.perf_counter() - t0)
+        out["snapshot_build_s"] = build
+        n_id, n_mask = stream.pipeline(seeds, kw, snapshot=snap)[:2]
+        t2 = 2048 * (1 + FANOUTS[0])
+        cases = []
+        for window in (None, STREAM_WINDOW):
+            cases.append(overlay_hop_case(torch, snap, seeds, None,
+                                          FANOUTS[0], kw[0], window, b3))
+            cases.append(overlay_hop_case(torch, snap, n_id[:t2],
+                                          n_mask[:t2], FANOUTS[1], kw[1],
+                                          window, b3))
+        check(all(c["delta_draws"] > 0 for c in cases), "no delta drawn")
+        for window in (None, STREAM_WINDOW):
+            plain = qt.GraphSageSampler(g, FANOUTS, device=DEV,
+                                        gather_mode="xla", return_eid=True)
+            same_draws(torch, stream.pipeline(seeds, kw, snapshot=snap,
+                                              time_window=window),
+                       plain.pipeline(seeds, kw, snapshot=snap,
+                                      time_window=window),
+                       f"overlay pass window={window} vs xla")
+        out["overlay_hops"] = cases
+        out["fold_idle"] = compact(g)
+        print("overlay hops (B3 vs plain, bitwise) " + json.dumps(
+            dict(snapshot_build_s=build, cases=cases,
+                 fold_idle=out["fold_idle"])), flush=True)
+
+        # (3) serve the plan while the lane ingests, durably, with one
+        # fold mid-traffic
+        mgr = RecoveryManager(os.path.join(root, "r"),
+                              graph_factory=lambda: g)
+        check(mgr.boot() is g, "the manager booted another graph")
+        lane = IngestLane(g).start()
+        mgr.attach_lane(lane)
+        wal_s = []
+        append = mgr.wal.append
+
+        def timed_append(payload):
+            t0 = time.perf_counter()
+            lsn = append(payload)
+            wal_s.append(time.perf_counter() - t0)
+            return lsn
+
+        mgr.wal.append = timed_append
+        cur = g.base
+        cand = np.nonzero(cur.degree <= FANOUTS[0] - STREAM_PROBE_INSERTS)[0]
+        probes = rng.choice(cand, STREAM_PROBES, replace=False)
+        # the other inserts avoid the probe rows, so a probe row never
+        # holds more than FANOUTS[0] edges, tombstoned ones included
+        others = np.setdiff1d(np.arange(N_NODES), probes)
+        isrc = np.concatenate([np.repeat(probes, STREAM_PROBE_INSERTS),
+                               rng.choice(others, STREAM_INSERTS
+                                          - STREAM_PROBES
+                                          * STREAM_PROBE_INSERTS)])
+        isrc = isrc[rng.permutation(len(isrc))]
+        check((cur.degree[probes] + np.bincount(
+            isrc, minlength=N_NODES)[probes]).max() <= FANOUTS[0],
+              "a probe row could exceed the fanout")
+        idst = rng.integers(0, N_NODES, STREAM_INSERTS)
+        its = rng.integers(0, STREAM_TS_MAX, STREAM_INSERTS)
+        dpos = _delete_positions(rng, cur, probes, STREAM_DELETES)
+        dsrc, ddst = _row_of(cur, dpos), cur.indices[dpos].astype(np.int64)
+        ops = []
+        for i in range(0, STREAM_INSERTS, STREAM_BATCH):
+            ops.append(("add", isrc[i:i + STREAM_BATCH],
+                        idst[i:i + STREAM_BATCH], its[i:i + STREAM_BATCH]))
+            if (i // STREAM_BATCH) % 8 == 7:
+                j = len([o for o in ops if o[0] == "remove"]) * STREAM_BATCH
+                ops.append(("remove", dsrc[j:j + STREAM_BATCH],
+                            ddst[j:j + STREAM_BATCH], None))
+        check(sum(len(o[1]) for o in ops if o[0] == "remove")
+              == STREAM_DELETES, "delete plan")
+        acks, ingest_err, folds = {}, [], {}
+        submitted = {}
+        span = {}
+        done = threading.Event()
+
+        def take():
+            item, outcome = lane.results.get(timeout=120)
+            acks[submitted[id(item)]] = outcome
+
+        def fold():
+            while len(acks) < len(submitted):
+                take()  # drained: every ack's version is exact
+            span["fold"] = time.perf_counter()
+            folds["mid"] = compact(g)
+
+        def ingest():
+            try:
+                span["start"] = time.perf_counter()
+                for i, (op, s_, d_, t_) in enumerate(ops):
+                    if i == len(ops) // 2:
+                        fold()
+                    upd = lane.submit(s_, d_, ts=t_, op=op)
+                    submitted[id(upd)] = i
+                    while len(submitted) - len(acks) >= STREAM_INFLIGHT:
+                        take()
+                    time.sleep(0.001)
+                while len(acks) < len(ops):
+                    take()
+                span["end"] = time.perf_counter()
+            except BaseException as e:  # surfaced after the join
+                ingest_err.append(e)
+
+        probe_seeds = torch.from_numpy(np.concatenate(
+            [probes, rng.integers(0, N_NODES, 1024 - STREAM_PROBES)]).astype(
+                np.int32)).to(dev)
+        # the probe draws through the plain hop ("xla", no kernel): B3's
+        # launch count stays the served traffic's own, and B3 is held
+        # bitwise against the plain hop in (2)
+        sampler_p = qt.GraphSageSampler(g, FANOUTS, device=DEV,
+                                        gather_mode="xla", return_eid=True,
+                                        seed=SEED + 12)
+        samples, probe_err = [], []
+
+        def probe_once():
+            snap = g.snapshot()
+            n_id, _, _, blocks, _ = sampler_p.pipeline(
+                probe_seeds, sampler_p.draw_key_words(), snapshot=snap)
+            dead = 0
+            for blk in blocks:  # every hop, every seed
+                e = blk.eid[blk.mask]
+                dead += int(snap.tomb[e[e < snap.epad]].sum())
+            first = n_id[1024:1024 + STREAM_PROBES * FANOUTS[0]]
+            samples.append((snap.version, dead,
+                            first.view(STREAM_PROBES, -1).cpu().numpy(),
+                            blocks[-1].mask[:STREAM_PROBES].cpu().numpy()))
+
+        def probe():
+            try:
+                while not done.is_set():
+                    probe_once()
+                    time.sleep(0.05)
+            except BaseException as e:  # surfaced after the join
+                probe_err.append(e)
+
+        threads = [threading.Thread(target=ingest),
+                   threading.Thread(target=probe)]
+        serve_sampler = qt.GraphSageSampler(g, FANOUTS, device=DEV,
+                                            seed=SEED)
+        model = seeded_model(torch, qt)
+        served = {}
+
+        def during():
+            served["start"] = time.perf_counter()
+            for t in threads:
+                t.start()
+
+        server, answers, _, launches, _, summary = serve(
+            torch, qt, serve_sampler, feature, model,
+            {"element_gather": b3.element_gather,
+             "gather_rows": b2.gather_rows}, during=during)
+        threads[0].join(timeout=300)
+        done.set()
+        threads[1].join(timeout=60)
+        check(not any(t.is_alive() for t in threads), "stream threads hang")
+        check(not ingest_err, f"ingest failed: {ingest_err!r}")
+        check(not probe_err, f"a probe sample failed: {probe_err!r}")
+        probe_once()  # at the last acked version
+        bad = [i for i, o in acks.items()
+               if not (isinstance(o, tuple) and o[0] == "ok"
+                       and o[1] == len(ops[i][1]))]
+        check(len(acks) == len(ops) and not bad,
+              f"{len(acks)} of {len(ops)} updates acked; not ok: {bad[:5]}")
+        last = max(o[2] for o in acks.values())
+        check(samples[-1][0] >= last, "no probe sample after the last ack")
+        check(folds.get("mid", {}).get("folded", 0) > 0,
+              "the mid-traffic fold folded nothing")
+        # every probe sample against the acked ops: a probe row's first
+        # hop draws every live neighbour, so its multiset is exactly the
+        # row before ingest, less the acked deletes, plus the acked
+        # inserts, of every op acked at the sample's version or before
+        col = {int(p): i for i, p in enumerate(probes)}
+        want = {p: Counter(cur.indices[cur.indptr[p]:cur.indptr[p + 1]]
+                           .tolist()) for p in col}
+        order = sorted(acks, key=lambda i: acks[i][2])
+        k = checked = visible = 0
+        for version, dead, first, mask in sorted(samples,
+                                                 key=lambda x: x[0]):
+            check(dead == 0, f"a tombstoned edge was drawn at v{version}")
+            while k < len(order) and acks[order[k]][2] <= version:
+                op, s_, d_, _t = ops[order[k]]
+                for u, v in zip(s_.tolist(), d_.tolist()):
+                    if u in want:
+                        want[u][v] += 1 if op == "add" else -1
+                k += 1
+            for p, c in want.items():
+                drawn = Counter(first[col[p]][mask[col[p]]].tolist())
+                check(drawn == +c, f"probe {p} at v{version}: drew "
+                      f"{sorted(drawn.elements())}, live "
+                      f"{sorted((+c).elements())}")
+                checked += 1
+                visible += sum(n for v, n in c.items() if n > 0)
+        # drained: a fold, and a pass that arrives 50 ms into it waits
+        # for the graph lock; then the next pass is a frozen pass on g.base
+        fold_out = {}
+        folder = threading.Thread(target=lambda: fold_out.update(compact(g)))
+        padded = server._pad_ids(rng.integers(0, N_NODES, MAX_IDS))
+        pkw = server.draw_key_words()
+        folder.start()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        server.fused_forward(padded, pkw).cpu()
+        out["pass_during_fold_s"] = time.perf_counter() - t0
+        folder.join(timeout=120)
+        check(not folder.is_alive() and fold_out, "the drained fold failed")
+        out["fold_drained"] = fold_out
+        post = qt.GraphSageSampler(g.base, FANOUTS, device=DEV, dedup="none",
+                                   return_eid=True)
+        same_draws(torch, stream.pipeline(seeds, kw), post.pipeline(seeds,
+                                                                    kw),
+                   "the folded stream pass vs a frozen pass on g.base")
+        stats = summary["stats"]
+        out["serving"] = dict(
+            requests=len(answers), acks=len(acks),
+            updates=dict(inserts=STREAM_INSERTS, deletes=STREAM_DELETES,
+                         requests=len(ops)),
+            p50_ms=stats.get("p50_latency_ms"),
+            p99_ms=stats.get("p99_latency_ms"),
+            passes=summary["passes"], served_s=summary["served_s"],
+            ingest_s=span["end"] - span["start"],
+            ingest_started_after_serving_s=span["start"] - served["start"],
+            fold_mid_started_after_serving_s=span["fold"] - served["start"],
+            pass_during_fold_s=out["pass_during_fold_s"],
+            launches=launches, fold_mid=folds["mid"],
+            wal_append_p50_ms=float(np.median(wal_s)) * 1e3,
+            wal_append_p99_ms=float(np.percentile(wal_s, 99)) * 1e3,
+            wal_appends=len(wal_s), probe_samples=len(samples),
+            probe_rows_checked=checked, probe_neighbours_checked=visible,
+            version=g.version)
+        print("serving under ingest " + json.dumps(out["serving"]),
+              flush=True)
+
+        # (4) warm restart: checkpoint through the lane's barrier, a tail
+        # of inserts and deletes, close, boot from the directory
+        fb = budgeted_feature(qt, topo, feat)
+        ids = rng.integers(0, N_NODES, STREAM_RESTORE_IDS)
+        rows_fb = fb[ids]
+        check(fb.paged.fallbacks == 0, "the restore gather overflowed")
+        check(mgr.attach_feature("reddit_200M", fb) == 0, "a stale restore")
+        t0 = time.perf_counter()
+        path = mgr.checkpoint()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck = read_checkpoint(path)
+        verify_s = time.perf_counter() - t0
+        check(ck.graph_version == g.version, "checkpoint version")
+        tail_src = rng.integers(0, N_NODES, STREAM_TAIL)
+        tail_dst = rng.integers(0, N_NODES, STREAM_TAIL)
+        tail_ts = rng.integers(0, STREAM_TS_MAX, STREAM_TAIL)
+        tpos = rng.choice(g.base.edge_count, STREAM_TAIL_DELETES,
+                          replace=False)
+        tail = [lane.submit(tail_src[i:i + STREAM_BATCH],
+                            tail_dst[i:i + STREAM_BATCH],
+                            ts=tail_ts[i:i + STREAM_BATCH])
+                for i in range(0, STREAM_TAIL, STREAM_BATCH)]
+        tail.append(lane.submit(_row_of(g.base, tpos),
+                                g.base.indices[tpos], op="remove"))
+        for _ in tail:
+            _, o = lane.results.get(timeout=120)
+            check(isinstance(o, tuple) and o[0] == "ok", f"tail op: {o!r}")
+        live = dict(indptr=g.base.indptr, indices=g.base.indices,
+                    base_ts=g._base_ts, tomb=g._tomb.copy(),
+                    delta=g._delta.live_edges(), version=g.version)
+        check(live["tomb"].sum() == STREAM_TAIL_DELETES, "tail tombstones")
+        live_pass = [t.cpu() if isinstance(t, torch.Tensor) else t
+                     for t in stream.pipeline(seeds, kw)[:3]]
+        lane.stop()
+        mgr.close()
+        g.close()
+        del g, lane, stream, frozen, post, server, serve_sampler, sampler_p
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mgr2 = RecoveryManager(os.path.join(root, "r"))
+        g2 = mgr2.boot()
+        boot_s = time.perf_counter() - t0
+        health = mgr2.health()
+        check(health["state"] == "serving" and health["ready"],
+              f"health after boot {health}")
+        check(health["replayed_records"] == len(tail),
+              f"replayed {health['replayed_records']} of {len(tail)}")
+        for name in ("indptr", "indices"):
+            check(np.array_equal(getattr(g2.base, name), live[name]),
+                  f"restored base {name} differs")
+        check(np.array_equal(g2._base_ts, live["base_ts"]),
+              "restored timestamps differ")
+        check(np.array_equal(g2._tomb, live["tomb"]), "restored tomb differs")
+        for a, b in zip(g2._delta.live_edges(), live["delta"]):
+            check(np.array_equal(a, b), "restored delta order differs")
+        check(g2.version == live["version"], "restored version differs")
+        s2 = qt.GraphSageSampler(g2, FANOUTS, device=DEV, return_eid=True)
+        again = s2.pipeline(seeds, kw)[:3]
+        for name, a, b in zip(("n_id", "n_id_mask", "num_nodes"), again,
+                              live_pass):
+            check(torch.equal(a.cpu(), b), f"restored pass: {name} differs")
+        fb2 = budgeted_feature(qt, topo, feat)
+        warmed = mgr2.attach_feature("reddit_200M", fb2)
+        check(warmed > 0, "the coldcache restore warmed nothing")
+        faults = fb2.stats()["counters"].get("feature_page_faults_total", 0)
+        b5.page_gather.launches = 0
+        rows_fb2 = fb2[ids]
+        b5_restore = b5.page_gather.launches
+        check(b5_restore > 0, "B5 was not launched on the restored pages")
+        check(fb2.stats()["counters"].get("feature_page_faults_total", 0)
+              == faults, "restored pages faulted again")
+        src_rows = torch.from_numpy(feat[ids]).to(dev)
+        check(torch.equal(rows_fb2, src_rows) and torch.equal(rows_fb,
+                                                              src_rows),
+              "restored rows differ from a fresh gather")
+        res = fb2.paged.table.cache.node_of >= 0
+        frames = fb.paged.table.hot_pages + np.nonzero(res)[0]
+        check(torch.equal(fb2.paged.frames[frames], fb.paged.frames[frames]),
+              "refilled pages differ from the faulted ones")
+        out["restart"] = dict(
+            checkpoint_bytes=os.path.getsize(path),
+            checkpoint_write_s=write_s, checkpoint_verify_s=verify_s,
+            boot_s=boot_s,
+            replay_s=telemetry.snapshot()["gauges"].get(
+                metric_key("recovery_replay_seconds", {})),
+            replayed_records=health["replayed_records"],
+            version=live["version"], pending=len(live["delta"][0]),
+            tombstones=int(live["tomb"].sum()), coldcache_rows=warmed,
+            b5_launches=b5_restore, bitwise_equal=True)
+        print("warm restart " + json.dumps(out["restart"]), flush=True)
+        mgr2.close()
+        g2.close()
+        del g2, s2, fb, fb2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(launches, page_gather=b5_restore)
+    print("streaming serving summary " + json.dumps(out), flush=True)
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -3505,6 +4009,14 @@ def main() -> int:
     kernels[1]["launches_resilient_serving"] = launches_r10["gather_rows"]
     torch.cuda.empty_cache()
 
+    # slice 11: streaming serving, durability and a warm restart
+    t0 = time.perf_counter()
+    launches_s11, summary_s11 = streaming_phase(torch, qt, topo, feat,
+                                                feature, b1, b2, b3, b5)
+    phase_s["streaming"] = time.perf_counter() - t0
+    kernels[1]["launches_streaming_serving"] = launches_s11["gather_rows"]
+    torch.cuda.empty_cache()
+
     # slice 2: every feature below compares with the source table by its
     # own feature_order (each from_cpu_tensor rewrites topo.feature_order)
     src = torch.from_numpy(feat).to(DEV)
@@ -3519,6 +4031,7 @@ def main() -> int:
     b5_record["launches"] = launches_b["page_gather"]
     b5_record["launches_per_pass"] = (launches_b["page_gather"]
                                       / summary_b["passes"])
+    b5_record["launches_coldcache_restore"] = launches_s11["page_gather"]
     kernels.append(b5_record)
     summary_b["fallback_overlay"] = fallback_overlay_phase(
         torch, qt, topo, feat, src, n_id)
@@ -3562,6 +4075,8 @@ def main() -> int:
         b3, 2 * len(P_FANOUTS))
     b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
     b3_record["launches_weighted_serving"] = launches_w["element_gather"]
+    b3_record["launches_streaming_serving"] = launches_s11["element_gather"]
+    b3_record["streaming_overlay_hops"] = summary_s11["overlay_hops"]
     lanes, models, b2_products = fused_training_phase(
         torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2, b3)
     kernels[1]["products"] = b2_products

@@ -7,7 +7,7 @@ unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
 """
 
-from .feature import Feature
+from .feature import DeviceConfig, Feature
 from .hetero import (HeteroCSRTopo, HeteroFeature, HeteroGraphSageSampler,
                      HeteroLayerBlock, HeteroSampledBatch)
 from .loader import SeedLoader
@@ -34,9 +34,10 @@ from . import multiprocessing  # registers the ForkingPickler reducers
 from .utils import (CSRTopo, community_graph, coo_to_csr, parse_size,
                     reindex_by_config, reindex_feature, synthetic_csr,
                     synthetic_products, synthetic_reddit)
+from .utils.rng import make_key
 
 __all__ = [
-    "CSRTopo", "Feature", "GAT", "GATConv", "GCN", "GCNConv", "GraphSAGE",
+    "CSRTopo", "DeviceConfig", "Feature", "GAT", "GATConv", "GCN", "GCNConv", "GraphSAGE",
     "GraphSageSampler", "HeteroCSRTopo", "HeteroFeature",
     "HeteroGraphSageSampler", "HeteroLayerBlock", "HeteroSampledBatch",
     "HybridSampler", "InferenceServer", "InferenceServer_Debug",
@@ -47,7 +48,8 @@ __all__ = [
     "full_graph_inference", "gat_params_from_flax", "gat_params_to_flax",
     "gcn_params_from_flax", "gcn_params_to_flax", "generate_neighbour_num",
     "load_quiver_feature_partition", "make_fused_eval_fn",
-    "make_fused_train_step", "make_scan_epoch", "make_train_step",
+    "make_fused_train_step", "make_key", "make_scan_epoch",
+    "make_train_step",
     "parse_size", "partition_without_replication", "quiver_partition_feature",
     "reindex_by_config", "reindex_feature", "rgat_params_from_flax",
     "rgat_params_to_flax", "run_pipeline", "sage_params_from_flax",

@@ -5,7 +5,10 @@ queued requests one pass may coalesce, the sampler's element-gather mode
 and frontier dedup, the feature-store knobs of the budgeted path
 (cold-row overlay and paged store), and serving's safeguards and
 telemetry (deadlines, bounded lanes, breakers, QoS, the flight recorder,
-the SLO objectives and the timeline).  Defaults are the JAX package's, and
+the SLO objectives and the timeline), the streaming tier (delta
+capacity, compaction cadence, the ingest lane) and durability (the WAL,
+checkpoints, the replay deadline, the retrace budget and the kernel
+build cache).  Defaults are the JAX package's, and
 each field that JAX reads from the environment reads the same
 ``QUIVER_TPU_*`` name here, so a deployment's setting means the same to
 both packages.  The one default
@@ -51,6 +54,9 @@ class Config:
     # sampler element gathers: "auto" resolves in resolve_gather_mode
     gather_mode: str = field(
         default_factory=lambda: _env("GATHER_MODE", "auto"))
+    # sampler uniforms: "auto" resolves in resolve_sample_rng
+    sample_rng: str = field(
+        default_factory=lambda: _env("SAMPLE_RNG", "auto"))
     # sampler frontier dedup: "auto" resolves in resolve_dedup
     dedup: str = field(default_factory=lambda: _env("DEDUP", "auto"))
     # cold-row overlay: "auto" = off until enable_cold_cache() or the
@@ -141,6 +147,52 @@ class Config:
     # oldest
     timeline_ring_capacity: int = field(
         default_factory=lambda: _env("TIMELINE_RING_CAPACITY", 8192, int))
+    # streaming tier (stream/): pending delta edges before ingestion
+    # folds, the compactor's cadence (seconds between periodic folds; the
+    # watermark folds early once that fraction of the capacity is
+    # pending), and the ingest lane (depth, its deadline class, 0 for
+    # none, and its shed priority)
+    stream_delta_capacity: int = field(
+        default_factory=lambda: _env("STREAM_DELTA_CAPACITY", 65536, int))
+    stream_compact_interval_s: float = field(
+        default_factory=lambda: _env("STREAM_COMPACT_INTERVAL_S", 30.0,
+                                     float))
+    stream_compact_watermark: float = field(
+        default_factory=lambda: _env("STREAM_COMPACT_WATERMARK", 0.75,
+                                     float))
+    stream_ingest_depth: int = field(
+        default_factory=lambda: _env("STREAM_INGEST_DEPTH", 256, int))
+    stream_ingest_deadline_ms: float = field(
+        default_factory=lambda: _env("STREAM_INGEST_DEADLINE_MS", 0.0,
+                                     float))
+    stream_ingest_priority: int = field(
+        default_factory=lambda: _env("STREAM_INGEST_PRIORITY", 1, int))
+    # durability (recovery/): the root of the WAL and checkpoints ("":
+    # none), the WAL's fsync policy ("always", "batch" or "off") and its
+    # segment and batch sizes, checkpoint cadence and retention, the
+    # replay deadline (0: none), the builds a subsystem may make after
+    # seal() (-1: count, never raise), and the directory the kernel and
+    # native libraries are built into and found in ("": the package's
+    # build directory)
+    recovery_dir: str = field(
+        default_factory=lambda: _env("RECOVERY_DIR", ""))
+    recovery_fsync: str = field(
+        default_factory=lambda: _env("RECOVERY_FSYNC", "always"))
+    recovery_segment_bytes: int = field(
+        default_factory=lambda: _env("RECOVERY_SEGMENT_BYTES", 4 << 20, int))
+    recovery_batch_bytes: int = field(
+        default_factory=lambda: _env("RECOVERY_BATCH_BYTES", 1 << 16, int))
+    recovery_checkpoint_interval_s: float = field(
+        default_factory=lambda: _env("RECOVERY_CHECKPOINT_INTERVAL_S", 60.0,
+                                     float))
+    recovery_checkpoint_keep: int = field(
+        default_factory=lambda: _env("RECOVERY_CHECKPOINT_KEEP", 2, int))
+    recovery_deadline_s: float = field(
+        default_factory=lambda: _env("RECOVERY_DEADLINE_S", 0.0, float))
+    recovery_retrace_budget: int = field(
+        default_factory=lambda: _env("RECOVERY_RETRACE_BUDGET", -1, int))
+    recovery_cache_dir: str = field(
+        default_factory=lambda: _env("RECOVERY_CACHE_DIR", ""))
 
 
 _lock = threading.Lock()
@@ -223,9 +275,15 @@ def resolve_dedup(dedup: str) -> str:
 
 def resolve_sample_rng(sample_rng: str) -> str:
     """The uniform source of the sampling hops: always the counter hash.
-    ``"auto"`` and ``"hash"`` return ``"hash"``; JAX's threefry
-    ``"key"`` has no counterpart in the port (ROADMAP §C) and raises."""
-    if sample_rng in ("auto", "hash"):
+    An explicit ``"hash"`` wins; ``"auto"`` reads
+    ``QUIVER_TPU_SAMPLE_RNG`` (``Config.sample_rng``), and resolves to
+    ``"hash"`` when that is ``"auto"`` too.  JAX's threefry ``"key"`` has
+    no counterpart in the port (ROADMAP §C) and raises, as an argument and
+    as a pin alike."""
+    if sample_rng == "auto":
+        pinned = get_config().sample_rng
+        return "hash" if pinned == "auto" else resolve_sample_rng(pinned)
+    if sample_rng == "hash":
         return "hash"
     if sample_rng == "key":
         raise ValueError(

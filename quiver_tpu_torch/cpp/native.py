@@ -5,10 +5,14 @@ The source is the JAX package's C++ file, copied byte for byte into this
 package.  It is compiled at first use with ``g++ -O3 -std=c++17 -shared
 -fPIC -pthread`` into ``build/quiver_tpu_torch/libquiver_cpu-<hash>.so``
 beside the package (the hash covers the flags and the source, so an edited
-source is never served from a stale library) and loaded with ``ctypes``,
-which releases the GIL for the length of each call.  Concurrent builds
-(several test workers, several threads) each compile to a temporary name
-and ``os.replace`` it into place.
+source is never served from a stale library; a persistent cache enabled
+through ``recovery.registry`` replaces the directory) and loaded with
+``ctypes``, which releases the GIL for the length of each call.
+Concurrent builds (several test workers, several threads) each compile to
+a temporary name and ``os.replace`` it into place.  :func:`build` and
+:func:`load` build any host source this way (``recovery/blockio.py``'s
+CRC-32C, ``csrc/crc32c.cpp``); each library loaded counts as a build of
+the registry's ``native`` subsystem.
 
 There is no fallback: when ``g++`` fails the call raises with the
 compiler's message.  (The JAX package falls back to numpy loops with
@@ -29,77 +33,105 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..ops.cuda.build import BUILD_DIR
 from ..ops.sample import row_cumsum_weights
+from ..recovery.registry import library_dir, library_found, program_cache
 
 __all__ = ["CPUSampler", "coo_to_csr_native", "neighbour_num_native",
-           "library_path", "SRC", "GXX_FLAGS"]
+           "library_path", "build", "load", "SRC", "GXX_FLAGS"]
 
 SRC = Path(__file__).resolve().parent / "csrc" / "quiver_cpu.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# the loaded libraries by source stem, accounted under "native"
+_libs = program_cache("native")
+
+
+def _library_path(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + b"\0"
+                       + src.read_bytes())
+    return library_dir(BUILD_DIR) / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + b"\0"
-                       + SRC.read_bytes())
-    return BUILD_DIR / f"libquiver_cpu-{h.hexdigest()[:12]}.so"
+    return _library_path(SRC)
 
 
-def _build() -> Path:
-    out = library_path()
-    if out.exists():
+def build(src: Path) -> Path:
+    """Compile ``src`` with ``g++`` into the build directory (the
+    registry's persistent cache when one is enabled), unless it is built
+    already; raises with the compiler's message when ``g++`` fails."""
+    out = _library_path(src)
+    if library_found(out):
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)]
+    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"building the native sampler failed: {e}") from e
+        raise RuntimeError(f"building {src.name} failed: {e}") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"g++ failed on {SRC.name} (rc {proc.returncode}):\n"
+            f"g++ failed on {src.name} (rc {proc.returncode}):\n"
             + proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 
 
+def _build() -> Path:
+    return build(SRC)
+
+
+def load(src: Path, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The library built from ``src``, built and loaded at first use,
+    ``declare(lib)`` setting its argument types; later calls return the
+    same library."""
+    with _lock:
+        lib = _libs.get(src.stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(src)))
+            declare(lib)
+            _libs[src.stem] = lib
+        return lib
+
+
+def _declare_sampler(lib: ctypes.CDLL) -> None:
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
+    vp, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                         ctypes.c_uint64)
+    lib.qt_sample.argtypes = [i64p, i32p, i32p, vp, i64, i32, u64, i32,
+                              i32p, u8p, i32p]
+    lib.qt_sample.restype = None
+    lib.qt_sample_weighted.argtypes = [i64p, i32p, f32p, i32p, vp, i64,
+                                       i32, u64, i32, i32p, u8p, i32p]
+    lib.qt_sample_weighted.restype = None
+    lib.qt_reindex.argtypes = [i32p, vp, i64, i32p, u8p, i32, i32p, u8p,
+                               i32p]
+    lib.qt_reindex.restype = ctypes.c_int64
+    lib.qt_coo_to_csr.argtypes = [i64p, i64p, i64, i64, i64p, i32p, vp]
+    lib.qt_coo_to_csr.restype = None
+    lib.qt_neighbour_num.argtypes = [i64p, i32p, i64, i32p, i32, u64, i32,
+                                     i64p]
+    lib.qt_neighbour_num.restype = None
+
+
 def _get_lib() -> ctypes.CDLL:
     global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(_build()))
-        i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
-        i32p = np.ctypeslib.ndpointer(np.int32, flags="C")
-        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
-        f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
-        vp, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-                             ctypes.c_uint64)
-        lib.qt_sample.argtypes = [i64p, i32p, i32p, vp, i64, i32, u64, i32,
-                                  i32p, u8p, i32p]
-        lib.qt_sample.restype = None
-        lib.qt_sample_weighted.argtypes = [i64p, i32p, f32p, i32p, vp, i64,
-                                           i32, u64, i32, i32p, u8p, i32p]
-        lib.qt_sample_weighted.restype = None
-        lib.qt_reindex.argtypes = [i32p, vp, i64, i32p, u8p, i32, i32p, u8p,
-                                   i32p]
-        lib.qt_reindex.restype = ctypes.c_int64
-        lib.qt_coo_to_csr.argtypes = [i64p, i64p, i64, i64, i64p, i32p, vp]
-        lib.qt_coo_to_csr.restype = None
-        lib.qt_neighbour_num.argtypes = [i64p, i32p, i64, i32p, i32, u64, i32,
-                                         i64p]
-        lib.qt_neighbour_num.restype = None
-        _lib = lib
-        return lib
+    lib = _lib
+    if lib is None:
+        lib = _lib = load(SRC, _declare_sampler)
+    return lib
 
 
 def _u8_ptr(mask: Optional[np.ndarray]):

@@ -39,7 +39,8 @@ from __future__ import annotations
 import collections
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence, Union
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -54,7 +55,19 @@ from .utils.device import resolve_device
 from .utils.staging import HostStaging
 from .utils.topology import CSRTopo, parse_size, reindex_feature
 
-__all__ = ["Feature"]
+__all__ = ["Feature", "DeviceConfig"]
+
+
+@dataclass
+class DeviceConfig:
+    """Pre-partitioned placement (the reference's ``feature.py:17-24``;
+    ``quiver_tpu/feature.py:66-72``): per device, a ``.npy`` shard, and
+    an optional host tail on disk.  ``Feature.from_mmap``, which reads
+    it, is not ported yet (ROADMAP A4)."""
+
+    device_ids: List[int]
+    device_paths: List[str]  # .npy per device shard
+    host_path: Optional[str] = None  # cold tail on disk (mmap)
 
 
 def _host_ids(node_idx) -> np.ndarray:
@@ -342,6 +355,51 @@ class Feature:
             if dropped:
                 self._count("coldcache_invalidated_rows_total", dropped)
         return dropped
+
+    # -- recovery ------------------------------------------------------
+    def export_coldcache_state(self) -> Optional[dict]:
+        """Device-cache residency for a recovery checkpoint (``None``
+        when neither the overlay nor the paged store is attached).  Only
+        metadata: the row values live in the host cold tier and are
+        copied from it again on restore.  With paging on, the page
+        table's residency (``kind="paged"``)."""
+        with self._plock:
+            if self.paged is not None:
+                return self.paged.export_state()
+            cache = self.cold_cache
+            return cache.export_state() if cache is not None else None
+
+    def restore_coldcache_state(self, state: Optional[dict]) -> int:
+        """Re-warm the overlay (or the page pool) from a checkpointed
+        state: adopt the slot metadata, then copy every resident row (or
+        page) from the host cold tier to the device, so a restored row is
+        the row a fresh gather returns.  The geometry must match
+        (``ValueError`` otherwise: the caller starts cold); a paged state
+        in a build without paging, or the reverse, starts cold.  Returns
+        the rows re-warmed."""
+        if state is None:
+            return 0
+        if state.get("kind") == "paged":
+            if self.paged is None:
+                return 0  # paging off now: a cold start
+            with self._plock:
+                return self.paged.restore_state(state)
+        if self.paged is not None and self.cold_cache is None:
+            return 0  # an overlay state, a paged-only build: start cold
+        if self.cold_cache is None:
+            self.enable_cold_cache(rows=int(state["capacity"]))
+        if self.cold_cache is None:
+            return 0  # fully hot: nothing to overlay
+        with self._plock:
+            cache = self.cold_cache
+            cache.restore_state(state)
+            slots = np.nonzero(cache.node_of >= 0)[0]
+            if slots.size:
+                rows = self.cold[torch.from_numpy(cache.node_of[slots])]
+                self._overlay.index_copy_(
+                    0, torch.from_numpy(slots).to(self.device),
+                    rows.to(self.device))
+        return int(slots.size)
 
     def stats(self) -> dict:
         """``counters`` under the JAX telemetry keys (rows by tier,

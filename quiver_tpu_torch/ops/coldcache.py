@@ -201,9 +201,53 @@ class ColdRowCache:
         self.touches[rows] = 0
         return int(freed.size)
 
+    def export_state(self) -> dict:
+        """Residency and frequency state for a recovery checkpoint: numpy
+        copies and Python scalars (the checkpoint pins the arrays' dtypes
+        on disk).  Caller holds the owning store's ``_plock``."""
+        return {
+            "capacity": self.capacity, "n_rows": self.n_rows,
+            "policy": self.policy, "admit_threshold": self.admit_threshold,
+            "hand": int(self.hand), "next_free": int(self.next_free),
+            "hits": int(self.hits), "misses": int(self.misses),
+            "evictions": int(self.evictions),
+            "slot_of": self.slot_of.copy(), "node_of": self.node_of.copy(),
+            "freq": self.freq.copy(), "ref": self.ref.copy(),
+            "touches": self.touches.copy(),
+        }
+
+    def restore_state(self, state: dict) -> None:
+        """Adopt an exported state.  The geometry (capacity, cold-row
+        space) must match this instance: a warm restart with a re-sized
+        overlay starts cold instead (the caller treats the
+        ``ValueError`` as "no restore", not as a boot failure)."""
+        if int(state["capacity"]) != self.capacity:
+            raise ValueError(
+                f"overlay capacity changed: snapshot has "
+                f"{state['capacity']}, this cache has {self.capacity}")
+        if int(state["n_rows"]) != self.n_rows:
+            raise ValueError(
+                f"cold-row space changed: snapshot has {state['n_rows']} "
+                f"rows, this cache has {self.n_rows}")
+        self.slot_of = np.array(state["slot_of"], dtype=np.int32)
+        self.node_of = np.array(state["node_of"], dtype=np.int64)
+        self.freq = np.array(state["freq"], dtype=np.int64)
+        self.ref = np.array(state["ref"], dtype=np.uint8)
+        self.touches = np.array(state["touches"], dtype=np.int32)
+        self.hand = int(state["hand"])
+        self.next_free = int(state["next_free"])
+        self.hits = int(state["hits"])
+        self.misses = int(state["misses"])
+        self.evictions = int(state["evictions"])
+
     @property
     def resident(self) -> int:
         return int((self.node_of >= 0).sum())
+
+    def resident_bytes(self, row_bytes: int) -> int:
+        """Device bytes the resident entries pin, given the bytes of one
+        cached unit (a feature row; a whole page in the paged store)."""
+        return self.resident * int(row_bytes)
 
     def stats(self) -> dict:
         total = self.hits + self.misses

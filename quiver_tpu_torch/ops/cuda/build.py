@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
-``build/quiver_tpu_torch/lib<name>-<hash>.so`` beside the package, then
-loaded with ``ctypes``.  The hash covers the source and every header it
+``build/quiver_tpu_torch/lib<name>-<hash>.so`` beside the package (or into
+the persistent cache ``recovery.registry`` may name), then loaded with
+``ctypes``; each library loaded counts as a build of the registry's
+``kernel`` subsystem.  The hash covers the source and every header it
 includes from ``csrc`` (``#include "..."``), so an edited kernel or shared
 header is never served from a stale library.  Builds happen at first use;
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
@@ -30,6 +32,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ...recovery.registry import library_dir, library_found, program_cache
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KernelError",
            "KernelArgumentError", "build_all",
            "load_libraries", "load", "check", "launch"]
@@ -46,7 +50,9 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+# loaded kernel libraries, accounted under the registry's "kernel"
+# subsystem: a library loaded after seal() is a post-seal build
+_libs = program_cache("kernel")
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
@@ -90,14 +96,14 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return library_dir(BUILD_DIR) / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
     out = _lib_path(name)
-    if out.exists():
+    if library_found(out):
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     log = open(out.with_suffix(".log"), "w")

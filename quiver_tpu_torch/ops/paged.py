@@ -216,9 +216,28 @@ class PagedStore:
         slots, n_evicted = cache.admit(fault, protect_slots=protect)
         if (slots < 0).any():
             return None
-        R, k = self.table.page_rows, int(fault.size)
+        k = int(fault.size)
+        buf = self._copy_pages(fault, slots)
+        self._count("feature_page_faults_total", k)
+        self._count("feature_page_hits_total", int(hit.sum()))
+        # only real pages cross the link: no padding to a shape bucket
+        self._count("feature_h2d_bytes_total", int(buf.numel())
+                    * buf.element_size())
+        if n_evicted:
+            self._count("feature_page_evictions_total", n_evicted)
+        telemetry.gauge("feature_page_resident_bytes").set(
+            float(self.table.resident_pages() * self.page_bytes))
+        return k
+
+    def _copy_pages(self, host_pages: np.ndarray,
+                    slots: np.ndarray) -> torch.Tensor:
+        """Copy the given HOST pages from the host tail into the OVERLAY
+        frames of ``slots``, as one host-to-device copy through pinned
+        staging; returns the staging buffer (the short tail page is
+        zero-filled past the table)."""
+        R, k = self.table.page_rows, int(host_pages.size)
         base0 = self.table.hot_pages * R - self._cc  # host row of page 0
-        rows = (base0 + fault[:, None] * R + np.arange(R)).reshape(-1)
+        rows = (base0 + host_pages[:, None] * R + np.arange(R)).reshape(-1)
         short = rows >= self._host.shape[0]  # the short tail page
         buf = self._staging.buffer("pages", (k * R, self.dim), self.dtype)
         torch.index_select(self._host, 0,
@@ -230,16 +249,7 @@ class PagedStore:
         frame_ids = torch.from_numpy(
             (self.table.hot_pages + slots).astype(np.int64)).to(self.device)
         self.frames.index_copy_(0, frame_ids, pages.view(k, R, self.dim))
-        self._count("feature_page_faults_total", k)
-        self._count("feature_page_hits_total", int(hit.sum()))
-        # only real pages cross the link: no padding to a shape bucket
-        self._count("feature_h2d_bytes_total", int(buf.numel())
-                    * buf.element_size())
-        if n_evicted:
-            self._count("feature_page_evictions_total", n_evicted)
-        telemetry.gauge("feature_page_resident_bytes").set(
-            float(self.table.resident_pages() * self.page_bytes))
-        return k
+        return buf
 
     def stage(self, idx: np.ndarray):
         """Fault the HOST pages of ``idx`` (feature-order rows) and plan
@@ -312,6 +322,41 @@ class PagedStore:
             telemetry.gauge("feature_page_resident_bytes").set(
                 float(t.resident_pages() * self.page_bytes))
         return dropped
+
+    # -- recovery --------------------------------------------------------
+    def export_state(self) -> dict:
+        """Page-table residency for a recovery checkpoint: the page
+        cache's arrays and scalars, with ``kind="paged"`` and
+        ``page_rows`` (``quiver_tpu/ops/paged.py:366-410``)."""
+        st = (self.table.cache.export_state()
+              if self.table.cache is not None else {})
+        st["kind"] = "paged"
+        st["page_rows"] = self.table.page_rows
+        return st
+
+    def restore_state(self, state: dict) -> int:
+        """Re-warm the OVERLAY pool from a checkpointed page table: adopt
+        the residency map, then copy every resident page from the host
+        tail into its frame (a map without the values would serve
+        zeros).  A geometry mismatch raises ``ValueError`` (the caller
+        starts cold).  Returns the rows re-warmed.  Caller holds the
+        feature's ``_plock``."""
+        if int(state.get("page_rows", -1)) != self.table.page_rows:
+            raise ValueError(
+                f"page geometry changed: snapshot has page_rows="
+                f"{state.get('page_rows')}, this store has "
+                f"{self.table.page_rows}")
+        cache = self.table.cache
+        if cache is None:
+            return 0
+        cache.restore_state(state)
+        slots = np.nonzero(cache.node_of >= 0)[0]
+        if slots.size == 0:
+            return 0
+        self._copy_pages(cache.node_of[slots], slots)
+        telemetry.gauge("feature_page_resident_bytes").set(
+            float(self.table.resident_pages() * self.page_bytes))
+        return int(slots.size) * self.table.page_rows
 
     def stats(self) -> dict:
         t = self.table

@@ -32,6 +32,19 @@ reads a ``"blocked"`` hop's windows as whole rows
 :func:`sample_neighbors_weighted` draws weight-proportionally, with
 replacement, by inverting each row's cumulative weights
 (:func:`row_cumsum_weights`).
+
+:func:`sample_neighbors_overlay` samples a streaming graph's snapshot: a
+frozen base CSR plus a delta CSR of pending inserts, a tombstone table of
+deleted base edges and optional per-edge timestamps.  It draws with the
+frozen hop's uniforms and stratified positions over the virtual row
+``[base neighbours | delta neighbours]``, so with no deltas and no
+tombstones its draws are the frozen hop's bit for bit (and so kernel B1's
+under ``"pwindow"``).  There is no fused kernel for it, in either package:
+under ``"pwindow"``/``"blocked"``/``"pallas"`` every read goes through
+kernel B3 — both bounds pairs by its pair entry, then ``indices``,
+``d_indices`` and ``tomb``, and with a window ``base_ts`` and ``d_ts``:
+five launches a hop, seven windowed.  Its plain version is the same
+function under ``"xla"``.
 """
 
 from __future__ import annotations
@@ -44,7 +57,8 @@ import torch
 from ..config import resolve_gather_mode
 from ..utils.device import resolve_device
 
-__all__ = ["sample_neighbors", "sample_neighbors_weighted", "sample_hop",
+__all__ = ["sample_neighbors", "sample_neighbors_weighted",
+           "sample_neighbors_overlay", "sample_hop",
            "sample_hop_plain", "SampleOut", "to_ragged", "key_words_pair",
            "row_cumsum_weights"]
 
@@ -203,6 +217,69 @@ def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
     neg = torch.full_like(idx, -1)
     return SampleOut(nbrs=torch.where(mask, nbrs, neg), mask=mask,
                      counts=counts, eid=torch.where(mask, idx, neg))
+
+
+def sample_neighbors_overlay(indptr: torch.Tensor, indices: torch.Tensor,
+                             tomb: torch.Tensor, d_indptr: torch.Tensor,
+                             d_indices: torch.Tensor, seeds: torch.Tensor,
+                             k: int, k0: int, k1: int,
+                             seed_mask: Optional[torch.Tensor] = None,
+                             base_ts: Optional[torch.Tensor] = None,
+                             d_ts: Optional[torch.Tensor] = None,
+                             window: Optional[Tuple[int, int]] = None,
+                             gather_mode: str = "xla") -> SampleOut:
+    """One hop over a base CSR **plus a delta-CSR overlay**
+    (``ops/sample.py:276-377`` of the JAX package), on tensors already on
+    one device, in a resolved ``gather_mode``.
+
+    A seed's degree is ``base_deg + delta_deg``; the stratified positions
+    index the virtual concatenation ``[base | delta]`` with the frozen
+    hop's math (:func:`_hash_uniform`, :func:`_stratified_positions`), so
+    with zero deltas and no tombstones the draws equal the frozen path's.
+    Deletions and the window reject, they do not resample: a draw on a
+    tombstoned base edge (``tomb[pos] != 0``) or with a timestamp outside
+    ``window = (lo, hi)``, ``lo <= ts < hi``, is masked out, so ``counts``
+    may fall below ``min(deg, k)`` until a fold.  Both sides of each
+    select are read (clipped into their tables), as JAX reads them.  A
+    delta draw's ``eid`` is ``indices.shape[0] + delta_pos``.
+
+    ``window`` holds Python ints, compared as kernel arguments: nothing is
+    copied to the device per call.  ``base_ts``/``d_ts`` are required with
+    a window."""
+    seeds = seeds.to(torch.int32)
+    start, end = _gather_bounds(indptr, seeds, gather_mode)
+    bdeg = end - start
+    dstart, dend = _gather_bounds(d_indptr, seeds, gather_mode)
+    ddeg = dend - dstart
+    if seed_mask is not None:
+        zero = torch.zeros_like(bdeg)
+        bdeg = torch.where(seed_mask, bdeg, zero)
+        ddeg = torch.where(seed_mask, ddeg, zero)
+    deg = bdeg + ddeg
+    j = torch.arange(k, dtype=torch.int32, device=seeds.device)[None, :]
+    u = _hash_uniform(k0, k1, (seeds.shape[0], k), device=seeds.device)
+    pos = _stratified_positions(u, deg, k)
+    # position < base_deg draws from the base segment, the rest from the
+    # delta segment; both indices are clipped so the untaken side of each
+    # select still reads in bounds
+    bd = bdeg[:, None]
+    in_base = pos < bd
+    bidx = start[:, None] + torch.minimum(pos, torch.clamp_min(bd - 1, 0))
+    didx = dstart[:, None] + torch.clamp_min(pos - bd, 0)
+    nbrs = torch.where(in_base, _gather(indices, bidx, gather_mode),
+                       _gather(d_indices, didx, gather_mode))
+    live = ~in_base | (_gather(tomb, bidx, gather_mode) == 0)
+    if window is not None:
+        lo, hi = window
+        ets = torch.where(in_base, _gather(base_ts, bidx, gather_mode),
+                          _gather(d_ts, didx, gather_mode))
+        live = live & (ets >= int(lo)) & (ets < int(hi))
+    mask = (j < torch.clamp_max(deg, k)[:, None]) & live
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    neg = torch.full_like(bidx, -1)
+    eid = torch.where(in_base, bidx, didx + int(indices.shape[0]))
+    return SampleOut(nbrs=torch.where(mask, nbrs, neg), mask=mask,
+                     counts=counts, eid=torch.where(mask, eid, neg))
 
 
 def _cdf_search(cum_weights: torch.Tensor, start: torch.Tensor,

@@ -30,6 +30,20 @@ Two more modes sample on the host, as in the JAX package:
   native sampler meanwhile; the hop's key words drive the device tier and
   a third word per hop seeds the host tier (JAX seeds it with the last
   word of the hop's split key).
+
+A :class:`~quiver_tpu_torch.stream.graph.StreamingGraph` in place of the
+``CSRTopo`` samples through its current snapshot: the positional pipeline
+with each hop drawn by ``ops/sample.py::sample_neighbors_overlay`` (base
+CSR + delta CSR + tombstones, optional time windows), uniformly, on the
+device.  Every path that samples the sampler's graph (``sample``, the
+fused serving lane and the fused train step through :meth:`pipeline`)
+reads the snapshot current when it starts; ``SampledBatch.version`` is its
+graph version.
+
+A streaming sampler keeps one pipeline entry a batch size and snapshot
+shape (its relabel positions, made once) in a ``recovery.registry``
+program cache under JAX's key, ``("stream", B, epad, delta_bucket,
+has_ts, windowed)``: mutations within one delta bucket build nothing.
 """
 
 from __future__ import annotations
@@ -47,8 +61,10 @@ from .ops.fastgather import pad_table_128
 from .ops.prob import sample_prob
 from .ops.reindex import ReindexOut, reindex
 from .ops.sample import (SampleOut, key_words_pair, row_cumsum_weights,
-                         run_hop, sample_neighbors_weighted)
+                         run_hop, sample_neighbors_overlay,
+                         sample_neighbors_weighted)
 from . import telemetry
+from .recovery.registry import program_cache
 from .telemetry import Counter
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo
@@ -74,6 +90,7 @@ class SampledBatch(NamedTuple):
     batch_size: int          # number of seed nodes
     layers: Tuple[LayerBlock, ...]  # outermost first (PyG adjs order)
     drops: Optional[torch.Tensor] = None  # [L] nodes frontier caps dropped
+    version: Optional[int] = None  # a streaming graph's snapshot version
 
     def to_pyg_adjs(self):
         """Ragged ``(n_id, batch_size, [Adj])`` view on the host, each Adj
@@ -175,6 +192,61 @@ def _pwindow_pipeline(indptr, indices, seeds, key_words, sizes, return_eid):
     return frontier, fmask, live[total], tuple(blocks[::-1]), drops
 
 
+def _relabel_positions(B: int, sizes, dev) -> list:
+    """Per hop, the positional relabel ``t + b*k + j`` of a pipeline from
+    ``B`` seeds: where neighbour j of target b lands in the next
+    frontier."""
+    out, t = [], B
+    for k in sizes:
+        out.append(t + torch.arange(t, dtype=torch.int32, device=dev)[:, None]
+                   * k + torch.arange(k, dtype=torch.int32,
+                                      device=dev)[None, :])
+        t += t * k
+    return out
+
+
+def _sample_pipeline_overlay(indptr, indices, overlay, seeds, key_words,
+                             sizes, return_eid, gather_mode, relabel=None):
+    """The positional pipeline over base CSR + delta overlay
+    (``quiver_tpu/sampler.py:155-190``): the generic loop of
+    :func:`_sample_pipeline_nodedup` with each hop drawn by
+    :func:`sample_neighbors_overlay`, so with an empty delta and no
+    tombstones its outputs equal the frozen positional pipeline's.
+    ``relabel`` is :func:`_relabel_positions` of this batch size (made
+    here when not given)."""
+    dev = indptr.device
+    B = seeds.shape[0]
+    if relabel is None:
+        relabel = _relabel_positions(B, sizes, dev)
+    window = None
+    if overlay.get("windowed", False):
+        window = (overlay["window_lo"], overlay["window_hi"])
+    frontier = seeds.to(dev, torch.int32)
+    fmask = torch.ones((B,), dtype=torch.bool, device=dev)
+    blocks = []
+    for l, k in enumerate(sizes):
+        out = sample_neighbors_overlay(
+            indptr, indices, overlay["tomb"], overlay["d_indptr"],
+            overlay["d_indices"], frontier, k,
+            *key_words_pair(key_words[l]), fmask,
+            overlay.get("base_ts"), overlay.get("d_ts"), window,
+            gather_mode)
+        pos = relabel[l]
+        blocks.append(LayerBlock(
+            nbr_local=torch.where(out.mask, pos, torch.zeros_like(pos)),
+            mask=out.mask,
+            num_targets=fmask.sum().to(torch.int32),
+            eid=out.eid if return_eid else None,
+        ))
+        frontier = torch.cat(
+            [frontier, torch.where(out.mask, out.nbrs,
+                                   torch.zeros_like(out.nbrs)).reshape(-1)])
+        fmask = torch.cat([fmask, out.mask.reshape(-1)])
+    num_nodes = fmask.sum().to(torch.int32)
+    drops = torch.zeros((len(sizes),), dtype=torch.int32, device=dev)
+    return frontier, fmask, num_nodes, tuple(blocks[::-1]), drops
+
+
 def _sample_pipeline(indptr, indices, seeds, key_words, sizes, caps,
                      return_eid, gather_mode, cum_weights):
     """Multi-hop pipeline with exact dedup every hop
@@ -214,6 +286,12 @@ def _sample_pipeline(indptr, indices, seeds, key_words, sizes, caps,
     return frontier, fmask, num_nodes, tuple(blocks[::-1]), torch.stack(drops)
 
 
+def _is_stream_graph(obj) -> bool:
+    """A streaming graph (``stream.StreamingGraph``), told by its
+    ``snapshot()`` and ``base``, as JAX tells it."""
+    return hasattr(obj, "snapshot") and hasattr(obj, "base")
+
+
 def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes, caps=None,
                  return_eid=False, gather_mode="auto", cum_weights=None,
                  overlay=None):
@@ -224,11 +302,11 @@ def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes, caps=None,
     resolved here (``config.resolve_gather_mode``); ``cum_weights`` (the
     128-padded ``row_cumsum_weights`` on the device) makes every hop
     weighted.  Returns ``(n_id, n_id_mask, num_nodes, blocks, drops)``.
-    The streaming ``overlay`` is not ported yet (ROADMAP A12)."""
-    if overlay is not None:
-        raise NotImplementedError(
-            "overlay sampling (the streaming tier) is not ported yet "
-            "(ROADMAP A12)")
+
+    ``overlay`` (JAX's dict: ``tomb``, ``d_indptr``, ``d_indices``, and
+    ``base_ts``, ``d_ts``, ``window_lo``, ``window_hi`` with ``windowed``
+    true) samples a streaming snapshot over ``indptr``/``indices``: the
+    positional pipeline only, uniform only, as in JAX."""
     if dedup not in ("none", "hop"):
         raise ValueError(f"dedup must be 'none' or 'hop', got {dedup!r}")
     key_words = np.asarray(key_words, dtype=np.uint32).reshape(-1, 2)
@@ -236,6 +314,16 @@ def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes, caps=None,
         raise ValueError(f"{key_words.shape[0]} key-word pairs for "
                          f"{len(sizes)} hops")
     gather_mode = resolve_gather_mode(gather_mode)
+    if overlay is not None:
+        if dedup != "none":
+            raise ValueError(
+                "overlay sampling rides the positional pipeline only "
+                f"(dedup='none'); got dedup={dedup!r}")
+        if cum_weights is not None:
+            raise ValueError("overlay sampling is uniform-only")
+        return _sample_pipeline_overlay(indptr, indices, overlay, seeds,
+                                        key_words, sizes, return_eid,
+                                        gather_mode)
     if dedup == "none":
         return _sample_pipeline_nodedup(indptr, indices, seeds, key_words,
                                         sizes, return_eid, gather_mode,
@@ -251,7 +339,9 @@ class GraphSageSampler:
     """K-hop neighbour sampler over a CSR graph on the card.
 
     Args:
-      csr_topo: :class:`CSRTopo`.
+      csr_topo: :class:`CSRTopo`, or a ``stream.StreamingGraph``, sampled
+        through its overlay (device mode, ``dedup="none"``, uniform:
+        ``"CPU"``, ``"UVA"``, ``dedup="hop"`` and ``edge_weights`` raise).
       sizes: fanout per layer, outward order, e.g. ``[25, 10]``.
       device: where the topology lives and hops run (``None``: the card).
       mode: ``"GPU"`` (the device mode; JAX's ``"TPU"`` is an alias),
@@ -300,6 +390,15 @@ class GraphSageSampler:
                              f"got {mode!r}")
         if mode == "TPU":  # the JAX package's name for the device mode
             mode = "GPU"
+        is_stream = _is_stream_graph(csr_topo)
+        if is_stream:
+            if mode != "GPU":
+                raise ValueError(
+                    f"StreamingGraph samples in the device mode only, got "
+                    f"{mode!r} (compact to a frozen CSRTopo for CPU/UVA "
+                    "sampling)")
+            if dedup == "auto":
+                dedup = "none"
         if mode == "UVA" and uva_budget is None:
             mode = "GPU"  # the whole graph fits the (unbounded) budget
         if mode == "UVA" and dedup == "auto":
@@ -320,7 +419,12 @@ class GraphSageSampler:
                 "UVA mode samples the positional pipeline, uniformly, "
                 "without edge ids (hot-tier positions are sub-CSR local): "
                 "dedup='hop', edge_weights and return_eid are refused")
-        self.csr_topo = csr_topo
+        if is_stream and (self.dedup != "none" or edge_weights is not None):
+            raise ValueError(
+                "StreamingGraph: the positional pipeline (dedup='none') "
+                "with uniform draws only; dedup='hop' and edge_weights are "
+                "refused")
+        self.csr_topo = csr_topo  # the setter tells streaming from frozen
         self.mode = mode
         self.return_eid = return_eid
         self.seed = seed
@@ -343,8 +447,30 @@ class GraphSageSampler:
         self.last_drops: Optional[torch.Tensor] = None
         self._drops_recorded = True
         self.frontier_drops = Counter("sampler_frontier_drops_total")
+        # overlay pipeline entries, keyed as JAX keys its executables
+        self._programs = program_cache("sampler", owner=self)
         if mode == "GPU":
-            csr_topo.to_device(self.device)
+            if self._stream is not None:
+                self._stream.snapshot(self.device)  # warm the device view
+            else:
+                csr_topo.to_device(self.device)
+
+    @property
+    def csr_topo(self) -> CSRTopo:
+        """The live base CSR.  For a streaming graph it follows the
+        compactor's swaps; the single-hop helpers (``sample_layer``,
+        ``sample_prob``) read it and so see the base without the pending
+        overlay, as in JAX."""
+        if self._stream is not None:
+            return self._stream.base
+        return self._csr_topo
+
+    @csr_topo.setter
+    def csr_topo(self, value) -> None:
+        if _is_stream_graph(value):
+            self._stream, self._csr_topo = value, None
+        else:
+            self._stream, self._csr_topo = None, value
 
     def draw_key_words(self) -> np.ndarray:
         """Key words from the sampler's own generator: ``[L, 2]`` uint32,
@@ -360,25 +486,77 @@ class GraphSageSampler:
         return torch.from_numpy(
             self._host_seeds(input_nodes).astype(np.int32)).to(self.device)
 
-    def pipeline(self, seeds: torch.Tensor, key_words, weighted: bool = True):
+    def _stream_entry(self, B: int):
+        """The overlay pipeline of ``B`` seeds, its relabel positions made
+        once.  Snapshot tensors are arguments, not bound: they change with
+        every graph version, and the entry serves every version of one
+        shape."""
+        sizes, gm, ret_eid = self.sizes, self.gather_mode, self.return_eid
+        relabel = _relabel_positions(B, sizes, self.device)
+
+        def fn(indptr, indices, seeds, key_words, overlay):
+            words = np.asarray(key_words, dtype=np.uint32).reshape(
+                len(sizes), 2)
+            return _sample_pipeline_overlay(indptr, indices, overlay, seeds,
+                                            words, sizes, ret_eid, gm,
+                                            relabel)
+
+        return fn
+
+    def pipeline(self, seeds: torch.Tensor, key_words, weighted: bool = True,
+                 snapshot=None, time_window=None):
         """``run_pipeline`` over this sampler's graph, fanouts, dedup,
         caps, gather mode and (when ``weighted``) edge weights, from
-        ``seeds`` on the device; returns its five outputs."""
-        indptr, indices = self.csr_topo.to_device(self.device)
-        return run_pipeline(
-            self.dedup, indptr, indices, seeds, key_words, self.sizes,
-            self.frontier_caps, return_eid=self.return_eid,
-            gather_mode=self.gather_mode,
-            cum_weights=self._cum_weights if weighted else None)
+        ``seeds`` on the device; returns its five outputs.
 
-    def sample(self, input_nodes, key_words=None,
-               host_seeds=None) -> SampledBatch:
+        A streaming sampler samples ``snapshot`` (the graph's current one
+        when ``None``) through the overlay, restricted to ``time_window
+        = (lo, hi)`` when given (the graph needs ``edge_ts``)."""
+        if self._stream is None:
+            if time_window is not None:
+                raise ValueError(
+                    "time_window requires a StreamingGraph with per-edge "
+                    "timestamps (quiver_tpu_torch.stream)")
+            indptr, indices = self.csr_topo.to_device(self.device)
+            return run_pipeline(
+                self.dedup, indptr, indices, seeds, key_words, self.sizes,
+                self.frontier_caps, return_eid=self.return_eid,
+                gather_mode=self.gather_mode,
+                cum_weights=self._cum_weights if weighted else None)
+        B = int(seeds.shape[0])
+        snap = (snapshot if snapshot is not None
+                else self._stream.snapshot(self.device))
+        windowed = time_window is not None
+        if windowed and not snap.has_ts:
+            raise ValueError("time_window needs a StreamingGraph "
+                             "constructed with edge_ts")
+        overlay = dict(tomb=snap.tomb, d_indptr=snap.d_indptr,
+                       d_indices=snap.d_indices, base_ts=snap.base_ts,
+                       d_ts=snap.d_ts, windowed=windowed)
+        if windowed:
+            # Python ints: compared as kernel arguments, never stored
+            # into a device scalar (which would wait for the stream)
+            overlay["window_lo"], overlay["window_hi"] = (
+                int(time_window[0]), int(time_window[1]))
+        key = ("stream", B, snap.epad, snap.delta_bucket, snap.has_ts,
+               windowed)
+        fn = self._programs.get(key)
+        if fn is None:
+            # two threads racing a new key both build; one entry is kept
+            fn = self._programs.setdefault(key, self._stream_entry(B))
+        return fn(snap.indptr, snap.indices, seeds, key_words, overlay)
+
+    def sample(self, input_nodes, key_words=None, host_seeds=None,
+               time_window=None) -> SampledBatch:
         """Sample the k-hop neighbourhood of ``input_nodes`` under per-hop
         ``key_words`` (``[L, 2]`` uint32; drawn here when ``None``).
 
         CPU mode reads no key words.  UVA mode takes ``[L, 2]`` words with
         ``host_seeds`` (``[L]``, each hop's host-tier seed) or ``[L, 3]``
-        words whose last column is the host seeds.
+        words whose last column is the host seeds.  A streaming sampler
+        samples the graph's current snapshot (the batch's ``version``),
+        restricted to edges with ``lo <= ts < hi`` under ``time_window =
+        (lo, hi)``.
 
         Telemetry, as in the JAX package: each call folds into the
         ``sampler.sample`` span and ``sampler_sample_seconds{mode}`` (the
@@ -389,28 +567,37 @@ class GraphSageSampler:
         mode = self.mode.lower()
         with telemetry.span("sampler.sample"), telemetry.histogram(
                 "sampler_sample_seconds", mode=mode).time():
-            batch = self._sample(input_nodes, key_words, host_seeds)
+            batch = self._sample(input_nodes, key_words, host_seeds,
+                                 time_window)
         telemetry.counter("sampler_batches_total", mode=mode).inc()
         telemetry.counter("sampler_seeds_total", mode=mode).inc(
             float(batch.batch_size))
         return batch
 
-    def _sample(self, input_nodes, key_words, host_seeds) -> SampledBatch:
+    def _sample(self, input_nodes, key_words, host_seeds,
+                time_window=None) -> SampledBatch:
+        if self._stream is None and time_window is not None:
+            raise ValueError(
+                "time_window requires a StreamingGraph with per-edge "
+                "timestamps (quiver_tpu_torch.stream)")
         if self.mode == "CPU":
             return self._sample_cpu(input_nodes)
         if key_words is None:
             key_words = self.draw_key_words()
         if self.mode == "UVA":
             return self._sample_uva(input_nodes, key_words, host_seeds)
+        snap = (self._stream.snapshot(self.device)
+                if self._stream is not None else None)
         seeds = self.seed_tensor(input_nodes)
-        n_id, n_mask, num_nodes, blocks, drops = self.pipeline(seeds,
-                                                               key_words)
+        n_id, n_mask, num_nodes, blocks, drops = self.pipeline(
+            seeds, key_words, snapshot=snap, time_window=time_window)
         # kept on the device until overflow_stats() reads it
         self.last_drops = drops
         self._drops_recorded = False
         return SampledBatch(n_id=n_id, n_id_mask=n_mask, num_nodes=num_nodes,
                             batch_size=int(seeds.shape[0]), layers=blocks,
-                            drops=drops)
+                            drops=drops,
+                            version=None if snap is None else snap.version)
 
     def overflow_stats(self, batch: Optional[SampledBatch] = None
                        ) -> Optional[np.ndarray]:

@@ -21,10 +21,11 @@ Three views:
     (the unified cross-subsystem Chrome trace — Perfetto-loadable),
     ``/debug/programs`` (top-K per-program time attribution, see
     ``telemetry.profile``: the port's kernel wrappers and serving
-    forwards).  ``/healthz`` answers only with a ``health_fn=`` (200
-    when its document says ``ready``, else 503).  The port has no
-    recovery manager, mesh or fleet yet, so ``/healthz`` without a
-    ``health_fn``, ``/debug/mesh``, ``/metrics/fleet`` and
+    forwards).  ``/healthz`` answers with the ``health_fn=`` document,
+    or else ``recovery.manager.health_status()`` (the active
+    ``RecoveryManager``'s readiness ladder; ``serving`` when there is
+    none): 200 when it says ``ready``, else 503.  The port has no mesh
+    or fleet yet, so ``/debug/mesh``, ``/metrics/fleet`` and
     ``/debug/fleet*`` answer 404.  ``HEAD`` answers every route with
     the headers its ``GET`` would carry.
 """
@@ -134,7 +135,7 @@ class MetricsServer:
                  port: int = 0, health_fn=None):
         # ``port=0`` binds an ephemeral port (read back via ``.port``)
         # so N servers on one host never collide; ``health_fn`` backs
-        # /healthz (404 without one).
+        # /healthz (the recovery manager's health_status without one).
         if registry is None or tracer is None:
             from . import get_registry, get_tracer
             registry = registry or get_registry()
@@ -152,9 +153,12 @@ class MetricsServer:
                 headers a GET would carry."""
                 path = self.path
                 if path.startswith("/healthz"):
-                    if outer.health_fn is None:
-                        return None  # no recovery manager in the port yet
-                    health = outer.health_fn()
+                    if outer.health_fn is not None:
+                        health = outer.health_fn()
+                    else:
+                        from ..recovery.manager import health_status
+
+                        health = health_status()
                     # load balancers read the status code; humans read
                     # the body.  503 while booting/replaying/warming.
                     status = 200 if health.get("ready") else 503

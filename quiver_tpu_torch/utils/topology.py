@@ -77,6 +77,7 @@ class CSRTopo:
             raise ValueError("need edge_index or (indptr, indices)")
         self.feature_order_: Optional[np.ndarray] = None
         self._device_arrays: dict = {}
+        self._version = 0
 
     def __getstate__(self):
         # the device copies stay behind: an unpickled topology places its
@@ -120,7 +121,8 @@ class CSRTopo:
     def to_device(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(indptr, indices)`` as int32 tensors on ``device`` (``None``:
         the card), each zero-padded to a multiple of 128.  Cached per
-        device.  Requires ``edge_count < 2**31``."""
+        device; :meth:`invalidate` drops every cached placement.  Requires
+        ``edge_count < 2**31``."""
         dev = resolve_device(device)
         cached = self._device_arrays.get(str(dev))
         if cached is None:
@@ -134,6 +136,25 @@ class CSRTopo:
             cached = (indptr, indices)
             self._device_arrays[str(dev)] = cached
         return cached
+
+    @property
+    def version(self) -> int:
+        """Bumped by :meth:`invalidate`: a holder of device tensors can
+        tell that its copy predates a topology swap."""
+        return self._version
+
+    def invalidate(self) -> None:
+        """Drop every cached device placement and bump :attr:`version`.
+        The stream compactor calls it on the base it replaces, so nothing
+        serves the old topology as current; a snapshot that already holds
+        the old tensors keeps them until it is dropped."""
+        self._device_arrays = {}
+        self._version += 1
+
+    def share_memory_(self) -> "CSRTopo":
+        """The reference's ``torch.Tensor`` API: numpy arrays already
+        travel by pickling (``multiprocessing/``), so nothing moves."""
+        return self
 
     def __repr__(self):
         return f"CSRTopo(nodes={self.node_count}, edges={self.edge_count})"

@@ -1116,3 +1116,78 @@ def test_span_block_covers_device_time(card):
         trace.set_enabled(False)
     assert summary["blocked"]["total_s"] * 1e3 >= device_ms
     assert summary["unblocked"]["total_s"] * 1e3 < 0.5 * device_ms
+
+
+def _stream_graph(card, with_ts=True):
+    """A skewed graph as a streaming graph with inserts (onto a hub and
+    onto degree-0 rows), base and delta deletions, and timestamps."""
+    from quiver_tpu_torch.stream import StreamingGraph
+
+    topo = _graph(7)
+    rng = np.random.default_rng(7)
+    ts = rng.integers(0, 1000, topo.edge_count) if with_ts else None
+    g = StreamingGraph(topo, edge_ts=ts, delta_capacity=4096, device=card)
+    src = np.concatenate([rng.integers(0, 3000, 900), np.full(60, 9),
+                          np.arange(5)])
+    dst = rng.integers(0, 3000, len(src))
+    g.add_edges(src, dst, ts=rng.integers(0, 1000, len(src))
+                if with_ts else None)
+    rows = np.repeat(np.arange(3000), topo.degree)
+    pick = rng.choice(topo.edge_count, 400, replace=False)
+    g.remove_edges(rows[pick], topo.indices[pick])
+    g.remove_edges(src[:30], dst[:30])
+    return g
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_overlay_hop_through_b3_equals_plain(card, windowed):
+    """The overlay hop under ``"pwindow"`` reads every element through B3
+    (five launches a hop, seven windowed) and equals its plain version
+    (``"xla"``) on the card, with deltas, tombstones and a window."""
+    from quiver_tpu_torch.ops.sample import sample_neighbors_overlay
+
+    g = _stream_graph(card)
+    s = g.snapshot(card)
+    rng = np.random.default_rng(11)
+    seeds = torch.from_numpy(np.concatenate(
+        [[9, 0, 1, 2999], rng.integers(0, 3000, 4000)]).astype(
+            np.int32)).to(card)
+    mask = torch.from_numpy(rng.random(len(seeds)) < 0.9).to(card)
+    window = (100, 800) if windowed else None
+    for k in (5, 25):
+        args = (s.indptr, s.indices, s.tomb, s.d_indptr, s.d_indices,
+                seeds, k, 0x1234567, 0x89ABCDEF, mask, s.base_ts, s.d_ts,
+                window)
+        b3.element_gather.launches = 0
+        got = sample_neighbors_overlay(*args, "pwindow")
+        assert b3.element_gather.launches == (7 if windowed else 5)
+        want = sample_neighbors_overlay(*args, "xla")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert (got.eid[got.mask] >= s.epad).any()
+
+
+def test_zero_delta_overlay_pipeline_equals_b1(card):
+    """With no deltas and no tombstones the overlay pipeline (B3) equals
+    the frozen ``"pwindow"`` pipeline (B1) on the same key words."""
+    from quiver_tpu_torch.stream import StreamingGraph
+
+    topo = _graph(8)
+    g = StreamingGraph(topo, device=card)
+    stream = qt.GraphSageSampler(g, [25, 10], device=card)
+    frozen = qt.GraphSageSampler(topo, [25, 10], device=card, dedup="none")
+    seeds = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 3000, 512).astype(np.int32)).to(card)
+    kw = np.random.default_rng(9).integers(0, 2**32, (2, 2), np.uint32)
+    b1.window_sample.launches = 0
+    want = frozen.pipeline(seeds, kw)
+    assert b1.window_sample.launches == 2
+    b3.element_gather.launches = 0
+    got = stream.pipeline(seeds, kw)
+    assert b3.element_gather.launches == 10
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    for la, lb in zip(got[3], want[3]):
+        assert torch.equal(la.nbr_local, lb.nbr_local)
+        assert torch.equal(la.mask, lb.mask)
+        assert int(la.num_targets) == int(lb.num_targets)

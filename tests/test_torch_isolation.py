@@ -327,3 +327,58 @@ def test_walk_covers_the_safeguards_slice():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_walk_covers_the_streaming_slice():
+    """The source walk and the subprocess import reach every module of
+    ``stream/`` and ``recovery/`` (and the CRC-32C source, a file of the
+    port); no string of theirs points into the JAX package, and the
+    copies of the JAX package's numpy-only modules are the port's own."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = tuple(
+        f"{pkg}/{name}.py" for pkg, names in (
+            ("stream", ("__init__", "delta", "graph", "compactor",
+                        "ingest")),
+            ("recovery", ("__init__", "errors", "registry", "blockio", "wal",
+                          "checkpoint", "manager")))
+        for name in names)
+    bad = []
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+        path = ROOT / "quiver_tpu_torch" / mod
+        bad += _strings_into_jax_package(path.read_text(), mod)
+    assert not bad, bad
+    assert (ROOT / "quiver_tpu_torch" / "cpp" / "csrc" / "crc32c.cpp").exists()
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      .replace(".__init__", "") for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    from quiver_tpu_torch.recovery import blockio, wal
+    from quiver_tpu_torch.stream import delta
+
+    for mod in (delta, blockio, wal):
+        assert mod.__name__.startswith("quiver_tpu_torch.")
+
+
+def test_streaming_entry_points_default_to_the_card(monkeypatch):
+    """A streaming graph is host state; its snapshot and a sampler over it
+    resolve their device as every entry point does."""
+    from quiver_tpu_torch.stream import StreamingGraph
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = qt.CSRTopo(indptr=np.array([0, 1, 2]), indices=np.array([1, 0]))
+    g = StreamingGraph(topo)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            g.snapshot()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            qt.GraphSageSampler(g, [2])
+        assert g.snapshot("cpu").tomb.device.type == "cpu"
+    finally:
+        g.close()

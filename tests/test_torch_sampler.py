@@ -185,3 +185,30 @@ def test_feature_partial_budget_raises(feat):
         f.lookup_device(torch.arange(4))
     with pytest.raises(NotImplementedError):
         qt.Feature(cache_policy="ici_shard", device="cpu")
+
+
+@pytest.mark.parametrize("pin", ["key", "hash", "auto", "bogus"])
+def test_sample_rng_pin_is_read_from_the_environment(monkeypatch, csr, pin):
+    """``QUIVER_TPU_SAMPLE_RNG`` reaches ``Config.sample_rng`` as in JAX
+    (``quiver_tpu/config.py:34-36``); ``resolve_sample_rng("auto")``
+    honours it, and a ``"key"`` pin is refused as the argument is."""
+    from quiver_tpu_torch import config
+
+    monkeypatch.setenv("QUIVER_TPU_SAMPLE_RNG", pin)
+    monkeypatch.setattr(config, "_config", None)  # built anew from the env
+    assert config.get_config().sample_rng == pin
+    topo = qt.CSRTopo(indptr=csr[0], indices=csr[1])
+    if pin in ("hash", "auto"):
+        assert config.resolve_sample_rng("auto") == "hash"
+        qt.GraphSageSampler(topo, [3], device="cpu")
+        return
+    with pytest.raises(ValueError) as pinned:
+        config.resolve_sample_rng("auto")
+    with pytest.raises(ValueError):
+        qt.GraphSageSampler(topo, [3], device="cpu")
+    if pin == "key":
+        with pytest.raises(ValueError) as explicit:
+            config.resolve_sample_rng("key")
+        assert str(pinned.value) == str(explicit.value)
+    # an explicit "hash" wins over any pin
+    assert config.resolve_sample_rng("hash") == "hash"

@@ -207,7 +207,13 @@ def test_exporter_routes():
         assert _get(srv.url + "/healthz")[0] == 503
         health["ready"] = True
         assert _get(srv.url + "/healthz")[0] == 200
-        for route in ("/healthz", "/metrics/fleet", "/debug/fleet",
+        # without a health_fn, /healthz answers through the recovery
+        # manager: no manager is active, so the process is serving
+        code, body = _get(plain.url + "/healthz")
+        assert code == 200 and json.loads(body) == {
+            "state": "serving", "ready": True, "stale": False,
+            "managed": False}
+        for route in ("/metrics/fleet", "/debug/fleet",
                       "/debug/fleet/summary", "/debug/mesh",
                       "/debug/requests/nope", "/nothing"):
             assert _get(plain.url + route)[0] == 404, route

@@ -211,3 +211,23 @@ def test_trace_utilities_match_jax(tmp_path):
     (written,) = os.listdir(tmp_path / "prof")
     doc = json.load(open(tmp_path / "prof" / written))
     assert doc["traceEvents"]
+
+
+# the A13 names (ROADMAP §A, item 4): sharding across devices, not ported
+_A13_NAMES = {"DistFeature", "PartitionInfo", "TpuComm", "DistGraphSampler",
+              "RingFeature", "distributed_initialize", "make_hybrid_mesh",
+              "HierFeature", "MeshTopo", "make_mesh"}
+
+
+def test_port_exports_every_jax_top_level_name():
+    """Every name of JAX's ``__all__`` (``quiver_tpu/__init__.py:100``)
+    is in the port's ``__all__`` and importable from it, or is an A13
+    name still to come; ``make_key`` is the port's own."""
+    import quiver_tpu
+
+    missing = set(quiver_tpu.__all__) - set(qt.__all__) - _A13_NAMES
+    assert not missing, sorted(missing)
+    for name in set(quiver_tpu.__all__) - _A13_NAMES:
+        assert getattr(qt, name).__module__.startswith("quiver_tpu_torch")
+    assert qt.make_key is prng.make_key
+    assert not _A13_NAMES & set(qt.__all__)
