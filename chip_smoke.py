@@ -107,6 +107,26 @@ first use, with nvcc, one process per source, all at once), then:
    to the source with no fault; snapshot build, overlay and frozen pass
    ms, fold pauses, WAL append p50, checkpoint bytes, write and verify
    seconds, replay seconds and serving p50/p99 under ingest printed;
+4g. sharding phase (slice 12, ``sharding_phase``): ``MeshSampler``
+   (``gather_mode="pallas"``: B3 five launches a hop a shard) and
+   ``MeshFeature`` (B2 once a shard a gather, the max combine) over
+   MESH_SHARDS shards that all name card 0 serve the 64-request plan in
+   bucket-2048 passes: every hop's ``nbrs``/``mask``/``counts``/``eid``
+   bitwise the single-device B1 hop's, every row ``lookup_device``'s,
+   logits within CPU_TOL; ``DistFeature`` (a ``partition_without_
+   replication`` book), ``RingFeature`` and ``HierFeature`` (a ``[2, 2]``
+   mesh) look up ``[4, 2048]`` ids bitwise the table's;
+   ``DistGraphSampler`` [25, 10] (``"blocked"``: B3) bitwise its
+   ``"xla"`` run with no drops at exact caps; wall ms of each beside the
+   single-device path;
+4i. bf16 and ``from_mmap`` (slice 12, A5 and A4, ``bf16_phase``,
+   ``mmap_phase``): the plan served by ``GraphSAGE(dtype=bfloat16)``
+   over a bf16 table (B1, B2's bf16 route), three passes recomputed
+   (answers the bf16 forward, within BF16_VS_FP32 of the fp32 model),
+   p50/p99 beside phase 4's; Reddit's table saved under
+   ``build/chip_smoke_mmap`` and opened with ``Feature.from_mmap(...,
+   "200M")``: each request's frontier rows through the staged merge
+   (B2) and the paged store (B5) bitwise the table's, ms a request;
 5. B5 kernel phase (slice 2, the budgeted feature store): the feature
    under the reference's ``device_cache_size="200M"`` in degree order,
    paged, with a pool of every host page; stages the frontier of one
@@ -169,6 +189,13 @@ first use, with nvcc, one process per source, all at once), then:
    gathered row bitwise equal to the source, peak device memory printed;
    then one batch split into sampling, read-back, host gather and
    training;
+12b. data-parallel phase (slice 12, 4h, ``dp_phase``):
+   ``make_train_step(mesh=)`` over DP_REPLICAS replicas on card 0,
+   GraphSAGE at products' widths with dropout 0, DP_STEPS steps of 1,024
+   seeds a replica (B1 and B2 in the sampling and lookups): each loss
+   within rtol 1e-5 of the single-device step that takes the mean of the
+   replicas' losses, the loss falling; then ``run_dist_training`` over 4
+   shards of card 0 (20,000 nodes, 100 wide, [15, 10, 5]);
 13. exact inference phase (slice 7): ``full_graph_inference`` of the
    trained GraphSAGE, GCN and GAT over all of products' edges in chunks
    of EDGE_CHUNK (time, peak memory, finite ``[N, 47]`` logits), and on a
@@ -3926,6 +3953,466 @@ def streaming_phase(torch, qt, topo, feat, feature, b1, b2, b3, b5):
     return launches, out
 
 
+MESH_SHARDS = 4             # row shards of the mesh phase, all on card 0
+DP_REPLICAS = 2             # data-parallel replicas of the products step
+DP_STEPS = 10
+# bf16 model against the fp32 model on the same rows: |delta| at most this
+# share of the fp32 logits' largest magnitude (ROADMAP §C)
+BF16_VS_FP32 = 2.0 ** -5
+
+
+def plan_passes(bucket: int = 2048):
+    """The 64-request plan's ids in request order, cut into passes of
+    ``bucket`` seeds (the last padded with its first id): ``[(seeds,
+    real)]``."""
+    _, plans = request_plan()
+    ids = np.concatenate([r for plan in plans for r in plan])
+    out = []
+    for i in range(0, len(ids), bucket):
+        p = ids[i:i + bucket]
+        real = len(p)
+        if real < bucket:
+            p = np.concatenate([p, np.full(bucket - real, p[0])])
+        out.append((p.astype(np.int64), real))
+    return out
+
+
+def positional_pass(torch, qt, hop, seeds, kw, fanouts):
+    """The positional pipeline over ``hop(frontier, k, words) ->
+    SampleOut``: ``(frontier, blocks outermost first, hop outputs)``."""
+    frontier = seeds.to(torch.int32)
+    blocks, outs = [], []
+    for l, k in enumerate(fanouts):
+        F = frontier.shape[0]
+        o = hop(frontier, k, kw[l])
+        dev = frontier.device
+        pos = (F + torch.arange(F, dtype=torch.int32, device=dev)[:, None] * k
+               + torch.arange(k, dtype=torch.int32, device=dev))
+        blocks.append(qt.LayerBlock(
+            nbr_local=torch.where(o.mask, pos, torch.zeros_like(pos)),
+            mask=o.mask,
+            num_targets=torch.full((), F, dtype=torch.int32, device=dev)))
+        outs.append(o)
+        frontier = torch.cat([frontier, torch.where(
+            o.mask, o.nbrs, torch.zeros_like(o.nbrs)).reshape(-1)])
+    return frontier, tuple(blocks[::-1]), outs
+
+
+def wall_ms(torch, fn):
+    """Host milliseconds of ``fn()`` with the card drained before and
+    after: the sharded paths are host loops over shards, so their cost is
+    wall time, not one kernel's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def warm_wall_ms(torch, fn, reps: int = 3) -> float:
+    """Median :func:`wall_ms` of ``fn`` over ``reps`` calls after the
+    caller's first (which pays the first use of each torch op)."""
+    return float(np.median([wall_ms(torch, fn)[1] for _ in range(reps)]))
+
+
+def sharding_phase(torch, qt, topo, feat, feature, b1, b2, b3):
+    """Phase 4g (slice 12): the Reddit plan through ``MeshSampler``
+    (``"pallas"``: B3 five launches a hop a shard) and ``MeshFeature``
+    (B2 once a shard a gather) over MESH_SHARDS shards that all name card
+    0, every hop and row bitwise the single-device path's (B1 hops,
+    ``lookup_device``), logits within CPU_TOL; then ``DistFeature``,
+    ``RingFeature`` and ``HierFeature`` lookups of ``[4, 2048]`` ids
+    bitwise the table's, and ``DistGraphSampler`` [25, 10] under
+    ``"blocked"`` (B3) bitwise its ``"xla"`` run with no drops."""
+    from quiver_tpu_torch.mesh import MeshFeature, MeshSampler
+    from quiver_tpu_torch.ops.sample import run_hop
+    from quiver_tpu_torch.utils.mesh import Mesh
+
+    card = torch.device(DEV)
+    out = dict(card=card_line(), shards=MESH_SHARDS)
+    mesh = qt.make_mesh(("shard",), devices=[card] * MESH_SHARDS)
+    (ms, mf), build_ms = wall_ms(torch, lambda: (
+        MeshSampler(topo.indptr, topo.indices, n_shards=MESH_SHARDS,
+                    mesh=mesh, gather_mode="pallas"),
+        MeshFeature(feat, n_shards=MESH_SHARDS, mesh=mesh)))
+    out["build_ms"] = build_ms
+    model = seeded_model(torch, qt).to(DEV).eval()
+    passes = plan_passes()
+    rng = np.random.default_rng(SEED + 50)
+    kws = [rng.integers(0, 2**32, (len(FANOUTS), 2), dtype=np.uint32)
+           for _ in passes]
+    mf[np.arange(N_NODES)]  # first touch: every page faults in once
+    torch.cuda.synchronize()
+
+    def mesh_hop(f, k, w):
+        return ms.sample(f, k, w)
+
+    # the counted run: the mesh path alone
+    for fn in (b1.window_sample, b2.gather_rows, b3.element_gather):
+        fn.launches = 0
+    got, times = [], dict(hop=[], gather=[], logits=[])
+    with torch.inference_mode():
+        for (seeds, real), kw in zip(passes, kws):
+            sd = torch.from_numpy(seeds).to(DEV)
+            (front, blocks, outs), t_hop = wall_ms(
+                torch, lambda: positional_pass(torch, qt, mesh_hop, sd, kw,
+                                               FANOUTS))
+            x, t_g = wall_ms(torch, lambda: mf[front])
+            y, t_m = wall_ms(torch, lambda: model(x, blocks)[:real])
+            times["hop"].append(t_hop)
+            times["gather"].append(t_g)
+            times["logits"].append(t_m)
+            got.append((front, outs, x, y))
+    launches = dict(window_sample=b1.window_sample.launches,
+                    gather_rows=b2.gather_rows.launches,
+                    element_gather=b3.element_gather.launches)
+    check(launches["window_sample"] == 0, "the mesh path launched B1")
+    check(launches["gather_rows"] == MESH_SHARDS * len(passes),
+          f"B2 launched {launches['gather_rows']} times, not once a shard "
+          "a pass")
+    check(launches["element_gather"]
+          == 5 * MESH_SHARDS * len(FANOUTS) * len(passes),
+          f"B3 launched {launches['element_gather']} times, not 5 a hop a "
+          "shard")
+    # the single-device path on the same words: B1 hops, one B2 lookup
+    ip, ix = topo.to_device(DEV)
+
+    def single_hop(f, k, w):
+        return run_hop(ip, ix, f, k, int(w[0]), int(w[1]), None, "pwindow")
+
+    ref_times = dict(hop=[], gather=[])
+    with torch.inference_mode():
+        for (seeds, real), kw, (front, outs, x, y) in zip(passes, kws, got):
+            sd = torch.from_numpy(seeds).to(DEV)
+            (rfront, rblocks, routs), t_hop = wall_ms(
+                torch, lambda: positional_pass(torch, qt, single_hop, sd, kw,
+                                               FANOUTS))
+            for h, (a, b) in enumerate(zip(outs, routs)):
+                for f in ("nbrs", "mask", "counts", "eid"):
+                    check(torch.equal(getattr(a, f), getattr(b, f)),
+                          f"mesh hop {h} {f} differs from the single-device "
+                          "hop")
+            check(torch.equal(front, rfront), "mesh frontier differs")
+            rx, t_g = wall_ms(torch, lambda: feature.lookup_device(rfront))
+            check(torch.equal(x, rx), "mesh rows differ from lookup_device")
+            ry = model(rx, rblocks)[:real]
+            check(torch.allclose(y, ry, **CPU_TOL),
+                  "mesh logits differ from the single-device logits")
+            check(bool(torch.isfinite(y).all()), "mesh logits not finite")
+            ref_times["hop"].append(t_hop)
+            ref_times["gather"].append(t_g)
+    del got
+    torch.cuda.empty_cache()
+    med = lambda v: float(np.median(v))  # noqa: E731
+    out.update(passes=len(passes), launches=launches,
+               mesh_ms=dict(two_hops=med(times["hop"]),
+                            gather=med(times["gather"]),
+                            model=med(times["logits"])),
+               single_ms=dict(two_hops=med(ref_times["hop"]),
+                              gather=med(ref_times["gather"])),
+               mesh_stats=dict(restacks=mf.restacks, fallbacks=mf.fallbacks))
+    print(f"mesh plan over {MESH_SHARDS} shards on {out['card']}: "
+          f"{len(passes)} bucket-2048 passes bitwise the single-device "
+          f"path; ms a pass (wall) two hops {out['mesh_ms']['two_hops']:.2f}"
+          f" vs {out['single_ms']['two_hops']:.2f}, gather "
+          f"{out['mesh_ms']['gather']:.2f} vs "
+          f"{out['single_ms']['gather']:.2f}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    del ms, mf
+    torch.cuda.empty_cache()
+
+    # DistFeature over partition_without_replication's book
+    prng = np.random.default_rng(SEED + 51)
+    parts = qt.partition_without_replication(
+        [prng.random(N_NODES) for _ in range(MESH_SHARDS)])
+    book = np.zeros(N_NODES, np.int32)
+    for h, ids in enumerate(parts):
+        book[ids] = h
+    dmesh = qt.make_mesh(("data",), devices=[card] * MESH_SHARDS)
+    ids = prng.integers(0, N_NODES, (MESH_SHARDS, 2048))
+    want = torch.from_numpy(feat[ids]).to(DEV)
+    info = qt.PartitionInfo(host=0, hosts=MESH_SHARDS, global2host=book)
+    dist = {}
+    b2.gather_rows.launches = 0
+    df = qt.DistFeature.from_global_feature(feat, dmesh, info)
+    rf = qt.RingFeature(feat, dmesh)
+    hmesh = Mesh(np.array([card] * 4, dtype=object).reshape(2, 2),
+                 ("dcn", "ici"))
+    hf = qt.HierFeature.from_global_feature(feat, hmesh,
+                                            hot_count=N_NODES // 4)
+    for name, fn in (("dist", lambda: df.lookup(ids)),
+                     ("ring", lambda: rf.lookup(ids)),
+                     ("hier", lambda: hf.lookup(ids.reshape(2, 2, 2048)
+                                                ).reshape(4, 2048, DIM))):
+        before = b2.gather_rows.launches
+        got_rows, first_ms = wall_ms(torch, fn)
+        check(torch.equal(got_rows, want),
+              f"{name} lookup differs from the table's rows")
+        dist[name] = dict(b2_launches=b2.gather_rows.launches - before,
+                          first_ms=first_ms, ms=warm_wall_ms(torch, fn))
+        check(dist[name]["b2_launches"] > 0, f"{name} lookup launched no B2")
+    check(int(df.overflow_stats().sum()) == 0, "DistFeature dropped queries")
+    check(int(hf.traffic_stats()["drops"].sum()) == 0,
+          "HierFeature dropped queries")
+    dist["dist"]["overflow"] = int(df.overflow_stats().sum())
+    dist["hier"]["dcn_crossings"] = int(
+        hf.traffic_stats()["dcn_crossings"].sum())
+    flat_ids = torch.from_numpy(ids.reshape(-1)).to(DEV)
+    dist["single_lookup_ms"] = warm_wall_ms(
+        torch, lambda: feature.lookup_device(flat_ids))
+    del df, rf, hf, want
+    torch.cuda.empty_cache()
+
+    # DistGraphSampler [25, 10]: B3 ("blocked") against plain reads
+    seeds = prng.integers(0, N_NODES, (MESH_SHARDS, 2048))
+    kw = prng.integers(0, 2**32, (len(FANOUTS), MESH_SHARDS, 2),
+                       dtype=np.uint32)
+    ds = qt.DistGraphSampler(topo, dmesh, FANOUTS)
+    check(ds.gather_mode == "blocked", f"resolved {ds.gather_mode!r}")
+    b3.element_gather.launches = 0
+    got_s, first_blocked = wall_ms(torch,
+                                   lambda: ds.sample(seeds, key_words=kw))
+    b3_dist = b3.element_gather.launches
+    check(b3_dist == 2 * MESH_SHARDS * len(FANOUTS),
+          f"DistGraphSampler launched B3 {b3_dist} times")
+    ms_blocked = warm_wall_ms(torch, lambda: ds.sample(seeds, key_words=kw))
+    ds.gather_mode = "xla"  # the same tables read by plain indexing
+    want_s, _ = wall_ms(torch, lambda: ds.sample(seeds, key_words=kw))
+    ms_xla = warm_wall_ms(torch, lambda: ds.sample(seeds, key_words=kw))
+    for a, b in zip(got_s[:3], want_s[:3]):
+        check(torch.equal(a, b), "DistGraphSampler blocked != xla")
+    for a, b in zip(got_s[3], want_s[3]):
+        check(torch.equal(a.nbr_local, b.nbr_local)
+              and torch.equal(a.mask, b.mask),
+              "DistGraphSampler blocks differ between blocked and xla")
+    drops = int(ds.overflow_stats().sum())
+    check(drops == 0, f"DistGraphSampler dropped {drops} at exact caps")
+    # hop 1 against the graph: each seed draws min(deg, 25) neighbours,
+    # every one an edge of its row (the draws' counters are the request
+    # slots, so they are not the single-device sampler's draws)
+    inner = got_s[3][-1]
+    n_id = got_s[0].cpu().numpy()
+    deg = np.diff(topo.indptr)
+    for r in range(MESH_SHARDS):
+        m = inner.mask[r].cpu().numpy()
+        check(np.array_equal(m.sum(1), np.minimum(deg[seeds[r]],
+                                                  FANOUTS[0])),
+              f"rank {r}: hop-1 counts are not min(deg, {FANOUTS[0]})")
+        t, j = np.nonzero(m)
+        nbr = n_id[r][inner.nbr_local[r].cpu().numpy()[t, j]]
+        rows = [np.arange(topo.indptr[s], topo.indptr[s + 1])
+                for s in seeds[r]]
+        edges = (np.repeat(np.arange(len(rows)), [len(x) for x in rows])
+                 * N_NODES + topo.indices[np.concatenate(rows)])
+        check(np.isin(t * N_NODES + nbr, edges).all(),
+              f"rank {r}: a hop-1 neighbour is not an edge of its seed")
+    dist["sampler"] = dict(first_ms_blocked=first_blocked,
+                           ms_blocked=ms_blocked, ms_xla=ms_xla,
+                           b3_launches=b3_dist, overflow=drops,
+                           frontier=int(got_s[0].shape[1]))
+    out["dist"] = dist
+    print("sharded lookups and sampler " + json.dumps(dist), flush=True)
+    del ds, got_s, want_s
+    torch.cuda.empty_cache()
+    return launches, b3_dist, out
+
+
+def dp_phase(torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2):
+    """Phase 4h (slice 12): ``make_train_step(mesh=)`` over DP_REPLICAS
+    replicas on card 0 at products' widths (GraphSAGE 100 -> 256 -> 256
+    -> 47, fanouts [15, 10, 5], 1,024 seeds a replica, dropout 0 so the
+    two steps compare), DP_STEPS steps, each loss within rtol 1e-5 of the
+    single-device step that takes the mean of the replicas' losses; the
+    loss must fall.  Then ``run_dist_training`` once at a small size."""
+    from quiver_tpu_torch.dist.e2e import run_dist_training
+    from quiver_tpu_torch.parallel.train import masked_cross_entropy
+
+    card = torch.device(DEV)
+    out = dict(card=card_line(), replicas=DP_REPLICAS)
+    feature = qt.Feature(device_cache_size=pfeat.nbytes,
+                         device=DEV).from_cpu_tensor(pfeat)
+    sampler = qt.GraphSageSampler(ptopo, P_FANOUTS, device=DEV, seed=SEED)
+    mesh = qt.make_mesh(("data",), devices=[card] * DP_REPLICAS)
+    model = products_model(torch, qt)
+    model.dropout = 0.0
+    ref = copy.deepcopy(model)
+    step = qt.make_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=P_LR), mesh=mesh)
+    ref_opt = torch.optim.Adam(ref.parameters(), lr=P_LR)
+    rng = np.random.default_rng(SEED + 60)
+    labels_d = torch.from_numpy(plabels).to(DEV)
+    losses, ref_losses, times, ref_times = [], [], [], []
+    for fn in (b1.window_sample, b2.gather_rows):
+        fn.launches = 0
+    for s in range(DP_STEPS):
+        seeds = ptrain[rng.choice(len(ptrain), DP_REPLICAS * P_BATCH,
+                                  replace=False)].reshape(DP_REPLICAS, -1)
+        kw = rng.integers(0, 2**32, (DP_REPLICAS, len(P_FANOUTS), 2),
+                          dtype=np.uint32)
+        batches = [sampler.sample(seeds[r], key_words=kw[r])
+                   for r in range(DP_REPLICAS)]
+        x = torch.stack([feature.lookup_device(b.n_id) for b in batches])
+        blocks = tuple(qt.LayerBlock(
+            nbr_local=torch.stack([b.layers[i].nbr_local for b in batches]),
+            mask=torch.stack([b.layers[i].mask for b in batches]),
+            num_targets=torch.stack([torch.as_tensor(b.layers[i].num_targets)
+                                     for b in batches]))
+            for i in range(len(P_FANOUTS)))
+        lab = labels_d[torch.from_numpy(seeds.reshape(-1)).to(DEV)
+                       .long()].view(DP_REPLICAS, -1)
+        mask = torch.ones_like(lab, dtype=torch.bool)
+        loss, t = wall_ms(torch, lambda: step(x, blocks, lab, mask))
+
+        def ref_step():
+            ref.train()
+            ref_opt.zero_grad(set_to_none=True)
+            ls = [masked_cross_entropy(
+                ref(x[r], [qt.LayerBlock(nbr_local=blk.nbr_local[r],
+                                         mask=blk.mask[r],
+                                         num_targets=blk.num_targets[r])
+                           for blk in blocks]), lab[r], mask[r])
+                for r in range(DP_REPLICAS)]
+            total = torch.stack(ls).mean()
+            total.backward()
+            ref_opt.step()
+            return total.detach()
+
+        rloss, rt = wall_ms(torch, ref_step)
+        losses.append(float(loss))
+        ref_losses.append(float(rloss))
+        times.append(t)
+        ref_times.append(rt)
+        check(np.isclose(losses[-1], ref_losses[-1], rtol=1e-5, atol=0),
+              f"step {s}: data-parallel loss {losses[-1]} vs single-device "
+              f"{ref_losses[-1]}")
+    launches = dict(window_sample=b1.window_sample.launches,
+                    gather_rows=b2.gather_rows.launches)
+    check(launches["window_sample"] > 0 and launches["gather_rows"] > 0,
+          f"the data-parallel lane launched {launches}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"data-parallel loss did not fall: {losses}")
+    t0 = time.perf_counter()
+    e2e = run_dist_training(4, n_nodes=20_000, avg_deg=10, feat_dim=P_DIM,
+                            batch_per_dev=256, sizes=P_FANOUTS, steps=3,
+                            seed=SEED, devices=[card] * 4)
+    e2e_s = time.perf_counter() - t0
+    check(all(np.isfinite(e2e["losses"])), "run_dist_training not finite")
+    check(int(e2e["sampler_overflow"].sum()) == 0
+          and e2e["feature_overflow"] == 0, "run_dist_training dropped")
+    out.update(losses=losses, ref_losses=ref_losses,
+               step_ms=float(np.median(times)),
+               ref_step_ms=float(np.median(ref_times)), launches=launches,
+               run_dist_training=dict(losses=e2e["losses"], seconds=e2e_s))
+    print("data-parallel products step " + json.dumps(out), flush=True)
+    del feature, sampler, model, ref
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def bf16_phase(torch, qt, topo, feat, feature, summary_fp32, b1, b2):
+    """Phase 4i (slice 12), A5: the plan served with ``GraphSAGE(dtype=
+    torch.bfloat16)`` over a bf16 table (B1, and B2's bf16 route), every
+    answer finite, three served passes recomputed: their answers equal
+    the bf16 forward widened to fp32, and within BF16_VS_FP32 of the fp32
+    model on the fp32 table; p50/p99 beside the fp32 plan's."""
+    f16 = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                     dtype=torch.bfloat16, device=DEV).from_cpu_tensor(feat)
+    check(f16.hot.dtype == torch.bfloat16 and f16.cache_count == N_NODES,
+          "bf16 feature is not whole and bf16")
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+    m32 = seeded_model(torch, qt)
+    m16 = qt.GraphSAGE(DIM, HIDDEN, CLASSES, num_layers=2, dropout=0.5,
+                       device="cpu", dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    server, answers, sent, launches, _, summary = serve(
+        torch, qt, sampler, f16, m16,
+        {"window_sample": b1.window_sample, "gather_rows": b2.gather_rows})
+    ref = qt.InferenceServer(sampler, feature, m32.to(DEV).eval(), None)
+    top = server.BUCKETS[-1]
+    worst = 0.0
+    for members, chunks in picked_passes(server):
+        total_ids = sum(len(sent[m].ids) for m in members)
+        direct = []
+        for i, (p, kw) in enumerate(chunks):
+            n = min(top, total_ids - top * i)
+            y16 = server.fused_forward(p, kw)[:n].float()
+            y32 = ref.fused_forward(p, kw)[:n]
+            err = float((y16 - y32).abs().max())
+            bound = BF16_VS_FP32 * float(y32.abs().max())
+            check(err <= bound, f"bf16 logits differ from fp32 by {err} > "
+                  f"{bound}")
+            worst = max(worst, err / float(y32.abs().max()))
+            direct.append(y16.cpu().numpy())
+        direct = np.concatenate(direct)
+        off = 0
+        for m in members:
+            n = len(sent[m].ids)
+            check(np.array_equal(answers[m], direct[off: off + n]),
+                  f"bf16 answer {m} differs from its pass's forward")
+            off += n
+    out = dict(card=card_line(), launches=launches,
+               p50_ms=summary["stats"]["p50_latency_ms"],
+               p99_ms=summary["stats"]["p99_latency_ms"],
+               fp32_p50_ms=summary_fp32["stats"]["p50_latency_ms"],
+               fp32_p99_ms=summary_fp32["stats"]["p99_latency_ms"],
+               worst_err_of_max=worst, peak_gib=summary["peak_gib"])
+    print("bf16 serving " + json.dumps(out), flush=True)
+    del f16, server
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def mmap_phase(torch, qt, topo, feat, b2, b5):
+    """Phase 4i (slice 12), A4: Reddit's table saved as ``.npy`` and
+    opened with ``Feature.from_mmap(..., device_cache_size="200M")``: the
+    frontier rows of each of the 64 requests, through the staged merge
+    (B2 for hot rows, the cold rows read from the map) and then the paged
+    store (B5, pages faulted from the map), bitwise the table's; the time
+    a request."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_mmap")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "reddit.npy")
+    try:
+        np.save(path, feat)
+        src = torch.from_numpy(feat).to(DEV)
+        sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+        _, plans = request_plan()
+        reqs = [r for plan in plans for r in plan]
+        with torch.inference_mode():
+            fronts = [sampler.sample(r).n_id for r in reqs]
+        out = dict(card=card_line(), requests=len(reqs))
+        for name, paged in (("staged", False), ("paged", True)):
+            f = qt.Feature.from_mmap(path, device_cache_size=HOT_BUDGET,
+                                     device=DEV)
+            if paged:
+                f.enable_paging(pool_pages=N_NODES)
+            check(0 < f.cache_count < N_NODES, "from_mmap is not budgeted")
+            b2.gather_rows.launches = b5.page_gather.launches = 0
+            times = []
+            for n_id in fronts:
+                rows, ms_ = wall_ms(torch, lambda: f[n_id])
+                times.append(ms_)
+                check(torch.equal(rows, src[n_id.long()]),
+                      f"from_mmap ({name}) rows differ from the table's")
+            out[name] = dict(ms_per_request=float(np.median(times)),
+                             gather_rows=b2.gather_rows.launches,
+                             page_gather=b5.page_gather.launches,
+                             hot_rows=f.cache_count)
+            check((b5.page_gather.launches if paged
+                   else b2.gather_rows.launches) > 0,
+                  f"from_mmap ({name}) launched no kernel")
+            f.close()
+            del f
+        print("from_mmap " + json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4017,6 +4504,27 @@ def main() -> int:
     kernels[1]["launches_streaming_serving"] = launches_s11["gather_rows"]
     torch.cuda.empty_cache()
 
+    # slice 12: sharding over a mesh on the card, bf16 models, from_mmap
+    slice12 = {}
+    t0 = time.perf_counter()
+    launches_m, b3_dist, slice12["sharding"] = sharding_phase(
+        torch, qt, topo, feat, feature, b1, b2, b3)
+    phase_s["sharding"] = time.perf_counter() - t0
+    kernels[1]["launches_mesh_serving"] = launches_m["gather_rows"]
+    kernels[1]["launches_dist_lookups"] = sum(
+        v["b2_launches"] for k, v in slice12["sharding"]["dist"].items()
+        if k in ("dist", "ring", "hier"))
+    t0 = time.perf_counter()
+    launches_16, slice12["bf16"] = bf16_phase(torch, qt, topo, feat, feature,
+                                              summary, b1, b2)
+    kernels[0]["launches_bf16_serving"] = launches_16["window_sample"]
+    kernels[1]["launches_bf16_serving"] = launches_16["gather_rows"]
+    slice12["mmap"] = mmap_phase(torch, qt, topo, feat, b2, b5)
+    kernels[1]["launches_mmap_staged"] = slice12["mmap"]["staged"][
+        "gather_rows"]
+    phase_s["bf16_and_mmap"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
     # slice 2: every feature below compares with the source table by its
     # own feature_order (each from_cpu_tensor rewrites topo.feature_order)
     src = torch.from_numpy(feat).to(DEV)
@@ -4032,6 +4540,7 @@ def main() -> int:
     b5_record["launches_per_pass"] = (launches_b["page_gather"]
                                       / summary_b["passes"])
     b5_record["launches_coldcache_restore"] = launches_s11["page_gather"]
+    b5_record["launches_mmap_paged"] = slice12["mmap"]["paged"]["page_gather"]
     kernels.append(b5_record)
     summary_b["fallback_overlay"] = fallback_overlay_phase(
         torch, qt, topo, feat, src, n_id)
@@ -4077,6 +4586,8 @@ def main() -> int:
     b3_record["launches_weighted_serving"] = launches_w["element_gather"]
     b3_record["launches_streaming_serving"] = launches_s11["element_gather"]
     b3_record["streaming_overlay_hops"] = summary_s11["overlay_hops"]
+    b3_record["launches_mesh_serving"] = launches_m["element_gather"]
+    b3_record["launches_dist_sampler"] = b3_dist
     lanes, models, b2_products = fused_training_phase(
         torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2, b3)
     kernels[1]["products"] = b2_products
@@ -4113,6 +4624,12 @@ def main() -> int:
         torch, qt, ptopo, pfeat, plabels, ptrain, b2, b4)
     b4_record["launches"] = launches_s["lane_select"]
     kernels[1]["launches_two_stage_training"] = launches_s["gather_rows"]
+    t0 = time.perf_counter()
+    launches_dp, slice12["data_parallel"] = dp_phase(
+        torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2)
+    phase_s["data_parallel"] = time.perf_counter() - t0
+    kernels[0]["launches_dp_training"] = launches_dp["window_sample"]
+    kernels[1]["launches_dp_training"] = launches_dp["gather_rows"]
     kernels[2:2] = [b3_record, b4_record]
     print("fused training summary " + json.dumps(summary_f), flush=True)
     print("fused training summary, gather_mode=\"auto\" "
@@ -4159,6 +4676,9 @@ def main() -> int:
     kernels[1].update(launches_rgat_training=launches_r["gather_rows"],
                       mag=b2_mag)
     print("R-GAT training summary " + json.dumps(summary_r), flush=True)
+    slice12["phase_s"] = {k: phase_s[k] for k in (
+        "sharding", "bf16_and_mmap", "data_parallel")}
+    print("slice 12 summary " + json.dumps(slice12), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)

@@ -35,20 +35,30 @@ from .utils import (CSRTopo, community_graph, coo_to_csr, parse_size,
                     reindex_by_config, reindex_feature, synthetic_csr,
                     synthetic_products, synthetic_reddit)
 from .utils.rng import make_key
+from .utils.mesh import MeshTopo, make_mesh
+from .dist.feature import DistFeature, PartitionInfo
+from .dist.comm import TpuComm
+from .dist.sampler import DistGraphSampler
+from .dist.ring import RingFeature
+from .dist.init import initialize as distributed_initialize, make_hybrid_mesh
+from .dist.hier import HierFeature
 
 __all__ = [
-    "CSRTopo", "DeviceConfig", "Feature", "GAT", "GATConv", "GCN", "GCNConv", "GraphSAGE",
+    "CSRTopo", "DeviceConfig", "DistFeature", "DistGraphSampler", "Feature", "GAT", "GATConv", "GCN", "GCNConv", "GraphSAGE",
     "GraphSageSampler", "HeteroCSRTopo", "HeteroFeature",
     "HeteroGraphSageSampler", "HeteroLayerBlock", "HeteroSampledBatch",
-    "HybridSampler", "InferenceServer", "InferenceServer_Debug",
-    "LayerBlock", "MixedGraphSageSampler", "Prefetcher", "RGAT",
+    "HierFeature", "HybridSampler", "InferenceServer", "InferenceServer_Debug",
+    "LayerBlock", "MeshTopo", "MixedGraphSageSampler", "PartitionInfo",
+    "Prefetcher", "RGAT", "RingFeature",
     "RequestBatcher", "SAGEConv", "SampleJob", "SampleOut", "SampledBatch",
-    "SeedLoader", "ServingRequest", "TorchSampleLoader", "TrainState",
+    "SeedLoader", "ServingRequest", "TorchSampleLoader", "TpuComm",
+    "TrainState",
     "UVAGraph", "calibrate_threshold", "community_graph", "coo_to_csr",
-    "full_graph_inference", "gat_params_from_flax", "gat_params_to_flax",
+    "distributed_initialize", "full_graph_inference", "gat_params_from_flax", "gat_params_to_flax",
     "gcn_params_from_flax", "gcn_params_to_flax", "generate_neighbour_num",
     "load_quiver_feature_partition", "make_fused_eval_fn",
-    "make_fused_train_step", "make_key", "make_scan_epoch",
+    "make_fused_train_step", "make_hybrid_mesh", "make_key", "make_mesh",
+    "make_scan_epoch",
     "make_train_step",
     "parse_size", "partition_without_replication", "quiver_partition_feature",
     "reindex_by_config", "reindex_feature", "rgat_params_from_flax",

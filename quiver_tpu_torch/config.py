@@ -193,6 +193,18 @@ class Config:
         default_factory=lambda: _env("RECOVERY_RETRACE_BUDGET", -1, int))
     recovery_cache_dir: str = field(
         default_factory=lambda: _env("RECOVERY_CACHE_DIR", ""))
+    # mesh-native sharded serving (``mesh/``): the row-range shards one
+    # logical replica spans (0 = off: nothing of the mesh tier is built),
+    # the shard group this process announces, its shard index in the
+    # group, and each shard's frame pool in pages (0 = the whole range)
+    mesh_shards: int = field(
+        default_factory=lambda: _env("MESH_SHARDS", 0, int))
+    mesh_group: str = field(
+        default_factory=lambda: _env("MESH_GROUP", "", str))
+    mesh_shard_index: int = field(
+        default_factory=lambda: _env("MESH_SHARD_INDEX", 0, int))
+    mesh_pool_pages: int = field(
+        default_factory=lambda: _env("MESH_POOL_PAGES", 0, int))
 
 
 _lock = threading.Lock()

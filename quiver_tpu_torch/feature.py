@@ -1,9 +1,10 @@
 """Cached feature store (counterpart of ``quiver_tpu/feature.py``).
 
-The ``device_replicate`` policy under a byte budget.  With ``csr_topo``
-set, rows are first put in degree-descending order with a shuffled hot
-slice (``reindex_feature``); ``feature_order`` maps old id -> row, the
-same array as the JAX package.  Then:
+A byte budget splits the table into a hot prefix on the device and a
+cold tail on the host.  With ``csr_topo`` set, rows are first put in
+degree-descending order with a shuffled hot slice (``reindex_feature``);
+``feature_order`` maps old id -> row, the same array as the JAX package.
+Then:
 
   * the hot prefix, the first ``cache_count`` rows, lives on the card and
     is gathered by kernel B2 (``ops/cuda/gather_rows.py``);
@@ -16,6 +17,15 @@ same array as the JAX package.  Then:
   * the paged store (``enable_paging``) packs the table into pages and
     serves the batch through kernel B5 (``ops/paged.py``), falling back to
     the overlay or the staged merge when a batch's pages exceed its pool.
+
+Under ``cache_policy="ici_shard"`` with a ``mesh`` (the reference's
+``p2p_clique_replicate``) the budget is per device and the hot prefix is
+padded and row-sharded over the mesh's first axis (:class:`ShardedRows`):
+each shard gathers the rows it owns with B2 and the elementwise max of
+the shards' parts (a sentinel where a shard owns nothing) is the batch,
+bitwise.  :meth:`Feature.from_mmap` reads the cold tier through a
+``np.load(..., mmap_mode="r")`` map, so a table larger than host memory
+still serves.
 
 A budgeted gather reads its ids on the host (a device id tensor is read
 back once) and ends with its device work launched under ``_plock``, so
@@ -38,6 +48,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
@@ -55,19 +66,86 @@ from .utils.device import resolve_device
 from .utils.staging import HostStaging
 from .utils.topology import CSRTopo, parse_size, reindex_feature
 
-__all__ = ["Feature", "DeviceConfig"]
+__all__ = ["Feature", "DeviceConfig", "ShardedRows"]
 
 
 @dataclass
 class DeviceConfig:
     """Pre-partitioned placement (the reference's ``feature.py:17-24``;
     ``quiver_tpu/feature.py:66-72``): per device, a ``.npy`` shard, and
-    an optional host tail on disk.  ``Feature.from_mmap``, which reads
-    it, is not ported yet (ROADMAP A4)."""
+    an optional host tail on disk.  :meth:`Feature.from_mmap` reads it:
+    the shards, concatenated, are the hot prefix."""
 
     device_ids: List[int]
     device_paths: List[str]  # .npy per device shard
     host_path: Optional[str] = None  # cold tail on disk (mmap)
+
+
+class ShardedRows:
+    """The ``ici_shard`` hot prefix: ``[H, D]`` rows padded with zero rows
+    to a multiple of the mesh's device count (as JAX pads) and split in
+    contiguous blocks over the devices of the mesh's first axis.
+
+    :meth:`gather` maps ids through the row order, has each shard gather
+    the rows it owns with kernel B2 (a sentinel elsewhere: ``-inf``, or
+    the dtype's minimum) and folds the parts with an elementwise max on
+    the first shard's device: bitwise the replicated gather, but for a
+    row value equal to the sentinel (JAX's documented hole)."""
+
+    def __init__(self, rows: torch.Tensor, mesh):
+        from .mesh.feature import sentinel_of
+
+        self.devices = mesh.axis_devices(mesh.axis_names[0])
+        self.device = self.devices[0]
+        self.dtype = rows.dtype
+        self.shape = tuple(rows.shape)
+        n = rows.shape[0]
+        pad = (-n) % mesh.size
+        if pad:
+            rows = torch.cat([rows, torch.zeros((pad, rows.shape[1]),
+                                                dtype=rows.dtype)])
+        self.rows_per_shard = rows.shape[0] // len(self.devices)
+        rps = self.rows_per_shard
+        self.shards = [rows[s * rps:(s + 1) * rps].contiguous().to(d)
+                       for s, d in enumerate(self.devices)]
+        self._sentinel = sentinel_of(self.dtype)
+
+    def element_size(self) -> int:
+        return self.shards[0].element_size()
+
+    def cpu(self) -> torch.Tensor:
+        return torch.cat([s.cpu() for s in self.shards])[:self.shape[0]]
+
+    def gather(self, idx: torch.Tensor,
+               order: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Rows ``[order][clamp(idx)]`` as :func:`gather_rows` returns them,
+        on the first shard's device."""
+        idx = idx.to(self.device, torch.int64)
+        n = order.shape[0] if order is not None else self.shape[0]
+        pos = idx.clamp(0, max(n - 1, 0))
+        if order is not None:
+            pos = order.index_select(0, pos).to(torch.int64)
+        from .dist.comm import pmax
+
+        def part(s, shard):
+            local = (pos - s * self.rows_per_shard).to(shard.device,
+                                                       non_blocking=True)
+            own = (local >= 0) & (local < self.rows_per_shard)
+            return torch.where(own[:, None], gather_rows(shard, local),
+                               torch.full((), self._sentinel,
+                                          dtype=self.dtype,
+                                          device=shard.device))
+
+        return pmax((part(s, shard) for s, shard in enumerate(self.shards)),
+                    self.device)
+
+
+def _host_view(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``arr``'s memory, without a copy (a read-only
+    memory map included: nothing writes the cold tier)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(arr)
 
 
 def _host_ids(node_idx) -> np.ndarray:
@@ -88,7 +166,8 @@ class Feature:
       device_list: devices in the cache (kept for the signature).
       device_cache_size: byte budget of the hot prefix (``parse_size``),
         or rows with ``cache_unit="rows"``.
-      cache_policy: ``"device_replicate"``.
+      cache_policy: ``"device_replicate"`` or ``"ici_shard"`` (the hot
+        prefix sharded over ``mesh``; alias ``"p2p_clique_replicate"``).
       csr_topo: optional :class:`CSRTopo` for degree-ordered rows.
       dtype: storage dtype (a ``torch.dtype``; default: the input's).
       cache_unit: ``"bytes"`` or ``"rows"``.
@@ -97,6 +176,9 @@ class Feature:
         ``device_cache_size``; ``None`` defers to ``config``, ``"auto"``
         leaves it off until :meth:`enable_cold_cache`, ``0`` disables.
       cold_cache_policy: overlay eviction, ``"clock"`` or ``"minfreq"``.
+      mesh: the :class:`~quiver_tpu_torch.utils.mesh.Mesh` an
+        ``ici_shard`` hot prefix is sharded over (without one it is
+        replicated, as in JAX).
     """
 
     def __init__(self, rank: int = 0, device_list: Optional[Sequence] = None,
@@ -105,15 +187,19 @@ class Feature:
                  csr_topo: Optional[CSRTopo] = None, dtype=None,
                  cache_unit: str = "bytes", device=None,
                  cold_cache_size: Union[int, str, None] = None,
-                 cold_cache_policy: Optional[str] = None):
+                 cold_cache_policy: Optional[str] = None, mesh=None):
         if cache_unit not in ("bytes", "rows"):
             raise ValueError(f"cache_unit must be 'bytes' or 'rows', got "
                              f"{cache_unit!r}")
-        if cache_policy != "device_replicate":
-            raise NotImplementedError(
-                f"cache_policy={cache_policy!r} is not ported yet "
-                "(ROADMAP A13); use 'device_replicate'")
-        self.device = resolve_device(device)
+        if cache_policy == "p2p_clique_replicate":
+            cache_policy = "ici_shard"
+        if cache_policy not in ("device_replicate", "ici_shard"):
+            raise ValueError(f"cache_policy must be 'device_replicate' or "
+                             f"'ici_shard', got {cache_policy!r}")
+        self.mesh = mesh
+        self.device = (mesh.axis_devices(mesh.axis_names[0])[0]
+                       if mesh is not None and device is None
+                       else resolve_device(device))
         self.rank = rank
         self.device_list = device_list
         self.device_cache_size = device_cache_size
@@ -124,7 +210,7 @@ class Feature:
         self.cold_cache_size = cold_cache_size
         self.cold_cache_policy = cold_cache_policy
         self.feature_order: Optional[np.ndarray] = None  # old id -> row
-        self.hot: Optional[torch.Tensor] = None   # [cache_count, D], device
+        self.hot = None   # [cache_count, D] on the device, or ShardedRows
         self.cold: Optional[torch.Tensor] = None  # [N - cache_count, D], host
         self.cache_count = 0
         self.node_count = 0
@@ -142,11 +228,22 @@ class Feature:
         self._inflight: collections.deque = collections.deque()
         self._lazy_state = None  # a handle lazy_from_ipc_handle left
 
+    def _n_devices(self) -> int:
+        if self.mesh is not None:
+            return self.mesh.size
+        if self.device_list is not None:
+            return len(self.device_list)
+        if self.device.type == "cuda":
+            return torch.cuda.device_count()
+        return 1
+
     def _budget_rows(self, row_bytes: int) -> int:
         budget = parse_size(self.device_cache_size)
-        if self.cache_unit == "rows":
-            return int(budget)
-        return int(budget // max(row_bytes, 1))
+        rows = (int(budget) if self.cache_unit == "rows"
+                else int(budget // max(row_bytes, 1)))
+        if self.cache_policy == "ici_shard":
+            rows *= self._n_devices()  # each device holds 1/n of it
+        return rows
 
     def from_cpu_tensor(self, tensor, prob=None) -> "Feature":
         """Split ``tensor [N, D]`` into the hot prefix on the device and
@@ -183,12 +280,20 @@ class Feature:
         self._maybe_enable_paging()
         return self
 
-    def _install(self, hot, cold, order, cache_count, node_count, dim):
+    def _install(self, hot, cold, order, cache_count, node_count, dim,
+                 own_cold: bool = True):
         """Take the tiers (host tensors) and the row order: the hot prefix
-        to the device, the cold tail pinned when the device is the card."""
-        hot = hot.to(self.device).contiguous()
-        cold = (cold.pin_memory() if self.device.type == "cuda"
-                else cold.clone())
+        to the device (sharded over the mesh under ``ici_shard``), the
+        cold tail pinned when the device is the card.  ``own_cold=False``
+        keeps the cold tensor as given (a memory map stays on disk)."""
+        if self.cache_policy == "ici_shard" and self.mesh is not None \
+                and hot.shape[0]:
+            hot = ShardedRows(hot.contiguous(), self.mesh)
+        else:
+            hot = hot.to(self.device).contiguous()
+        if own_cold:
+            cold = (cold.pin_memory() if self.device.type == "cuda"
+                    else cold.clone())
         with self._plock:
             self.node_count, self.dim = node_count, dim
             self.cache_count = cache_count
@@ -199,6 +304,56 @@ class Feature:
                 torch.from_numpy(order.astype(np.int32)).to(self.device))
             self.cold_cache = self._overlay = self.paged = None
             self._pending.clear()
+
+    @classmethod
+    def from_mmap(cls, path_or_array, device_config: DeviceConfig = None,
+                  **kwargs) -> "Feature":
+        """Disk-backed features (the reference's ``feature.py:84-192``).
+
+        ``path_or_array`` is a ``.npy`` path, opened with
+        ``np.load(..., mmap_mode="r")``, or an array.  The cold tier reads
+        through it in place, so a table larger than host memory serves.
+        With a ``device_config``, its ``device_paths`` shards,
+        concatenated, are the hot prefix and ``path_or_array`` is the
+        cold tail; otherwise the budget splits the map (no reordering).
+        ``kwargs`` go to the constructor."""
+        import os
+
+        self = cls(**kwargs)
+        arr = (np.load(os.fspath(path_or_array), mmap_mode="r")
+               if isinstance(path_or_array, (str, os.PathLike))
+               else path_or_array)
+        if device_config is not None and device_config.device_paths:
+            hot = np.concatenate([np.asarray(np.load(p, mmap_mode="r"))
+                                  for p in device_config.device_paths])
+            cc = hot.shape[0]
+            self._install(torch.from_numpy(hot), _host_view(arr), None, cc,
+                          cc + arr.shape[0], arr.shape[1], own_cold=False)
+        else:
+            n, d = arr.shape
+            cc = min(self._budget_rows(arr.dtype.itemsize * d), n)
+            self._install(torch.from_numpy(np.array(arr[:cc])),
+                          _host_view(arr[cc:]), None, cc, n, d,
+                          own_cold=False)
+        self._maybe_enable_cold_cache()
+        self._maybe_enable_paging()
+        return self
+
+    def set_local_order(self, local_order):
+        """An externally computed cache order (the reference's
+        ``feature.py:283-294``): ``local_order[i]`` is the node stored at
+        row ``i``."""
+        local_order = np.asarray(local_order)
+        new_order = np.empty(self.node_count, dtype=np.int64)
+        new_order[local_order] = np.arange(self.node_count)
+        order_dev = torch.from_numpy(new_order.astype(np.int32)).to(
+            self.device)
+        with self._plock:
+            self.feature_order = new_order
+            self._order_dev = order_dev
+
+    def dim_(self) -> int:
+        return self.dim
 
     # -- process hand-off (``quiver_tpu_torch.multiprocessing``) ----------
     def share_ipc(self):
@@ -316,6 +471,10 @@ class Feature:
         self._check_built()
         if self.cache_count >= self.node_count:
             return self
+        if isinstance(self.hot, ShardedRows):
+            raise ValueError("the paged store packs a replicated hot prefix "
+                             "into its frames; an ici_shard hot prefix is "
+                             "sharded (use device_replicate to page)")
         R = int(page_rows) if page_rows else default_page_rows(
             self._row_bytes())
         n_pages = -(-self.node_count // R)
@@ -449,7 +608,7 @@ class Feature:
             return self.lookup_device(node_idx)
         idx = _host_ids(node_idx)
         if full:
-            rows = gather_rows(self.hot, torch.from_numpy(
+            rows = self._gather_hot(torch.from_numpy(
                 self._rows_of(idx).astype(np.int32)).to(self.device))
             return rows.reshape(*idx.shape, self.dim)
         rows = self._take_staged(idx.tobytes())
@@ -537,9 +696,17 @@ class Feature:
         buf.copy_(arr)
         return self._staging.send(name, buf)
 
+    def _gather_hot(self, idx: torch.Tensor,
+                    order: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """B2 over the hot prefix: one call, or one a shard under
+        ``ici_shard``."""
+        if isinstance(self.hot, ShardedRows):
+            return self.hot.gather(idx, order)
+        return gather_rows(self.hot, idx, order)
+
     def _hot_rows(self, rows: np.ndarray) -> torch.Tensor:
-        return gather_rows(self.hot,
-                           self._to_device("hot", rows.astype(np.int32)))
+        return self._gather_hot(self._to_device("hot",
+                                                rows.astype(np.int32)))
 
     def _upload_cold(self, rel: np.ndarray) -> torch.Tensor:
         """Copy cold-tail rows ``rel`` into the pinned staging buffer and
@@ -639,7 +806,7 @@ class Feature:
         idx = idx.to(self.device)
         if idx.dtype not in (torch.int32, torch.int64):
             idx = idx.to(torch.int64)
-        return gather_rows(self.hot, idx, self._order_dev)
+        return self._gather_hot(idx, self._order_dev)
 
     def size(self, dim: int) -> int:
         return (self.node_count, self.dim)[dim]

@@ -20,11 +20,11 @@ class GAT(nn.Module):
     concatenated (``heads * hidden`` wide), then ELU and dropout; the last
     layer one head, averaged, ``out_dim`` wide.  ``in_dim`` is the input
     width (the JAX module infers it); parameters live on ``device``
-    (``None``: the card)."""
+    (``None``: the card), ``dtype`` is the layers' compute dtype."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  num_layers: int = 2, heads: int = 4, dropout: float = 0.5,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         dev = resolve_device(device)
         self.num_layers, self.heads, self.dropout = num_layers, heads, dropout
@@ -33,7 +33,7 @@ class GAT(nn.Module):
             last = i == num_layers - 1
             convs.append(GATConv(d, out_dim if last else hidden,
                                  heads=1 if last else heads,
-                                 concat=not last, device=dev))
+                                 concat=not last, device=dev, dtype=dtype))
             d = hidden * heads
         self.convs = nn.ModuleList(convs)
 

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
-from .layers import _dropout
+from .layers import _dropout, dense
 
 __all__ = ["GCNConv", "GCN"]
 
@@ -24,16 +24,18 @@ __all__ = ["GCNConv", "GCN"]
 class GCNConv(nn.Module):
     """``norm * (norm * sum_{masked} W x_u + W x_v)`` with ``W`` biased and
     ``norm = 1/sqrt(deg_sampled + 1)``; parameters on ``device`` (``None``:
-    the card)."""
+    the card), ``dtype`` the compute dtype of ``W``."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.lin = nn.Linear(in_features, out_features, bias=True,
                              device=resolve_device(device))
 
     def forward(self, x: torch.Tensor, block) -> torch.Tensor:
         t, k = block.nbr_local.shape
-        w = self.lin(x)
+        w = dense(self.lin, x, self.dtype)
         w_src = w.index_select(0, block.nbr_local.reshape(-1))
         w_src = w_src.view(t, k, w.shape[1])                # [T, k, F]
         m = block.mask.to(x.dtype)[..., None]
@@ -46,16 +48,17 @@ class GCNConv(nn.Module):
 class GCN(nn.Module):
     """``num_layers`` GCNConvs with ReLU and dropout between them;
     ``in_dim`` is the input width, parameters on ``device`` (``None``: the
-    card)."""
+    card), ``dtype`` the layers' compute dtype."""
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
-                 num_layers: int = 2, dropout: float = 0.5, device=None):
+                 num_layers: int = 2, dropout: float = 0.5, device=None,
+                 dtype=None):
         super().__init__()
         dev = resolve_device(device)
         self.num_layers, self.dropout = num_layers, dropout
         dims = [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
         self.convs = nn.ModuleList(
-            GCNConv(dims[i], dims[i + 1], device=dev)
+            GCNConv(dims[i], dims[i + 1], device=dev, dtype=dtype)
             for i in range(num_layers))
 
     def forward(self, x: torch.Tensor, blocks: Sequence,

@@ -3,6 +3,12 @@
 Layers consume the sampler's dense ``[T, k]`` neighbour blocks: aggregation
 is an index, a masked sum (a mean or an attention-weighted sum) in plain
 PyTorch, as the JAX package leaves it to XLA.
+
+``dtype=`` (e.g. ``torch.bfloat16``) casts as Flax's ``nn.Dense(dtype=)``
+does: at each dense layer the input, weight and bias go to ``dtype`` and
+the product and bias add run in it; parameters stay fp32, and masks,
+means and attention keep the dtypes PyTorch's promotion gives them, as
+JAX's does.
 """
 
 from __future__ import annotations
@@ -15,7 +21,19 @@ from torch import nn
 
 from ..utils.device import resolve_device
 
-__all__ = ["SAGEConv", "GATConv", "masked_softmax"]
+__all__ = ["SAGEConv", "GATConv", "masked_softmax", "dense"]
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``lin(x)``, or with ``dtype`` Flax's ``nn.Dense(dtype=)``: input,
+    weight and bias cast to ``dtype``, the product rounded to it, then the
+    bias added in it."""
+    if dtype is None:
+        return lin(x)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    if lin.bias is not None:
+        y = y + lin.bias.to(dtype)
+    return y
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
@@ -35,13 +53,16 @@ class SAGEConv(nn.Module):
     ``LayerBlock.eid``) the neighbour half becomes
     ``W_nbr concat(mean x_N(v), mean e)``; the two means are taken apart, so
     no ``[T, k, D + De]`` tensor is built.  ``edge_dim`` sizes ``lin_nbr``
-    for that concat.  Parameters live on ``device`` (``None``: the card).
+    for that concat.  Parameters live on ``device`` (``None``: the card);
+    ``dtype`` is the compute dtype of the two dense layers.
     """
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, edge_dim: int = 0, device=None):
+                 bias: bool = True, edge_dim: int = 0, device=None,
+                 dtype=None):
         super().__init__()
         dev = resolve_device(device)
+        self.dtype = dtype
         self.lin_self = nn.Linear(in_features, out_features, bias=bias,
                                   device=dev)
         self.lin_nbr = nn.Linear(in_features + edge_dim, out_features,
@@ -58,7 +79,8 @@ class SAGEConv(nn.Module):
         if edge_feat is not None:
             mean_e = (edge_feat.to(x.dtype) * m).sum(dim=1) / cnt
             mean_nbr = torch.cat([mean_nbr, mean_e], dim=-1)
-        return self.lin_self(x[:t]) + self.lin_nbr(mean_nbr)
+        return (dense(self.lin_self, x[:t], self.dtype)
+                + dense(self.lin_nbr, mean_nbr, self.dtype))
 
 
 def masked_softmax(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -80,14 +102,16 @@ class GATConv(nn.Module):
     target term, as in ``quiver_tpu/models/layers.py:98``.  Output
     ``[T, heads * out_features]`` (``concat``) or the mean over heads
     ``[T, out_features]``.  Parameters live on ``device`` (``None``: the
-    card).
+    card); ``dtype`` is the compute dtype of ``lin`` (the attention
+    vectors stay fp32, so the scores promote to fp32, as in JAX).
     """
 
     def __init__(self, in_features: int, out_features: int, heads: int = 1,
                  concat: bool = True, negative_slope: float = 0.2,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         dev = resolve_device(device)
+        self.dtype = dtype
         self.heads, self.out_features = heads, out_features
         self.concat, self.negative_slope = concat, negative_slope
         self.lin = nn.Linear(in_features, heads * out_features, bias=False,
@@ -102,7 +126,7 @@ class GATConv(nn.Module):
     def forward(self, x: torch.Tensor, block) -> torch.Tensor:
         h, f = self.heads, self.out_features
         t, k = block.nbr_local.shape
-        w = self.lin(x).view(x.shape[0], h, f)
+        w = dense(self.lin, x, self.dtype).view(x.shape[0], h, f)
         w_src = w.index_select(0, block.nbr_local.reshape(-1))
         w_src = w_src.view(t, k, h, f)                      # [T, k, H, F]
         w_tgt = w[:t]                                       # [T, H, F]

@@ -21,19 +21,21 @@ class GraphSAGE(nn.Module):
     PyTorch needs the input width up front (``in_dim``); the JAX module
     infers it.  ``edge_dim`` > 0 sizes every layer for an edge-feature
     table passed to :meth:`forward`.  Parameters live on ``device``
-    (``None``: the card).
+    (``None``: the card); ``dtype`` (e.g. ``torch.bfloat16``) is the
+    layers' compute dtype, parameters staying fp32.
     """
 
     def __init__(self, in_dim: int, hidden: int, out_dim: int,
                  num_layers: int = 3, dropout: float = 0.5,
-                 edge_dim: int = 0, device=None):
+                 edge_dim: int = 0, device=None, dtype=None):
         super().__init__()
         dev = resolve_device(device)
         self.num_layers = num_layers
         self.dropout = dropout
         dims = [in_dim] + [hidden] * (num_layers - 1) + [out_dim]
         self.convs = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1], edge_dim=edge_dim, device=dev)
+            SAGEConv(dims[i], dims[i + 1], edge_dim=edge_dim, device=dev,
+                     dtype=dtype)
             for i in range(num_layers))
 
     def forward(self, x: torch.Tensor, blocks: Sequence,

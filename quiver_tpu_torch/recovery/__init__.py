@@ -9,8 +9,9 @@ file writes, and the CRC-32C, computed by ``cpp/csrc/crc32c.cpp``.
 
 Hot-path modules take their caches from ``registry`` at import, so only
 the error tree and the registry load eagerly; ``blockio``, ``wal``,
-``checkpoint`` and ``manager`` load on first attribute access.  JAX's
-``shardwal`` serves mesh shard groups and comes with them (ROADMAP A13).
+``checkpoint``, ``manager`` and ``shardwal`` (a mesh shard group's
+per-shard logs under one group manifest) load on first attribute
+access.
 """
 
 from __future__ import annotations
@@ -27,18 +28,19 @@ __all__ = [
     "RetraceBudgetExceeded",
     "ProgramCache", "ProgramRegistry", "get_program_registry",
     "program_cache",
-    "blockio", "wal", "checkpoint", "manager",
-    "WriteAheadLog", "RecoveryManager", "health_status",
+    "blockio", "wal", "checkpoint", "manager", "shardwal",
+    "WriteAheadLog", "RecoveryManager", "health_status", "ShardGroupWAL",
 ]
 
 _LAZY = {
     "blockio": ".blockio", "wal": ".wal", "checkpoint": ".checkpoint",
-    "manager": ".manager",
+    "manager": ".manager", "shardwal": ".shardwal",
 }
 _LAZY_NAMES = {
     "WriteAheadLog": ("wal", "WriteAheadLog"),
     "RecoveryManager": ("manager", "RecoveryManager"),
     "health_status": ("manager", "health_status"),
+    "ShardGroupWAL": ("shardwal", "ShardGroupWAL"),
 }
 
 

@@ -40,7 +40,7 @@ from .chaos import ChaosPlan, point
 from .deadline import (check_ambient, deadline_for, deadline_scope, shed,
                        shed_if_expired)
 from .errors import (ChaosFault, DeadlineExceeded, LaneUnavailable,
-                     LoadShed, QuotaExceeded, ResilienceError)
+                     LoadShed, PeerTimeout, QuotaExceeded, ResilienceError)
 from .lanes import BoundedLane, WeightedFairLane
 from .qos import (DegradationLadder, LadderStep, QoSController, TenantClass,
                   TokenBucket, get_qos, install_qos, qos_from_config,
@@ -51,7 +51,7 @@ from .shutdown import join_and_reap
 __all__ = [
     "Backoff", "BoundedLane", "ChaosFault", "ChaosPlan", "CircuitBreaker",
     "DeadlineExceeded", "DegradationLadder", "LadderStep", "LaneUnavailable",
-    "LoadShed", "QoSController", "QuotaExceeded",
+    "LoadShed", "PeerTimeout", "QoSController", "QuotaExceeded",
     "ResilienceError", "TenantClass", "TokenBucket", "WeightedFairLane",
     "breakers_status", "check_ambient", "deadline_for", "deadline_scope",
     "get_breaker", "get_qos", "install_qos", "join_and_reap", "point",

@@ -13,7 +13,7 @@ from typing import Optional
 
 __all__ = [
     "ResilienceError", "DeadlineExceeded", "LoadShed", "LaneUnavailable",
-    "ChaosFault", "QuotaExceeded",
+    "ChaosFault", "QuotaExceeded", "PeerTimeout",
 ]
 
 
@@ -77,6 +77,14 @@ class LaneUnavailable(ResilienceError):
         self.lane = lane
         super().__init__(f"lane {lane!r} unavailable (breaker open, "
                          f"no failover path)")
+
+
+class PeerTimeout(ResilienceError):
+    """A cross-shard exchange (the dist feature or sampler all-to-all)
+    timed out waiting on a peer shard."""
+
+    def __init__(self, what: str = "exchange"):
+        super().__init__(f"peer shard timed out during {what}")
 
 
 class ChaosFault(ResilienceError):

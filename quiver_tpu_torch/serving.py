@@ -172,6 +172,15 @@ def _is_kernel_fault(exc: BaseException) -> bool:
     return isinstance(exc, _DEVICE_FAULTS)
 
 
+def _host_logits(out: torch.Tensor) -> np.ndarray:
+    """An answer read back to numpy.  numpy has no bfloat16, so a bf16
+    model's logits come back widened to fp32, which is exact (JAX answers
+    a bf16 array)."""
+    if out.dtype == torch.bfloat16:
+        out = out.float()
+    return out.cpu().numpy()
+
+
 def _next_bucket(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:
@@ -595,7 +604,7 @@ class InferenceServer:
                 out = profile.call("serving", ("unfused", len(padded)), dev,
                                    self.unfused_forward, padded, kw, split)
             # the answer's host sync (the fused lane's only one)
-            outs.append(out[: len(chunk)].cpu().numpy())
+            outs.append(_host_logits(out[: len(chunk)]))
             split["infer"] = time.perf_counter() - t0 - sum(split.values())
             if stages is not None:
                 for stage, dt in split.items():
@@ -619,7 +628,7 @@ class InferenceServer:
             t0 = time.perf_counter()
             x = self.feature[batch.n_id]
             t1 = time.perf_counter()
-            out = self.model(x, batch.layers)[: len(req.ids)].cpu().numpy()
+            out = _host_logits(self.model(x, batch.layers)[: len(req.ids)])
         t2 = time.perf_counter()
         if stages is not None:
             stages["gather"] = stages.get("gather", 0.0) + t1 - t0
@@ -642,6 +651,9 @@ class InferenceServer:
         self._check_kernels()
         for b in self.BUCKETS:
             self._run_bucketed(np.full(b, example_node, dtype=np.int64))
+        if hasattr(self.feature, "warm_executables"):
+            # a mesh feature records its gather ladder, as JAX's builds it
+            self.feature.warm_executables()
         return self
 
     # -- the lanes -----------------------------------------------------

@@ -21,12 +21,13 @@ Three views:
     (the unified cross-subsystem Chrome trace — Perfetto-loadable),
     ``/debug/programs`` (top-K per-program time attribution, see
     ``telemetry.profile``: the port's kernel wrappers and serving
-    forwards).  ``/healthz`` answers with the ``health_fn=`` document,
-    or else ``recovery.manager.health_status()`` (the active
-    ``RecoveryManager``'s readiness ladder; ``serving`` when there is
-    none): 200 when it says ``ready``, else 503.  The port has no mesh
-    or fleet yet, so ``/debug/mesh``, ``/metrics/fleet`` and
-    ``/debug/fleet*`` answer 404.  ``HEAD`` answers every route with
+    forwards), ``/debug/mesh`` (the live mesh feature and sampler's
+    shard stats, ``mesh.mesh_status()``).  ``/healthz`` answers with the
+    ``health_fn=`` document, or else ``recovery.manager.health_status()``
+    (the active ``RecoveryManager``'s readiness ladder; ``serving`` when
+    there is none): 200 when it says ``ready``, else 503.  The port has
+    no fleet yet, so ``/metrics/fleet`` and ``/debug/fleet*`` answer
+    404.  ``HEAD`` answers every route with
     the headers its ``GET`` would carry.
 """
 
@@ -216,6 +217,11 @@ class MetricsServer:
                     # the merged Chrome trace itself: save the body,
                     # load it in Perfetto
                     return (json.dumps(timeline.chrome_trace()),
+                            "application/json")
+                if path.startswith("/debug/mesh"):
+                    from ..mesh import mesh_status
+
+                    return (json.dumps(mesh_status(), indent=2),
                             "application/json")
                 if path.startswith("/debug/programs"):
                     from . import profile

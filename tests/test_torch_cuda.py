@@ -1191,3 +1191,148 @@ def test_zero_delta_overlay_pipeline_equals_b1(card):
         assert torch.equal(la.nbr_local, lb.nbr_local)
         assert torch.equal(la.mask, lb.mask)
         assert int(la.num_targets) == int(lb.num_targets)
+
+
+# -- slice 12: sharding across devices, on one card ------------------------
+def _shard_mesh(card, n, axis="shard"):
+    return qt.make_mesh((axis,), devices=[card] * n)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_mesh_feature_on_card_equals_table(card, n_shards, dtype):
+    """MeshFeature's per-shard B2 gathers and max combine on the card:
+    bitwise the table's rows, B2 launched once a shard, a small pool
+    falling back exactly."""
+    from quiver_tpu_torch.mesh import MeshFeature
+
+    rng = np.random.default_rng(n_shards)
+    src = torch.from_numpy(rng.standard_normal((5003, 24)).astype(
+        np.float32) * 100).to(dtype)
+    mf = MeshFeature(src, n_shards=n_shards, mesh=_shard_mesh(card,
+                                                            n_shards))
+    ids = rng.integers(0, 5003, 4097)
+    b2.gather_rows.launches = 0
+    got = mf[ids]
+    assert got.device.type == "cuda"
+    assert b2.gather_rows.launches == n_shards
+    assert torch.equal(got.cpu().view(torch.int16 if dtype == torch.bfloat16
+                                      else dtype),
+                       src[torch.from_numpy(ids)].view(
+                           torch.int16 if dtype == torch.bfloat16
+                           else dtype))
+    small = MeshFeature(src, n_shards=2, mesh=_shard_mesh(card, 2),
+                        page_rows=8, pool_pages=1)
+    assert torch.equal(small[ids].cpu(), src[torch.from_numpy(ids)])
+    assert small.fallbacks == 1
+
+
+@pytest.mark.parametrize("mode", ["pallas", "blocked", "pwindow"])
+def test_mesh_sampler_on_card_equals_single_device(card, mode):
+    """Every read through B3 (5 launches a hop a shard): the sharded hop
+    equals the single-device overlay hop's plain version bitwise."""
+    from quiver_tpu_torch.mesh import MeshSampler
+    from quiver_tpu_torch.ops.sample import sample_neighbors_overlay
+
+    topo = _graph(3)
+    ms = MeshSampler(topo.indptr, topo.indices, n_shards=4,
+                     mesh=_shard_mesh(card, 4), gather_mode=mode)
+    seeds = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 3000, 2048)).to(card)
+    b3.element_gather.launches = 0  # both entries count here
+    got = ms.sample(seeds, 10, (0x1234, 0xBEEF))
+    assert b3.element_gather.launches == 5 * 4
+    ip = torch.from_numpy(topo.indptr.astype(np.int32)).to(card)
+    ix = torch.from_numpy(topo.indices).to(card)
+    zeros = torch.zeros(3001, dtype=torch.int32, device=card)
+    want = sample_neighbors_overlay(
+        ip, ix, torch.zeros_like(ix), zeros, zeros[:8], seeds, 10, 0x1234,
+        0xBEEF)
+    for f in ("nbrs", "mask", "counts", "eid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_dist_structures_on_card(card):
+    """DistFeature, RingFeature and HierFeature over shards that repeat
+    the card: every row bitwise the table's, B2 launched, no overflow."""
+    from quiver_tpu_torch.utils.mesh import Mesh
+
+    rng = np.random.default_rng(5)
+    full = rng.standard_normal((4000, 40)).astype(np.float32)
+    mesh = qt.make_mesh(("data",), devices=[card] * 4)
+    info = qt.PartitionInfo(host=0, hosts=4,
+                            global2host=rng.integers(0, 4, 4000))
+    ids = rng.integers(0, 4000, (4, 1024))
+    b2.gather_rows.launches = 0
+    df = qt.DistFeature.from_global_feature(full, mesh, info)
+    assert np.array_equal(df.lookup(ids).cpu().numpy(), full[ids])
+    assert b2.gather_rows.launches == 8 and df.overflow_stats().sum() == 0
+    rf = qt.RingFeature(full, mesh)
+    assert np.array_equal(rf.lookup(ids).cpu().numpy(), full[ids])
+    hm = Mesh(np.array([card] * 4, dtype=object).reshape(2, 2),
+              ("dcn", "ici"))
+    hf = qt.HierFeature.from_global_feature(full, hm, hot_count=1000)
+    hids = ids.reshape(2, 2, 1024)
+    assert np.array_equal(hf.lookup(hids).cpu().numpy(), full[hids])
+    assert hf.traffic_stats()["drops"].sum() == 0
+
+
+def test_dist_sampler_on_card_blocked_equals_xla(card):
+    """DistGraphSampler's per-shard hops through B3 (``"blocked"``) draw
+    exactly what plain indexing draws, at exact caps with no drops."""
+    topo = _graph(6)
+    mesh = qt.make_mesh(("data",), devices=[card] * 4)
+    seeds = np.random.default_rng(6).integers(0, 3000, (4, 256))
+    kw = np.random.default_rng(7).integers(0, 2**32, (2, 4, 2),
+                                           dtype=np.uint64)
+    b3.element_gather.launches = 0
+    got = qt.DistGraphSampler(topo, mesh, [10, 5]).sample(seeds,
+                                                         key_words=kw)
+    assert b3.element_gather.launches == 2 * 4 * 2  # bounds, draws
+    xla = qt.DistGraphSampler(topo, mesh, [10, 5], gather_mode="xla")
+    want = xla.sample(seeds, key_words=kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    for pb, wb in zip(got[3], want[3]):
+        assert torch.equal(pb.nbr_local, wb.nbr_local)
+        assert torch.equal(pb.mask, wb.mask)
+    assert xla.overflow_stats().sum() == 0
+
+
+def test_ici_shard_and_mmap_features_on_card(card, tmp_path):
+    """``ici_shard`` over a mesh that repeats the card, and ``from_mmap``'s
+    hot rows through B2: bitwise the table's."""
+    rng = np.random.default_rng(8)
+    full = rng.standard_normal((3000, 20)).astype(np.float32)
+    mesh = qt.make_mesh(("data",), devices=[card] * 3)
+    f = qt.Feature(device_cache_size=1000, cache_unit="rows",
+                   cache_policy="ici_shard", mesh=mesh).from_cpu_tensor(full)
+    ids = rng.integers(0, 3000, 2000)
+    b2.gather_rows.launches = 0
+    got = f.lookup_device(torch.from_numpy(ids).to(card))
+    assert b2.gather_rows.launches == 3
+    assert np.array_equal(got.cpu().numpy(), full[ids])
+    path = str(tmp_path / "t.npy")
+    np.save(path, full)
+    mf = qt.Feature.from_mmap(path, device_cache_size=1000 * 20 * 4)
+    assert np.array_equal(mf[ids].cpu().numpy(), full[ids])
+
+
+def test_bf16_graphsage_on_card(card):
+    """``GraphSAGE(dtype=torch.bfloat16)`` on the card: bf16 logits,
+    fp32 parameters, within the bf16 tolerance of the fp32 model."""
+    topo = _graph(9)
+    s = qt.GraphSageSampler(topo, [10, 5])
+    b = s.sample(np.arange(256))
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (3000, 32)).astype(np.float32)).to(card)[b.n_id.long()]
+    m = qt.GraphSAGE(32, 16, 7, num_layers=2, dropout=0.0)
+    mb = qt.GraphSAGE(32, 16, 7, num_layers=2, dropout=0.0,
+                      dtype=torch.bfloat16)
+    mb.load_state_dict(m.state_dict())
+    with torch.no_grad():
+        a, c = m(x, b.layers), mb(x.to(torch.bfloat16), b.layers)
+    assert c.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in mb.parameters())
+    assert (a - c.float()).abs().max() <= 2**-5 * a.abs().max()

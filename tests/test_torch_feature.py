@@ -323,3 +323,159 @@ def test_host_staging_returns_detached_copies():
     assert torch.equal(first, torch.ones(3, 2))
     bigger = st.buffer("rows", (10, 2), torch.bfloat16)
     assert bigger.shape == (10, 2) and bigger.dtype == torch.bfloat16
+
+
+# -- Feature.from_mmap, DeviceConfig, set_local_order, dim_ (A4) -----------
+def _mmap_table(tmp_path, rng):
+    table = rng.standard_normal((N, D)).astype(np.float32)
+    path = str(tmp_path / "feat.npy")
+    np.save(path, table)
+    return table, path
+
+
+@pytest.mark.parametrize("budget", [0, HOT * D * 4, N * D * 4])
+def test_from_mmap_matches_jax(tmp_path, budget):
+    """A ``.npy`` path opened as a memory map, at no, a partial and the
+    whole budget: the split, the rows (bitwise the source and JAX's) and
+    the cold tier read in place from the file."""
+    rng = np.random.default_rng(21)
+    table, path = _mmap_table(tmp_path, rng)
+    jf = JaxFeature.from_mmap(path, device_cache_size=budget)
+    pf = qt.Feature.from_mmap(path, device_cache_size=budget, device="cpu")
+    assert (pf.cache_count, pf.node_count, pf.dim) == (
+        jf.cache_count, jf.node_count, jf.dim)
+    assert pf.dim_() == jf.dim_() == D
+    for _ in range(3):
+        ids = rng.integers(0, N, 97)
+        got = as_f32(pf[ids])
+        np.testing.assert_array_equal(got, table[ids])
+        np.testing.assert_array_equal(got, as_f32(jf[ids]))
+    if pf.cache_count < N:
+        # the cold tier reads the file in place: a row written to the file
+        # after the build is what both stores serve
+        assert isinstance(jf.cold, np.memmap)
+        w = np.load(path, mmap_mode="r+")
+        w[N - 1] = 7.0
+        w.flush()
+        np.testing.assert_array_equal(as_f32(pf[[N - 1]]), 7.0)
+        np.testing.assert_array_equal(as_f32(jf[[N - 1]]), 7.0)
+
+
+def test_from_mmap_device_config_and_array(tmp_path):
+    """``DeviceConfig``'s shards are the hot prefix and the mapped file the
+    cold tail, as in JAX; an array (not a path) works the same way."""
+    rng = np.random.default_rng(22)
+    table = rng.standard_normal((N, D)).astype(np.float32)
+    paths = []
+    for i, (lo, hi) in enumerate([(0, 64), (64, HOT)]):
+        paths.append(str(tmp_path / f"dev{i}.npy"))
+        np.save(paths[-1], table[lo:hi])
+    np.save(str(tmp_path / "cold.npy"), table[HOT:])
+    cfg = qt.DeviceConfig(device_ids=[0, 1], device_paths=paths,
+                          host_path=str(tmp_path / "cold.npy"))
+    jcfg = __import__("quiver_tpu").DeviceConfig(
+        device_ids=[0, 1], device_paths=paths, host_path=cfg.host_path)
+    pf = qt.Feature.from_mmap(cfg.host_path, cfg, device="cpu")
+    jf = JaxFeature.from_mmap(cfg.host_path, jcfg)
+    assert (pf.cache_count, pf.node_count) == (jf.cache_count,
+                                               jf.node_count) == (HOT, N)
+    ids = rng.integers(0, N, 200)
+    np.testing.assert_array_equal(as_f32(pf[ids]), table[ids])
+    np.testing.assert_array_equal(as_f32(pf[ids]), as_f32(jf[ids]))
+    af = qt.Feature.from_mmap(table, device_cache_size=HOT,
+                              cache_unit="rows", device="cpu")
+    assert af.cache_count == HOT
+    np.testing.assert_array_equal(as_f32(af[ids]), table[ids])
+
+
+def test_from_mmap_paged_and_overlay(tmp_path):
+    """The budgeted paths over a mapped cold tier: pages fault from the
+    file (B5's plain version), the overlay admits from it; rows equal the
+    source and JAX's."""
+    rng = np.random.default_rng(23)
+    table, path = _mmap_table(tmp_path, rng)
+    pf = qt.Feature.from_mmap(path, device_cache_size=HOT * D * 4,
+                              device="cpu").enable_paging()
+    jf = JaxFeature.from_mmap(path, device_cache_size=HOT * D * 4)
+    jf.enable_paging()
+    assert pf.paged is not None
+    for _ in range(3):
+        ids = rng.integers(0, N, 64)
+        np.testing.assert_array_equal(as_f32(pf[ids]), table[ids])
+        np.testing.assert_array_equal(as_f32(pf[ids]), as_f32(jf[ids]))
+    of = qt.Feature.from_mmap(path, device_cache_size=HOT * D * 4,
+                              device="cpu").enable_cold_cache(rows=64)
+    for _ in range(3):
+        ids = rng.integers(0, N, 64)
+        np.testing.assert_array_equal(as_f32(of[ids]), table[ids])
+    assert of.stats()["cold_cache"]["resident"] > 0
+
+
+def test_set_local_order_matches_jax():
+    """An external cache order: ``feature_order`` equals JAX's and rows
+    follow it, on the host path and on the device-id path."""
+    rng = np.random.default_rng(24)
+    table = rng.standard_normal((N, D)).astype(np.float32)
+    order = rng.permutation(N)
+    pf = qt.Feature(device_cache_size=N, cache_unit="rows",
+                    device="cpu").from_cpu_tensor(table[order])
+    jf = JaxFeature(device_cache_size=N, cache_unit="rows").from_cpu_tensor(
+        table[order])
+    pf.set_local_order(order)
+    jf.set_local_order(order)
+    np.testing.assert_array_equal(pf.feature_order, jf.feature_order)
+    ids = rng.integers(0, N, 100)
+    np.testing.assert_array_equal(as_f32(pf[ids]), table[ids])
+    np.testing.assert_array_equal(as_f32(pf[ids]), as_f32(jf[ids]))
+    np.testing.assert_array_equal(
+        pf.lookup_device(torch.from_numpy(ids)).numpy(), table[ids])
+    assert pf.dim_() == jf.dim_() == D
+
+
+# -- cache_policy="ici_shard" (A13a) ---------------------------------------
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("budget", ["all", "part"])
+def test_ici_shard_matches_jax(n_shards, budget):
+    """The hot prefix row-sharded over a mesh (B2 per shard, the max
+    combine): the budget is per device, as in JAX, the rows bitwise JAX's
+    and the source's on the host path, the device-id path and with a
+    degree order."""
+    import jax
+    from quiver_tpu.utils.mesh import make_mesh as jax_make_mesh
+
+    from quiver_tpu_torch.feature import ShardedRows
+
+    rng = np.random.default_rng(25 + n_shards)
+    table = rng.standard_normal((N, D)).astype(np.float32)
+    per_dev = -(-N // n_shards) if budget == "all" else HOT // n_shards
+    pmesh = qt.make_mesh(("data",), devices=[torch.device("cpu")] * n_shards)
+    jmesh = jax_make_mesh(("data",), devices=jax.devices()[:n_shards])
+    kw = dict(device_cache_size=per_dev, cache_unit="rows",
+              cache_policy="ici_shard")
+    pf = qt.Feature(mesh=pmesh, **kw).from_cpu_tensor(table)
+    jf = JaxFeature(mesh=jmesh, **kw).from_cpu_tensor(table)
+    assert pf.cache_count == jf.cache_count
+    assert isinstance(pf.hot, ShardedRows)
+    assert len(pf.hot.shards) == n_shards
+    for _ in range(2):
+        ids = rng.integers(0, N, 150)
+        got = as_f32(pf[ids])
+        np.testing.assert_array_equal(got, table[ids])
+        np.testing.assert_array_equal(got, as_f32(jf[ids]))
+    if budget == "all":
+        ids = rng.integers(0, N, 70)
+        np.testing.assert_array_equal(
+            pf.lookup_device(torch.from_numpy(ids)).numpy(), table[ids])
+        topo = qt.CSRTopo(indptr=np.arange(N + 1), indices=np.zeros(N))
+        of = qt.Feature(mesh=pmesh, csr_topo=topo, **kw).from_cpu_tensor(
+            table)
+        np.testing.assert_array_equal(
+            of.lookup_device(torch.from_numpy(ids)).numpy(), table[ids])
+    # the alias, and no paging over a sharded prefix
+    alias = qt.Feature(mesh=pmesh, device_cache_size=HOT // n_shards,
+                       cache_unit="rows",
+                       cache_policy="p2p_clique_replicate")
+    assert alias.cache_policy == "ici_shard"
+    alias.from_cpu_tensor(table)
+    with pytest.raises(ValueError, match="sharded"):
+        alias.enable_paging()

@@ -382,3 +382,57 @@ def test_streaming_entry_points_default_to_the_card(monkeypatch):
         assert g.snapshot("cpu").tomb.device.type == "cpu"
     finally:
         g.close()
+
+
+def test_walk_covers_the_sharding_slice():
+    """The source walk and the subprocess import reach every module of
+    ``mesh/``, ``dist/``, ``utils/mesh.py`` and ``recovery/shardwal.py``;
+    none names the JAX package in a string, and importing them loads no
+    JAX."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = tuple(
+        f"{pkg}/{name}.py" for pkg, names in (
+            ("mesh", ("__init__", "topology", "feature", "sampler")),
+            ("dist", ("__init__", "comm", "buckets", "init", "feature",
+                      "sampler", "ring", "hier", "e2e")),
+            ("utils", ("mesh",)), ("recovery", ("shardwal",)))
+        for name in names)
+    bad = []
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+        path = ROOT / "quiver_tpu_torch" / mod
+        bad += _strings_into_jax_package(path.read_text(), mod)
+    assert not bad, bad
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      .replace(".__init__", "") for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    from quiver_tpu_torch.recovery import shardwal
+
+    assert shardwal.__name__.startswith("quiver_tpu_torch.")
+
+
+def test_sharding_entry_points_default_to_the_card(monkeypatch):
+    """Meshes default to the cards, so every sharded structure built
+    without CPU devices raises where there is no card; a CPU mesh runs."""
+    from quiver_tpu_torch.mesh import MeshFeature, MeshSampler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    table = np.zeros((8, 2), np.float32)
+    for make in (lambda: qt.make_mesh(("data",)),
+                 lambda: qt.make_hybrid_mesh(),
+                 lambda: qt.MeshTopo(),
+                 lambda: MeshFeature(table, n_shards=2),
+                 lambda: MeshSampler(np.array([0, 1, 2]), np.array([1, 0]),
+                                     n_shards=2),
+                 lambda: qt.Feature(cache_policy="ici_shard")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    cpu = qt.make_mesh(("shard",), devices=[torch.device("cpu")] * 2)
+    assert MeshFeature(table, n_shards=2, mesh=cpu)[[0, 7]].shape == (2, 2)

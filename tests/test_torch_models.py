@@ -21,6 +21,7 @@ import torch
 from quiver_tpu import telemetry
 from quiver_tpu.models import GAT as FlaxGAT
 from quiver_tpu.models import GCN as FlaxGCN
+from quiver_tpu.models import GraphSAGE as FlaxSAGE
 from quiver_tpu.models.gcn import GCNConv as FlaxGCNConv
 from quiver_tpu.models.layers import GATConv as FlaxGATConv
 from quiver_tpu.parallel.train import TrainState as JaxState
@@ -257,3 +258,112 @@ def test_dropout_follows_the_generator(data, family):
     assert torch.equal(m(xt, pblocks), m(xt, pblocks))
     with pytest.raises(ValueError, match="blocks"):
         m(xt, pblocks[:2])
+
+
+# -- dtype=: bf16 compute, fp32 parameters (A5) ----------------------------
+# XLA's CPU bf16 and torch's CPU bf16 both compute each dense product with
+# fp32 accumulation and one rounding to bf16; the masked sums and means of
+# a bf16 layer input could still round in another order.  On these inputs
+# every bf16 layer output is bitwise Flax's and GAT's fp32 scores differ in
+# the last fp32 bit, so BF16_TOL allows one bf16 ulp (2**-7 of the value)
+# for a rounding flip, and no more (ROADMAP §C).
+BF16_TOL = dict(rtol=2**-7, atol=1e-5)
+FLAX_BF16 = {
+    "sage": lambda: FlaxSAGE(hidden=HIDDEN, out_dim=CLASSES, num_layers=3,
+                             dropout=0.0, dtype=jnp.bfloat16),
+    "gat": lambda: FlaxGAT(hidden=HIDDEN, out_dim=CLASSES, num_layers=3,
+                           heads=2, dropout=0.0, dtype=jnp.bfloat16),
+    "gcn": lambda: FlaxGCN(hidden=HIDDEN, out_dim=CLASSES, num_layers=3,
+                           dropout=0.0, dtype=jnp.bfloat16),
+}
+CONV_NAMES = {"sage": "conv", "gat": "gat", "gcn": "gcn"}
+
+
+def port_bf16(family, params):
+    kw = dict(num_layers=3, dropout=0.0, device="cpu", dtype=torch.bfloat16)
+    if family == "sage":
+        m, conv = qt.GraphSAGE(D, HIDDEN, CLASSES, **kw), \
+            qt.sage_params_from_flax
+    elif family == "gat":
+        m, conv = qt.GAT(D, HIDDEN, CLASSES, heads=2, **kw), \
+            qt.gat_params_from_flax
+    else:
+        m, conv = qt.GCN(D, HIDDEN, CLASSES, **kw), qt.gcn_params_from_flax
+    m.load_state_dict(conv(tree(params)))
+    return m
+
+
+@pytest.mark.parametrize("family", ["sage", "gat", "gcn"])
+def test_bf16_models_match_flax_layer_by_layer(data, family):
+    """``dtype=torch.bfloat16`` against Flax's ``dtype=jnp.bfloat16`` on
+    the same blocks and parameters: each conv's output and the logits
+    within BF16_TOL, in Flax's dtypes (GraphSAGE's layers are bf16; GAT's
+    and GCN's promote to fp32 through their fp32 attention vectors and
+    masks, as in JAX), with fp32 parameters."""
+    jb, pblocks, x, _ = data
+    fm = FLAX_BF16[family]()
+    params = fm.init(jax.random.PRNGKey(1), jnp.asarray(x), jb.layers)
+    want, inter = fm.apply(params, jnp.asarray(x), jb.layers,
+                           capture_intermediates=True,
+                           mutable=["intermediates"])
+    m = port_bf16(family, params)
+    m.eval()
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    outs = []
+    hooks = [c.register_forward_hook(lambda mod, i, o: outs.append(o))
+             for c in m.convs]
+    got = m(torch.from_numpy(x), pblocks)
+    for h in hooks:
+        h.remove()
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    for i, out in enumerate(outs):
+        ref = inter["intermediates"][f"{CONV_NAMES[family]}{i}"][
+            "__call__"][0]
+        assert str(out.dtype).split(".")[-1] == str(ref.dtype), i
+        np.testing.assert_allclose(
+            out.detach().float().numpy(),
+            np.asarray(ref.astype(jnp.float32)), **BF16_TOL,
+            err_msg=f"layer {i}")
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+def test_bfloat16_models_train(data):
+    """``tests/test_models.py::test_bfloat16_models_train`` on the port:
+    finite bf16 logits, fp32 parameters, and Adam lowers the loss."""
+    jb, pblocks, x, lab = data
+    m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3, dropout=0.0,
+                     device="cpu", dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    xt = torch.from_numpy(x)
+    out = m(xt, pblocks)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    opt = torch.optim.Adam(m.parameters(), lr=1e-2)
+    labels = torch.from_numpy(lab).long()
+
+    def loss():
+        return torch.nn.functional.cross_entropy(
+            m(xt, pblocks).float(), labels)
+
+    with torch.no_grad():
+        l0 = float(loss())
+    for _ in range(8):
+        opt.zero_grad()
+        loss().backward()
+        opt.step()
+    with torch.no_grad():
+        assert float(loss()) < l0
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+
+
+def test_serving_reads_bf16_logits_back_widened():
+    """numpy has no bfloat16: a bf16 model's answers come back as fp32,
+    widened exactly (ROADMAP §C)."""
+    from quiver_tpu_torch.serving import _host_logits
+
+    y = torch.randn(5, 3).to(torch.bfloat16)
+    got = _host_logits(y)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, y.float().numpy())
+    assert _host_logits(torch.ones(2)).dtype == np.float32

@@ -177,14 +177,15 @@ def test_feature_lookup_device_clips_ids(csr, feat, ordered):
 def test_feature_partial_budget_raises(feat):
     """A partial budget builds (the budgeted store, test_torch_feature.py),
     but the device-id gather of the fused lane still needs the whole
-    table, and the ``ici_shard`` policy is not ported."""
+    table, and an unknown cache policy is refused (``ici_shard`` is
+    ported: test_torch_feature.py)."""
     f = qt.Feature(device_cache_size=feat.nbytes // 2,
                    device="cpu").from_cpu_tensor(feat)
     assert 0 < f.cache_count < feat.shape[0]
     with pytest.raises(RuntimeError, match="whole table"):
         f.lookup_device(torch.arange(4))
-    with pytest.raises(NotImplementedError):
-        qt.Feature(cache_policy="ici_shard", device="cpu")
+    with pytest.raises(ValueError, match="cache_policy"):
+        qt.Feature(cache_policy="clique_shard", device="cpu")
 
 
 @pytest.mark.parametrize("pin", ["key", "hash", "auto", "bogus"])

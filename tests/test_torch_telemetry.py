@@ -214,9 +214,12 @@ def test_exporter_routes():
             "state": "serving", "ready": True, "stale": False,
             "managed": False}
         for route in ("/metrics/fleet", "/debug/fleet",
-                      "/debug/fleet/summary", "/debug/mesh",
+                      "/debug/fleet/summary",
                       "/debug/requests/nope", "/nothing"):
             assert _get(plain.url + route)[0] == 404, route
+        # the mesh tier is ported: /debug/mesh answers mesh_status()
+        code, body = _get(plain.url + "/debug/mesh")
+        assert code == 200 and "active" in json.loads(body)
         req = urllib.request.Request(srv.url + "/metrics", method="HEAD")
         with urllib.request.urlopen(req, timeout=10) as r:
             assert r.status == 200 and r.read() == b""

@@ -220,8 +220,11 @@ def test_refusals(data):
     topo = qt.CSRTopo(indptr=indptr, indices=indices)
     m = qt.GraphSAGE(D, HIDDEN, CLASSES, num_layers=3, device="cpu")
     opt = torch.optim.Adam(m.parameters())
-    with pytest.raises(NotImplementedError, match="A13"):
-        qt.make_train_step(m, opt, mesh=object())
+    # the data-parallel step is ported (test_torch_dist.py); a mesh
+    # without the batch's axis is refused
+    mesh = qt.make_mesh(("model",), devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="axis 'data'"):
+        qt.make_train_step(m, opt, mesh=mesh)
     budgeted = qt.Feature(device_cache_size=feat.nbytes // 2,
                           device="cpu").from_cpu_tensor(feat)
     sampler = qt.GraphSageSampler(topo, SIZES, device="cpu")

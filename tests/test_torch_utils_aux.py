@@ -213,7 +213,7 @@ def test_trace_utilities_match_jax(tmp_path):
     assert doc["traceEvents"]
 
 
-# the A13 names (ROADMAP §A, item 4): sharding across devices, not ported
+# the A13 names (ROADMAP §A, item 4): sharding across devices
 _A13_NAMES = {"DistFeature", "PartitionInfo", "TpuComm", "DistGraphSampler",
               "RingFeature", "distributed_initialize", "make_hybrid_mesh",
               "HierFeature", "MeshTopo", "make_mesh"}
@@ -221,13 +221,13 @@ _A13_NAMES = {"DistFeature", "PartitionInfo", "TpuComm", "DistGraphSampler",
 
 def test_port_exports_every_jax_top_level_name():
     """Every name of JAX's ``__all__`` (``quiver_tpu/__init__.py:100``)
-    is in the port's ``__all__`` and importable from it, or is an A13
-    name still to come; ``make_key`` is the port's own."""
+    is in the port's ``__all__`` and importable from it, the A13 names
+    included; ``make_key`` is the port's own."""
     import quiver_tpu
 
-    missing = set(quiver_tpu.__all__) - set(qt.__all__) - _A13_NAMES
+    missing = set(quiver_tpu.__all__) - set(qt.__all__)
     assert not missing, sorted(missing)
-    for name in set(quiver_tpu.__all__) - _A13_NAMES:
+    for name in quiver_tpu.__all__:
         assert getattr(qt, name).__module__.startswith("quiver_tpu_torch")
     assert qt.make_key is prng.make_key
-    assert not _A13_NAMES & set(qt.__all__)
+    assert _A13_NAMES <= set(qt.__all__)
