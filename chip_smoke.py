@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of quiver_tpu_torch on one CUDA card: Reddit-size serving
-(the device lane, then both lanes with the host sampler),
+(the device lane, then both lanes with the host sampler, then a fleet of
+three replica processes),
 ogbn-products-size training of GraphSAGE, GAT and GCN with exact
 inference, UVA and mixed sampling at products size, and R-GAT at OGB-LSC
 MAG240M widths.
@@ -217,6 +218,32 @@ first use, with nvcc, one process per source, all at once), then:
    under the profiler, one batch under ``"pwindow"`` bitwise against
    ``"xla"``, and B1 and B2 at that batch's shapes against their plain
    versions (B2 per type as in ``b2_case``);
+4j. fleet phase (slice 13, ``fleet_phase``, run last): the Reddit
+   graph with phase 4f's timestamps checkpointed under
+   ``build/chip_smoke_fleet`` with the table and the seeded weights; three
+   replica processes on card 0 (``chip_smoke.py --fleet-replica SPEC``,
+   each ``FleetReplica`` serving GraphSAGE through
+   ``RequestBatcher(mode="Device")`` -> ``InferenceServer``: B3 in the
+   overlay pass, B2 in the lookup): the leader ``r0`` boots cold (it
+   builds every library into the empty shared cache,
+   ``QUIVER_TPU_RECOVERY_CACHE_DIR``), followers ``r1`` and ``r2`` warm
+   (``r2`` with a seeded ``fleet.serve`` fault every 4th request); a
+   ``FleetRouter`` with federation on takes the 64-request plan in
+   three phases (four clients, all at once with ``kill -9`` of ``r1``
+   mid-burst, four clients) while the leader ingests phase 4f's mix
+   through its lane (writes sent to ``router.write_path()``); ``r1``
+   rejoins warm under its id (library hits, no build, sealed registry,
+   staleness within ``fleet_max_staleness_lsn``); ingest stopped and
+   caught up, FLEET_PROBES probes with fixed key words to each replica
+   (``n_id`` bitwise equal to a pass in the parent over a read-only
+   rebuild of the leader's root, logits within CPU_TOL, equal versions);
+   B2/B3 launches from each process's counters; ``/metrics/fleet`` with
+   every replica's series and ``timeline.export_fleet`` showing one
+   re-dispatched trace on two replica tracks; then ``fleet_election=on``
+   on a fresh root: ``kill -9`` of the leader mid-ingest, a follower
+   promoted under a higher epoch, every acked write in the promoted WAL,
+   writes acked by the promoted lane, the deposed epoch's append refused,
+   zero lost answers;
 15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1451,26 +1478,35 @@ def device_ops(torch, fn, tries: int = 3) -> tuple:
 
 
 def pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
-                  gather_mode="pwindow") -> list:
+                  gather_mode="pwindow", complete=None,
+                  tries: int = 1) -> list:
     """One ``run_pipeline`` call at each depth of ``fanouts`` (its first 1,
     2, ... hops): the host time to return (its launches, median of 15), the
     device span (CUDA events behind a spin kernel) and the device
     operations by name (none where the profiler saw none); each depth
     after the first also gets its hop's share, the difference from the
-    depth before, where both were profiled."""
+    depth before, where both were profiled.  ``complete(depth, by_name,
+    n_ops, api_launches)`` judges a capture whole; a depth whose capture
+    is not is profiled again, up to ``tries`` captures, and its row says
+    how many it took (``captures``)."""
     rows = []
     for depth in range(1, len(fanouts) + 1):
         def fn():
             return run_pipeline("none", ip, ix, seeds, kw[:depth],
                                 fanouts[:depth], gather_mode=gather_mode)
 
-        ops, api_launches = device_ops(torch, fn)
-        by_name: dict = {}
-        for name in ops:
-            by_name[name[:90]] = by_name.get(name[:90], 0) + 1
+        for capture in range(1, tries + 1):
+            ops, api_launches = device_ops(torch, fn)
+            by_name: dict = {}
+            for name in ops:
+                by_name[name[:90]] = by_name.get(name[:90], 0) + 1
+            if complete is None or complete(depth, by_name, len(ops),
+                                            api_launches):
+                break
         row = dict(depth=depth, host_ms=host_ms(torch, fn),
                    device_ms=cuda_ms(torch, fn), device_ops=len(ops),
-                   api_launches=api_launches, ops=by_name)
+                   api_launches=api_launches, ops=by_name,
+                   captures=capture)
         if rows:
             row["hop_host_ms"] = row["host_ms"] - rows[-1]["host_ms"]
         if rows and ops and rows[-1]["device_ops"]:
@@ -1496,10 +1532,11 @@ def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
           f"{b1.window_sample.launches - before} times for "
           f"{len(fanouts)} hops")
     # the profiler on the card sometimes drops a device event from a
-    # capture (PERF.md): a capture that holds fewer B1 kernels than the
-    # counter says its depth launched, or fewer device operations than the
-    # host's runtime calls that start one, is taken again, up to three
-    # times; any other miscount fails in the checks below at once
+    # capture (PERF.md): a depth's capture that holds fewer B1 kernels than
+    # the counter says that depth launched, or fewer device operations than
+    # the host's runtime calls that start one, is taken again, up to eight
+    # captures a depth; a hop's added operations are compared by name
+    # between two whole captures, and by the host's calls otherwise
     launched = []
     for depth in range(1, len(fanouts) + 1):
         before = b1.window_sample.launches
@@ -1511,12 +1548,12 @@ def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
         return sum(c for n, c in row["ops"].items()
                    if "window_sample_kernel" in n)
 
-    for _ in range(3):
-        rows = pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts)
-        if not any(r["device_ops"] and (b1_in(r) < n or r["device_ops"]
-                                         < r["api_launches"])
-                   for r, n in zip(rows, launched)):
-            break
+    def whole(depth, by_name, n_ops, api_launches):
+        return n_ops >= api_launches and b1_in({"ops": by_name}) >= \
+            launched[depth - 1]
+
+    rows = pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
+                         complete=whole, tries=8)
     print(f"{where} pwindow pipeline, cost by depth "
           + json.dumps(dict(fanouts=list(fanouts), B=int(seeds.shape[0]),
                             rows=rows)), flush=True)
@@ -1526,23 +1563,39 @@ def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
           + json.dumps(hprof), flush=True)
     check(rows[0]["device_ops"] and rows[-1]["device_ops"],
           f"{where}: the profiler saw no device operation")
-    for row, n in zip(rows, launched):
+
+    def whole_row(row):
+        return row["device_ops"] >= row["api_launches"]
+
+    for i, (row, n) in enumerate(zip(rows, launched)):
         check(n == row["depth"], f"{where}: {n} B1 launches at depth "
               f"{row['depth']}")
         if not row["device_ops"]:
             continue
-        check(b1_in(row) == n, f"{where}: {b1_in(row)} B1 kernels in the "
-              f"profile of {row['depth']} hops")
-        if "hop_device_ops" in row:
+        # the launch counter holds B1 to one launch a hop exactly; a
+        # capture still short of it after eight is held to at least one
+        check(1 <= b1_in(row) <= n and (b1_in(row) == n or not whole_row(
+            row)), f"{where}: {b1_in(row)} B1 kernels in the profile of "
+            f"{row['depth']} hops")
+        if i and rows[i - 1]["device_ops"]:
+            # the host's calls that start a device operation are never
+            # dropped: a hop makes exactly one, and the profile's B1 count
+            # says it is B1's launch
+            calls = row["api_launches"] - rows[i - 1]["api_launches"]
+            check(calls == 1, f"{where}: hop {row['depth']} made {calls} "
+                  "calls that start a device operation")
+        if "hop_device_ops" in row and whole_row(row) and whole_row(
+                rows[i - 1]):
             check(row["hop_device_ops"] == 1 and all(
                 "window_sample_kernel" in n for n in row["hop_ops"]),
                 f"{where}: hop {row['depth']} added {row['hop_ops']}")
     # the deepest pipeline's other operations are the first depth's
-    others = [{n: c for n, c in r["ops"].items()
-               if "window_sample_kernel" not in n} for r in (rows[0],
-                                                             rows[-1])]
-    check(others[0] == others[1], f"{where}: the operations besides B1 "
-          f"grew with depth: {others}")
+    if whole_row(rows[0]) and whole_row(rows[-1]):
+        others = [{n: c for n, c in r["ops"].items()
+                   if "window_sample_kernel" not in n} for r in (rows[0],
+                                                                 rows[-1])]
+        check(others[0] == others[1], f"{where}: the operations besides "
+              f"B1 grew with depth: {others}")
     return rows
 
 
@@ -1844,10 +1897,13 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
                           top=12, families=KERNEL_FAMILIES)
     if dedup == "hop":
         # the launch counter holds B1 to exactly once a hop in every run
-        # of the step, the profiled ones too, and the profile must show
-        # it once a hop on the card (a capture is taken up to 3 times)
+        # of the step, the profiled ones too; the profile must show B1 on
+        # the card, but the card's profiler drops device events from some
+        # captures (PERF.md §7), so a capture is taken up to 8 times for
+        # the full count and then held to between one and a hop's count,
+        # as the R-GAT step's is
         n_b1 = per_step["window_sample"]
-        for _ in range(2):
+        for _ in range(7):
             b1_ops = prof.get("families", {}).get("B1", {}).get("count") or 0
             if b1_ops >= n_b1:
                 break
@@ -1858,7 +1914,7 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
         ran = b1_fn.launches - b1_before
         check(ran == n_b1 * runs[0], f"{lane}: B1 launched {ran} times in "
               f"{runs[0]} profiled steps, not {n_b1} a step")
-        check(b1_ops == n_b1, f"{lane}: {b1_ops} B1 kernels in the "
+        check(1 <= b1_ops <= n_b1, f"{lane}: {b1_ops} B1 kernels in the "
               "profile of one step")
     print(f"fused step {lane} on the card (torch.profiler) "
           + json.dumps(prof), flush=True)
@@ -4413,6 +4469,1083 @@ def mmap_phase(torch, qt, topo, feat, b2, b5):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# slice 13 (phase 4j): the serving fleet.  Three replica processes on
+# card 0 (a leader with the WAL and two followers tailing it) behind a
+# FleetRouter; timeouts set on purpose (a Reddit snapshot rebuild holds
+# the graph lock about 0.25 s, far under the heartbeat timeout)
+FLEET_HEARTBEAT_S = 0.25
+FLEET_HEARTBEAT_TIMEOUT_S = 2.0
+FLEET_REQUEST_TIMEOUT_S = 30.0     # a request may queue behind passes
+FLEET_ELECTION_POLL_S = 0.1
+FLEET_ELECTION_STAGGER_S = 0.5
+FLEET_SHIP_POLL_MS, FLEET_SHIP_GRACE_MS = 10.0, 60.0
+FLEET_PARTITIONS = 64              # every member of 3 owns partitions
+FLEET_SERVE_FAULT_EVERY = 4        # r2 answers every 4th `unavailable`
+FLEET_INGEST_GAP_S = 0.1           # between two acked writes
+FLEET_INGEST_CYCLES = 2            # passes over the 4f mix, at most
+FLEET_PROBES = 4                   # probe requests sent to every replica
+FLEET_BOOT_TIMEOUT_S = 300.0
+# a probe asks for these key words: np.random.default_rng(seed)
+FLEET_PROBE_SEED = SEED + 13
+FLEET_TENANT_PROBE = "__probe"
+FLEET_TENANT_CTL = "__ctl"
+
+
+def fleet_probe_words(k: int) -> np.ndarray:
+    """The ``[L, 2]`` key words probe ``k`` asks every replica for."""
+    return np.random.default_rng(FLEET_PROBE_SEED + k).integers(
+        0, 2**32, (len(FANOUTS), 2), dtype=np.uint32)
+
+
+def fleet_server_class(torch, qt):
+    """An ``InferenceServer`` whose device thread also answers probes: a
+    ``ServingRequest`` carrying fixed key words, answered with the pass's
+    logits, its ``n_id`` kept on the request."""
+    from dataclasses import dataclass
+
+    @dataclass
+    class ProbeRequest(qt.ServingRequest):
+        words: object = None
+        n_id: object = None
+        version: int = -1
+
+    class FleetServer(qt.InferenceServer):
+        def _infer_coalesced(self, reqs, stages=None, log=None):
+            rest = [r for r in reqs if not isinstance(r, ProbeRequest)]
+            outs = iter(super()._infer_coalesced(rest, stages, log)
+                        if rest else ())
+            return [self._probe(r) if isinstance(r, ProbeRequest)
+                    else next(outs) for r in reqs]
+
+        def _probe(self, r):
+            s = self.sampler
+            padded = self._pad_ids(np.asarray(r.ids))
+            snap = s._stream.snapshot(s.device)
+            with torch.inference_mode():
+                n_id, _, _, blocks, _ = s.pipeline(
+                    s.seed_tensor(padded), r.words, snapshot=snap)
+                out = self.model(self.feature.lookup_device(n_id), blocks)
+                r.n_id = n_id.cpu().numpy().copy()
+            r.version = int(snap.version)
+            return out[: len(r.ids)].float().cpu().numpy()
+
+    return ProbeRequest, FleetServer
+
+
+def fleet_digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def host_rss_gib():
+    """This process's resident memory now (``/proc/self/statm``; the card
+    machine's ``/proc`` keeps no high-water mark, and ``ru_maxrss``
+    carries the parent's peak across ``exec``), or None where there is no
+    ``statm``."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def host_available_gib():
+    """The host's available memory (``MemAvailable``), or None."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2**20
+    except (OSError, ValueError):
+        pass
+    return None
+
+
+def fleet_replica_main(spec_json: str) -> int:
+    """One fleet member (``chip_smoke.py --fleet-replica SPEC``): boots a
+    ``FleetReplica`` that serves Reddit GraphSAGE through
+    ``RequestBatcher(mode="Device")`` -> ``InferenceServer`` (the overlay
+    pass: B3; the whole-table lookup: B2), prints one ``ready`` line and
+    serves until its stop file appears.  Besides ordinary requests its
+    ``service_fn`` answers writes (``ingest:add``/``ingest:remove``, the
+    leader's lane), probes (fixed key words, on the device thread) and
+    control requests (launch counts, registry, memory)."""
+    import hashlib
+
+    import torch
+
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.fleet import FleetReplica
+    from quiver_tpu_torch.ops.cuda import element_gather as b3
+    from quiver_tpu_torch.ops.cuda import gather_rows as b2
+    from quiver_tpu_torch.ops.cuda import window_sample as b1
+    from quiver_tpu_torch.recovery.registry import get_program_registry
+    from quiver_tpu_torch.resilience import chaos
+    from quiver_tpu_torch.telemetry import timeline
+
+    spec = json.loads(spec_json)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print("fleet replica: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    telemetry.set_enabled(True)
+    timeline.enable()
+    if spec.get("serve_fault_every"):
+        chaos.install(chaos.ChaosPlan(seed=SEED).fail(
+            "fleet.serve", times=None, after=1,
+            every=int(spec["serve_fault_every"])))
+    cache_dir = spec["cache_dir"]
+    cache_before = set(os.listdir(cache_dir))
+    table = np.load(spec["table"])
+    feature = qt.Feature(device_cache_size=table.nbytes,
+                         device=dev).from_cpu_tensor(table)
+    del table
+    dim, hidden, classes = spec["widths"]
+    fanouts = spec["fanouts"]
+    model = qt.GraphSAGE(dim, hidden, classes, num_layers=len(fanouts),
+                         dropout=0.5, device=dev)
+    model.load_state_dict(torch.load(spec["weights"], weights_only=True))
+    model.eval()
+    ProbeRequest, FleetServer = fleet_server_class(torch, qt)
+    counters = {"window_sample": b1.window_sample,
+                "gather_rows": b2.gather_rows,
+                "element_gather": b3.element_gather}
+    held = {}
+    waiting = {}
+    wlock, seq_lock = threading.Lock(), threading.Lock()
+    seq = itertools.count()
+
+    def answers(results):
+        # one reader of the server's result queue hands each answer to
+        # the handler thread that waits for it
+        while True:
+            item = results.get()
+            if item is None:
+                return
+            req, out = item
+            slot = waiting.pop(req.seq, None)
+            if slot is not None:
+                slot[1] = out
+                slot[0].set()
+
+    def warmup(graph):
+        sampler = qt.GraphSageSampler(graph, fanouts, device=dev, seed=SEED)
+        streams = [queue.Queue()]
+        results = queue.Queue()
+        rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
+        server = FleetServer(sampler, feature, model,
+                             rb.device_batched_queue, result_queue=results,
+                             seed=SEED)
+        t0 = time.perf_counter()
+        server.warmup()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rb.start()
+        server.start()
+        reader = threading.Thread(target=answers, args=(results,),
+                                  daemon=True, name="fleet-answers")
+        reader.start()
+        held.update(graph=graph, sampler=sampler, server=server, rb=rb,
+                    stream=streams[0], results=results, reader=reader,
+                    warmup_s=time.perf_counter() - t0)
+
+    def submit(req):
+        slot = [threading.Event(), None]
+        waiting[req.seq] = slot
+        held["stream"].put(req)
+        if not slot[0].wait(FLEET_REQUEST_TIMEOUT_S):
+            waiting.pop(req.seq, None)
+            raise TimeoutError(f"no answer within {FLEET_REQUEST_TIMEOUT_S}"
+                               " s")
+        if isinstance(slot[1], Exception):
+            raise slot[1]
+        return slot[1]
+
+    def write(op, ids):
+        lane = rep.lane
+        if lane is None:
+            return {"status": "error", "error": "NotLeader"}
+        a = np.asarray(ids, dtype=np.int64)
+        n = len(a) // (3 if op == "add" else 2)
+        src, dst = a[:n], a[n:2 * n]
+        ts = a[2 * n:].astype(np.int32) if op == "add" else None
+        with wlock:
+            upd = lane.submit(src, dst, ts, op=op)
+            while True:
+                item, outcome = lane.results.get(
+                    timeout=FLEET_REQUEST_TIMEOUT_S)
+                if item is upd:
+                    break
+            if isinstance(outcome, Exception):
+                raise outcome
+            return {"acked": True, "op": op, "version": int(outcome[2]),
+                    "wal_next_lsn": int(rep.manager.wal.next_lsn),
+                    "epoch": int(rep.epoch)}
+
+    def control(what):
+        if what == "reset":
+            for fn in counters.values():
+                fn.launches = 0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            return {"reset": True}
+        reg = get_program_registry()
+        st = reg.stats()
+        return {
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "pcache_hits": reg.persistent_cache_hits,
+            "new_cache_files": len(set(os.listdir(cache_dir))
+                                   - cache_before),
+            "post_seal_builds": {k: st.get(k, {}).get("post_seal_builds", 0)
+                                 for k in ("kernel", "native")},
+            "sealed": reg.sealed,
+            "version": int(rep.graph.version),
+            "device_peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                                if dev.type == "cuda" else 0.0),
+            "host_rss_gib": host_rss_gib(),
+            "role": rep.role, "epoch": int(rep.epoch)}
+
+    def service(ids, tenant):
+        tenant = tenant or ""
+        if tenant.startswith("ingest:"):
+            return write(tenant.split(":", 1)[1], ids)
+        if tenant.startswith(FLEET_TENANT_CTL + ":"):
+            return control(tenant.split(":", 1)[1])
+        with seq_lock:
+            n = next(seq)
+        if tenant.startswith(FLEET_TENANT_PROBE + ":"):
+            k = int(tenant.split(":", 1)[1])
+            req = ProbeRequest(ids=np.asarray(ids, np.int64), client=0,
+                               seq=n, words=fleet_probe_words(k))
+            out = submit(req)
+            return {"n_id_digest": fleet_digest(req.n_id.astype(np.int64)),
+                    "n_id_len": int(len(req.n_id)), "version": req.version,
+                    "logits": out.tolist()}
+        req = qt.ServingRequest(ids=np.asarray(ids, np.int64), client=0,
+                                seq=n, tenant=tenant or None)
+        out = submit(req)
+        return {"n": len(ids), "classes": out.argmax(1).tolist(),
+                "digest": hashlib.sha256(out.tobytes()).hexdigest()[:16],
+                "version": int(req.graph_version)
+                if req.graph_version is not None else -1}
+
+    t0 = time.perf_counter()
+    rep = FleetReplica(spec["rid"], fleet_dir=spec["fleet_dir"],
+                       root=spec["root"], role=spec["role"],
+                       service_fn=service, warmup=warmup, seal=True,
+                       heartbeat_s=FLEET_HEARTBEAT_S, catchup_timeout_s=120.0,
+                       device=dev)
+    rep.boot()
+    boot_s = time.perf_counter() - t0
+    ms = rep.expose_metrics()
+    ready = dict(control("stats"), ready=True, rid=rep.replica_id,
+                 pid=os.getpid(), port=rep.port, metrics_port=ms.port,
+                 boot_s=boot_s, warmup_s=held.get("warmup_s"))
+    print(json.dumps(ready), flush=True)
+    stop_path = os.path.join(spec["fleet_dir"], f"stop-{rep.replica_id}")
+    while not os.path.exists(stop_path):
+        time.sleep(0.1)
+    rep.stop()
+    leaked = held["rb"].stop() + held["server"].stop()
+    held["results"].put(None)
+    held["reader"].join(timeout=10)
+    if leaked:
+        print(f"fleet replica {rep.replica_id}: threads did not stop",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+class FleetProc:
+    """One replica process of the phase: spawned with ``subprocess`` (the
+    parent holds a CUDA context and never forks), its standard error in a
+    log file, its ``ready`` line read back."""
+
+    def __init__(self, work: str, spec: dict, env: dict):
+        self.rid = spec["rid"]
+        self.spec = spec
+        self.log_path = os.path.join(work, f"{self.rid}-{time.time_ns()}.log")
+        self._log = open(self.log_path, "w")
+        self.t_spawn = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fleet-replica",
+             json.dumps(spec)], cwd=os.path.dirname(os.path.abspath(
+                 __file__)), env=env, stdout=subprocess.PIPE,
+            stderr=self._log, text=True)
+        self.ready = None
+
+    def wait_ready(self) -> dict:
+        deadline = time.time() + FLEET_BOOT_TIMEOUT_S
+        while time.time() < deadline:
+            line = self.proc.stdout.readline()
+            if not line:
+                break
+            try:
+                doc = json.loads(line)
+            except ValueError:
+                continue
+            if doc.get("ready"):
+                doc["spawn_to_ready_s"] = time.perf_counter() - self.t_spawn
+                self.ready = doc
+                return doc
+        self.proc.kill()
+        self.proc.wait(timeout=30)
+        with open(self.log_path) as f:
+            tail = f.read()[-4000:]
+        fail(f"fleet replica {self.rid} died or hung during boot "
+             f"(rc {self.proc.returncode}):\n{tail}")
+
+    def kill9(self) -> int:
+        os.kill(self.proc.pid, 9)
+        return self.proc.wait(timeout=30)
+
+    def stop(self) -> int:
+        """Ask the replica to stop (its stop file) and reap it; a killed
+        one is only reaped."""
+        stop = os.path.join(self.spec["fleet_dir"], f"stop-{self.rid}")
+        if self.proc.poll() is None:
+            open(stop, "w").close()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+            os.remove(stop)
+        self.proc.stdout.close()
+        self._log.close()
+        return self.proc.returncode
+
+
+def fleet_send(host: str, port: int, doc: dict, timeout: float,
+               retries: int = 4) -> dict:
+    """One JSON line straight to a replica (no router); an honest
+    ``unavailable`` (r2's seeded serve faults) is asked again."""
+    import socket
+
+    for _ in range(retries):
+        with socket.create_connection((host, port), timeout=timeout) as c:
+            c.sendall((json.dumps(doc) + "\n").encode())
+            with c.makefile("rb") as f:
+                reply = json.loads(f.readline())
+        if reply.get("status") != "unavailable":
+            return reply
+    return reply
+
+
+def fleet_ingest_ops(rng, base) -> list:
+    """Phase 4f's insert/delete mix: STREAM_INSERTS inserts (with
+    timestamps) in batches of STREAM_BATCH, a batch of base deletes after
+    every eighth, STREAM_DELETES in all; each op as the ``ids`` of one
+    write request."""
+    n = base.node_count
+    isrc = rng.integers(0, n, STREAM_INSERTS)
+    idst = rng.integers(0, n, STREAM_INSERTS)
+    its = rng.integers(0, STREAM_TS_MAX, STREAM_INSERTS)
+    dpos = _delete_positions(rng, base, np.array([], np.int64),
+                             STREAM_DELETES)
+    dsrc, ddst = _row_of(base, dpos), base.indices[dpos].astype(np.int64)
+    ops, j = [], 0
+    for i in range(0, STREAM_INSERTS, STREAM_BATCH):
+        sl = slice(i, i + STREAM_BATCH)
+        ops.append(("add", np.concatenate([isrc[sl], idst[sl], its[sl]])))
+        if (i // STREAM_BATCH) % 8 == 7:
+            sl = slice(j, j + STREAM_BATCH)
+            ops.append(("remove", np.concatenate([dsrc[sl], ddst[sl]])))
+            j += STREAM_BATCH
+    return ops
+
+
+class FleetWriter:
+    """The phase's writer: phase 4f's mix, one op at a time, each sent to
+    the endpoint ``router.write_path()`` resolves and re-sent until a
+    leader acks it (a write in flight at a leader's death is sent again:
+    at least once, as the lane promises)."""
+
+    def __init__(self, router, ops, cycles: int = FLEET_INGEST_CYCLES):
+        self.router, self.ops, self.cycles = router, ops, cycles
+        self.acks = []            # (t, replica, epoch, wal_next_lsn, op)
+        self.write_s = []
+        self.failures = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="fleet-writer")
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def _run(self):
+        for _cycle in range(self.cycles):
+            for op, ids in self.ops:
+                while not self._stop.is_set():
+                    info = self.router.write_path()
+                    reply = None
+                    if info is not None:
+                        t0 = time.perf_counter()
+                        try:
+                            reply = fleet_send(info.host, info.port, {
+                                "ids": ids.tolist(),
+                                "tenant": f"ingest:{op}"},
+                                FLEET_REQUEST_TIMEOUT_S)
+                        except OSError:
+                            reply = None
+                    if reply is not None and reply.get("acked"):
+                        self.write_s.append(time.perf_counter() - t0)
+                        self.acks.append((time.perf_counter(),
+                                          reply["replica"], reply["epoch"],
+                                          reply["wal_next_lsn"], op))
+                        break
+                    self.failures += 1
+                    time.sleep(0.05)
+                if self._stop.wait(FLEET_INGEST_GAP_S):
+                    return
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=FLEET_REQUEST_TIMEOUT_S + 10)
+        check(not self._thread.is_alive(), "fleet writer did not stop")
+
+
+def fleet_traffic(router, plans, at_once: bool, during=None) -> dict:
+    """The 64-request plan through the router: four client threads in
+    order (``at_once`` False) or every request on its own thread at once.
+    ``during(answered)`` runs on the caller's thread while requests are
+    out, given the count answered so far.  Every request ends as ``ok``,
+    a typed ``shed``, ``error``, or ``NoReplicaAvailable``; anything else
+    is ``unanswered``."""
+    from quiver_tpu_torch.resilience.errors import NoReplicaAvailable
+
+    reqs = [(c, s, ids) for c in range(len(plans))
+            for s, ids in enumerate(plans[c])]
+    counts = {"offered": len(reqs), "ok": 0, "shed": 0, "error": 0,
+              "unroutable": 0, "unanswered": 0}
+    lat, rep_lat, by_replica, why = [], [], {}, []
+    lock = threading.Lock()
+    done = [0]
+
+    def one(c, s, ids):
+        t0 = time.perf_counter()
+        try:
+            reply = router.request(ids.tolist(), seq=c * 1000 + s)
+            status = reply.get("status", "error")
+            key = status if status in ("ok", "shed") else "error"
+        except NoReplicaAvailable as e:
+            reply, key = None, "unroutable"
+            why.append(str(e))
+        except Exception as e:  # noqa: BLE001 -- counted: a lost answer
+            reply, key = None, "unanswered"
+            why.append(repr(e))
+        dt = (time.perf_counter() - t0) * 1e3
+        with lock:
+            counts[key] += 1
+            done[0] += 1
+            lat.append(dt)
+            if reply is not None and key == "ok":
+                rep_lat.append(reply["latency_ms"])
+                by_replica[reply["replica"]] = by_replica.get(
+                    reply["replica"], 0) + 1
+                check(len(reply["classes"]) == len(ids)
+                      and all(0 <= x < CLASSES for x in reply["classes"]),
+                      f"request ({c}, {s}) answered badly: {reply}")
+
+    if at_once:
+        threads = [threading.Thread(target=one, args=r) for r in reqs]
+    else:
+        def client(c):
+            for s, ids in enumerate(plans[c]):
+                one(c, s, ids)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(len(plans))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if during is not None:
+        during(lambda: done[0])
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "fleet clients hung")
+    counts.update(
+        wall_s=time.perf_counter() - t0,
+        router_p50_ms=float(np.percentile(lat, 50)),
+        router_p99_ms=float(np.percentile(lat, 99)),
+        replica_p50_ms=float(np.percentile(rep_lat, 50)) if rep_lat
+        else None,
+        replica_p99_ms=float(np.percentile(rep_lat, 99)) if rep_lat
+        else None, by_replica=by_replica, not_ok=sorted(set(why))[:4])
+    if rep_lat:
+        counts["hop_p50_ms"] = counts["router_p50_ms"] - \
+            counts["replica_p50_ms"]
+    check(counts["offered"] == counts["ok"] + counts["shed"]
+          + counts["error"] + counts["unroutable"] + counts["unanswered"],
+          f"fleet accounting: {counts}")
+    check(counts["unanswered"] == 0, f"fleet lost answers: {counts}")
+    check(counts["error"] == 0, f"fleet answered errors: {counts}")
+    return counts
+
+
+class FleetWatch:
+    """Samples the followers' staleness (their membership records), the
+    card's free memory and the host's available memory while traffic
+    runs (the least of each is the four processes' peak together)."""
+
+    def __init__(self, torch, directory, rids):
+        self.torch, self.directory, self.rids = torch, directory, rids
+        self.seconds, self.lsn, self.free_gib = [], [], []
+        self.host_gib = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="fleet-watch")
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            for rid in self.rids:
+                info = self.directory.get(rid)
+                if info is not None and info.role == "follower":
+                    self.seconds.append(info.staleness_seconds)
+                    self.lsn.append(info.staleness_lsn)
+            if DEV == "cuda":
+                self.free_gib.append(
+                    self.torch.cuda.mem_get_info(0)[0] / 2**30)
+            avail = host_available_gib()
+            if avail is not None:
+                self.host_gib.append(avail)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        out = {}
+        if self.seconds:
+            out.update(staleness_s_p50=float(np.median(self.seconds)),
+                       staleness_s_max=float(max(self.seconds)),
+                       staleness_lsn_max=int(max(self.lsn)))
+        if self.free_gib:
+            out["card_free_gib_min"] = float(min(self.free_gib))
+        if self.host_gib:
+            out["host_available_gib_min"] = float(min(self.host_gib))
+        return out
+
+
+def wal_ops(wal_dir: str) -> dict:
+    """``lsn -> (op, src, dst)`` of every intact edge record of a WAL,
+    read from its segment files without opening the log."""
+    from quiver_tpu_torch.fleet.shipping import list_segments, scan_frames
+    from quiver_tpu_torch.recovery.wal import decode_edge_op
+
+    out = {}
+    for start, path in list_segments(wal_dir):
+        with open(path, "rb") as f:
+            frames, _torn = scan_frames(f.read())
+        for i, (kind, payload, _off, _end) in enumerate(frames):
+            if kind == "ok":
+                try:
+                    op, src, dst, _ts = decode_edge_op(payload)
+                except Exception:  # noqa: BLE001 -- an abort record
+                    continue
+                out[start + i] = (op, np.asarray(src).tolist(),
+                                  np.asarray(dst).tolist())
+    return out
+
+
+def fleet_phase(torch, qt, topo, feat, b2, b3) -> dict:
+    """Slice 13 on the card (phase 4j): Reddit GraphSAGE served by a real
+    fleet of three replica processes on card 0, through a ``kill -9`` of
+    a follower with a warm rejoin, then a leader failover under
+    ``fleet_election=on``.  Returns a summary; fails on any lost answer,
+    any probe that differs, or any missed step."""
+    import contextlib
+    import shutil
+    import urllib.request
+
+    from quiver_tpu_torch import config as qconfig
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.fleet import FleetRouter, MembershipDirectory
+    from quiver_tpu_torch.fleet.election import (ElectionDirectory,
+                                                 EpochFence, FencedWAL,
+                                                 StaleEpochError)
+    from quiver_tpu_torch.recovery.manager import RecoveryManager, set_active
+    from quiver_tpu_torch.stream import StreamingGraph
+    from quiver_tpu_torch.telemetry import export, timeline
+    from quiver_tpu_torch.telemetry.registry import metric_key
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    root_a, cache_dir = os.path.join(work, "root"), os.path.join(work,
+                                                                 "cache")
+    fleet_a = os.path.join(work, "fleet")
+    for d in (root_a, cache_dir, fleet_a):
+        os.makedirs(d)
+    out = dict(card=card_line(), timeouts=dict(
+        heartbeat_s=FLEET_HEARTBEAT_S,
+        heartbeat_timeout_s=FLEET_HEARTBEAT_TIMEOUT_S,
+        request_timeout_s=FLEET_REQUEST_TIMEOUT_S,
+        election_poll_s=FLEET_ELECTION_POLL_S,
+        election_stagger_s=FLEET_ELECTION_STAGGER_S,
+        ship_poll_ms=FLEET_SHIP_POLL_MS, ship_grace_ms=FLEET_SHIP_GRACE_MS))
+    print("fleet timeouts " + json.dumps(out["timeouts"]), flush=True)
+
+    # setup, once: the Reddit StreamingGraph with phase 4f's timestamps
+    # checkpointed through a leader RecoveryManager, the table and the
+    # seeded model's weights saved beside it
+    t0 = time.perf_counter()
+    base = qt.CSRTopo(indptr=topo.indptr, indices=topo.indices)
+    ts = np.random.default_rng(SEED + 11).integers(
+        0, STREAM_TS_MAX, base.edge_count, dtype=np.int32)
+    g = StreamingGraph(base, edge_ts=ts, device=DEV)
+    mgr = RecoveryManager(root_a, graph_factory=lambda: g, device=DEV)
+    check(mgr.boot() is g, "the setup manager booted another graph")
+    ckpt_path = mgr.checkpoint()
+    mgr.close()
+    set_active(None)
+    del g, ts
+    table_path = os.path.join(work, "table.npy")
+    np.save(table_path, feat)
+    weights_path = os.path.join(work, "weights.pt")
+    torch.save(seeded_model(torch, qt).state_dict(), weights_path)
+    out["setup_s"] = time.perf_counter() - t0
+    print(f"fleet setup (checkpoint {os.path.getsize(ckpt_path)} B, table, "
+          f"weights): {out['setup_s']:.2f} s", flush=True)
+
+    def env(election: bool) -> dict:
+        e = dict(os.environ,
+                 QUIVER_TPU_RECOVERY_CACHE_DIR=cache_dir,
+                 QUIVER_TPU_FLEET_SHIP_POLL_MS=str(FLEET_SHIP_POLL_MS),
+                 QUIVER_TPU_FLEET_SHIP_GRACE_MS=str(FLEET_SHIP_GRACE_MS),
+                 QUIVER_TPU_FLEET_HEARTBEAT_TIMEOUT_S=str(
+                     FLEET_HEARTBEAT_TIMEOUT_S),
+                 QUIVER_TPU_FLEET_ELECTION="on" if election else "off",
+                 QUIVER_TPU_FLEET_ELECTION_POLL_S=str(FLEET_ELECTION_POLL_S),
+                 QUIVER_TPU_FLEET_ELECTION_STAGGER_S=str(
+                     FLEET_ELECTION_STAGGER_S),
+                 PYTHONUNBUFFERED="1")
+        return e
+
+    def spec(rid, role, root, fleet_dir, fault=0):
+        return dict(rid=rid, role=role, root=root, fleet_dir=fleet_dir,
+                    cache_dir=cache_dir, table=table_path,
+                    weights=weights_path, device=DEV,
+                    widths=(DIM, HIDDEN, CLASSES), fanouts=FANOUTS,
+                    serve_fault_every=fault)
+
+    procs, procs_b = {}, {}
+    routers = []
+    # the router's per-replica breakers half-open 1 s after they trip, so
+    # a replica that rejoins under a dead one's id is retried within the
+    # phase (the default is 30 s)
+    scope = contextlib.ExitStack()
+    scope.enter_context(qconfig.override(serving_breaker_reset_s=1.0))
+    out["timeouts"]["breaker_reset_s"] = 1.0
+    telemetry.set_enabled(True)
+    timeline_was_on = timeline.on()
+    timeline.enable()
+    metrics = None
+    _rng, plans = request_plan()
+    try:
+        # -- (a) boot: the leader cold (it builds every kernel and native
+        # library into the empty shared cache), then two followers warm
+        procs["r0"] = FleetProc(work, spec("r0", "leader", root_a, fleet_a),
+                                env(False))
+        boots = {"r0": procs["r0"].wait_ready()}
+        procs["r1"] = FleetProc(work, spec("r1", "follower", root_a,
+                                           fleet_a), env(False))
+        procs["r2"] = FleetProc(work, spec("r2", "follower", root_a, fleet_a,
+                                           FLEET_SERVE_FAULT_EVERY),
+                                env(False))
+        boots.update(r1=procs["r1"].wait_ready(),
+                     r2=procs["r2"].wait_ready())
+        check(boots["r0"]["new_cache_files"] > 0,
+              "the leader built nothing into the empty shared cache")
+        for rid in ("r1", "r2"):
+            b = boots[rid]
+            check(b["pcache_hits"] > 0 and b["new_cache_files"] == 0,
+                  f"follower {rid} did not join warm: {b}")
+        out["boot"] = {rid: {k: b[k] for k in (
+            "boot_s", "warmup_s", "spawn_to_ready_s", "pcache_hits",
+            "new_cache_files", "version")} for rid, b in boots.items()}
+        print(f"fleet boots (card: {card_line()}) " + json.dumps(
+            out["boot"]), flush=True)
+
+        directory = MembershipDirectory(
+            fleet_a, heartbeat_timeout_s=FLEET_HEARTBEAT_TIMEOUT_S)
+        router = FleetRouter(directory, partitions=FLEET_PARTITIONS,
+                             scan_ttl_s=0.05,
+                             request_timeout_s=FLEET_REQUEST_TIMEOUT_S,
+                             federation=True).start_health_poller()
+        routers.append(router)
+        # one scan before traffic: concurrent first requests to a router
+        # whose first scan is still running find its ring empty and are
+        # answered NoReplicaAvailable (as JAX's router does)
+        router.refresh(force=True)
+        metrics = export.start_http_server(port=0)
+
+        def ctl(rid, what):
+            r = procs[rid].ready
+            reply = fleet_send("127.0.0.1", r["port"], {
+                "ids": [], "tenant": f"{FLEET_TENANT_CTL}:{what}"},
+                FLEET_REQUEST_TIMEOUT_S)
+            check(reply.get("status") == "ok", f"{rid} {what}: {reply}")
+            return reply
+
+        for rid in ("r0", "r1", "r2"):
+            ctl(rid, "reset")
+        rng = np.random.default_rng(SEED + 17)
+        writer = FleetWriter(router, fleet_ingest_ops(rng, base)).start()
+        watch = FleetWatch(torch, directory, ("r1", "r2")).start()
+        phases = {}
+        phases["baseline"] = fleet_traffic(router, plans, at_once=False)
+        launches_pre = {rid: ctl(rid, "stats")["launches"]
+                        for rid in ("r1",)}
+
+        # -- (b) the burst: the plan at once, kill -9 of r1 mid-burst
+        kill = {}
+
+        def redispatched_r1():
+            return telemetry.snapshot()["counters"].get(metric_key(
+                "fleet_router_redispatch_total", {"replica": "r1"}), 0)
+
+        def kill_mid_burst(answered):
+            while answered() < 16:
+                time.sleep(0.005)
+            before = redispatched_r1()
+            kill["t"] = time.perf_counter()
+            kill["rc"] = procs["r1"].kill9()
+            while redispatched_r1() == before and \
+                    time.perf_counter() - kill["t"] < 60:
+                time.sleep(0.002)
+            kill["to_redispatch_s"] = time.perf_counter() - kill["t"]
+            # -- (c) r1 rejoins warm under the same id, starting now
+            kill["dead"] = procs.pop("r1")
+            procs["r1"] = FleetProc(work, spec("r1", "follower", root_a,
+                                               fleet_a), env(False))
+
+        phases["burst"] = fleet_traffic(router, plans, at_once=True,
+                                        during=kill_mid_burst)
+        check(kill.get("rc") == -9, f"r1 was not killed: {kill}")
+        check(redispatched_r1() > 0, "no request re-dispatched around r1")
+        out["kill"] = dict(rc=kill["rc"], to_redispatch_s=kill.get(
+            "to_redispatch_s"), redispatched=redispatched_r1())
+        kill["dead"].stop()
+        t0 = procs["r1"].t_spawn
+        rejoin = procs["r1"].wait_ready()
+        bound = qconfig.get_config().fleet_max_staleness_lsn
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            info = directory.get("r1")
+            if (info is not None and info.state == "serving"
+                    and info.staleness_lsn <= bound):
+                break
+            time.sleep(0.05)
+        check(info is not None and info.staleness_lsn <= bound,
+              f"rejoined r1 staleness {info}")
+        rejoin.update(rejoin_s=time.perf_counter() - t0,
+                      staleness_lsn=info.staleness_lsn, bound=bound)
+        check(rejoin["pcache_hits"] > 0 and rejoin["new_cache_files"] == 0
+              and rejoin["sealed"] and not any(
+                  rejoin["post_seal_builds"].values()),
+              f"r1 did not rejoin warm: {rejoin}")
+        ctl("r1", "reset")
+        out["rejoin"] = {k: rejoin[k] for k in (
+            "boot_s", "warmup_s", "spawn_to_ready_s", "rejoin_s",
+            "pcache_hits", "new_cache_files", "post_seal_builds",
+            "staleness_lsn", "bound", "version")}
+        print(f"fleet warm rejoin (card: {card_line()}) "
+              + json.dumps(out["rejoin"]), flush=True)
+        phases["cool"] = fleet_traffic(router, plans, at_once=False)
+        check(phases["cool"]["by_replica"].get("r1", 0) > 0,
+              "the rejoined r1 served no traffic")
+        writer.stop()
+        # the failover fleet's leader boots (on a fresh root and fleet
+        # directory, election on) while A's probes run
+        root_b, fleet_b = os.path.join(work, "root_b"), os.path.join(
+            work, "fleet_b")
+        os.makedirs(os.path.join(root_b, "ckpt"))
+        os.makedirs(fleet_b)
+        os.link(ckpt_path, os.path.join(root_b, "ckpt",
+                                        os.path.basename(ckpt_path)))
+        t_b = time.perf_counter()
+        procs_b["r0"] = FleetProc(work, spec("r0", "leader", root_b,
+                                             fleet_b), env(True))
+        out["ingest"] = dict(acked=len(writer.acks), resent=writer.failures,
+                             write_p50_ms=float(np.median(writer.write_s))
+                             * 1e3, **watch.stop())
+        check(writer.acks, "the leader acked no write")
+        out["phases"] = phases
+        print(f"fleet traffic (card: {card_line()}) " + json.dumps(
+            dict(phases=phases, ingest=out["ingest"], kill=out["kill"])),
+            flush=True)
+
+        # -- (d) answers do not depend on the replica: every member has
+        # folded in the last acked write (the frontier it reported)
+        frontier = writer.acks[-1][3]
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            infos = [directory.get(r) for r in ("r0", "r1", "r2")]
+            if all(i is not None and i.staleness_lsn == 0
+                   and i.wal_next_lsn == frontier for i in infos):
+                break
+            time.sleep(0.05)
+        check(all(i is not None and i.staleness_lsn == 0
+                  and i.wal_next_lsn == frontier for i in infos),
+              f"the fleet did not reach the frontier {frontier}: {infos}")
+        ref_root = os.path.join(work, "probe_root")
+        os.makedirs(os.path.join(ref_root, "ckpt"))
+        for name in os.listdir(os.path.join(root_a, "ckpt")):
+            os.link(os.path.join(root_a, "ckpt", name),
+                    os.path.join(ref_root, "ckpt", name))
+        shutil.copytree(os.path.join(root_a, "wal"),
+                        os.path.join(ref_root, "wal"))
+        ref_mgr = RecoveryManager(ref_root, device=DEV)
+        ref_graph = ref_mgr.boot()
+        ref_mgr.close()
+        set_active(None)
+        ref_sampler = qt.GraphSageSampler(ref_graph, FANOUTS, device=DEV)
+        ref_feature = qt.Feature(device_cache_size=feat.nbytes,
+                                 device=DEV).from_cpu_tensor(feat)
+        ref_model = seeded_model(torch, qt).to(DEV).eval()
+        buckets = tuple(qconfig.get_config().serving_buckets)
+        from quiver_tpu_torch.serving import _pad_to_bucket
+
+        probes, bitwise = [], True
+        for k in range(FLEET_PROBES):
+            ids = plans[k][0]
+            snap = ref_graph.snapshot(torch.device(DEV))
+            with torch.inference_mode():
+                n_id, _, _, blocks, _ = ref_sampler.pipeline(
+                    ref_sampler.seed_tensor(_pad_to_bucket(ids, buckets)),
+                    fleet_probe_words(k), snapshot=snap)
+                want = ref_model(ref_feature.lookup_device(n_id), blocks)[
+                    : len(ids)].float().cpu().numpy()
+            want_digest = fleet_digest(n_id.cpu().numpy().astype(np.int64))
+            got = {}
+            for rid in ("r0", "r1", "r2"):
+                r = procs[rid].ready
+                reply = fleet_send("127.0.0.1", r["port"], {
+                    "ids": ids.tolist(),
+                    "tenant": f"{FLEET_TENANT_PROBE}:{k}"},
+                    FLEET_REQUEST_TIMEOUT_S)
+                check(reply.get("status") == "ok", f"probe {k} {rid}: "
+                      f"{ {x: reply[x] for x in reply if x != 'logits'} }")
+                check(reply["n_id_digest"] == want_digest,
+                      f"probe {k}: {rid}'s n_id differs from the parent's")
+                check(reply["version"] == snap.version,
+                      f"probe {k}: {rid} at version {reply['version']}, the "
+                      f"parent's rebuild at {snap.version}")
+                logits = np.asarray(reply["logits"], np.float32)
+                check(logits.shape == want.shape and np.isfinite(
+                    logits).all(), f"probe {k} {rid} logits")
+                np.testing.assert_allclose(logits, want, **CPU_TOL)
+                bitwise &= bool(np.array_equal(logits, want))
+                got[rid] = reply["n_id_digest"]
+            probes.append(dict(ids=len(ids), n_id_digest=want_digest[:16],
+                               version=snap.version))
+        out["probes"] = dict(cases=probes, n_id_bitwise=True,
+                             logits_bitwise=bitwise, tolerance=CPU_TOL)
+        print("fleet probes (n_id bitwise across r0, r1, r2 and the "
+              "parent) " + json.dumps(out["probes"]), flush=True)
+        del ref_graph, ref_sampler, ref_feature, ref_model
+        torch.cuda.empty_cache()
+
+        # -- (e) launches a replica, from each process's counters
+        stats = {rid: ctl(rid, "stats") for rid in ("r0", "r1", "r2")}
+        out["replicas"] = {rid: {k: s[k] for k in (
+            "launches", "device_peak_gib", "host_rss_gib", "version")}
+            for rid, s in stats.items()}
+        out["replicas"]["r1"]["launches_before_kill"] = launches_pre["r1"]
+        for rid, s in stats.items():
+            for name in ("gather_rows", "element_gather"):
+                check(s["launches"][name] > 0,
+                      f"{rid} launched {name} no time while serving")
+        print(f"fleet replicas (card: {card_line()}) "
+              + json.dumps(out["replicas"]), flush=True)
+
+        # -- (f) one observability plane
+        fed = router.federation
+        for _ in range(3):
+            fed.scrape_once()
+            time.sleep(0.3)
+        with urllib.request.urlopen(metrics.url + "/metrics/fleet",
+                                    timeout=30) as r:
+            text = r.read().decode()
+        for rid in ("r0", "r1", "r2"):
+            check(f'replica="{rid}"' in text,
+                  f"/metrics/fleet holds no series of {rid}")
+        trace_path = timeline.export_fleet(os.path.join(work,
+                                                        "fleet_trace.json"))
+        with open(trace_path) as f:
+            doc = json.load(f)
+        track, by_tid, events = {}, {}, 0
+        for e in doc["traceEvents"]:
+            if e.get("ph") == "M":
+                if e.get("name") == "process_name":
+                    track[e["pid"]] = e["args"]["name"]
+                continue
+            events += 1
+            tid = (e.get("args") or {}).get("trace_id")
+            if tid:
+                by_tid.setdefault(tid, set()).add(track.get(e["pid"]))
+        procs_seen = sorted({track.get(e["pid"]) for e in doc["traceEvents"]
+                             if e.get("ph") != "M"})
+        check(len(procs_seen) >= 2, f"fleet trace from {procs_seen}")
+        redis = [h for h in router.hop_records(limit=router.hop_capacity)
+                 if len(h.get("attempts", ())) >= 2]
+        both = [h for h in redis if sum(
+            1 for t in by_tid.get(h["trace_id"], ())
+            if t and t.startswith("replica")) >= 2]
+        check(both, f"no re-dispatched trace on two replica tracks "
+              f"({len(redis)} re-dispatched hops)")
+        recon = fed.reconstruct(both[-1]["trace_id"])
+        check(recon.get("found"), "fleet trace reconstruction")
+        out["observability"] = dict(
+            trace_events=events, trace_processes=procs_seen,
+            redispatched_hops=len(redis), shown_on_two_replicas=len(both),
+            example=dict(trace_id=both[-1]["trace_id"], attempts=[
+                (a["replica"], a["outcome"])
+                for a in both[-1]["attempts"]]),
+            metrics_fleet_bytes=len(text))
+        print("fleet observability " + json.dumps(out["observability"]),
+              flush=True)
+        # the router (its health poller) goes first, then the replicas
+        router.close()
+        routers.clear()
+        for rid in list(procs):
+            check(procs.pop(rid).stop() == 0,
+                  f"replica {rid} did not stop cleanly")
+
+        # -- (g) leader failover: election on, a fresh root and fleet
+        procs = procs_b
+        boots_b = {"r0": procs["r0"].wait_ready()}
+        for rid in ("r1", "r2"):
+            procs[rid] = FleetProc(work, spec(rid, "follower", root_b,
+                                              fleet_b), env(True))
+        for rid in ("r1", "r2"):
+            boots_b[rid] = procs[rid].wait_ready()
+        old_epoch = boots_b["r0"]["epoch"]
+        check(old_epoch >= 1, f"the leader claimed no epoch: {boots_b}")
+        directory_b = MembershipDirectory(
+            fleet_b, heartbeat_timeout_s=FLEET_HEARTBEAT_TIMEOUT_S)
+        router_b = FleetRouter(directory_b, partitions=FLEET_PARTITIONS,
+                               scan_ttl_s=0.05,
+                               request_timeout_s=FLEET_REQUEST_TIMEOUT_S
+                               ).start_health_poller()
+        routers.append(router_b)
+        router_b.refresh(force=True)
+        writer_b = FleetWriter(router_b, fleet_ingest_ops(
+            np.random.default_rng(SEED + 19), base), cycles=1).start()
+        phases_b = {}
+        failover = {}
+
+        def kill_leader(answered):
+            while len(writer_b.acks) < 8 or answered() < 16:
+                time.sleep(0.005)
+            failover["t"] = time.perf_counter()
+            failover["rc"] = procs["r0"].kill9()
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                info = directory_b.leader()
+                if (info is not None and info.replica_id != "r0"
+                        and info.epoch > old_epoch):
+                    failover["to_promotion_s"] = (time.perf_counter()
+                                                  - failover["t"])
+                    failover["promoted"] = info.replica_id
+                    failover["new_epoch"] = info.epoch
+                    return
+                time.sleep(0.01)
+
+        phases_b["burst"] = fleet_traffic(router_b, plans, at_once=True,
+                                          during=kill_leader)
+        check(failover.get("rc") == -9, f"r0 was not killed: {failover}")
+        check("promoted" in failover, f"no follower promoted: {failover}")
+        check(failover["new_epoch"] > old_epoch,
+              f"promotion epoch {failover['new_epoch']} <= {old_epoch}")
+        # writes flow through router.write_path() to the promoted lane
+        deadline = time.time() + 60
+        while time.time() < deadline and sum(
+                a[1] == failover["promoted"] for a in writer_b.acks) < 8:
+            time.sleep(0.05)
+        writer_b.stop()
+        wp = router_b.write_path()
+        check(wp is not None and wp.replica_id == failover["promoted"]
+              and wp.epoch == failover["new_epoch"],
+              f"write path after the failover: {wp}")
+        promoted_acks = [a for a in writer_b.acks
+                         if a[1] == failover["promoted"]]
+        check(promoted_acks and all(a[2] == failover["new_epoch"]
+                                    for a in promoted_acks),
+              "no write acked by the promoted lane under its epoch")
+        # every append the dead leader acknowledged (and every later one)
+        # is in the promoted WAL: ack i is op i of the mix, its LSN the
+        # frontier it reported less one
+        acked = [a for a in writer_b.acks if a[1] == "r0"]
+        check(acked, "the dead leader acked no write")
+        on_disk = wal_ops(os.path.join(root_b, "wal"))
+        ops_b = writer_b.ops
+        n = STREAM_BATCH
+        for i, (_t, rid, _ep, next_lsn, op) in enumerate(writer_b.acks):
+            rec = on_disk.get(next_lsn - 1)
+            check(rec is not None and rec[0] == op
+                  and rec[1] == ops_b[i][1][:n].tolist()
+                  and rec[2] == ops_b[i][1][n:2 * n].tolist(),
+                  f"write {i} acked by {rid} (lsn {next_lsn - 1}) is not in "
+                  "the promoted WAL")
+        # an append stamped with the deposed epoch is refused
+        class NeverWAL:
+            def append(self, payload):
+                fail("the fence let a deposed append through")
+
+        fence = EpochFence(ElectionDirectory(fleet_b), old_epoch, "r0",
+                           recheck_s=0.0)
+        try:
+            FencedWAL(NeverWAL(), fence).append(b"deposed-write")
+            fail("the deposed epoch's append was not refused")
+        except StaleEpochError:
+            refused = True
+        out["failover"] = dict(
+            kill_rc=failover["rc"], old_epoch=old_epoch,
+            new_epoch=failover["new_epoch"], promoted=failover["promoted"],
+            kill_to_promotion_s=failover["to_promotion_s"],
+            acked_by_dead_leader=len(acked),
+            acked_by_promoted=len(promoted_acks),
+            stale_epoch_append_refused=refused, resent=writer_b.failures,
+            boot_s={rid: b["boot_s"] for rid, b in boots_b.items()},
+            wall_s=time.perf_counter() - t_b, phases=phases_b)
+        print(f"fleet leader failover (card: {card_line()}) "
+              + json.dumps(out["failover"]), flush=True)
+        router_b.close()
+        routers.clear()
+        for rid in list(procs):
+            if rid != "r0":
+                check(procs[rid].stop() == 0,
+                      f"replica {rid} did not stop cleanly")
+            else:
+                procs[rid].stop()
+            procs.pop(rid)
+    finally:
+        for r in routers:
+            r.close()
+        for p in {id(p): p for p in (*procs.values(),
+                                     *procs_b.values())}.values():
+            p.proc.kill()
+            p.stop()
+        if metrics is not None:
+            metrics.close()
+        if not timeline_was_on:
+            timeline.disable()
+        scope.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4680,6 +5813,15 @@ def main() -> int:
         "sharding", "bf16_and_mmap", "data_parallel")}
     print("slice 12 summary " + json.dumps(slice12), flush=True)
 
+    # slice 13: the serving fleet, three replica processes on the card
+    torch.cuda.empty_cache()
+    fleet = fleet_phase(torch, qt, topo, feat, b2, b3)
+    for rec, name in ((kernels[1], "gather_rows"),
+                      (kernels[2], "element_gather")):
+        rec["launches_fleet_serving"] = {
+            rid: r["launches"][name] for rid, r in fleet["replicas"].items()}
+    print("slice 13 summary " + json.dumps(fleet), flush=True)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4689,4 +5831,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-replica"]:
+        sys.exit(fleet_replica_main(sys.argv[2]))
     sys.exit(main())

@@ -8,7 +8,7 @@ telemetry (deadlines, bounded lanes, breakers, QoS, the flight recorder,
 the SLO objectives and the timeline), the streaming tier (delta
 capacity, compaction cadence, the ingest lane) and durability (the WAL,
 checkpoints, the replay deadline, the retrace budget and the kernel
-build cache).  Defaults are the JAX package's, and
+build cache), the serving fleet and the mesh tier.  Defaults are the JAX package's, and
 each field that JAX reads from the environment reads the same
 ``QUIVER_TPU_*`` name here, so a deployment's setting means the same to
 both packages.  The one default
@@ -193,6 +193,88 @@ class Config:
         default_factory=lambda: _env("RECOVERY_RETRACE_BUDGET", -1, int))
     recovery_cache_dir: str = field(
         default_factory=lambda: _env("RECOVERY_CACHE_DIR", ""))
+    # the serving fleet (``fleet/``): the membership directory, the
+    # consistent-hash ring's partitions and virtual nodes, heartbeat
+    # cadence and timeout, the router's re-dispatch budget, the QoS
+    # priority at or above which a tenant routes by two choices, the
+    # per-dispatch timeout, WAL shipping's poll and abort holdback, and
+    # the staleness (in WAL records) past which a follower is not current
+    fleet_dir: str = field(default_factory=lambda: _env("FLEET_DIR", ""))
+    fleet_partitions: int = field(
+        default_factory=lambda: _env("FLEET_PARTITIONS", 8, int))
+    fleet_vnodes: int = field(
+        default_factory=lambda: _env("FLEET_VNODES", 64, int))
+    fleet_heartbeat_s: float = field(
+        default_factory=lambda: _env("FLEET_HEARTBEAT_S", 0.5, float))
+    fleet_heartbeat_timeout_s: float = field(
+        default_factory=lambda: _env("FLEET_HEARTBEAT_TIMEOUT_S", 3.0,
+                                     float))
+    fleet_route_retries: int = field(
+        default_factory=lambda: _env("FLEET_ROUTE_RETRIES", 2, int))
+    fleet_hot_priority: int = field(
+        default_factory=lambda: _env("FLEET_HOT_PRIORITY", 3, int))
+    fleet_request_timeout_s: float = field(
+        default_factory=lambda: _env("FLEET_REQUEST_TIMEOUT_S", 1.0, float))
+    fleet_ship_poll_ms: float = field(
+        default_factory=lambda: _env("FLEET_SHIP_POLL_MS", 20.0, float))
+    fleet_ship_grace_ms: float = field(
+        default_factory=lambda: _env("FLEET_SHIP_GRACE_MS", 250.0, float))
+    fleet_max_staleness_lsn: int = field(
+        default_factory=lambda: _env("FLEET_MAX_STALENESS_LSN", 1024, int))
+    # the fleet's observability plane (``fleet/federation.py``): trace
+    # propagation and metrics federation (off: the request path pays one
+    # config check), the scrape cadence, the router's hop-record ring and
+    # the eligible-replica floor of the fleet SLO watchdog
+    fleet_federation: str = field(
+        default_factory=lambda: _env("FLEET_FEDERATION", "off"))
+    fleet_scrape_interval_s: float = field(
+        default_factory=lambda: _env("FLEET_SCRAPE_INTERVAL_S", 0.5, float))
+    fleet_trace_ring: int = field(
+        default_factory=lambda: _env("FLEET_TRACE_RING", 512, int))
+    fleet_min_eligible: int = field(
+        default_factory=lambda: _env("FLEET_MIN_ELIGIBLE", 1, int))
+    # the fleet's autonomy, each off by default (no thread, no metric key
+    # when off): fenced leader election (claim poll, the per-rank claim
+    # stagger, how often a fenced writer re-reads the claims: 0 = every
+    # append), socket WAL shipping, and the autoscaler (its tick, replica
+    # bounds, cooldown, the rate one replica is planned at, the forecast
+    # lead and the hysteresis band)
+    fleet_election: str = field(
+        default_factory=lambda: _env("FLEET_ELECTION", "off"))
+    fleet_election_poll_s: float = field(
+        default_factory=lambda: _env("FLEET_ELECTION_POLL_S", 0.25, float))
+    fleet_election_stagger_s: float = field(
+        default_factory=lambda: _env("FLEET_ELECTION_STAGGER_S", 0.5, float))
+    fleet_election_fence_recheck_s: float = field(
+        default_factory=lambda: _env("FLEET_ELECTION_FENCE_RECHECK_S", 0.05,
+                                     float))
+    fleet_walstream: str = field(
+        default_factory=lambda: _env("FLEET_WALSTREAM", "off"))
+    fleet_walstream_port: int = field(
+        default_factory=lambda: _env("FLEET_WALSTREAM_PORT", 0, int))
+    fleet_autoscaler: str = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER", "off"))
+    fleet_autoscaler_interval_s: float = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_INTERVAL_S", 1.0,
+                                     float))
+    fleet_autoscaler_min: int = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_MIN", 1, int))
+    fleet_autoscaler_max: int = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_MAX", 8, int))
+    fleet_autoscaler_cooldown_s: float = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_COOLDOWN_S", 30.0,
+                                     float))
+    fleet_autoscaler_rps_per_replica: float = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_RPS_PER_REPLICA",
+                                     200.0, float))
+    fleet_autoscaler_horizon_s: float = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_HORIZON_S", 10.0,
+                                     float))
+    fleet_autoscaler_up_ratio: float = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_UP_RATIO", 0.8, float))
+    fleet_autoscaler_down_ratio: float = field(
+        default_factory=lambda: _env("FLEET_AUTOSCALER_DOWN_RATIO", 0.5,
+                                     float))
     # mesh-native sharded serving (``mesh/``): the row-range shards one
     # logical replica spans (0 = off: nothing of the mesh tier is built),
     # the shard group this process announces, its shard index in the

@@ -200,6 +200,17 @@ def point(name: str) -> InjectionPoint:
     return p
 
 
+# the fleet's injection points, registered eagerly so a chaos plan can
+# arm them by name before any fleet module is imported: a seeded run
+# replays the same whether the plan or the fleet loads first
+FLEET_POINTS = ("fleet.route", "fleet.ship", "fleet.join",
+                "fleet.serve", "fleet.election.claim",
+                "fleet.walstream.send", "fleet.walstream.recv")
+for _name in FLEET_POINTS:
+    point(_name)
+del _name
+
+
 def install(plan: ChaosPlan) -> ChaosPlan:
     """Arm ``plan`` process-wide.  One plan at a time, by design: chaos
     scripts own the process while they run."""

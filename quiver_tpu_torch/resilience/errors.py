@@ -13,7 +13,7 @@ from typing import Optional
 
 __all__ = [
     "ResilienceError", "DeadlineExceeded", "LoadShed", "LaneUnavailable",
-    "ChaosFault", "QuotaExceeded", "PeerTimeout",
+    "ChaosFault", "QuotaExceeded", "PeerTimeout", "NoReplicaAvailable",
 ]
 
 
@@ -77,6 +77,20 @@ class LaneUnavailable(ResilienceError):
         self.lane = lane
         super().__init__(f"lane {lane!r} unavailable (breaker open, "
                          f"no failover path)")
+
+
+class NoReplicaAvailable(ResilienceError):
+    """The fleet router spent its bounded re-dispatch budget: every
+    eligible replica was down, draining or breaker-open.  Still an
+    *answer*: the caller learns the fleet refused, it is never dropped.
+    """
+
+    def __init__(self, partition: int, attempts: int):
+        self.partition = int(partition)
+        self.attempts = int(attempts)
+        super().__init__(
+            f"no replica available for partition {self.partition} "
+            f"after {self.attempts} dispatch attempt(s)")
 
 
 class PeerTimeout(ResilienceError):

@@ -22,12 +22,16 @@ Three views:
     ``/debug/programs`` (top-K per-program time attribution, see
     ``telemetry.profile``: the port's kernel wrappers and serving
     forwards), ``/debug/mesh`` (the live mesh feature and sampler's
-    shard stats, ``mesh.mesh_status()``).  ``/healthz`` answers with the
+    shard stats, ``mesh.mesh_status()``), ``/debug/fleet`` (the router
+    and membership view of the serving fleet, ``fleet.fleet_status()``);
+    with a live fleet federation three more: ``/metrics/fleet`` (the
+    federated exposition), ``/debug/fleet/summary`` (scrape health,
+    fleet SLOs, clock offsets) and ``/debug/fleet/trace/<id>`` (one
+    request reconstructed across processes).  ``/healthz`` answers with the
     ``health_fn=`` document, or else ``recovery.manager.health_status()``
     (the active ``RecoveryManager``'s readiness ladder; ``serving`` when
-    there is none): 200 when it says ``ready``, else 503.  The port has
-    no fleet yet, so ``/metrics/fleet`` and ``/debug/fleet*`` answer
-    404.  ``HEAD`` answers every route with
+    there is none): 200 when it says ``ready``, else 503.  ``HEAD``
+    answers every route with
     the headers its ``GET`` would carry.
 """
 
@@ -166,7 +170,16 @@ class MetricsServer:
                     return (json.dumps(health, indent=2),
                             "application/json", status)
                 if path.startswith("/metrics/fleet"):
-                    return None  # matched before /metrics: no fleet yet
+                    # matched BEFORE the /metrics prefix: the federated
+                    # exposition (aggregates + per-replica series), 404
+                    # when no federation is live in this process
+                    from ..fleet.federation import get_federation
+
+                    fed = get_federation()
+                    if fed is None:
+                        return None
+                    return (fed.prometheus_text(),
+                            "text/plain; version=0.0.4")
                 if path.startswith("/metrics.json"):
                     return (to_json(outer.registry.snapshot(), indent=2),
                             "application/json")
@@ -217,6 +230,31 @@ class MetricsServer:
                     # the merged Chrome trace itself: save the body,
                     # load it in Perfetto
                     return (json.dumps(timeline.chrome_trace()),
+                            "application/json")
+                if path.startswith("/debug/fleet/summary"):
+                    from ..fleet.federation import federation_status
+
+                    return (json.dumps(federation_status(), indent=2),
+                            "application/json")
+                if path.startswith("/debug/fleet/trace/"):
+                    from urllib.parse import unquote
+
+                    from ..fleet.federation import get_federation
+
+                    fed = get_federation()
+                    trace_id = unquote(
+                        path[len("/debug/fleet/trace/"):].rstrip("/"))
+                    if fed is None or not trace_id:
+                        return None
+                    doc = fed.reconstruct(trace_id)
+                    if not doc.get("found"):
+                        return (json.dumps(doc, indent=2),
+                                "application/json", 404)
+                    return json.dumps(doc, indent=2), "application/json"
+                if path.startswith("/debug/fleet"):
+                    from ..fleet.router import fleet_status
+
+                    return (json.dumps(fleet_status(), indent=2),
                             "application/json")
                 if path.startswith("/debug/mesh"):
                     from ..mesh import mesh_status

@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional
 __all__ = [
     "on", "enable", "disable", "reset",
     "emit", "instant", "events", "chrome_trace", "export", "status",
+    "set_fleet_trace_provider", "export_fleet",
 ]
 
 # THE gate.  Emit sites read this one module global (via :func:`on` or
@@ -305,4 +306,38 @@ def export(path: str) -> str:
     """Write :func:`chrome_trace` to ``path``; returns the path."""
     with open(path, "w") as f:
         json.dump(chrome_trace(), f)
+    return path
+
+
+# -- fleet-merged export (provider hook) --------------------------------
+# The fleet federation (``fleet/federation.py``) registers its merged
+# trace builder here, the same inversion flightrec uses for the graph
+# version provider: telemetry stays import-free of fleet, and
+# ``timeline.export_fleet(path)`` works wherever a federation is live.
+_FLEET_PROVIDER = None
+
+
+def set_fleet_trace_provider(fn) -> None:
+    """Register a zero-arg callable returning the fleet-merged Chrome
+    trace document (``None`` unregisters).  Called by
+    :class:`~quiver_tpu_torch.fleet.federation.FleetFederation`."""
+    global _FLEET_PROVIDER
+    # one atomic rebind at federation construction and teardown;
+    # export_fleet reads it once into a local
+    _FLEET_PROVIDER = fn
+
+
+def export_fleet(path: str) -> str:
+    """Write the fleet-merged Chrome trace (router + every reachable
+    replica, one process track each, wall-clock timebase) to ``path``;
+    returns the path.  Requires a live
+    :class:`~quiver_tpu_torch.fleet.federation.FleetFederation`."""
+    fn = _FLEET_PROVIDER
+    doc = fn() if fn is not None else None
+    if doc is None:
+        raise RuntimeError(
+            "no fleet federation active: construct a FleetFederation "
+            "(or a FleetRouter with federation on) before export_fleet")
+    with open(path, "w") as f:
+        json.dump(doc, f)
     return path

@@ -436,3 +436,65 @@ def test_sharding_entry_points_default_to_the_card(monkeypatch):
             make()
     cpu = qt.make_mesh(("shard",), devices=[torch.device("cpu")] * 2)
     assert MeshFeature(table, n_shards=2, mesh=cpu)[[0, 7]].shape == (2, 2)
+
+
+def test_walk_covers_the_fleet_slice():
+    """The source walk and the subprocess import reach every module of
+    ``fleet/``; none names the JAX package in a string, and importing
+    them loads no JAX."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = tuple(f"fleet/{name}.py" for name in (
+        "__init__", "membership", "shipping", "router", "replica",
+        "federation", "election", "walstream", "autoscaler"))
+    bad = []
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+        path = ROOT / "quiver_tpu_torch" / mod
+        bad += _strings_into_jax_package(path.read_text(), mod)
+    assert not bad, bad
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      .replace(".__init__", "") for m in mods)
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    from quiver_tpu_torch import fleet
+
+    assert fleet.FleetReplica.__module__ == "quiver_tpu_torch.fleet.replica"
+
+
+def test_fleet_replica_defaults_to_the_card(monkeypatch, tmp_path):
+    """A follower built without ``device=`` restores the shared
+    checkpoint for the card, so its graph raises at first use where
+    there is none; with ``device="cpu"`` the same join serves."""
+    from quiver_tpu_torch.fleet import FleetReplica
+    from quiver_tpu_torch.stream import StreamingGraph
+
+    src = np.arange(8)
+    topo = qt.CSRTopo(edge_index=np.stack([src, (src + 1) % 8]))
+    kw = dict(fleet_dir=str(tmp_path / "fleet"), root=str(tmp_path / "dur"),
+              heartbeat_s=0.1)
+    leader = FleetReplica(
+        "r0", role="leader", device="cpu",
+        graph_factory=lambda: StreamingGraph(topo, device="cpu"),
+        **kw).boot()
+    try:
+        leader.manager.checkpoint(timeout=10)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        carded = FleetReplica("r1", role="follower", **kw).boot()
+        try:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                carded.graph.snapshot()
+        finally:
+            carded.stop()
+        follower = FleetReplica("r1", role="follower", device="cpu",
+                                **kw).boot()
+        assert follower.graph.version == leader.graph.version
+        assert follower.graph.snapshot().tomb.device.type == "cpu"
+        follower.stop()
+    finally:
+        leader.stop()

@@ -213,10 +213,20 @@ def test_exporter_routes():
         assert code == 200 and json.loads(body) == {
             "state": "serving", "ready": True, "stale": False,
             "managed": False}
-        for route in ("/metrics/fleet", "/debug/fleet",
-                      "/debug/fleet/summary",
+        # with no fleet federation live, the federated routes are 404
+        for route in ("/metrics/fleet", "/debug/fleet/trace/x",
                       "/debug/requests/nope", "/nothing"):
             assert _get(plain.url + route)[0] == 404, route
+        # the fleet is ported: /debug/fleet and /debug/fleet/summary
+        # answer JAX's documents for a process with no router
+        from quiver_tpu.fleet import federation as jfed
+        from quiver_tpu.fleet import router as jrouter
+
+        for route, want in (("/debug/fleet", jrouter.fleet_status()),
+                            ("/debug/fleet/summary",
+                             jfed.federation_status())):
+            code, body = _get(plain.url + route)
+            assert code == 200 and json.loads(body) == want, route
         # the mesh tier is ported: /debug/mesh answers mesh_status()
         code, body = _get(plain.url + "/debug/mesh")
         assert code == 200 and "active" in json.loads(body)
