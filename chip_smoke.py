@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of quiver_tpu_torch on one CUDA card: Reddit-size serving
 (the device lane, then both lanes with the host sampler, then a fleet of
-three replica processes),
+three replica processes, then under the sanitizer),
 ogbn-products-size training of GraphSAGE, GAT and GCN with exact
 inference, UVA and mixed sampling at products size, and R-GAT at OGB-LSC
 MAG240M widths.
@@ -218,7 +218,7 @@ first use, with nvcc, one process per source, all at once), then:
    under the profiler, one batch under ``"pwindow"`` bitwise against
    ``"xla"``, and B1 and B2 at that batch's shapes against their plain
    versions (B2 per type as in ``b2_case``);
-4j. fleet phase (slice 13, ``fleet_phase``, run last): the Reddit
+4j. fleet phase (slice 13, ``fleet_phase``, after R-GAT): the Reddit
    graph with phase 4f's timestamps checkpointed under
    ``build/chip_smoke_fleet`` with the table and the seeded weights; three
    replica processes on card 0 (``chip_smoke.py --fleet-replica SPEC``,
@@ -244,6 +244,26 @@ first use, with nvcc, one process per source, all at once), then:
    promoted under a higher epoch, every acked write in the promoted WAL,
    writes acked by the promoted lane, the deposed epoch's append refused,
    zero lost answers;
+4k. sanitizer phase (slice 14, ``sanitize_phase``, run last): the
+   parent serves the 64-request plan through RequestBatcher(mode=
+   "Device") -> InferenceServer_Debug unsanitized and takes the logits
+   of fixed probe requests (SANITIZE_PROBES, fixed key words); a child
+   (``chip_smoke.py --sanitize-child SPEC``, ``QUIVER_SANITIZE=1``,
+   the graph and table handed over as ``.npy`` files under
+   ``build/chip_smoke_sanitize``) imports the port under both witnesses,
+   seeds the lock order from the port's own ``canonical_lock_edges``,
+   serves the same plan (B1, B2: no sync inside ``"serving device
+   loop"``, and once the clients run nothing leaves the card but one
+   answer read-back a chunk), gathers SANITIZE_PAGED_LOOKUPS frontiers
+   through the ``"200M"`` paged store (B5: none inside ``"paged
+   gather"``, rows bitwise the table's), samples SANITIZE_MESH_HOPS hops
+   over MESH_SHARDS shards of the card (B3: none inside ``"mesh
+   combine"``), sends SANITIZE_MIXED request sizes inside the warmed
+   buckets under ``count_jit_builds()`` (0 builds, 0 compiler runs),
+   requires no lock-witness violation, then (read after all the above)
+   one ``.item()``, one ``nonzero`` and the pre-repair pageable seed
+   upload inside a region must each be recorded; the probes' logits
+   must be bitwise the parent's; both runs' p50/p99 are printed;
 15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -5546,6 +5566,302 @@ def fleet_phase(torch, qt, topo, feat, b2, b3) -> dict:
     return out
 
 
+SANITIZE_PROBES = (50, 300, 2048)          # ids of each probe request
+SANITIZE_MIXED = (1, 7, 33, 250, 1000, 2048, 3000)  # build-guard requests
+SANITIZE_PAGED_LOOKUPS = 8                 # bucket-2048 frontiers gathered
+SANITIZE_MESH_HOPS = 4                     # [2048, 25] hops over the mesh
+SANITIZE_TIMEOUT_S = 900.0
+SANITIZE_REGIONS = ("serving device loop", "paged gather", "mesh combine")
+
+
+def sanitize_probes(server) -> list:
+    """Digests of the logits of fixed probe requests under fixed key
+    words, one fused forward each."""
+    rng = np.random.default_rng(SEED + 21)
+    out = []
+    for n in SANITIZE_PROBES:
+        ids = rng.integers(0, N_NODES, n)
+        kw = rng.integers(0, 2**32, size=(len(FANOUTS), 2), dtype=np.uint32)
+        y = server.fused_forward(server._pad_ids(ids), kw)[:n]
+        out.append(fleet_digest(y.cpu().numpy()))
+    return out
+
+
+def _by_site(transfers) -> dict:
+    out: dict = {}
+    for t in transfers:
+        key = f"{t.site} at {t.where}" + (f" in `{t.region}`" if t.region
+                                          else "")
+        out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _in_region(violations, region: str) -> list:
+    return [v.message for v in violations if f"`{region}`" in v.message]
+
+
+def sanitize_child_main(spec_json: str) -> int:
+    """Phase 4k's child (``chip_smoke.py --sanitize-child SPEC``, run with
+    ``QUIVER_SANITIZE=1``): imports the port under both witnesses, seeds
+    the lock order from the port's own static model, then drives the
+    three no-sync regions on the card (fused serving of the 64-request
+    plan, the ``"200M"`` store's paged gathers, the mesh combine), the
+    build guard over mixed request sizes, and two deliberate syncs inside
+    a region; prints one ``sanitize-child`` JSON line."""
+    global DEV, N_NODES, DIM, HIDDEN, CLASSES
+    spec = json.loads(spec_json)
+    DEV, N_NODES = spec["device"], spec["n_nodes"]
+    DIM, HIDDEN, CLASSES = spec["widths"]
+    import torch
+
+    if DEV == "cuda" and not torch.cuda.is_available():
+        print("sanitize child: no CUDA device", file=sys.stderr)
+        return 2
+    check(os.environ.get("QUIVER_SANITIZE") == "1",
+          "the sanitize child runs without QUIVER_SANITIZE=1")
+    t_child = time.perf_counter()
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch.analysis import transfer_witness as tw
+    from quiver_tpu_torch.analysis import witness
+    from quiver_tpu_torch.analysis.concurrency import canonical_lock_edges
+    from quiver_tpu_torch.analysis.core import load_contexts
+    from quiver_tpu_torch.analysis.retrace_guard import count_jit_builds
+    from quiver_tpu_torch.analysis.staging import no_sync, regions
+    from quiver_tpu_torch.mesh import MeshSampler
+    from quiver_tpu_torch.ops.cuda import element_gather as b3
+    from quiver_tpu_torch.ops.cuda import gather_rows as b2
+    from quiver_tpu_torch.ops.cuda import page_gather as b5
+    from quiver_tpu_torch.ops.cuda import window_sample as b1
+
+    check(witness.installed() and tw.installed() and regions.on(),
+          "QUIVER_SANITIZE=1 did not install both witnesses")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.dirname(os.path.abspath(__file__))
+    edges = canonical_lock_edges(load_contexts(["quiver_tpu_torch"],
+                                               root=root))
+    witness.seed_order(edges)
+    out = dict(lock_edges_seeded=len(edges))
+
+    topo = qt.CSRTopo(indptr=np.load(spec["indptr"]),
+                      indices=np.load(spec["indices"]))
+    feat = np.load(spec["table"])
+    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                         device=DEV).from_cpu_tensor(feat)
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+    out["setup_s"] = time.perf_counter() - t_child
+
+    # (2) fused serving: every pass's forward inside "serving device loop"
+    tw.drain()
+    mark = []   # the transfers made before the clients start: warm-up
+    server, _, _, launches, _, summary = serve(
+        torch, qt, sampler, feature, seeded_model(torch, qt),
+        {"window_sample": b1.window_sample, "gather_rows": b2.gather_rows},
+        during=lambda: mark.append(len(tw.transfers())))
+    seen, viol = tw.transfers(), tw.drain()
+    chunks = sum(len(c) for _, c in server.pass_log)
+
+    def readback(t):
+        return (t.region is None and t.site == ".cpu()"
+                and t.where.startswith("serving.py:"))
+
+    readbacks = [t for t in seen if readback(t)]
+    # once the clients run, nothing but the answers leaves the card
+    outside = [t for t in seen[mark[0]:] if t.region is None
+               and not readback(t)]
+    out["serving"] = dict(
+        launches=launches, p50_ms=summary["stats"]["p50_latency_ms"],
+        p99_ms=summary["stats"]["p99_latency_ms"],
+        warmup_buckets=len(server.BUCKETS), served_chunks=chunks,
+        transfers_by_site=_by_site(seen),
+        violations=_in_region(viol, "serving device loop"),
+        other_violations=[v.message for v in viol])
+    check(not viol, f"{len(viol)} sync(s) inside a region while serving: "
+          + json.dumps([v.message for v in viol][:4]))
+    check(len(readbacks) == len(server.BUCKETS) + chunks,
+          f"{len(readbacks)} answer read-backs for "
+          f"{len(server.BUCKETS)} warm-up and {chunks} served chunks")
+    check(not outside, "a transfer outside the regions that is no answer "
+          "read-back, while serving: " + json.dumps(_by_site(outside)))
+
+    # (3) the "200M" store's lookups: B5 inside "paged gather"
+    budgeted = budgeted_feature(qt, topo, feat, pool_pages=N_NODES)
+    rng = np.random.default_rng(SEED + 22)
+    frontiers = [sampler.sample(rng.integers(0, N_NODES, 2048),
+                                key_words=server.draw_key_words()).n_id
+                 .cpu().numpy() for _ in range(SANITIZE_PAGED_LOOKUPS)]
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    tw.drain()
+    b5.page_gather.launches = 0
+    rows = [budgeted[ids] for ids in frontiers]
+    paged_launches = b5.page_gather.launches
+    seen, viol = tw.transfers(), tw.drain()
+    for ids, r in zip(frontiers, rows):
+        check(torch.equal(r, torch.from_numpy(feat[ids]).to(DEV)),
+              "a paged lookup differs from the table")
+    out["paged"] = dict(lookups=len(frontiers), b5_launches=paged_launches,
+                        rows=int(sum(len(i) for i in frontiers)),
+                        transfers_by_site=_by_site(seen),
+                        violations=_in_region(viol, "paged gather"))
+    check(paged_launches > 0, "B5 was not launched by the paged lookups")
+    check(not viol, f"{len(viol)} sync(s) inside a region in the paged "
+          "lookups: " + json.dumps([v.message for v in viol][:4]))
+    del budgeted, rows
+
+    # (4) the mesh combine: MeshSampler over MESH_SHARDS shards of the card
+    mesh = qt.make_mesh(("shard",), devices=[torch.device(DEV)] * MESH_SHARDS)
+    ms = MeshSampler(topo.indptr, topo.indices, n_shards=MESH_SHARDS,
+                     mesh=mesh, gather_mode="pallas")
+    hops = [(rng.integers(0, N_NODES, 2048),
+             rng.integers(0, 2**32, size=2, dtype=np.uint32))
+            for _ in range(SANITIZE_MESH_HOPS)]
+    tw.drain()
+    b3.element_gather.launches = 0
+    outs = [ms.sample(s, FANOUTS[0], kw) for s, kw in hops]
+    mesh_launches = b3.element_gather.launches
+    seen, viol = tw.transfers(), tw.drain()
+    for o in outs:
+        check(tuple(o.nbrs.shape) == (2048, FANOUTS[0]),
+              f"a mesh hop answered {tuple(o.nbrs.shape)}")
+    out["mesh"] = dict(hops=len(outs), shards=MESH_SHARDS,
+                       b3_launches=mesh_launches,
+                       transfers_by_site=_by_site(seen),
+                       violations=_in_region(viol, "mesh combine"))
+    check(mesh_launches > 0, "B3 was not launched by the mesh hops")
+    check(not viol, f"{len(viol)} sync(s) inside a region in the mesh "
+          "hops: " + json.dumps([v.message for v in viol][:4]))
+    del ms, outs
+
+    # (6) the build guard: mixed sizes inside the warmed buckets
+    with count_jit_builds() as c:
+        for n in SANITIZE_MIXED:
+            server._run_bucketed(rng.integers(0, N_NODES, n))
+    viol = tw.drain()
+    out["build_guard"] = dict(sizes=list(SANITIZE_MIXED), builds=c.builds,
+                              backend_compiles=c.backend_compiles,
+                              sites=c.describe())
+    check(not viol, "a sync inside a region in the build-guard requests")
+    check(c.builds == 0 and c.backend_compiles == 0,
+          f"requests inside the warm buckets built {c.describe()} and ran "
+          f"the compiler {c.backend_compiles} time(s)")
+
+    # (5) the lock witness over the whole child
+    locks = witness.drain()
+    out["lock_violations"] = [f"{v.kind}: {v.message}" for v in locks]
+    check(not locks, f"{len(locks)} lock-witness violation(s): "
+          + json.dumps(out["lock_violations"][:4]))
+
+    # (8) fixed probes, held against the parent's unsanitized run
+    out["probes"] = sanitize_probes(server)
+    tw.drain()
+
+    # (7) teeth, read after everything above: one .item() and one
+    # nonzero inside a region are one violation each
+    x = torch.arange(1024, device=DEV)
+    with no_sync("teeth: item"):
+        x.sum().item()
+    v_item = tw.drain()
+    with no_sync("teeth: nonzero"):
+        torch.nonzero(x > 3)
+    v_nonzero = tw.drain()
+    # the repair this slice made inside the fused region, undone for one
+    # pass: the seeds' upload from pageable memory waits for the stream
+    pinned = sampler.seed_tensor
+    sampler.seed_tensor = lambda ids: torch.from_numpy(
+        sampler._host_seeds(ids).astype(np.int32)).to(sampler.device)
+    try:
+        server._run_bucketed(rng.integers(0, N_NODES, 100))
+    finally:
+        sampler.seed_tensor = pinned
+    v_pageable = tw.drain()
+    out["teeth"] = dict(item=[v.message for v in v_item],
+                        nonzero=[v.message for v in v_nonzero],
+                        pageable_seed_upload=[v.message
+                                              for v in v_pageable])
+    check(len(v_pageable) >= 1 and all(
+        "`serving device loop`" in v.message for v in v_pageable),
+        "the pageable seed upload inside the fused region was not seen")
+    check(len(v_item) == 1, f"a .item() in a region recorded {len(v_item)} "
+          "violation(s), not 1")
+    check(len(v_nonzero) == 1, f"a nonzero in a region recorded "
+          f"{len(v_nonzero)} violation(s), not 1")
+    out["child_s"] = time.perf_counter() - t_child
+    print("sanitize-child " + json.dumps(out), flush=True)
+    return 0
+
+
+def sanitize_phase(torch, qt, topo, feat) -> dict:
+    """Slice 14 on the card (phase 4k): the port under QUIVER_SANITIZE=1
+    in a child process (the witnesses patch threading.Lock and
+    torch.Tensor for the whole process; this one stays unpatched).  The
+    parent serves the 64-request plan unsanitized and takes the fixed
+    probes' logits; the child (``sanitize_child_main``) must show no
+    sync in the three no-sync regions, no lock-order violation, no build
+    after warm-up, both deliberate syncs, and the same probe logits bit
+    for bit.  Returns a summary with both runs' p50/p99."""
+    import shutil
+
+    from quiver_tpu_torch.ops.cuda import gather_rows as b2
+    from quiver_tpu_torch.ops.cuda import window_sample as b1
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_sanitize")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        spec = dict(device=DEV, n_nodes=N_NODES,
+                    widths=[DIM, HIDDEN, CLASSES])
+        for name, arr in (("indptr", topo.indptr), ("indices", topo.indices),
+                          ("table", feat)):
+            spec[name] = os.path.join(work, f"{name}.npy")
+            np.save(spec[name], arr)
+        feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                             device=DEV).from_cpu_tensor(feat)
+        sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
+        server, _, _, launches, _, summary = serve(
+            torch, qt, sampler, feature, seeded_model(torch, qt),
+            {"window_sample": b1.window_sample,
+             "gather_rows": b2.gather_rows})
+        probes = sanitize_probes(server)
+        del server, sampler, feature
+        torch.cuda.empty_cache()
+
+        env = dict(os.environ, QUIVER_SANITIZE="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sanitize-child",
+             json.dumps(spec)], cwd=os.path.dirname(os.path.abspath(
+                 __file__)), env=env, capture_output=True, text=True,
+            timeout=SANITIZE_TIMEOUT_S)
+        child_wall_s = time.perf_counter() - t0
+        child = None
+        for line in proc.stdout.splitlines():
+            if line.startswith("sanitize-child "):
+                child = json.loads(line[len("sanitize-child "):])
+            else:
+                print(f"  [sanitize child] {line}", flush=True)
+        check(proc.returncode == 0 and child is not None,
+              f"the sanitize child failed (rc {proc.returncode}): "
+              + proc.stderr[-4000:])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(child["probes"] == probes,
+          "probe logits differ between the sanitized child and the parent")
+    out = dict(card=card_line(), child=child, child_wall_s=child_wall_s,
+               plain=dict(p50_ms=summary["stats"]["p50_latency_ms"],
+                          p99_ms=summary["stats"]["p99_latency_ms"],
+                          launches=launches),
+               probes_equal=True, phase_s=time.perf_counter() - t_phase)
+    print("sanitizer: 64-request plan p50/p99 "
+          f"{out['plain']['p50_ms']:.3f}/{out['plain']['p99_ms']:.3f} ms "
+          f"plain, {child['serving']['p50_ms']:.3f}/"
+          f"{child['serving']['p99_ms']:.3f} ms under QUIVER_SANITIZE=1 "
+          f"({out['card']})", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5822,6 +6138,19 @@ def main() -> int:
             rid: r["launches"][name] for rid, r in fleet["replicas"].items()}
     print("slice 13 summary " + json.dumps(fleet), flush=True)
 
+    # slice 14: the port under its sanitizer, in a child process
+    torch.cuda.empty_cache()
+    sanitize = sanitize_phase(torch, qt, topo, feat)
+    for rec, name in ((kernels[0], "window_sample"),
+                      (kernels[1], "gather_rows")):
+        rec["launches_sanitized_serving"] = \
+            sanitize["child"]["serving"]["launches"][name]
+    kernels[2]["launches_sanitized_mesh"] = \
+        sanitize["child"]["mesh"]["b3_launches"]
+    kernels[4]["launches_sanitized_paged"] = \
+        sanitize["child"]["paged"]["b5_launches"]
+    print("slice 14 summary " + json.dumps(sanitize), flush=True)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5833,4 +6162,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-replica"]:
         sys.exit(fleet_replica_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sanitize-child"]:
+        sys.exit(sanitize_child_main(sys.argv[2]))
     sys.exit(main())

@@ -5,7 +5,23 @@ The module layout follows ``quiver_tpu``.  This package imports PyTorch,
 numpy and the standard library only.  Entry points run on the CUDA card
 unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
+
+With ``QUIVER_SANITIZE=1`` in the environment the import installs the
+two runtime witnesses of :mod:`.analysis`: the lock witness first (every
+lock built afterwards is watched), the transfer witness last (it wraps
+``torch.Tensor`` and arms the no-sync regions).
 """
+
+import os as _os
+
+if _os.environ.get("QUIVER_SANITIZE") == "1":
+    # Lock-witness sanitizer (quiverlint v2's dynamic half): must patch
+    # threading.Lock/RLock BEFORE any other module of the package
+    # imports, so module- and instance-level locks built below are
+    # wrapped.  analysis.witness is stdlib-only.
+    from .analysis import witness as _witness
+
+    _witness.install()
 
 from .feature import DeviceConfig, Feature
 from .hetero import (HeteroCSRTopo, HeteroFeature, HeteroGraphSageSampler,
@@ -42,6 +58,14 @@ from .dist.sampler import DistGraphSampler
 from .dist.ring import RingFeature
 from .dist.init import initialize as distributed_initialize, make_hybrid_mesh
 from .dist.hier import HierFeature
+
+if _os.environ.get("QUIVER_SANITIZE") == "1":
+    # Device-transfer witness (quiverlint v3's dynamic half) installs at
+    # the END of import: it wraps torch's tensor type and the card's
+    # waits.  Arms the `staging.no_sync()` region gate as a side effect.
+    from .analysis import transfer_witness as _transfer_witness
+
+    _transfer_witness.install()
 
 __all__ = [
     "CSRTopo", "DeviceConfig", "DistFeature", "DistGraphSampler", "Feature", "GAT", "GATConv", "GCN", "GCNConv", "GraphSAGE",

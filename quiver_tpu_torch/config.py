@@ -293,6 +293,10 @@ _lock = threading.Lock()
 _config: Optional[Config] = None
 
 
+# config is frozen once per process, so anything read off it is
+# process-lifetime-finite: cache keys built from config attributes
+# cannot blow up executable cardinality.
+# quiverlint: bucketed[config is frozen once per process]
 def get_config() -> Config:
     global _config
     cfg = _config

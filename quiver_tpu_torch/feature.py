@@ -63,7 +63,7 @@ from .ops.cuda.gather_rows import gather_rows
 from .ops.paged import PagedStore, PageTable, default_page_rows
 from .telemetry.registry import metric_key
 from .utils.device import resolve_device
-from .utils.staging import HostStaging
+from .utils.staging import HostStaging, upload
 from .utils.topology import CSRTopo, parse_size, reindex_feature
 
 __all__ = ["Feature", "DeviceConfig", "ShardedRows"]
@@ -114,6 +114,8 @@ class ShardedRows:
         return self.shards[0].element_size()
 
     def cpu(self) -> torch.Tensor:
+        # quiverlint: ignore[QT001] -- ShardedRows.cpu() is the host copy its
+        # caller asked for
         return torch.cat([s.cpu() for s in self.shards])[:self.shape[0]]
 
     def gather(self, idx: torch.Tensor,
@@ -150,6 +152,8 @@ def _host_view(arr: np.ndarray) -> torch.Tensor:
 
 def _host_ids(node_idx) -> np.ndarray:
     if isinstance(node_idx, torch.Tensor):
+        # quiverlint: ignore[QT001] -- the budgeted path plans on the host:
+        # its one read-back of the ids (JAX reads them with np.asarray)
         return node_idx.cpu().numpy()  # the one read-back
     return np.asarray(node_idx)
 
@@ -227,6 +231,9 @@ class Feature:
         self._pending: dict = {}
         self._inflight: collections.deque = collections.deque()
         self._lazy_state = None  # a handle lazy_from_ipc_handle left
+        # the first two users of a lazy feature (a serving loop and its
+        # caller) must not both install the table
+        self._lazy_lock = threading.Lock()
 
     def _n_devices(self) -> int:
         if self.mesh is not None:
@@ -252,6 +259,8 @@ class Feature:
         instead of by degree; ``csr_topo.feature_order`` is set as a side
         effect of degree order, as in the reference."""
         if isinstance(tensor, torch.Tensor):
+            # quiverlint: ignore[QT001] -- construction: a table given on the
+            # card is read once to reorder it
             tensor = tensor.cpu().numpy()
         tensor = np.asarray(tensor)
         node_count, dim = tensor.shape
@@ -271,6 +280,8 @@ class Feature:
             tensor, new_order = reindex_feature(self.csr_topo, tensor, ratio)
             topo_order = True
 
+        # quiverlint: ignore[QT001] -- construction: the table is placed once,
+        # not per batch
         table = torch.from_numpy(np.ascontiguousarray(tensor)).to(dt)
         self._install(table[:cache_count], table[cache_count:], new_order,
                       cache_count, node_count, dim)
@@ -301,6 +312,8 @@ class Feature:
             self.feature_order = order
             self._order_dev = (
                 None if order is None else
+                # quiverlint: ignore[QT001] -- construction: the row order is
+                # placed once, not per batch
                 torch.from_numpy(order.astype(np.int32)).to(self.device))
             self.cold_cache = self._overlay = self.paged = None
             self._pending.clear()
@@ -346,6 +359,8 @@ class Feature:
         local_order = np.asarray(local_order)
         new_order = np.empty(self.node_count, dtype=np.int64)
         new_order[local_order] = np.arange(self.node_count)
+        # quiverlint: ignore[QT001] -- a reorder is configuration, once, not
+        # per batch
         order_dev = torch.from_numpy(new_order.astype(np.int32)).to(
             self.device)
         with self._plock:
@@ -365,6 +380,8 @@ class Feature:
         cfg = dict(rank=self.rank, device_cache_size=self.device_cache_size,
                    cache_policy=self.cache_policy,
                    cache_unit=self.cache_unit, device=str(self.device))
+        # quiverlint: ignore[QT001] -- the IPC hand-off ships the hot rows
+        # through the host by design
         return (cfg, self.hot.cpu(), self.cold.clone(), self.feature_order,
                 self.cache_count, self.node_count, self.dim)
 
@@ -387,9 +404,10 @@ class Feature:
         return self
 
     def lazy_init_from_ipc_handle(self):
-        state, self._lazy_state = self._lazy_state, None
-        if state is not None:
-            self._install(*state[1:])
+        with self._lazy_lock:
+            state, self._lazy_state = self._lazy_state, None
+            if state is not None:
+                self._install(*state[1:])
 
     # -- cold-row overlay ----------------------------------------------
     def _maybe_enable_cold_cache(self):
@@ -556,6 +574,8 @@ class Feature:
             if slots.size:
                 rows = self.cold[torch.from_numpy(cache.node_of[slots])]
                 self._overlay.index_copy_(
+                    # quiverlint: ignore[QT001] -- a restore at boot, once,
+                    # not per batch
                     0, torch.from_numpy(slots).to(self.device),
                     rows.to(self.device))
         return int(slots.size)
@@ -587,6 +607,9 @@ class Feature:
         registry key) and in the registry.  Caller holds ``_plock``."""
         key = metric_key(name, labels)
         self._counts[key] = self._counts.get(key, 0) + n
+        # quiverlint: ignore[QT006] -- every caller (here and PagedStore's
+        # `count` hook) passes a literal snake_case `*_total` name; the
+        # helper exists to keep the feature's own copy (ROADMAP item 7)
         telemetry.counter(name, **labels).inc(float(n))
 
     def __getitem__(self, node_idx) -> torch.Tensor:
@@ -608,8 +631,8 @@ class Feature:
             return self.lookup_device(node_idx)
         idx = _host_ids(node_idx)
         if full:
-            rows = self._gather_hot(torch.from_numpy(
-                self._rows_of(idx).astype(np.int32)).to(self.device))
+            rows = self._gather_hot(upload(
+                self._rows_of(idx).astype(np.int32), self.device))
             return rows.reshape(*idx.shape, self.dim)
         rows = self._take_staged(idx.tobytes())
         if self._pool is not None:

@@ -388,8 +388,9 @@ class LeaderElector:
         leader = self.directory.leader()
         claim_fresh = (
             top is not None
-            # claim freshness is cross-process; wall clock is the only
-            # shared clock, the timeout absorbs NTP steps
+            # quiverlint: ignore[QT012] -- claim freshness is cross-
+            # process; wall clock is the only shared clock, the timeout
+            # absorbs NTP steps
             and (time.time() - top.wall) <= self.timeout_s)
         if leader is not None or claim_fresh:
             with self._lock:

@@ -280,9 +280,9 @@ class MembershipDirectory:
             "replicas": [
                 dict(r.to_dict(),
                      fresh=r.fresh(self.heartbeat_timeout_s, now),
-                     # heartbeat ages are cross-process, so wall clock is
-                     # the only shared clock; freshness windows absorb
-                     # small NTP steps
+                     # quiverlint: ignore[QT012] -- heartbeat ages are
+                     # cross-process, so wall clock is the only shared
+                     # clock; freshness windows absorb small NTP steps
                      heartbeat_age_s=round(max(now - r.heartbeat, 0.0), 3))
                 for r in self.replicas()
             ],

@@ -409,7 +409,8 @@ class FleetReplica:
 
         self.fence = EpochFence(self.elector.election_dir, claim.epoch,
                                 self.replica_id)
-        # atomic reference publish: the heartbeat thread only reads
+        # quiverlint: ignore[QT008] -- atomic reference publish: the
+        # heartbeat thread only reads
         # `.next_lsn`, which both the raw WAL and the FencedWAL wrapper
         # (delegating __getattr__) answer identically; the checkpointer of
         # this manager starts only after this call (happens-before via

@@ -42,6 +42,7 @@ from ..ops.cuda.gather_rows import gather_rows
 from ..ops.paged import PageTable, PagedStore, default_page_rows
 from ..recovery.registry import program_cache
 from ..utils.mesh import host_tensor
+from ..utils.staging import upload
 from .topology import SHARD_AXIS, build_mesh, shard_ranges
 
 __all__ = ["MeshFeature", "pow2_bucket", "sentinel_of"]
@@ -61,6 +62,8 @@ def sentinel_of(dtype: torch.dtype) -> float:
 
 
 def _tick(name: str, n, **labels) -> None:
+    # quiverlint: ignore[QT006] -- the shard stores' `count` hook: every
+    # caller in ops/paged.py passes a literal snake_case `*_total` name
     telemetry.counter(name, **labels).inc(float(n))
 
 
@@ -166,7 +169,7 @@ class MeshFeature:
         flat = np.where(ok, np.clip(frame, 0, n_frames - 1) * R + lid % R,
                         -1).astype(np.int32)
         dev = self.devices[s]
-        idx = torch.from_numpy(flat).to(dev)
+        idx = upload(flat, dev)
         rows = gather_rows(store.frames.view(-1, self.dim), idx)
         return torch.where((idx >= 0)[:, None], rows,
                            torch.full((), self._sentinel, dtype=self.dtype,
@@ -175,6 +178,8 @@ class MeshFeature:
     # -- the batch gather ----------------------------------------------
     def __getitem__(self, node_idx) -> torch.Tensor:
         if isinstance(node_idx, torch.Tensor):
+            # quiverlint: ignore[QT001] -- the sharded lookup plans on the
+            # host: its one read-back of the ids
             node_idx = node_idx.cpu().numpy()
         ids = np.asarray(node_idx, dtype=np.int64).reshape(-1)
         B = len(ids)

@@ -61,6 +61,8 @@ def generate_neighbour_num(csr_topo: CSRTopo, sizes: Sequence[int],
         indptr, indices = csr_topo.to_device(dev)
         n, e = csr_topo.node_count, csr_topo.edge_count
         g = expected_counts(indptr[: n + 1], indices[:e], n, sizes)
+        # quiverlint: ignore[QT001] -- an offline tool: its answer is a host
+        # array
         out = g.cpu().numpy().astype(np.int64)
     else:
         raise ValueError(f"mode must be 'expected' or 'sampled', got "

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from .. import telemetry
-from ..utils.staging import HostStaging
+from ..analysis.staging import no_sync
+from ..utils.staging import HostStaging, upload
 from .coldcache import ColdRowCache
 from .cuda.page_gather import page_gather
 
@@ -246,8 +247,8 @@ class PagedStore:
         if short.any():
             buf[torch.from_numpy(short)] = 0
         pages = self._staging.send("pages", buf)
-        frame_ids = torch.from_numpy(
-            (self.table.hot_pages + slots).astype(np.int64)).to(self.device)
+        frame_ids = upload((self.table.hot_pages + slots).astype(np.int64),
+                           self.device)
         self.frames.index_copy_(0, frame_ids, pages.view(k, R, self.dim))
         return buf
 
@@ -265,6 +266,9 @@ class PagedStore:
         if n_host:
             host_pages = np.unique(page[is_host] - t.hot_pages)
             if self._fault_pages(host_pages) is None:
+                # quiverlint: ignore[QT008] -- every caller holds its
+                # owner's lock around stage() (Feature._plock,
+                # MeshFeature._lock); the guard is real, not lexical here
                 self.fallbacks += 1
                 self._count("feature_page_fallback_total", 1)
                 return None
@@ -290,13 +294,16 @@ class PagedStore:
         for p in parts:
             buf[o:o + len(p)] = torch.from_numpy(p)
             o += len(p)
-        dev = self._staging.send("plan", buf)
-        views, o = [], 0
-        for p in parts:
-            views.append(dev[o:o + len(p)])
-            o += len(p)
-        return page_gather(self.frames, *views, block=self.block,
-                           ppb=self.ppb)
+        # the plan's copy and the gather must dispatch without blocking:
+        # callers decide when (whether) to materialize the result
+        with no_sync("paged gather"):
+            dev = self._staging.send("plan", buf)
+            views, o = [], 0
+            for p in parts:
+                views.append(dev[o:o + len(p)])
+                o += len(p)
+            return page_gather(self.frames, *views, block=self.block,
+                               ppb=self.ppb)
 
     def frame_of_pages(self) -> np.ndarray:
         """Logical page -> resident frame (``-1``: HOST)."""

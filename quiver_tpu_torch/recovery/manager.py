@@ -175,9 +175,10 @@ class RecoveryManager:
             raise RecoveryError(
                 f"no checkpoint under {self.ckpt_dir} and no graph_factory "
                 "to build a fresh graph from")
-        # set once here, before the checkpointer thread can exist
+        # quiverlint: ignore[QT008] -- set exactly once here, before the
+        # checkpointer thread can exist; read-only references afterwards
         self.wal = WriteAheadLog(self.wal_dir, **self._wal_kwargs)
-        self.graph = graph
+        self.graph = graph  # quiverlint: ignore[QT008] -- same: boot-once
         with self._lock:
             self._ckpt = ckpt
         self._set_state("replaying", stale=True)

@@ -108,8 +108,12 @@ class ProgramRegistry:
         with self._lock:
             st = self._stats.setdefault(subsystem, _zero_stats())
             st["hits" if hit else "misses"] += 1
-        name = "registry_hits_total" if hit else "registry_misses_total"
-        telemetry.counter(name, subsystem=subsystem).inc()
+        if hit:
+            telemetry.counter("registry_hits_total",
+                              subsystem=subsystem).inc()
+        else:
+            telemetry.counter("registry_misses_total",
+                              subsystem=subsystem).inc()
 
     def _built(self, subsystem: str) -> None:
         with self._lock:

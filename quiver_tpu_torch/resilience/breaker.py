@@ -159,7 +159,7 @@ class CircuitBreaker:
         """Caller holds ``_lock``.  Metrics + flight-recorder breadcrumb
         (the event lands on whatever request's trace is active — the one
         whose failure tripped the breaker)."""
-        # every caller (allow /
+        # quiverlint: ignore[QT003] -- every caller (allow /
         # record_success / record_failure) holds _lock; the guard is
         # real, just not lexical in this helper
         self._state = to

@@ -48,6 +48,7 @@ has_ts, windowed)``: mutations within one delta bucket build nothing.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -67,6 +68,7 @@ from . import telemetry
 from .recovery.registry import program_cache
 from .telemetry import Counter
 from .utils.device import resolve_device
+from .utils.staging import upload
 from .utils.topology import CSRTopo
 
 __all__ = ["GraphSageSampler", "SampledBatch", "LayerBlock", "run_pipeline"]
@@ -100,7 +102,11 @@ class SampledBatch(NamedTuple):
         hop's targets are a prefix of its sources, so PyG's ``x =
         x[:size[1]]`` loop slices exactly."""
         _, bs, adjs = to_torch_adjs(self)
+        # quiverlint: ignore[QT001] -- to_pyg_adjs is the host copy of a batch
+        # by contract
         return self.n_id.cpu().numpy(), bs, [
+            # quiverlint: ignore[QT001] -- to_pyg_adjs is the host copy of a
+            # batch by contract
             (edge_index.cpu().numpy(), e_id.cpu().numpy(), size)
             for edge_index, e_id, size in adjs]
 
@@ -424,6 +430,10 @@ class GraphSageSampler:
                 "StreamingGraph: the positional pipeline (dedup='none') "
                 "with uniform draws only; dedup='hop' and edge_weights are "
                 "refused")
+        # the serving loops and their caller sample from one sampler: this
+        # guards the base/stream pair, the drops pair and the UVA graph
+        # built at first use
+        self._state_lock = threading.Lock()
         self.csr_topo = csr_topo  # the setter tells streaming from frozen
         self.mode = mode
         self.return_eid = return_eid
@@ -442,6 +452,8 @@ class GraphSageSampler:
         if edge_weights is not None and mode == "GPU":
             cw = row_cumsum_weights(csr_topo.indptr, edge_weights)
             # the last value fills the pad: a clipped read past E is harmless
+            # quiverlint: ignore[QT001] -- construction: the cumulative
+            # weights are placed once
             self._cum_weights = torch.from_numpy(pad_table_128(
                 cw, fill=float(cw[-1]) if len(cw) else None)).to(self.device)
         self.last_drops: Optional[torch.Tensor] = None
@@ -467,10 +479,11 @@ class GraphSageSampler:
 
     @csr_topo.setter
     def csr_topo(self, value) -> None:
-        if _is_stream_graph(value):
-            self._stream, self._csr_topo = value, None
-        else:
-            self._stream, self._csr_topo = None, value
+        with self._state_lock:
+            if _is_stream_graph(value):
+                self._stream, self._csr_topo = value, None
+            else:
+                self._stream, self._csr_topo = None, value
 
     def draw_key_words(self) -> np.ndarray:
         """Key words from the sampler's own generator: ``[L, 2]`` uint32,
@@ -483,8 +496,8 @@ class GraphSageSampler:
     def seed_tensor(self, input_nodes) -> torch.Tensor:
         if isinstance(input_nodes, torch.Tensor):
             return input_nodes.to(self.device, torch.int32)
-        return torch.from_numpy(
-            self._host_seeds(input_nodes).astype(np.int32)).to(self.device)
+        return upload(self._host_seeds(input_nodes).astype(np.int32),
+                      self.device)
 
     def _stream_entry(self, B: int):
         """The overlay pipeline of ``B`` seeds, its relabel positions made
@@ -517,6 +530,14 @@ class GraphSageSampler:
                 raise ValueError(
                     "time_window requires a StreamingGraph with per-edge "
                     "timestamps (quiver_tpu_torch.stream)")
+            B = int(seeds.shape[0])
+            if B not in self._programs:
+                # JAX's key: one entry a batch size (nothing is compiled;
+                # the build guard and the registry count it as JAX does)
+                # quiverlint: ignore[QT008, QT014] -- raw B is the
+                # sampler's contract, as in JAX; one True per size, and
+                # dict assignment is atomic
+                self._programs[B] = True
             indptr, indices = self.csr_topo.to_device(self.device)
             return run_pipeline(
                 self.dedup, indptr, indices, seeds, key_words, self.sizes,
@@ -543,6 +564,13 @@ class GraphSageSampler:
         fn = self._programs.get(key)
         if fn is None:
             # two threads racing a new key both build; one entry is kept
+            # (dict.setdefault is atomic, and both entries are the same
+            # pipeline)
+            # quiverlint: ignore[QT008, QT014] -- raw B is the sampler's
+            # contract: one executable per seed-batch size, bit-stable
+            # RNG per seed row (padding would consume extra key splits).
+            # Serving pads upstream via _pad_ids; seal()/retrace_budget
+            # guard the steady state.
             fn = self._programs.setdefault(key, self._stream_entry(B))
         return fn(snap.indptr, snap.indices, seeds, key_words, overlay)
 
@@ -592,8 +620,9 @@ class GraphSageSampler:
         n_id, n_mask, num_nodes, blocks, drops = self.pipeline(
             seeds, key_words, snapshot=snap, time_window=time_window)
         # kept on the device until overflow_stats() reads it
-        self.last_drops = drops
-        self._drops_recorded = False
+        with self._state_lock:
+            self.last_drops = drops
+            self._drops_recorded = False
         return SampledBatch(n_id=n_id, n_id_mask=n_mask, num_nodes=num_nodes,
                             batch_size=int(seeds.shape[0]), layers=blocks,
                             drops=drops,
@@ -608,12 +637,18 @@ class GraphSageSampler:
         ``frontier_drops``, this sampler's own count) once per ``sample``
         call; a loader that samples ahead should pass the batch."""
         if batch is not None:
+            # quiverlint: ignore[QT001] -- overflow_stats answers numpy by
+            # contract; a diagnostic read
             return None if batch.drops is None else batch.drops.cpu().numpy()
-        if self.last_drops is None:
-            return None
-        arr = self.last_drops.cpu().numpy()
-        if not self._drops_recorded:
+        with self._state_lock:
+            drops, recorded = self.last_drops, self._drops_recorded
             self._drops_recorded = True
+        if drops is None:
+            return None
+        # quiverlint: ignore[QT001] -- overflow_stats answers numpy by
+        # contract; a diagnostic read
+        arr = drops.cpu().numpy()
+        if not recorded:
             total = float(arr.sum())
             if total:
                 self.frontier_drops.inc(total)
@@ -626,6 +661,9 @@ class GraphSageSampler:
         """Scale the CPU mode's fanouts to ``frac`` of ``sizes`` (each at
         least 1); ``1.0`` restores them.  The device and UVA modes keep
         ``sizes``, as in the JAX package."""
+        # quiverlint: ignore[QT008] -- single atomic float rebind; the CPU
+        # lane reads it once per batch and may see the previous step of
+        # the degradation ladder for one batch
         self._fanout_frac = float(min(max(frac, 0.0), 1.0))
 
     def _effective_sizes(self):
@@ -650,6 +688,8 @@ class GraphSageSampler:
 
     def _host_seeds(self, input_nodes) -> np.ndarray:
         if isinstance(input_nodes, torch.Tensor):
+            # quiverlint: ignore[QT001] -- the host modes sample host seeds:
+            # their one read-back
             input_nodes = input_nodes.cpu().numpy()
         ids = np.asarray(input_nodes)
         n = self.csr_topo.node_count
@@ -673,12 +713,14 @@ class GraphSageSampler:
                 raise ValueError("UVA mode needs host_seeds with [L, 2] key "
                                  "words, or [L, 3] words")
             host_seeds = words[:, 2]
-        if self._uva is None:
-            self._uva = UVAGraph(self.csr_topo, self.uva_budget,
-                                 device=self.device)
+        with self._state_lock:  # one hot-tier upload, whoever comes first
+            if self._uva is None:
+                self._uva = UVAGraph(self.csr_topo, self.uva_budget,
+                                     device=self.device)
+            uva = self._uva
         seeds = self._host_seeds(input_nodes)
         n_id, n_mask, num, blocks = sample_uva(
-            self._uva, self.sizes, seeds, words[:, :2], host_seeds,
+            uva, self.sizes, seeds, words[:, :2], host_seeds,
             gather_mode=self.gather_mode, overlap=self.uva_overlap,
             timings=self.uva_timings)
         return self._host_batch(n_id, n_mask, num, len(seeds), blocks)
@@ -707,9 +749,12 @@ class GraphSageSampler:
         seeds = np.asarray(seeds)
         out = self.sample_layer(seeds, size, key_words)
         r = self.reindex(seeds, out.nbrs, out.mask)
+        # quiverlint: ignore[QT001] -- sample_sub answers numpy by contract
         nodes = r.n_id[: int(r.num_nodes)].cpu().numpy()
+        # quiverlint: ignore[QT001] -- sample_sub answers numpy by contract
         m = r.mask.cpu().numpy()
         row = np.repeat(np.arange(len(seeds)), m.shape[1]).reshape(m.shape)
+        # quiverlint: ignore[QT001] -- sample_sub answers numpy by contract
         return nodes, row[m], r.local_nbrs.cpu().numpy()[m]
 
     def sample_prob(self, train_idx, total_node_count: int) -> torch.Tensor:

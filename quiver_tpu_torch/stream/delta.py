@@ -55,6 +55,7 @@ class DeltaStore:
         self.dead = np.zeros(capacity, dtype=bool)
 
     # ------------------------------------------------------------------
+    # quiverlint: requires-lock[StreamingGraph._lock]
     def add(self, src: np.ndarray, dst: np.ndarray,
             ts: Optional[np.ndarray] = None) -> int:
         """Append edges; returns the count appended.
@@ -88,6 +89,7 @@ class DeltaStore:
         self.n += m
         return m
 
+    # quiverlint: requires-lock[StreamingGraph._lock]
     def kill(self, src: int, dst: int) -> bool:
         """Mark ONE live pending edge (src, dst) dead; last match wins
         (most-recently-added duplicate dies first).  Returns False when
@@ -118,6 +120,7 @@ class DeltaStore:
         ts = self.ts[:n][keep].copy() if self.has_ts else None
         return self.src[:n][keep].copy(), self.dst[:n][keep].copy(), ts
 
+    # quiverlint: requires-lock[StreamingGraph._lock]
     def clear(self) -> None:
         """Empty the segment (after its edges were folded into a base)."""
         self.n = 0

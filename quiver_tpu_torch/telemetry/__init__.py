@@ -64,6 +64,8 @@ def enabled() -> bool:
 def set_enabled(on: bool) -> None:
     """Flip telemetry at runtime (overrides ``QUIVER_TELEMETRY``)."""
     global _ENABLED
+    # quiverlint: ignore[QT008] -- single atomic bool rebind; worker
+    # readers tolerate one stale observation by design (noop fallback)
     _ENABLED = bool(on)
 
 

@@ -67,7 +67,7 @@ def set_version_provider(fn) -> None:
     """Register a zero-arg callable returning the current graph version
     (``None`` unregisters).  Called by ``stream.StreamingGraph``."""
     global _VERSION_PROVIDER
-    # single atomic reference rebind at
+    # quiverlint: ignore[QT008] -- single atomic reference rebind at
     # graph construction/teardown; readers snapshot it into a local and
     # tolerate one stale observation (graph_version falls back to None)
     _VERSION_PROVIDER = fn

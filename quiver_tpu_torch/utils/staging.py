@@ -10,6 +10,9 @@ stream, and :meth:`HostStaging.buffer` waits on it before handing the
 buffer out again.  On the CPU the "copy" is a clone, so a returned tensor
 never aliases a buffer that the next batch rewrites.
 
+:func:`upload` is the one-off form, for a small per-batch payload that
+needs no reusable buffer.
+
 Not thread-safe: the owning feature holds its ``_plock`` around use.
 """
 
@@ -20,7 +23,19 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["HostStaging"]
+__all__ = ["HostStaging", "upload"]
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """``arr`` on ``device`` without waiting for the stream: a pinned copy,
+    then an asynchronous copy to the card (the caching host allocator
+    keeps the pinned block until that copy has finished).  A copy from
+    pageable memory would wait for the stream first.  On the CPU the
+    result wraps ``arr``, as ``torch.from_numpy`` does."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 class HostStaging:
@@ -43,6 +58,9 @@ class HostStaging:
         if buf is None or buf.numel() < nbytes:
             buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                               pin_memory=self._pin)
+        # quiverlint: ignore[QT008] -- not thread-safe by contract (module
+        # docstring): the owner holds Feature._plock or MeshFeature._lock
+        # around buffer() and send(); the guard is real, not lexical here
         self._bufs[name] = (buf, None)
         return buf[:nbytes].view(dtype).view(shape)
 

@@ -9,6 +9,7 @@ element for element.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -76,13 +77,22 @@ class CSRTopo:
         else:
             raise ValueError("need edge_index or (indptr, indices)")
         self.feature_order_: Optional[np.ndarray] = None
+        # two threads that both miss (a serving loop and its caller) must
+        # not each upload the indices
+        self._device_lock = threading.Lock()
         self._device_arrays: dict = {}
         self._version = 0
 
     def __getstate__(self):
         # the device copies stay behind: an unpickled topology places its
         # own at its first to_device
-        return dict(self.__dict__, _device_arrays={})
+        state = dict(self.__dict__, _device_arrays={})
+        del state["_device_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._device_lock = threading.Lock()
 
     @property
     def indptr(self) -> np.ndarray:
@@ -124,17 +134,19 @@ class CSRTopo:
         device; :meth:`invalidate` drops every cached placement.  Requires
         ``edge_count < 2**31``."""
         dev = resolve_device(device)
-        cached = self._device_arrays.get(str(dev))
-        if cached is None:
-            if self.edge_count >= 2**31:
-                raise ValueError(
-                    "edge_count >= 2^31 does not fit int32 edge positions")
-            indptr = torch.from_numpy(
-                _pad128(self.indptr_.astype(np.int32))).to(dev)
-            indices = torch.from_numpy(
-                _pad128(self.indices_.astype(np.int32))).to(dev)
-            cached = (indptr, indices)
-            self._device_arrays[str(dev)] = cached
+        with self._device_lock:
+            cached = self._device_arrays.get(str(dev))
+            if cached is None:
+                if self.edge_count >= 2**31:
+                    raise ValueError(
+                        "edge_count >= 2^31 does not fit int32 edge "
+                        "positions")
+                indptr = torch.from_numpy(
+                    _pad128(self.indptr_.astype(np.int32))).to(dev)
+                indices = torch.from_numpy(
+                    _pad128(self.indices_.astype(np.int32))).to(dev)
+                cached = (indptr, indices)
+                self._device_arrays[str(dev)] = cached
         return cached
 
     @property
@@ -148,8 +160,9 @@ class CSRTopo:
         The stream compactor calls it on the base it replaces, so nothing
         serves the old topology as current; a snapshot that already holds
         the old tensors keeps them until it is dropped."""
-        self._device_arrays = {}
-        self._version += 1
+        with self._device_lock:
+            self._device_arrays = {}
+            self._version += 1
 
     def share_memory_(self) -> "CSRTopo":
         """The reference's ``torch.Tensor`` API: numpy arrays already

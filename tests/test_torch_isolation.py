@@ -498,3 +498,49 @@ def test_fleet_replica_defaults_to_the_card(monkeypatch, tmp_path):
         follower.stop()
     finally:
         leader.stop()
+
+
+def test_walk_covers_the_lint_slice():
+    """The source walk and the subprocess import reach every module of
+    ``analysis/``; none names the JAX package in a string, importing
+    them loads no JAX, and the linter proper imports no torch."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    mods = tuple(
+        f"analysis/{name}.py" for name in (
+            "__init__", "__main__", "core", "baseline", "cli", "witness",
+            "transfer_witness", "retrace_guard", "concurrency/__init__",
+            "concurrency/program", "staging/__init__", "staging/regions",
+            "staging/dataflow", "rules/__init__", "rules/qt001_host_sync",
+            "rules/qt003_locks", "rules/qt004_layering",
+            "rules/qt005_hygiene", "rules/qt006_metric_names",
+            "rules/qt007_silent_except", "rules/qt008_races",
+            "rules/qt009_lock_order", "rules/qt010_thread_reap",
+            "rules/qt011_durability", "rules/qt012_wall_clock",
+            "rules/qt014_cache_keys"))
+    bad = []
+    for mod in mods:
+        assert f"quiver_tpu_torch/{mod}" in walked, mod
+        path = ROOT / "quiver_tpu_torch" / mod
+        bad += _strings_into_jax_package(path.read_text(), mod)
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)) and \
+                    node.col_offset == 0:
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                bad += [f"{mod}: top-level import of {n}" for n in names
+                        if n.split(".")[0] in ("torch", "numpy")]
+    assert not bad, bad
+    names = ", ".join("quiver_tpu_torch." + m[:-3].replace("/", ".")
+                      .replace(".__init__", "") for m in mods
+                      if not m.endswith("__main__.py"))
+    code = (f"import sys, {names}; "
+            "print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or m.split('.')[0] == 'quiver_tpu'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("QUIVER_SANITIZE", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -182,3 +182,59 @@ def test_seed_counter_under_threads():
     want = [(0x5EED * 1_000_003 + c) & (2**64 - 1)
             for c in range(1, 16 * per + 1)]
     assert sorted(got) == want
+
+
+def _build_native_program(name: str):
+    """``g++ -O3 -std=c++17 -pthread`` of ``csrc/<name>.cpp`` against the
+    port's ``quiver_cpu.cpp``, into the port's build directory."""
+    import os
+    import subprocess
+
+    csrc = pn.SRC.parent
+    pn.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = pn.BUILD_DIR / f"{name}-{os.getpid()}"
+    proc = subprocess.run(
+        ["g++", "-O3", "-std=c++17", "-pthread", "-o", str(out),
+         str(csrc / "quiver_cpu.cpp"), str(csrc / f"{name}.cpp")],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return out
+
+
+def test_native_self_test_builds_and_passes():
+    """The JAX package's C++ self-test (generated graphs, sample-validity
+    properties), copied into the port, passes against the port's
+    source."""
+    import subprocess
+
+    exe = _build_native_program("test_quiver_cpu")
+    try:
+        proc = subprocess.run([str(exe)], capture_output=True, text=True,
+                              timeout=300)
+    finally:
+        exe.unlink(missing_ok=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    jax_copy = (pn.SRC.parents[3] / "quiver_tpu" / "cpp" / "csrc"
+                / "test_quiver_cpu.cpp").read_text().splitlines()
+    port_copy = (pn.SRC.parent / "test_quiver_cpu.cpp").read_text() \
+        .splitlines()
+    # only the build comment differs from the JAX package's copy
+    assert [a for a in port_copy if not a.startswith("//")] == [
+        a for a in jax_copy if not a.startswith("//")]
+
+
+def test_native_bench_builds_and_runs_small():
+    """The C++ sampling benchmark, at a small graph (``argv``: N, E)."""
+    import re
+    import subprocess
+
+    exe = _build_native_program("bench_quiver_cpu")
+    try:
+        proc = subprocess.run([str(exe), "20000", "200000"],
+                              capture_output=True, text=True, timeout=300)
+    finally:
+        exe.unlink(missing_ok=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert re.search(r"graph: N=20000 E=\d+", proc.stdout)
+    seps = re.search(r"([\d.]+)M SEPS \((\d+) edges", proc.stdout)
+    assert seps and float(seps.group(1)) > 0 and int(seps.group(2)) > 0

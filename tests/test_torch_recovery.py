@@ -926,8 +926,13 @@ class TestProgramRegistry:
         assert st["hits"] - before["hits"] >= 1
         assert list(s._programs) == [("stream", 4, 128, 128, False, False)]
         frozen = qt.GraphSageSampler(_ring(), [5, 3], device="cpu")
-        frozen.sample(np.arange(6))  # a frozen pipeline builds nothing
-        assert list(frozen._programs) == []
+        before = reg.stats()["sampler"]
+        frozen.sample(np.arange(6))  # a frozen pipeline: JAX's key B
+        frozen.sample(np.arange(6))
+        assert list(frozen._programs) == [6]
+        st = reg.stats()["sampler"]
+        assert st["builds"] - before["builds"] == 1
+        assert st["hits"] - before["hits"] == 1
 
     def test_native_library_is_a_build_and_seal_refuses_a_late_one(
             self, tmp_path, monkeypatch):
