@@ -263,7 +263,19 @@ first use, with nvcc, one process per source, all at once), then:
    requires no lock-witness violation, then (read after all the above)
    one ``.item()``, one ``nonzero`` and the pre-repair pageable seed
    upload inside a region must each be recorded; the probes' logits
-   must be bitwise the parent's; both runs' p50/p99 are printed;
+   must be bitwise the parent's; both runs' p50/p99 are printed; the
+   child hands back every transfer it saw before the deliberate ones,
+   each with its frame's path in the package (``Transfer.path``);
+4l. lint phase (slice 15, ``lint_phase``, after 4k, in the parent): runs
+   ``python -m quiver_tpu_torch.analysis quiver_tpu_torch
+   --strict-baseline --format json`` on this tree (it must exit 0 with
+   the fifteen rules) and prints its seconds and its census by rule (new,
+   baselined, suppressed); then holds the sanitizer's run against it:
+   every Python coercion (LINT_COERCIONS) the child observed in a frame
+   of the package must sit on a line where QT001 or QT013 reports or is
+   waived (an ``ignore[...]``, a ``sync-ok[...]`` or a baseline entry),
+   or be one of LINT_BLIND_SPOTS, whose length it prints; it prints the
+   distinct coercion lines matched by each code;
 15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -5600,6 +5612,30 @@ def _in_region(violations, region: str) -> list:
     return [v.message for v in violations if f"`{region}`" in v.message]
 
 
+# the transfer witness's sites that are a Python coercion, each a line of
+# the package's code (its sync-debug warnings, "cuda sync", are the
+# card's own waits: a copy from pageable memory, nonzero, a mask)
+LINT_COERCIONS = (".item()", ".tolist()", ".cpu()", ".numpy()", "__array__",
+                  "bool()", "int()", "float()", "__index__", ".to(cpu)",
+                  "Event.synchronize", "Stream.synchronize")
+# coercions the static rules cannot reach, "path:line" -> why; each is
+# also listed in ROADMAP section C
+LINT_BLIND_SPOTS: dict = {}
+
+
+def _package_coercions(transfers) -> list:
+    """The coercions made in frames of the package: one record per
+    (site, path, line, region) with its count."""
+    out: dict = {}
+    for t in transfers:
+        if t.path is None or t.site not in LINT_COERCIONS:
+            continue
+        key = (t.site, t.path, int(t.where.rsplit(":", 1)[1]), t.region)
+        out[key] = out.get(key, 0) + 1
+    return [dict(site=k[0], path=k[1], line=k[2], region=k[3], count=n)
+            for k, n in sorted(out.items(), key=lambda kv: kv[0][1:3])]
+
+
 def sanitize_child_main(spec_json: str) -> int:
     """Phase 4k's child (``chip_smoke.py --sanitize-child SPEC``, run with
     ``QUIVER_SANITIZE=1``): imports the port under both witnesses, seeds
@@ -5651,14 +5687,22 @@ def sanitize_child_main(spec_json: str) -> int:
     sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
     out["setup_s"] = time.perf_counter() - t_child
 
+    # every transfer the phases below see, the deliberate ones (7)
+    # excepted: the lint phase holds the package's coercions to its lint
+    observed = []
+
+    def drain():
+        observed.extend(tw.transfers())
+        return tw.drain()
+
     # (2) fused serving: every pass's forward inside "serving device loop"
-    tw.drain()
+    drain()
     mark = []   # the transfers made before the clients start: warm-up
     server, _, _, launches, _, summary = serve(
         torch, qt, sampler, feature, seeded_model(torch, qt),
         {"window_sample": b1.window_sample, "gather_rows": b2.gather_rows},
         during=lambda: mark.append(len(tw.transfers())))
-    seen, viol = tw.transfers(), tw.drain()
+    seen, viol = tw.transfers(), drain()
     chunks = sum(len(c) for _, c in server.pass_log)
 
     def readback(t):
@@ -5692,11 +5736,11 @@ def sanitize_child_main(spec_json: str) -> int:
                  .cpu().numpy() for _ in range(SANITIZE_PAGED_LOOKUPS)]
     if DEV == "cuda":
         torch.cuda.synchronize()
-    tw.drain()
+    drain()
     b5.page_gather.launches = 0
     rows = [budgeted[ids] for ids in frontiers]
     paged_launches = b5.page_gather.launches
-    seen, viol = tw.transfers(), tw.drain()
+    seen, viol = tw.transfers(), drain()
     for ids, r in zip(frontiers, rows):
         check(torch.equal(r, torch.from_numpy(feat[ids]).to(DEV)),
               "a paged lookup differs from the table")
@@ -5716,11 +5760,11 @@ def sanitize_child_main(spec_json: str) -> int:
     hops = [(rng.integers(0, N_NODES, 2048),
              rng.integers(0, 2**32, size=2, dtype=np.uint32))
             for _ in range(SANITIZE_MESH_HOPS)]
-    tw.drain()
+    drain()
     b3.element_gather.launches = 0
     outs = [ms.sample(s, FANOUTS[0], kw) for s, kw in hops]
     mesh_launches = b3.element_gather.launches
-    seen, viol = tw.transfers(), tw.drain()
+    seen, viol = tw.transfers(), drain()
     for o in outs:
         check(tuple(o.nbrs.shape) == (2048, FANOUTS[0]),
               f"a mesh hop answered {tuple(o.nbrs.shape)}")
@@ -5737,7 +5781,7 @@ def sanitize_child_main(spec_json: str) -> int:
     with count_jit_builds() as c:
         for n in SANITIZE_MIXED:
             server._run_bucketed(rng.integers(0, N_NODES, n))
-    viol = tw.drain()
+    viol = drain()
     out["build_guard"] = dict(sizes=list(SANITIZE_MIXED), builds=c.builds,
                               backend_compiles=c.backend_compiles,
                               sites=c.describe())
@@ -5754,7 +5798,9 @@ def sanitize_child_main(spec_json: str) -> int:
 
     # (8) fixed probes, held against the parent's unsanitized run
     out["probes"] = sanitize_probes(server)
-    tw.drain()
+    drain()
+
+    out["coercions"] = _package_coercions(observed)
 
     # (7) teeth, read after everything above: one .item() and one
     # nonzero inside a region are one violation each
@@ -5860,6 +5906,103 @@ def sanitize_phase(torch, qt, topo, feat) -> dict:
           f"{child['serving']['p99_ms']:.3f} ms under QUIVER_SANITIZE=1 "
           f"({out['card']})", flush=True)
     return out
+
+
+def _statement_span(tree, line: int):
+    """(first, last) line of the innermost simple statement holding
+    ``line`` (of a compound one, its header): where one Python statement
+    runs over several lines, the frame's line and the finding's may be
+    any two of them."""
+    import ast
+
+    best = None
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.stmt) or not (
+                node.lineno <= line <= node.end_lineno):
+            continue
+        body = getattr(node, "body", None)
+        end = node.end_lineno
+        if isinstance(body, list) and body:
+            end = body[0].lineno - 1     # a compound statement's header
+            if line > end:
+                continue
+        if best is None or (end - node.lineno) <= (best[1] - best[0]):
+            best = (node.lineno, end)
+    return best or (line, line)
+
+
+def lint_phase(child: dict) -> dict:
+    """Slice 15 (phase 4l, after 4k): the fifteen-rule lint of this tree
+    under ``--strict-baseline``, and every coercion the sanitize child
+    observed in the package held against its QT001 / QT013 lines."""
+    import ast
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "QUIVER_SANITIZE"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "quiver_tpu_torch.analysis",
+         "quiver_tpu_torch", "--strict-baseline", "--format", "json"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    lint_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the port's lint exited {proc.returncode}:"
+          f" {proc.stdout[-3000:]} {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    from quiver_tpu_torch.analysis.rules import RULE_CLASSES
+
+    codes = [cls.code for cls in RULE_CLASSES]
+    check(codes == [f"QT{i:03d}" for i in range(1, 16)],
+          f"the lint runs {codes}, not the fifteen rules QT001-QT015")
+    census = {c: dict(new=0, baselined=0, suppressed=0) for c in codes}
+    lines: dict = {}     # (path, line) -> {rule}
+    for kind, key in (("findings", "new"), ("baselined", "baselined"),
+                      ("suppressed", "suppressed")):
+        for f in doc[kind]:
+            census[f["rule"]][key] += 1
+            if f["rule"] in ("QT001", "QT013"):
+                lines.setdefault((f["path"], f["line"]), set()).add(
+                    f["rule"])
+    print(f"lint: {len(codes)} rules over {doc['files']} files in "
+          f"{lint_s:.1f} s, exit 0; census (new/baselined/suppressed) "
+          + ", ".join(f"{c} {v['new']}/{v['baselined']}/{v['suppressed']}"
+                      for c, v in census.items()), flush=True)
+
+    trees: dict = {}
+    matched: dict = {}       # (path, line) -> rule
+    unmatched = []
+    for c in child["coercions"]:
+        where = f"{c['path']}:{c['line']}"
+        if where in LINT_BLIND_SPOTS:
+            continue
+        if c["path"] not in trees:
+            with open(os.path.join(root, c["path"])) as fh:
+                trees[c["path"]] = ast.parse(fh.read())
+        lo, hi = _statement_span(trees[c["path"]], c["line"])
+        rules = set().union(*[lines.get((c["path"], ln), set())
+                              for ln in range(lo, hi + 1)])
+        if rules:
+            matched[(c["path"], c["line"])] = "/".join(sorted(rules))
+        else:
+            unmatched.append(f"{where} ({c['site']}, {c['count']}x"
+                             + (f", in `{c['region']}`" if c["region"]
+                                else "") + ")")
+    by_code: dict = {}
+    for rule in matched.values():
+        by_code[rule] = by_code.get(rule, 0) + 1
+    print(f"lint against the sanitizer: {len(child['coercions'])} "
+          f"coercion site(s) in the package over "
+          f"{sum(c['count'] for c in child['coercions'])} transfer(s); "
+          f"{len(matched)} distinct line(s) matched "
+          f"{json.dumps(by_code, sort_keys=True)}; "
+          f"{len(LINT_BLIND_SPOTS)} named blind spot(s)", flush=True)
+    check(not unmatched, "coercions the lint does not reach (no QT001/QT013 "
+          "finding or waiver on the line): " + "; ".join(unmatched))
+    return dict(card=card_line(), lint_s=lint_s, rules=codes,
+                files=doc["files"], census=census,
+                coercion_sites=child["coercions"],
+                matched={f"{p}:{ln}": r for (p, ln), r in matched.items()},
+                matched_by_code=by_code,
+                blind_spots=len(LINT_BLIND_SPOTS))
 
 
 def main() -> int:
@@ -6150,6 +6293,12 @@ def main() -> int:
     kernels[4]["launches_sanitized_paged"] = \
         sanitize["child"]["paged"]["b5_launches"]
     print("slice 14 summary " + json.dumps(sanitize), flush=True)
+
+    # slice 15: the fifteen-rule lint against the sanitizer's transfers
+    t0 = time.perf_counter()
+    lint = lint_phase(sanitize["child"])
+    lint["phase_s"] = time.perf_counter() - t0
+    print("slice 15 summary " + json.dumps(lint), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)

@@ -23,11 +23,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m quiver_tpu_torch.analysis",
         description="quiverlint: CUDA hot-path static analysis "
-                    "(QT001 host sync, QT003 lock discipline, QT004 import "
-                    "layering, QT005 hygiene, QT006 metric names, QT007 "
-                    "silent except; whole-program concurrency QT008-QT010; "
-                    "QT011 durability, QT012 wall clock, QT014 cache-key "
-                    "bounds)",
+                    "(QT001 host sync, QT002 recompile and rebuild hazards, "
+                    "QT003 lock discipline, QT004 import layering, QT005 "
+                    "hygiene, QT006 metric names, QT007 silent except; "
+                    "whole-program concurrency QT008-QT010; QT011 "
+                    "durability, QT012 wall clock; staging dataflow QT013 "
+                    "interprocedural sync, QT014 cache-key bounds, QT015 "
+                    "collective discipline)",
     )
     p.add_argument("paths", nargs="*", default=["quiver_tpu_torch"],
                    help="files or directories to lint "
@@ -47,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "from the baseline, not left to absorb the next "
                         "regression), when a baseline entry was recorded "
                         "under a since-edited rule implementation "
-                        "(rule-hash mismatch)")
+                        "(rule-hash mismatch), or when a sync-ok waiver "
+                        "no longer suppresses anything")
     p.add_argument("--report-only", action="store_true",
                    help="print findings but always exit 0 (except on "
                         "internal errors) — coverage mode for paths "
@@ -110,6 +113,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             stale = baseline_mod.stale(result.findings, accepted)
             mismatched = baseline_mod.hash_mismatches(
                 entries, rule_fingerprints())
+    stale_sync = result.stale_sync_ok if args.strict_baseline else []
 
     if args.format == "json":
         print(json.dumps({
@@ -120,6 +124,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             "rule_hash_mismatch": [
                 dict(f.to_dict(), recorded_hash=h, current_hash=cur)
                 for f, h, cur in mismatched],
+            "stale_sync_ok": [
+                {"path": p, "line": ln, "reason": r}
+                for p, ln, r in stale_sync],
             "files": result.files,
             "errors": result.errors,
         }, indent=2))
@@ -135,6 +142,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"baseline entry recorded under edited rule logic: "
                   f"{f.rule} {f.path} [{f.scope}] (recorded {h}, "
                   f"current {cur}) — re-record the baseline")
+        for p, ln, r in stale_sync:
+            print(f"stale sync-ok waiver (suppresses nothing): "
+                  f"{p}:{ln} [{r}]")
         if args.show_suppressed:
             for f in result.suppressed:
                 print(f"suppressed: {f.format()}")
@@ -144,10 +154,11 @@ def main(argv: Optional[List[str]] = None) -> int:
               + (f", {len(stale)} stale baseline entr"
                  f"{'y' if len(stale) == 1 else 'ies'}"
                  f", {len(mismatched)} rule-hash mismatch(es)"
+                 f", {len(stale_sync)} stale sync-ok waiver(s)"
                  if args.strict_baseline else ""))
 
     if result.errors:
         return 2
     if args.report_only:
         return 0
-    return 1 if (new or stale or mismatched) else 0
+    return 1 if (new or stale or mismatched or stale_sync) else 0

@@ -1,12 +1,16 @@
 """quiverlint core — findings, config, module context, suppressions, engine.
 
 The data layer's performance contract is structural: hot loops must not
-sync with the card (QT001), shared state must stay under its declared
-lock (QT003), hot modules must not grow import-time dependencies on the
+sync with the card (QT001), compiled functions and kernel builds must not
+repeat per call (QT002), shared state must stay under its declared lock
+(QT003), hot modules must not grow import-time dependencies on the
 exporter stack (QT004), and library code must stay free of the Python
-footguns that turn into silent serving bugs (QT005).  Telemetry
-*observes* violations after the fact; this package *rejects* them at
-lint time.
+footguns that turn into silent serving bugs (QT005).  QT006-QT012 hold
+metric names, exception handling, the whole-program concurrency model,
+durable writes and clocks; QT013-QT015 read the staging dataflow (a
+card value coerced across function boundaries, executable-cache keys,
+collective discipline).  Telemetry *observes* violations after the
+fact; this package *rejects* them at lint time.
 
 Everything here is stdlib-only AST analysis: the linter itself must be
 cheap enough to run in CI on every change and must never need a device
@@ -26,7 +30,9 @@ from __future__ import annotations
 
 import ast
 import fnmatch
+import io
 import re
+import tokenize
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
@@ -38,6 +44,11 @@ __all__ = [
 ]
 
 _SUPPRESS_RE = re.compile(r"#\s*quiverlint:\s*ignore\[([A-Za-z0-9_,\s]+)\]")
+# QT013's audited waiver: a *sync* that is part of the design (response
+# leaving the process, bench checksum).  Unlike ignore[...], sync-ok is
+# tracked — a waiver suppressing nothing is stale and fails
+# --strict-baseline, so boundary declarations can't outlive the sync.
+_SYNC_OK_RE = re.compile(r"#\s*quiverlint:\s*sync-ok\[([^\]]*)\]")
 
 MODULE_SCOPE = "<module>"
 
@@ -82,8 +93,9 @@ class Finding:
 
 # Default hot-module set: the sampling -> gather -> serve pipeline, where
 # a host round-trip is a per-batch tax (GNNSampler / SALIENT's dominant
-# cost); ``ops/cuda`` holds the kernel wrappers.  Patterns are fnmatch'd
-# against the posix relpath.
+# cost); ``ops/cuda`` holds the kernel wrappers and ``utils/staging.py``
+# the pinned buffers every budgeted lookup reuses.  Patterns are
+# fnmatch'd against the posix relpath.
 _DEFAULT_HOT = (
     "quiver_tpu_torch/sampler.py",
     "quiver_tpu_torch/feature.py",
@@ -99,6 +111,7 @@ _DEFAULT_HOT = (
     "quiver_tpu_torch/recovery/*.py",
     "quiver_tpu_torch/fleet/*.py",
     "quiver_tpu_torch/mesh/*.py",
+    "quiver_tpu_torch/utils/staging.py",
 )
 
 
@@ -127,9 +140,8 @@ class LintConfig:
     # pow2/quarter-octave set) whose results count as bounded key
     # components.
     bucket_helpers: Tuple[str, ...] = ()
-    # QT015 (not yet in this package's rule set): modules whose psum
-    # operands must be provably integer (the bit-exact halo-combine
-    # contract of the mesh tier).
+    # QT015: modules whose psum operands must be provably integer (the
+    # bit-exact halo-combine contract of the mesh tier).
     bitexact_modules: Tuple[str, ...] = ("quiver_tpu_torch/mesh/*.py",)
     # rule codes to run; None = every registered rule
     rules: Optional[Tuple[str, ...]] = None
@@ -196,6 +208,41 @@ class ModuleContext:
                 out.setdefault(j, set()).update(codes)
         return out
 
+    def sync_ok(self) -> Dict[int, Tuple[int, str]]:
+        """effective line -> (declaration line, reason) for QT013
+        ``sync-ok[...]`` waivers.
+
+        Same placement rules as suppressions: same line, or a
+        comment-only line directly above (which then covers the next
+        non-comment line).  The declaration line identifies the waiver
+        for the staleness audit — one comment may register under two
+        effective lines but is one declaration."""
+        out: Dict[int, Tuple[int, str]] = {}
+        # tokenize (not a line scan) so docstrings and message strings
+        # may *show* the directive without registering a waiver — the
+        # staleness audit would otherwise flag them forever
+        comments: Dict[int, str] = {}
+        try:
+            for tok in tokenize.generate_tokens(
+                    io.StringIO(self.source).readline):
+                if tok.type == tokenize.COMMENT:
+                    comments[tok.start[0]] = tok.string
+        except (tokenize.TokenError, IndentationError, SyntaxError):
+            comments = dict(enumerate(self.lines, start=1))
+        for i in sorted(comments):
+            m = _SYNC_OK_RE.search(comments[i])
+            if not m:
+                continue
+            reason = m.group(1).strip()
+            out.setdefault(i, (i, reason))
+            if self.lines[i - 1].strip().startswith("#"):
+                j = i + 1
+                while (j <= len(self.lines)
+                       and self.lines[j - 1].strip().startswith("#")):
+                    j += 1
+                out.setdefault(j, (i, reason))
+        return out
+
 
 class Rule:
     """Base class; subclasses set code/name/description and yield findings."""
@@ -238,6 +285,10 @@ class LintResult:
     suppressed: List[Finding] = field(default_factory=list)
     errors: List[str] = field(default_factory=list)
     files: int = 0
+    # sync-ok waivers that suppressed nothing this run: (path, line,
+    # reason).  Only populated when QT013 actually ran; --strict-baseline
+    # fails on them.
+    stale_sync_ok: List[Tuple[str, int, str]] = field(default_factory=list)
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +412,7 @@ def analyze_paths(paths: Sequence, config: Optional[LintConfig] = None,
     result = LintResult()
     contexts: List[ModuleContext] = []
     sups: Dict[str, Dict[int, Set[str]]] = {}
+    syncoks: Dict[str, Dict[int, str]] = {}
     for f in iter_py_files(paths, root, config):
         try:
             ctx = ModuleContext(f, _relpath(f, root), f.read_text(), config)
@@ -371,6 +423,7 @@ def analyze_paths(paths: Sequence, config: Optional[LintConfig] = None,
         sup = ctx.suppressions()
         contexts.append(ctx)
         sups[ctx.relpath] = sup
+        syncoks[ctx.relpath] = ctx.sync_ok()
         for rule in rules:
             for finding in rule.check(ctx):
                 codes = sup.get(finding.line, ())
@@ -380,18 +433,30 @@ def analyze_paths(paths: Sequence, config: Optional[LintConfig] = None,
                     result.findings.append(finding)
     if program_rules and contexts:
         # one parse, one program model: every program rule (QT008-010
-        # concurrency, QT014 cache keys) reads the same memoized
+        # concurrency, QT013-015 staging) reads the same memoized
         # Program / Dataflow built over this exact context list.
         from .concurrency import build_program
 
         build_program(contexts)
+    sync_ok_used: Set[Tuple[str, int]] = set()   # (path, declaration line)
     for rule in program_rules:
         for finding in rule.check_program(contexts):
             codes = sups.get(finding.path, {}).get(finding.line, ())
+            decl = syncoks.get(finding.path, {}).get(finding.line)
             if finding.rule.upper() in codes or "*" in codes:
+                result.suppressed.append(finding)
+            elif finding.rule.upper() == "QT013" and decl is not None:
+                sync_ok_used.add((finding.path, decl[0]))
                 result.suppressed.append(finding)
             else:
                 result.findings.append(finding)
+    if any(r.code == "QT013" for r in program_rules):
+        for path in sorted(syncoks):
+            decls = {(dline, reason)
+                     for dline, reason in syncoks[path].values()}
+            for dline, reason in sorted(decls):
+                if (path, dline) not in sync_ok_used:
+                    result.stale_sync_ok.append((path, dline, reason))
     result.findings.sort(key=lambda x: (x.path, x.line, x.rule))
     result.suppressed.sort(key=lambda x: (x.path, x.line, x.rule))
     return result

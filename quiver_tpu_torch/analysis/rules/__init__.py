@@ -8,6 +8,7 @@ from typing import Dict, List
 
 from ..core import Rule
 from .qt001_host_sync import HostSyncRule
+from .qt002_retrace import RetraceRule
 from .qt003_locks import LockDisciplineRule
 from .qt004_layering import ImportLayeringRule
 from .qt005_hygiene import HygieneRule
@@ -18,17 +19,18 @@ from .qt009_lock_order import LockOrderRule
 from .qt010_thread_reap import ThreadReapRule
 from .qt011_durability import DurabilityRule
 from .qt012_wall_clock import WallClockRule
+from .qt013_staging_sync import InterproceduralHostSyncRule
 from .qt014_cache_keys import UnboundedExecutableKeyRule
+from .qt015_collectives import CollectiveDisciplineRule
 
 __all__ = ["all_rules", "rule_fingerprints", "RULE_CLASSES"]
 
-# QT002 (retrace hazards), QT013 (interprocedural staging sync) and
-# QT015 (collective discipline) reason about staging and have no torch
-# form yet; their codes stay reserved so findings keep JAX's numbering.
-RULE_CLASSES = (HostSyncRule, LockDisciplineRule, ImportLayeringRule,
-                HygieneRule, MetricNameRule, SilentExceptRule,
-                DataRaceRule, LockOrderRule, ThreadReapRule,
-                DurabilityRule, WallClockRule, UnboundedExecutableKeyRule)
+RULE_CLASSES = (HostSyncRule, RetraceRule, LockDisciplineRule,
+                ImportLayeringRule, HygieneRule, MetricNameRule,
+                SilentExceptRule, DataRaceRule, LockOrderRule,
+                ThreadReapRule, DurabilityRule, WallClockRule,
+                InterproceduralHostSyncRule, UnboundedExecutableKeyRule,
+                CollectiveDisciplineRule)
 
 
 def all_rules() -> List[Rule]:

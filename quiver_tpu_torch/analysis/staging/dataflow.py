@@ -1,16 +1,17 @@
 """Staging dataflow — DEVICE / HOST / EITHER value classification.
 
-quiverlint v3's interprocedural tier.  The per-file rules (QT001) stop
-at function boundaries: ``out = self._fused_forward(padded)`` looks like
-an opaque call, so the ``np.asarray(out)`` two lines later goes
-unflagged even though the callee returns a live device array.  This
-module layers a residency lattice over the concurrency :class:`Program` model —
-same file set, same name resolution, same call graph — and solves it to
-a fixed point across calls, returns, attribute loads, and containers.
+quiverlint's interprocedural tier.  The per-file rule (QT001) stops at
+function boundaries: ``out = self._fused_forward(padded)`` looks like an
+opaque call, so the ``out.cpu()`` two lines later in a caller goes
+unflagged even though the callee returns a live card tensor.  This
+module layers a residency lattice over the concurrency
+:class:`Program` model — same file set, same name resolution, same call
+graph — and solves it to a fixed point across calls, returns,
+attribute loads, and containers.
 
 Lattice (per value)::
 
-        EITHER          may be device- or host-resident
+        EITHER          may be card- or host-resident
         /    \\
     DEVICE   HOST       proven residency
         \\    /
@@ -18,21 +19,30 @@ Lattice (per value)::
 
 Each classified value also carries:
 
-* ``hot`` — True when its device-ness originated inside a hot module
-  (the sampler/feature/serving/mesh pipeline).  A harness file like
-  ``bench.py`` computing its own throwaway ``jnp`` arrays stays cold;
-  the batch it got back from ``sampler.sample`` is hot, and coercing
-  *that* is a finding.
+* ``hot`` — True when its card residency originated inside a hot module
+  (the sampler/feature/serving/mesh pipeline and the kernel wrappers).
+  A harness computing its own throwaway card tensors stays cold; the
+  batch it got back from ``sampler.sample`` is hot, and coercing *that*
+  is a finding.
 * ``inst`` — the class key when the value is a known instance
-  (``wb = sampler.sample(...)`` → ``SampledBatch``), which is how
-  ``wb.n_id`` resolves to the device field annotation three files away.
+  (``out = sample_neighbors(...)`` → ``SampleOut``), which is how
+  ``out.nbrs`` resolves to the field its constructor filled three files
+  away.
 
-Sources: ``jnp.*`` / ``jax.*`` calls are DEVICE; numpy calls, casts,
-``len()``, ``.item()`` / ``.tolist()``, ``jax.device_get`` and array
-metadata (``.shape`` / ``.dtype`` / ...) are HOST; joins of both are
-EITHER.  ``B = seeds.shape[0]`` is therefore host — shape metadata
-never costs a transfer — which is what keeps the cache-key rule
-(QT014) and this one from tripping over ordinary batch-size plumbing.
+DEVICE sources: the result of a kernel entry (a public function of an
+``ops/cuda`` module that counts a launch), ``.cuda()``, ``.to(d)`` where
+``d`` is not provably the CPU, a ``torch.*`` call with a ``device=``
+that is not literally the CPU (the package's entry points run on the
+card unless asked otherwise), and any ``torch.*`` call or tensor method
+with a DEVICE operand.  HOST sources: ``.cpu()``, ``.to("cpu")``,
+``.numpy()``, ``.item()``, ``.tolist()``, ``torch.from_numpy``,
+``torch.tensor`` / ``torch.as_tensor`` without a device, numpy calls,
+casts, ``len()`` and tensor metadata (``.shape``, ``.numel()``, ...).
+Everything else is EITHER or unknown and is never reported — a
+``torch.Tensor`` annotation says nothing about the device.
+``B = seeds.shape[0]`` is therefore host — shape metadata never costs a
+transfer — which is what keeps the cache-key rule (QT014) and this one
+from tripping over ordinary batch-size plumbing.
 
 Everything is stdlib AST analysis; building the flow for the whole
 repo shares the one memoized :func:`build_program` model and is itself
@@ -42,8 +52,9 @@ memoized per context list (QT013/14/15 all read the same solve).
 from __future__ import annotations
 
 import ast
+import fnmatch
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..concurrency import build_program
 from ..concurrency.program import (
@@ -53,6 +64,14 @@ from ..concurrency.program import (
     _self_attr,
 )
 from ..core import ModuleContext
+from ..rules.qt001_host_sync import (
+    _METADATA_ATTRS,
+    _METADATA_METHODS,
+    _NOT_TENSOR,
+    _cpu_literal,
+    _device_arg,
+    _is_dtype,
+)
 
 __all__ = [
     "DEVICE", "EITHER", "HOST", "Dataflow", "Val", "build_dataflow", "join",
@@ -68,9 +87,11 @@ class Val:
     """Abstract value: residency class + hot-path origin + instance type."""
 
     cls: Optional[str] = None      # DEVICE | HOST | EITHER | None
-    hot: bool = False              # device-ness born in a hot module
+    hot: bool = False              # card residency born in a hot module
     inst: Optional[str] = None     # class key for known instances
-    fn: bool = False               # jitted callable: calling it -> DEVICE
+    # a tuple of known length: each position's value (``cls`` is their
+    # join), so ``a, b = f()`` binds each name to its own position
+    elts: Optional[Tuple[Optional["Val"], ...]] = None
 
 
 def join(a: Optional[Val], b: Optional[Val]) -> Optional[Val]:
@@ -85,44 +106,61 @@ def join(a: Optional[Val], b: Optional[Val]) -> Optional[Val]:
     else:
         cls = EITHER
     inst = a.inst if a.inst == b.inst else None
-    return Val(cls=cls, hot=a.hot or b.hot, inst=inst, fn=a.fn or b.fn)
+    elts = None
+    if a.elts is not None and b.elts is not None \
+            and len(a.elts) == len(b.elts):
+        elts = tuple(join(x, y) for x, y in zip(a.elts, b.elts))
+    return Val(cls=cls, hot=a.hot or b.hot, inst=inst, elts=elts)
 
 
 def broadcast(a: Optional[Val], b: Optional[Val]) -> Optional[Val]:
-    """Join under array-op semantics: ``dev + 0`` / ``dev > 0`` is a
-    device array (jax broadcasts the host scalar up), so DEVICE wins a
+    """Join under tensor-op semantics: ``dev + 0`` / ``dev > 0`` is a
+    card tensor (the host scalar is promoted to it), so DEVICE wins a
     mixed pairing instead of widening to EITHER."""
     j = join(a, b)
     if j is not None and j.cls == EITHER:
         if (a is not None and a.cls == DEVICE) or \
                 (b is not None and b.cls == DEVICE):
-            return Val(cls=DEVICE, hot=j.hot, inst=j.inst, fn=j.fn)
+            return Val(cls=DEVICE, hot=j.hot, inst=j.inst)
     return j
 
 
-_DEVICE_ROOTS = {"jnp", "jax"}
+def _position(v: Optional[Val], index: ast.AST) -> Optional[int]:
+    """``i`` when ``v[i]`` takes a literal position of a tuple of known
+    length, else None."""
+    if v is None or v.elts is None or not isinstance(index, ast.Constant) \
+            or not isinstance(index.value, int) \
+            or isinstance(index.value, bool) \
+            or not -len(v.elts) <= index.value < len(v.elts):
+        return None
+    return index.value
+
+
+_TORCH_ROOT = "torch"
 _HOST_ROOTS = {"np", "numpy", "math"}
 _HOST_CALLS = {
-    "jax.device_get", "int", "float", "bool", "str", "repr", "len",
-    "range", "hash",
+    "int", "float", "bool", "str", "repr", "len", "range", "hash",
+    "torch.from_numpy",
 }
-_HOST_METHODS = {"item", "tolist"}
-# metadata reads are free: aval fields live on the host-side handle
-_METADATA_ATTRS = {
-    "shape", "dtype", "ndim", "size", "nbytes", "itemsize", "weak_type",
-    "sharding",
-}
+# a CPU tensor from host data unless a device is named
+_HOST_FACTORIES = {"torch.tensor", "torch.as_tensor"}
+# results that live on the host: the materializers, and the metadata
+# reads of the host-side handle
+_HOST_METHODS = {"item", "tolist", "cpu", "numpy"} | _METADATA_METHODS
+# keyword operands of a torch call that are no tensor
+_NOT_OPERANDS = {"device", "dtype", "out", "layout", "memory_format",
+                 "pin_memory", "requires_grad", "non_blocking", "dim"}
 # builtins transparent to residency: classify as the join of their args
 _TRANSPARENT_CALLS = {
-    "list", "tuple", "set", "sorted", "reversed", "sum", "min", "max",
-    "abs", "zip", "enumerate", "next", "iter",
+    "list", "tuple", "set", "dict", "sorted", "reversed", "sum", "min",
+    "max", "abs", "zip", "enumerate", "next", "iter", "functools.reduce",
+    "reduce",
 }
-# staging transforms: the *result* is a callable whose outputs live on
-# device — not a device value itself (``if fn is None`` is not a sync)
-_DEVICE_FN_CALLS = {
-    "jax.jit", "jax.pmap", "pmap", "pjit", "jit", "shard_map",
-    "jax.experimental.shard_map.shard_map", "jax.experimental.pjit.pjit",
-}
+# container methods that store an element
+_APPENDS = {"append", "add", "extend", "appendleft"}
+# a kernel wrapper module: its public functions that count a launch are
+# the kernel entries, whose results live on the card
+_KERNEL_MODULES = ("*ops/cuda/*.py",)
 
 _MAX_PASSES = 10
 
@@ -130,9 +168,7 @@ _MAX_PASSES = 10
 def ordered_nodes(node: ast.AST):
     """Descendant nodes of a def in source order, not descending into
     nested defs / classes / lambdas (separate scopes with their own
-    FuncInfo).  The nested def/class node itself IS yielded — a
-    ``@jax.jit``-decorated nested def binds a callable name in this
-    scope."""
+    FuncInfo).  The nested def/class node itself IS yielded."""
     for child in ast.iter_child_nodes(node):
         if isinstance(child, ast.Lambda):
             continue
@@ -144,29 +180,68 @@ def ordered_nodes(node: ast.AST):
 
 
 def _ann_residency(ann: Optional[ast.AST]) -> Optional[str]:
-    """DEVICE/HOST hint from an annotation expression, if any."""
+    """HOST for a numpy array annotation, else None: a tensor annotation
+    names no device, so only the flows into the value decide."""
     if ann is None:
         return None
     if isinstance(ann, ast.Constant) and isinstance(ann.value, str):
-        txt = ann.value
-        if txt.startswith(("jnp.", "jax.")):
-            return DEVICE
-        if txt.startswith(("np.", "numpy.")):
-            return HOST
-        return None
-    if isinstance(ann, ast.Subscript):      # Optional[jnp.ndarray] etc.
+        try:
+            ann = ast.parse(ann.value, mode="eval").body
+        except SyntaxError:
+            return None
+    if isinstance(ann, ast.Subscript):      # Optional[torch.Tensor] etc.
         inner = ann.slice
         if isinstance(inner, ast.Tuple) and inner.elts:
             inner = inner.elts[0]
         return _ann_residency(inner)
     dotted = _dotted(ann)
     if dotted:
-        root = dotted.split(".")[0]
-        if root in _DEVICE_ROOTS:
-            return DEVICE
-        if root in _HOST_ROOTS and dotted.split(".")[-1] == "ndarray":
+        parts = dotted.split(".")
+        if parts[0] in _HOST_ROOTS and parts[-1] == "ndarray":
             return HOST
     return None
+
+
+def _kernel_entries(prog: Program) -> Set[str]:
+    """Public module-level functions of the kernel wrapper modules that
+    count a launch (``<fn>.launches += 1``), themselves or through the
+    module's own helpers (``_launch``)."""
+    fns = {k: fi for k, fi in prog.functions.items()
+           if fi.parent is None and fi.cls is None
+           and any(fnmatch.fnmatch(fi.ctx.relpath, p)
+                   for p in _KERNEL_MODULES)}
+    counting = {k for k, fi in fns.items()
+                if any(isinstance(n, ast.AugAssign)
+                       and isinstance(n.target, ast.Attribute)
+                       and n.target.attr == "launches"
+                       for n in ast.walk(fi.node))}
+    changed = True
+    while changed:
+        changed = False
+        for k, fi in fns.items():
+            if k in counting:
+                continue
+            module = k.partition(":")[0]
+            if any(isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                   and f"{module}:{n.func.id}" in counting
+                   for n in ast.walk(fi.node)):
+                counting.add(k)
+                changed = True
+    return {k for k in counting if not fns[k].name.startswith("_")}
+
+
+def _to_target(call: ast.Call) -> Optional[str]:
+    """What ``x.to(...)`` moves to: HOST for the CPU, None for a dtype
+    conversion (residency kept), DEVICE for anything else."""
+    target = _device_arg(call)
+    if target is None:
+        return None
+    if _cpu_literal(target):
+        return HOST
+    if _is_dtype(target) or (
+            _dotted(target) or "").split(".")[-1].endswith("dtype"):
+        return None
+    return DEVICE
 
 
 class Dataflow:
@@ -179,6 +254,7 @@ class Dataflow:
         self.attr: Dict[Tuple[str, str], Val] = {}   # (clskey, attr)
         self.envs: Dict[str, Dict[str, Val]] = {}    # funckey -> locals
         self._fields: Dict[str, List[str]] = {}      # dataclass field order
+        self.kernel_entries: Set[str] = _kernel_entries(prog)
         self._changed = False
         self._seed()
         self._solve()
@@ -188,17 +264,14 @@ class Dataflow:
 
     def _seed(self) -> None:
         for ci in self.prog.classes.values():
-            hot = ci.ctx.is_hot()
             fields: List[str] = []
             for stmt in ci.node.body:
                 if not isinstance(stmt, ast.AnnAssign) \
                         or not isinstance(stmt.target, ast.Name):
                     continue
                 fields.append(stmt.target.id)
-                res = _ann_residency(stmt.annotation)
-                if res is not None:
-                    self.attr[(ci.key, stmt.target.id)] = Val(
-                        cls=res, hot=hot and res == DEVICE)
+                if _ann_residency(stmt.annotation) == HOST:
+                    self.attr[(ci.key, stmt.target.id)] = Val(cls=HOST)
             self._fields[ci.key] = fields
 
     # ------------------------------------------------------------------
@@ -213,8 +286,7 @@ class Dataflow:
                 break
 
     def _join_into(self, table: Dict, key, val: Optional[Val]) -> None:
-        if val is None or (val.cls is None and val.inst is None
-                           and not val.fn):
+        if val is None or (val.cls is None and val.inst is None):
             return
         old = table.get(key)
         new = join(old, val)
@@ -238,8 +310,7 @@ class Dataflow:
                     env["self"] = Val(inst=fi.cls.key)
                     continue
                 res = _ann_residency(a.annotation)
-                seeded = Val(cls=res, hot=res == DEVICE
-                             and fi.ctx.is_hot()) if res else None
+                seeded = Val(cls=res) if res else None
                 v = join(seeded, self.param.get((fi.key, a.arg)))
                 if v is not None:
                     env[a.arg] = v
@@ -282,10 +353,10 @@ class Dataflow:
             else:
                 self._bind(fi, stmt.target, v, env)
         elif isinstance(stmt, ast.AnnAssign):
-            res = _ann_residency(stmt.annotation)
-            v = Val(cls=res, hot=res == DEVICE and fi.ctx.is_hot()) \
-                if res else (self.classify(fi, stmt.value, env)
-                             if stmt.value is not None else None)
+            v = (self.classify(fi, stmt.value, env)
+                 if stmt.value is not None else None)
+            if _ann_residency(stmt.annotation) == HOST:
+                v = Val(cls=HOST)
             self._bind(fi, stmt.target, v, env)
         elif isinstance(stmt, ast.Return):
             if stmt.value is not None:
@@ -303,38 +374,59 @@ class Dataflow:
             self.classify(fi, stmt.value, env)
         elif isinstance(stmt, (ast.If, ast.While)):
             self.classify(fi, stmt.test, env)
-        elif isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef)):
-            # @jax.jit def fn(...) binds a jitted callable in this scope
-            for d in stmt.decorator_list:
-                dd = _dotted(d)
-                if dd is None and isinstance(d, ast.Call):
-                    dd = _dotted(d.func)
-                    if dd not in _DEVICE_FN_CALLS and d.args:
-                        dd = _dotted(d.args[0])   # @partial(jax.jit, ...)
-                if dd in _DEVICE_FN_CALLS:
-                    env[stmt.name] = Val(fn=True, hot=fi.ctx.is_hot())
-                    break
-        # compound bodies are visited by _own_statements' flattening
+        # compound bodies are visited by ordered_nodes' flattening
 
     def _bind(self, fi: FuncInfo, target: ast.AST, v: Optional[Val],
               env: Dict[str, Val]) -> None:
         if isinstance(target, ast.Name):
             env[target.id] = v or Val()
         elif isinstance(target, (ast.Tuple, ast.List)):
+            if v is not None and v.elts is not None \
+                    and len(v.elts) == len(target.elts) \
+                    and not any(isinstance(e, ast.Starred)
+                                for e in target.elts):
+                for e, ev in zip(target.elts, v.elts):
+                    self._bind(fi, e, ev, env)
+                return
             vv = self._element_val(v)
             for e in target.elts:
                 self._bind(fi, e, vv, env)
         elif isinstance(target, ast.Starred):
             self._bind(fi, target.value, v, env)
+        elif isinstance(target, ast.Subscript):
+            # `d[k] = v`: the container holds v's residency from now on
+            self._store_into(fi, target.value, self._element_val(v), env)
         else:
             attr = _self_attr(target)
             if attr and fi.cls is not None:
                 self._join_into(self.attr, (fi.cls.key, attr), v)
 
+    def _store_into(self, fi: FuncInfo, container: ast.AST,
+                    v: Optional[Val], env: Dict[str, Val]) -> None:
+        """An element stored into a local or ``self`` container (a store
+        or an append): a card element makes it hold a card value, and a
+        host one stored into a card tensor (``t[i] = 0``) leaves the
+        tensor on the card."""
+        if v is None or v.cls is None:
+            return
+        if isinstance(container, ast.Name):
+            old = env.get(container.id)
+            if old is None or old.inst is None:
+                env[container.id] = broadcast(old, v) or Val()
+            return
+        attr = _self_attr(container)
+        if attr and fi.cls is not None:
+            key = (fi.cls.key, attr)
+            old = self.attr.get(key)
+            new = broadcast(old, v)
+            if (old is None or old.inst is None) and new != old:
+                self.attr[key] = new
+                self._changed = True
+
     @staticmethod
     def _element_val(v: Optional[Val]) -> Optional[Val]:
-        """Value of one element of ``v`` (tuple unpack / iteration):
-        residency survives, instance identity doesn't."""
+        """Value of one element of ``v`` (iteration, an unknown
+        position): residency survives, instance identity doesn't."""
         if v is None:
             return None
         return Val(cls=v.cls, hot=v.hot)
@@ -415,16 +507,29 @@ class Dataflow:
             return join(self._classify(fi, expr.body, env),
                         self._classify(fi, expr.orelse, env))
         if isinstance(expr, (ast.Tuple, ast.List, ast.Set)):
+            vals = [self._classify(fi, e, env) for e in expr.elts]
             v = None
-            for e in expr.elts:
-                v = join(v, self._classify(fi, e, env))
-            return self._element_val(v) if v else None
+            for ev in vals:
+                v = join(v, ev)
+            if v is None:
+                return None
+            v = self._element_val(v)
+            if isinstance(expr, ast.Tuple) and not any(
+                    isinstance(e, ast.Starred) for e in expr.elts):
+                v = Val(cls=v.cls, hot=v.hot, elts=tuple(vals))
+            return v
         if isinstance(expr, ast.Dict):
             v = None
             for e in expr.values:
                 if e is not None:
                     v = join(v, self._classify(fi, e, env))
             return self._element_val(v) if v else None
+        if isinstance(expr, (ast.ListComp, ast.SetComp, ast.GeneratorExp)):
+            return self._element_val(self._comprehension(fi, expr, env,
+                                                         expr.elt))
+        if isinstance(expr, ast.DictComp):
+            return self._element_val(self._comprehension(fi, expr, env,
+                                                         expr.value))
         if isinstance(expr, ast.Starred):
             return self._classify(fi, expr.value, env)
         if isinstance(expr, ast.Await):
@@ -435,6 +540,17 @@ class Dataflow:
                 env[expr.target.id] = v or Val()
             return v
         return None
+
+    def _comprehension(self, fi: FuncInfo, expr: ast.AST,
+                       env: Dict[str, Val], elt: ast.AST) -> Optional[Val]:
+        """The element of a comprehension, its targets bound in a scope
+        of their own (``[o[2] for o in outs]`` is an element of an
+        element of ``outs``)."""
+        inner = dict(env)
+        for gen in expr.generators:
+            self._bind(fi, gen.target,
+                       self._element_of(fi, gen.iter, inner), inner)
+        return self._classify(fi, elt, inner)
 
     def _classify_call(self, fi: FuncInfo, call: ast.Call,
                        env: Dict[str, Val]) -> Optional[Val]:
@@ -447,14 +563,12 @@ class Dataflow:
                 return Val(cls=HOST)
             if dotted in _TRANSPARENT_CALLS:
                 v = None
-                for av in arg_vals:
+                for av in arg_vals + [self._classify(fi, kw.value, env)
+                                      for kw in call.keywords]:
                     v = join(v, av)
                 return v
-            if dotted in _DEVICE_FN_CALLS:
-                return Val(fn=True, hot=fi.ctx.is_hot() or any_hot)
-            if root in _DEVICE_ROOTS:
-                return Val(cls=DEVICE,
-                           hot=fi.ctx.is_hot() or any_hot)
+            if root == _TORCH_ROOT:
+                return self._torch_call(fi, call, dotted, arg_vals, env)
             clskey = self.prog._resolve_class_name(fi.ctx, dotted)
             if clskey is not None:
                 self._record_ctor(fi, call, clskey, env)
@@ -463,43 +577,94 @@ class Dataflow:
             if callee is not None:
                 offset = self._callee_offset(callee, call)
                 self._record_args(fi, call, callee, offset, env)
-                r = self.ret.get(callee)
-                if r is not None:
-                    return r
-                # fall through: a name bound to a jitted callable may
-                # shadow-resolve to its (opaque) nested def
+                return self._returned(fi, callee)
         if isinstance(call.func, ast.Attribute):
-            if call.func.attr in _HOST_METHODS:
+            method = call.func.attr
+            if method in _HOST_METHODS:
                 return Val(cls=HOST)
-            if call.func.attr == "setdefault" and len(call.args) >= 2:
+            if method in _APPENDS and len(call.args) == 1:
+                # `xs.append(v)`: the container holds v's residency
+                self._store_into(fi, call.func.value,
+                                 self._element_val(arg_vals[0]), env)
+                return None
+            if method == "setdefault" and len(call.args) >= 2:
                 # dict.setdefault returns either the stored value or the
-                # one just inserted: at least as device-ish as the insert
-                # (`fn = cache.setdefault(B, fn)` keeps fn a jitted
-                # callable)
+                # one just inserted: at least as card-ish as the insert
                 return arg_vals[1]
             recv = self._classify(fi, call.func.value, env)
             if recv is not None and recv.inst is not None:
-                m = self.prog.lookup_method(recv.inst, call.func.attr)
+                m = self.prog.lookup_method(recv.inst, method)
                 if m is not None:
                     self._record_args(fi, call, m.key, 1, env)
                     return self.ret.get(m.key)
                 return None
+            hot = fi.ctx.is_hot() or any_hot or (recv is not None
+                                                 and recv.hot)
+            if method == "cuda":
+                return Val(cls=DEVICE, hot=hot)
+            if method == "to":
+                where = _to_target(call)
+                if where == HOST:
+                    return Val(cls=HOST)
+                if where == DEVICE:
+                    return Val(cls=DEVICE, hot=hot)
             if recv is not None and recv.cls is not None:
-                # array method (astype / reshape / sum / ...): residency
-                # is preserved
-                return Val(cls=recv.cls, hot=recv.hot)
+                # tensor method (long / view / index_select / ...): a
+                # card operand makes a card result, else residency is
+                # the receiver's
+                v = Val(cls=recv.cls, hot=recv.hot)
+                for av in arg_vals:
+                    if av is not None and av.cls == DEVICE:
+                        v = broadcast(v, av)
+                return v
             callee = self.prog.resolve_callable(fi, call.func)
             if callee is not None:
                 offset = self._callee_offset(callee, call)
                 self._record_args(fi, call, callee, offset, env)
-                return self.ret.get(callee)
-        # factory results: ``fn = self._merge_fn(B); fn(x)`` or a direct
-        # ``self._combine_fn(B, k)(*stack)`` — calling a jitted callable
-        # yields a device value
-        fv = self._classify(fi, call.func, env)
-        if fv is not None and fv.fn:
-            return Val(cls=DEVICE, hot=fv.hot or any_hot)
+                return self._returned(fi, callee)
         return None
+
+    def _returned(self, fi: FuncInfo, callee: str) -> Optional[Val]:
+        """What a call of ``callee`` yields: a kernel entry's result is
+        on the card, anything else is what its returns join to."""
+        if callee in self.kernel_entries:
+            return Val(cls=DEVICE,
+                       hot=self.prog.functions[callee].ctx.is_hot()
+                       or fi.ctx.is_hot())
+        return self.ret.get(callee)
+
+    def _torch_call(self, fi: FuncInfo, call: ast.Call, dotted: str,
+                    arg_vals: List[Optional[Val]],
+                    env: Dict[str, Val]) -> Optional[Val]:
+        """``torch.*``: a named device decides; without one a card
+        operand makes a card result."""
+        if dotted.startswith(_NOT_TENSOR):
+            return None
+        device = None
+        for kw in call.keywords:
+            if kw.arg == "device" and not (
+                    isinstance(kw.value, ast.Constant)
+                    and kw.value.value is None):
+                device = kw.value
+        operands = list(arg_vals) + [
+            self._classify(fi, kw.value, env) for kw in call.keywords
+            if kw.arg not in _NOT_OPERANDS]
+        for a in call.args:      # torch.cat([host, card]): each element
+            if isinstance(a, (ast.List, ast.Tuple)):
+                operands += [self._classify(fi, e, env) for e in a.elts]
+        any_hot = any(v.hot for v in operands if v is not None)
+        if device is not None:
+            if _cpu_literal(device):
+                return Val(cls=HOST)
+            return Val(cls=DEVICE, hot=fi.ctx.is_hot() or any_hot)
+        if dotted in _HOST_FACTORIES:
+            return Val(cls=HOST)
+        v = None
+        for ov in operands:
+            v = broadcast(v, ov)
+        if v is not None and v.cls == DEVICE:
+            return Val(cls=DEVICE, hot=fi.ctx.is_hot() or any_hot)
+        return self._element_val(v)
 
     def _callee_offset(self, callee: str, call: ast.Call) -> int:
         m = self.prog.functions.get(callee)
@@ -561,14 +726,17 @@ class Dataflow:
         if v is not None and v.inst is not None:
             return self.attr_val(v.inst, expr.attr)
         if v is not None and v.cls == DEVICE:
-            # unknown attribute of a device array (.T, .at, ...) stays
-            # device-resident
+            # unknown attribute of a card tensor (.T, .mT, ...) stays on
+            # the card
             return Val(cls=DEVICE, hot=v.hot)
         return None
 
     def _classify_subscript(self, fi: FuncInfo, expr: ast.Subscript,
                             env: Dict[str, Val]) -> Optional[Val]:
         v = self._classify(fi, expr.value, env)
+        pos = _position(v, expr.slice)
+        if pos is not None:
+            return v.elts[pos]
         if v is not None and v.inst is not None:
             m = self.prog.lookup_method(v.inst, "__getitem__")
             if m is not None:

@@ -43,6 +43,7 @@ contract ``tests/test_torch_sanitize.py`` pins.
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import traceback
@@ -57,6 +58,10 @@ __all__ = [
 ]
 
 _INTERNAL_FILES: Tuple[str, ...] = (__file__, warnings.__file__)
+# the package's directory: a frame in it is attributed by its path
+# relative to the directory above (``quiver_tpu_torch/sampler.py``), the
+# path the linter reports
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _MISSING = object()
 
@@ -80,15 +85,25 @@ class Violation:
 
 
 class Transfer:
-    """One observed device-to-host transfer (attribution record)."""
+    """One observed device-to-host transfer (attribution record).
 
-    __slots__ = ("site", "where", "region", "thread")
+    ``where`` is ``basename:line`` of the first frame outside the
+    witness; ``path`` is that frame's file relative to the directory
+    holding the package (``quiver_tpu_torch/utils/staging.py``, as the
+    linter names it) when the frame lies in the package, else None —
+    basenames repeat across the package (three ``sampler.py``), so a
+    transfer is matched to a lint finding by ``path`` and the line in
+    ``where``."""
 
-    def __init__(self, site: str, where: str, region: Optional[str]):
+    __slots__ = ("site", "where", "region", "thread", "path")
+
+    def __init__(self, site: str, where: str, region: Optional[str],
+                 path: Optional[str] = None):
         self.site = site
         self.where = where
         self.region = region
         self.thread = threading.current_thread().name
+        self.path = path
 
     def __repr__(self):
         tail = f" in no-sync region `{self.region}`" if self.region else ""
@@ -111,16 +126,23 @@ class _State:
 _state: Optional[_State] = None
 
 
-def _caller_site() -> str:
+def _caller_site() -> Tuple[str, Optional[str]]:
+    """``(basename:line, package-relative path or None)`` of the first
+    frame outside the witness."""
     f = sys._getframe(2)
     for _ in range(16):
         if f is None:
             break
         fn = f.f_code.co_filename
         if fn not in _INTERNAL_FILES and "<" not in fn[:1]:
-            return f"{fn.rsplit('/', 1)[-1]}:{f.f_lineno}"
+            full = os.path.abspath(fn)
+            path = None
+            if full.startswith(_PKG_DIR + os.sep):
+                path = os.path.relpath(full, os.path.dirname(_PKG_DIR)) \
+                    .replace(os.sep, "/")
+            return f"{fn.rsplit('/', 1)[-1]}:{f.f_lineno}", path
         f = f.f_back
-    return "<unknown>"
+    return "<unknown>", None
 
 
 def _observe(site: str) -> None:
@@ -130,9 +152,9 @@ def _observe(site: str) -> None:
     st = _state
     if st is None:
         return
-    where = _caller_site()
+    where, path = _caller_site()
     region = regions.active()
-    t = Transfer(site, where, region)
+    t = Transfer(site, where, region, path)
     with st.lock:
         st.transfers.append(t)
         if region is not None:

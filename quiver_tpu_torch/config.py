@@ -308,6 +308,20 @@ def get_config() -> Config:
     return cfg
 
 
+def update(**kwargs) -> Config:
+    """Change some fields for the rest of the process (or of the
+    enclosing :func:`override` block); an unknown field raises
+    ``AttributeError``.  Returns the configuration now in force."""
+    global _config
+    prev = get_config()
+    for k in kwargs:
+        if not hasattr(prev, k):
+            raise AttributeError(f"unknown config field {k!r}")
+    with _lock:
+        _config = dataclasses.replace(_config or prev, **kwargs)
+        return _config
+
+
 @contextlib.contextmanager
 def override(**changes) -> Iterator[Config]:
     """Run a block with some fields changed; the previous configuration

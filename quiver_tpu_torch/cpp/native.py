@@ -42,7 +42,8 @@ from ..ops.sample import row_cumsum_weights
 from ..recovery.registry import library_dir, library_found, program_cache
 
 __all__ = ["CPUSampler", "coo_to_csr_native", "neighbour_num_native",
-           "library_path", "build", "load", "SRC", "GXX_FLAGS"]
+           "native_available", "library_path", "build", "load", "SRC",
+           "GXX_FLAGS"]
 
 SRC = Path(__file__).resolve().parent / "csrc" / "quiver_cpu.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -132,6 +133,17 @@ def _get_lib() -> ctypes.CDLL:
     if lib is None:
         lib = _lib = load(SRC, _declare_sampler)
     return lib
+
+
+def native_available() -> bool:
+    """Whether the host sampler's library builds and loads here.  A
+    report only: every native entry raises where it does not, and
+    nothing falls back."""
+    try:
+        _get_lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _u8_ptr(mask: Optional[np.ndarray]):

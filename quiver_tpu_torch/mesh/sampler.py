@@ -170,7 +170,9 @@ class MeshSampler:
         with no_sync("mesh combine"):
             nb = pmax([o[0] for o in outs], self.device)
             mk = pmax([o[1] for o in outs], self.device) > 0
-            ct = psum([o[2] for o in outs], self.device)
+            # the counts are int32 already: the cast states the integer
+            # psum the bit-exact combine relies on, and copies nothing
+            ct = psum([o[2].to(torch.int32) for o in outs], self.device)
             ei = pmax([o[3] for o in outs], self.device)
         return SampleOut(nbrs=nb, mask=mk, counts=ct, eid=ei)
 

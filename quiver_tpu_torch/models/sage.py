@@ -12,7 +12,7 @@ from torch import nn
 from ..utils.device import resolve_device
 from .layers import SAGEConv, _dropout
 
-__all__ = ["GraphSAGE"]
+__all__ = ["GraphSAGE", "full_graph_inference"]
 
 
 class GraphSAGE(nn.Module):
@@ -62,3 +62,20 @@ class GraphSAGE(nn.Module):
                 x = F.relu(x)
                 x = _dropout(x, self.dropout, self.training, generator)
         return x
+
+
+def full_graph_inference(params, x, indptr, indices, num_layers: int,
+                         edge_chunk: int = 4_000_000, device=None
+                         ) -> torch.Tensor:
+    """Exact layer-wise full-graph SAGE inference (legacy entry point).
+
+    Delegates to :func:`quiver_tpu_torch.models.inference.
+    full_graph_inference`, which also handles GCN/GAT layouts; kept so
+    call sites of the form ``full_graph_inference(params, x, ip, ix, L)``
+    keep working.  ``params`` is a GraphSAGE ``state_dict`` or module;
+    ``device`` is where it runs (``None``: the card).
+    """
+    from .inference import full_graph_inference as _gi
+
+    return _gi(params, x, indptr, indices, num_layers,
+               edge_chunk=edge_chunk, device=device)

@@ -42,9 +42,11 @@ from .coldcache import ColdRowCache
 from .cuda.page_gather import page_gather
 
 __all__ = ["PagedStore", "PageTable", "default_page_rows",
-           "DEVICE", "OVERLAY", "HOST"]
+           "DEVICE", "OVERLAY", "HOST", "PAGE_STATES"]
 
+# page residency states
 DEVICE, OVERLAY, HOST = 0, 1, 2
+PAGE_STATES = {"DEVICE": DEVICE, "OVERLAY": OVERLAY, "HOST": HOST}
 
 _TXN_BYTES = 512           # the JAX package's page-size unit
 _TARGET_PAGE_BYTES = 4096  # auto-sizing floor: 8 such units per page

@@ -45,7 +45,8 @@ from typing import Dict, List, Optional
 import torch
 
 __all__ = ["on", "enable", "disable", "reset", "profiled", "call",
-           "record", "top_programs", "stats", "debug_payload"]
+           "wrap", "unwrap", "record", "top_programs", "stats",
+           "debug_payload"]
 
 _ON = False
 
@@ -107,6 +108,46 @@ def profiled(subsystem: str, key: Optional[str] = None):
         return wrapper
 
     return deco
+
+
+class _ProfiledProgram:
+    """Callable shim: forwards to the wrapped callable, attributing each
+    call to ``(subsystem, key)`` while profiling is on (the device is the
+    first tensor argument's)."""
+
+    __slots__ = ("__wrapped__", "_subsystem", "_key")
+
+    def __init__(self, fn, subsystem: str, key):
+        object.__setattr__(self, "__wrapped__", fn)
+        object.__setattr__(self, "_subsystem", subsystem)
+        object.__setattr__(self, "_key", key)
+
+    def __call__(self, *args, **kwargs):
+        fn = self.__wrapped__
+        if not _ON:                    # profiling stopped after wrap
+            return fn(*args, **kwargs)
+        return _timed(self._subsystem, self._key, _device_of(args, kwargs),
+                      fn, args, kwargs)
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "__wrapped__"), name)
+
+    def __repr__(self):
+        return (f"_ProfiledProgram({self._subsystem}[{self._key!r}]: "
+                f"{self.__wrapped__!r})")
+
+
+def wrap(subsystem: str, key, fn):
+    """Wrap ``fn`` for attribution (idempotent; non-callables pass
+    through untouched — a cache may hold tuples of aux data)."""
+    if not callable(fn) or isinstance(fn, _ProfiledProgram):
+        return fn
+    return _ProfiledProgram(fn, subsystem, key)
+
+
+def unwrap(fn):
+    """The callable :func:`wrap` wrapped (``fn`` itself otherwise)."""
+    return getattr(fn, "__wrapped__", fn)
 
 
 def call(subsystem: str, key, device, fn, *args, **kwargs):

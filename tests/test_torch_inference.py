@@ -117,6 +117,24 @@ def test_sage_legacy_forms_match_jax(data):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+def test_sage_module_legacy_entry_matches_jax(data):
+    """``models.sage.full_graph_inference`` (JAX's legacy entry, which
+    ``quiver_tpu.models`` exports from ``sage``) against JAX's."""
+    from quiver_tpu.models.sage import \
+        full_graph_inference as jax_sage_legacy
+
+    from quiver_tpu_torch.models.sage import full_graph_inference
+
+    indptr, indices, x, _ = data
+    _, params, pm, want = pair("sage", data)
+    jax_legacy = np.asarray(jax_sage_legacy(params, x, indptr, indices, 2,
+                                            edge_chunk=CHUNK))
+    np.testing.assert_array_equal(jax_legacy, want)
+    got = full_graph_inference(pm.state_dict(), x, indptr, indices, 2,
+                               edge_chunk=CHUNK, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_refusals(data):
     indptr, indices, x, _ = data
     gcn = qt.GCN(D, HIDDEN, CLASSES, device="cpu")

@@ -511,12 +511,14 @@ def test_walk_covers_the_lint_slice():
             "transfer_witness", "retrace_guard", "concurrency/__init__",
             "concurrency/program", "staging/__init__", "staging/regions",
             "staging/dataflow", "rules/__init__", "rules/qt001_host_sync",
-            "rules/qt003_locks", "rules/qt004_layering",
+            "rules/qt002_retrace", "rules/qt003_locks",
+            "rules/qt004_layering",
             "rules/qt005_hygiene", "rules/qt006_metric_names",
             "rules/qt007_silent_except", "rules/qt008_races",
             "rules/qt009_lock_order", "rules/qt010_thread_reap",
             "rules/qt011_durability", "rules/qt012_wall_clock",
-            "rules/qt014_cache_keys"))
+            "rules/qt013_staging_sync", "rules/qt014_cache_keys",
+            "rules/qt015_collectives"))
     bad = []
     for mod in mods:
         assert f"quiver_tpu_torch/{mod}" in walked, mod

@@ -9,6 +9,7 @@ of the port, which the CLI lints once, and each case finds its own.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -94,6 +95,24 @@ INJECTED = [
      "    t0 = time.time()\n"
      "    fn()\n"
      "    return time.time() - t0\n"),
+    ("quiver_tpu_torch/loader.py", "QT002",
+     "\n\ndef _retracey(f, xs):\n"
+     "    for x in xs:\n"
+     "        x = torch.compile(f)(x)\n"
+     "    return x\n"),
+    # the card value crosses a function boundary, so QT001's local
+    # tracking can't see it — only the staging dataflow can
+    ("quiver_tpu_torch/sampler.py", "QT013",
+     "\n\ndef _inj_gather_scores(xs):\n"
+     "    return torch.as_tensor(xs, device=\"cuda\").sum()\n"
+     "\n"
+     "def _inj_mean_score(xs):\n"
+     "    return float(_inj_gather_scores(xs)) / max(len(xs), 1)\n"),
+    # float psum in a bit-exactness module (mesh/*): the order of the
+    # additions varies with the shard layout
+    ("quiver_tpu_torch/mesh/sampler.py", "QT015",
+     "\n\ndef _inj_allsum(outs):\n"
+     "    return psum([o.float() for o in outs])\n"),
     ("quiver_tpu_torch/hetero.py", "QT014",
      "\n\nfrom .recovery.registry import program_cache  # noqa: E402\n"
      "\n"
@@ -117,6 +136,14 @@ def _cli(cwd, *args):
         env=dict(env, PYTHONPATH=str(REPO)))
 
 
+# a waiver that suppresses nothing: stale, and a failure only under
+# --strict-baseline
+STALE_SYNC_OK = ("quiver_tpu_torch/serving.py",
+                 "\n\ndef _nothing_syncs_here(xs):\n"
+                 "    # quiverlint: sync-ok[left behind after a refactor]\n"
+                 "    return sum(xs)\n")
+
+
 def test_port_lints_clean_against_baseline():
     result = analyze_paths([TARGET], root=REPO)
     assert result.errors == []
@@ -129,17 +156,21 @@ def test_port_lints_clean_against_baseline():
         ("QT001", "quiver_tpu_torch/parallel/prefetch.py",
          "AsyncNeighborSampler.sample")]
     assert baseline_mod.stale(result.findings, baseline) == []
+    assert result.stale_sync_ok == []
     # every waiver the port carries is a reasoned one
     for f in result.suppressed:
         line = _directive_of(f)
-        assert "--" in line, f"waiver without a reason: {f.format()}"
+        assert "--" in line or re.search(r"sync-ok\[[^\]]*\w", line), \
+            f"waiver without a reason: {f.format()}"
 
 
 def _directive_of(f):
     lines = (REPO / f.path).read_text().splitlines()
     i = f.line - 1
-    while "quiverlint: ignore[" not in lines[i]:
+    while i >= 0 and "quiverlint: ignore[" not in lines[i] and not (
+            f.rule == "QT013" and "quiverlint: sync-ok[" in lines[i]):
         i -= 1
+    assert i >= 0, f"no directive above {f.format()}"
     return lines[i]
 
 
@@ -155,18 +186,31 @@ def injected(tmp_path_factory):
     shutil.copytree(REPO / TARGET, root / TARGET,
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(BASELINE, root / BASELINE.name)
-    for relpath, _, appended in INJECTED:
+    spans = {}      # case index -> (relpath, first line, last line)
+    for i, (relpath, _, appended) in enumerate(INJECTED + [
+            STALE_SYNC_OK[:1] + (None,) + STALE_SYNC_OK[1:]]):
         target = root / relpath
-        target.write_text(target.read_text() + appended)
+        text = target.read_text()
+        first = len(text.splitlines()) + 1
+        target.write_text(text + appended)
+        spans[i] = (relpath, first, len((text + appended).splitlines()))
     proc = _cli(root, "--strict-baseline", "--format", "json")
-    return proc
+    return proc, spans
 
 
 def test_injected_violations_fail_the_cli(injected):
-    assert injected.returncode == 1, injected.stdout + injected.stderr
-    doc = json.loads(injected.stdout)
+    proc, spans = injected
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    doc = json.loads(proc.stdout)
     assert doc["stale"] == [] and doc["rule_hash_mismatch"] == []
     assert len(doc["baselined"]) == 1
+    # the stale waiver is reported where it was appended, and only it
+    relpath, first, last = spans[len(INJECTED)]
+    assert [(s["path"], first <= s["line"] <= last, s["reason"])
+            for s in doc["stale_sync_ok"]] == [
+        (relpath, True, "left behind after a refactor")]
+    assert {f["rule"] for f in doc["findings"]} == {
+        code for _, code, _ in INJECTED}
 
 
 @pytest.mark.parametrize("relpath, code, appended", INJECTED,
@@ -174,6 +218,16 @@ def test_injected_violations_fail_the_cli(injected):
                               for p, c, _ in INJECTED])
 def test_each_injected_violation_is_found(injected, relpath, code,
                                           appended):
-    doc = json.loads(injected.stdout)
-    hits = [f for f in doc["findings"] if f["path"] == relpath]
+    proc, spans = injected
+    doc = json.loads(proc.stdout)
+    i = next(i for i, case in enumerate(INJECTED)
+             if case == (relpath, code, appended))
+    path, first, last = spans[i]
+    # a finding in the case's own lines, or one elsewhere in its file
+    # outside every case's lines (a race is reported at the access it
+    # races with)
+    others = [(a, b) for p, a, b in spans.values() if p == path]
+    hits = [f for f in doc["findings"] if f["path"] == path and (
+        first <= f["line"] <= last
+        or not any(a <= f["line"] <= b for a, b in others))]
     assert [f["rule"] for f in hits] == [code], doc["findings"]

@@ -138,11 +138,11 @@ def test_concurrency_fixture_packages_match_jax(pkg, rules, capsys):
 
 
 def test_rule_set_is_this_slice():
-    """Twelve rules: JAX's less QT002, QT013 and QT015, in code order,
-    with the rule hash computed as JAX computes it."""
+    """JAX's fifteen rules, in code order, with JAX's names and the rule
+    hash computed as JAX computes it."""
     codes = [cls.code for cls in RULE_CLASSES]
-    assert codes == ["QT001", "QT003", "QT004", "QT005", "QT006", "QT007",
-                     "QT008", "QT009", "QT010", "QT011", "QT012", "QT014"]
+    assert codes == [f"QT{i:03d}" for i in range(1, 16)]
+    assert codes == [cls.code for cls in jax_lint.RULE_CLASSES]
     jax_names = {cls.code: cls.name for cls in jax_lint.RULE_CLASSES}
     assert all(cls.name == jax_names[cls.code] for cls in RULE_CLASSES)
     from quiver_tpu_torch.analysis.rules import rule_fingerprints

@@ -238,3 +238,22 @@ def test_native_bench_builds_and_runs_small():
     assert re.search(r"graph: N=20000 E=\d+", proc.stdout)
     seps = re.search(r"([\d.]+)M SEPS \((\d+) edges", proc.stdout)
     assert seps and float(seps.group(1)) > 0 and int(seps.group(2)) > 0
+
+
+
+def test_native_available_reports_without_falling_back(monkeypatch):
+    """``native_available()`` says what JAX's says where the build works;
+    where it does not, it answers False, and the sampler still raises
+    (nothing falls back)."""
+    assert pn.native_available() is True
+    assert pn.native_available() == jn.native_available()
+
+    def broken():
+        raise RuntimeError("g++ failed")
+
+    monkeypatch.setattr(pn, "_get_lib", broken)
+    assert pn.native_available() is False
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        pn.CPUSampler(np.array([0, 1], np.int64),
+                      np.array([0], np.int32)).sample_neighbors(
+            np.array([0], np.int64), 1)

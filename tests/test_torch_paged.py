@@ -387,3 +387,10 @@ def test_invalidate_moves_page_back_to_host():
     assert f.paged.table.state_of(page) == paged.HOST
     assert_same_cache(jf.paged.table.cache, f.paged.table.cache)
     np.testing.assert_array_equal(f[nid].numpy(), feats[nid])
+
+
+def test_page_states_match_jax():
+    assert paged.PAGE_STATES == jax_paged.PAGE_STATES
+    assert (paged.DEVICE, paged.OVERLAY, paged.HOST) == (
+        jax_paged.DEVICE, jax_paged.OVERLAY, jax_paged.HOST)
+    assert "PAGE_STATES" in paged.__all__

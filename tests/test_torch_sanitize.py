@@ -283,6 +283,29 @@ def test_transfers_observed_and_attributed(tw):
     assert tw.violations() == []  # outside any region: observed, legal
 
 
+def test_transfer_names_its_frame_by_package_path(tw):
+    """A transfer whose frame lies in the package carries the path the
+    linter reports (basenames repeat across the package); one made
+    elsewhere carries None."""
+    import inspect
+
+    from quiver_tpu_torch import feature
+
+    feature._host_ids(torch.arange(3))
+    _ = torch.arange(2).tolist()
+    seen = tw.transfers()
+    first, second = seen[0], seen[-1]
+    assert [t.path for t in seen[:-1]] == ["quiver_tpu_torch/feature.py"] * (
+        len(seen) - 1)
+    assert first.site == ".cpu()"
+    src, start = inspect.getsourcelines(feature._host_ids)
+    line = int(first.where.rsplit(":", 1)[1])
+    assert first.where.startswith("feature.py:")
+    assert ".cpu()" in src[line - start]
+    assert second.path is None and second.where.startswith(
+        Path(__file__).name)
+
+
 def test_nested_coercion_records_exactly_one_transfer(tw):
     # __array__ reads through numpy(): ONE attributed transfer, not two
     _ = np.asarray(torch.arange(3))

@@ -469,3 +469,34 @@ def test_server_starts_and_stops_its_watchdog_and_exporter():
     assert not wd.status()["running"]
     with pytest.raises(OSError):
         _get(srv.url + "/metrics")
+
+
+def test_profile_wrap_and_unwrap_match_jax():
+    """``profile.wrap`` / ``unwrap`` as in the JAX package: idempotent,
+    non-callables pass through, ``unwrap`` gives the callable back, and
+    each call of a wrapped callable is one attributed call under the
+    same (subsystem, key) row."""
+    from quiver_tpu.telemetry import profile as jprofile
+
+    def fwd(a):
+        return a * 2
+
+    rows = {}
+    for prof, arg in ((jprofile, np.arange(4, dtype=np.float32)),
+                      (pprofile, torch.arange(4, dtype=torch.float32))):
+        w = prof.wrap("serving", ("fwd", 8), fwd)
+        assert prof.wrap("serving", ("fwd", 8), w) is w
+        aux = (1, "aux")
+        assert prof.wrap("serving", "aux", aux) is aux
+        assert prof.unwrap(w) is fwd and prof.unwrap(fwd) is fwd
+        w(arg)                               # off: not recorded
+        assert prof.stats() == {}
+        assert prof.enable()
+        for _ in range(3):
+            np.testing.assert_array_equal(np.asarray(w(arg)),
+                                          np.arange(4) * 2)
+        rows[prof] = [(r["subsystem"], r["key"], r["calls"], r["device"])
+                      for r in prof.top_programs()]
+        prof.reset()
+    assert rows[pprofile] == rows[jprofile] == [
+        ("serving", repr(("fwd", 8)), 3, False)]

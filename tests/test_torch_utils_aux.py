@@ -231,3 +231,30 @@ def test_port_exports_every_jax_top_level_name():
         assert getattr(qt, name).__module__.startswith("quiver_tpu_torch")
     assert qt.make_key is prng.make_key
     assert _A13_NAMES <= set(qt.__all__)
+
+
+def test_config_update_matches_jax():
+    """``config.update(**kwargs)`` as in the JAX package: an unknown
+    field raises ``AttributeError`` with JAX's message, a known one
+    changes the configuration in force (the port's stays frozen: the
+    update installs a changed copy, and an enclosing ``override`` block
+    takes it back)."""
+    from quiver_tpu import config as jcfg
+    from quiver_tpu_torch import config as pcfg
+
+    for mod in (jcfg, pcfg):
+        with pytest.raises(AttributeError,
+                           match="unknown config field 'no_such_field'"):
+            mod.update(no_such_field=1)
+    assert jcfg.update() is jcfg.get_config()
+    before = pcfg.get_config()
+    with pcfg.override():
+        flipped = "on" if before.feature_paged != "on" else "off"
+        got = pcfg.update(feature_paged=flipped, dedup="hop")
+        assert got is pcfg.get_config()
+        assert (got.feature_paged, got.dedup) == (flipped, "hop")
+        assert got.gather_mode == before.gather_mode
+        assert before.feature_paged != flipped   # the old copy is intact
+    assert pcfg.get_config() is before
+    # the fields it changed exist in the JAX configuration too
+    assert {"feature_paged", "dedup"} <= set(vars(jcfg.get_config()))
