@@ -3,8 +3,9 @@
 (the device lane, then both lanes with the host sampler, then a fleet of
 three replica processes, then under the sanitizer),
 ogbn-products-size training of GraphSAGE, GAT and GCN with exact
-inference, UVA and mixed sampling at products size, and R-GAT at OGB-LSC
-MAG240M widths.
+inference, UVA and mixed sampling at products size, R-GAT at OGB-LSC
+MAG240M widths, and the nine user entry points (``quiver_tpu_torch.
+examples``).
 
     python3 chip_smoke.py
 
@@ -276,8 +277,27 @@ first use, with nvcc, one process per source, all at once), then:
    waived (an ``ignore[...]``, a ``sync-ok[...]`` or a baseline entry),
    or be one of LINT_BLIND_SPOTS, whose length it prints; it prints the
    distinct coercion lines matched by each code;
+4m. examples phase (slice 16, ``examples_phase``, last): the nine user
+   entry points of ``quiver_tpu_torch.examples`` in this process through
+   ``main(argv, report=...)``, one after another, at their published
+   widths with only epochs and steps cut (EXAMPLE_RUNS), and
+   ``big_graph_single_chip`` once more under the paged store (B5); every
+   launch counter set to 0 just before each call and read just after.
+   Each must return 0, end with its summary line, have finite losses, show
+   what its data can learn (the loss falls for Reddit, products and DGL;
+   unsup's intra-community similarity is above the inter), and launch its
+   kernels; each run's wall seconds, launches by kernel, step or epoch
+   times and serving p50/p99 are printed;
 15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --phases examples
+    python3 chip_smoke.py --phases kernel,serving
+
+``--phases`` runs only the named phases (PHASES), with the shared setup
+and the earlier phases whose results they need (PHASE_NEEDS); the
+kernels line then holds the records those phases made.  An unknown name
+exits 2.  Without the argument every phase runs.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 2 and
 prints no result.
@@ -1066,6 +1086,18 @@ def budgeted_feature(qt, topo, feat, pool_pages=None, paged=True):
     return f
 
 
+def feature_counters(qt) -> dict:
+    """The port registry's counters: the one place every feature, paged
+    store and sampler counts."""
+    return dict(qt.telemetry.snapshot()["counters"])
+
+
+def counters_added(qt, before: dict) -> dict:
+    """The registry's counters that moved since ``before``, by how much."""
+    return {k: v - before.get(k, 0) for k, v in feature_counters(qt).items()
+            if v != before.get(k, 0)}
+
+
 def b5_phase(torch, qt, topo, feat, feature, src, b5):
     """Kernel B5 against its plain version at the shapes of one budgeted
     bucket-2048 pass; returns the kernel record and the pass's ``n_id``."""
@@ -1078,13 +1110,12 @@ def b5_phase(torch, qt, topo, feat, feature, src, b5):
     idx = feature.feature_order[n_id]
     host = {}
     for name in ("first stage (faults)", "second stage (hits)"):
-        before = feature.stats()["counters"].get(
-            "feature_page_faults_total", 0)
+        before = feature_counters(qt).get("feature_page_faults_total", 0)
         with feature._plock:
             t0 = time.perf_counter()
             plan = store.stage(idx)
             ms = (time.perf_counter() - t0) * 1e3
-        host[name] = dict(ms=ms, faults=feature.stats()["counters"].get(
+        host[name] = dict(ms=ms, faults=feature_counters(qt).get(
             "feature_page_faults_total", 0) - before)
         check(plan is not None, f"{name}: the pool overflowed")
     check(host["first stage (faults)"]["faults"] > 0, "no page faulted")
@@ -1146,15 +1177,13 @@ def budgeted_serving_phase(torch, qt, topo, feature, full_feature, src,
     a summary."""
     sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED)
     model = seeded_model(torch, qt)
-    before = dict(feature.stats()["counters"])
+    before = feature_counters(qt)
     server, answers, sent, launches, _, summary = serve(
         torch, qt, sampler, feature, model,
         {"window_sample": b1.window_sample, "page_gather": b5.page_gather})
     check(not server._fused, "a budgeted feature took the fused lane")
     check(feature.cold_cache is not None, "the server left the overlay off")
-    counters = feature.stats()["counters"]
-    moved = {k: v - before.get(k, 0) for k, v in counters.items()
-             if v != before.get(k, 0)}
+    moved = counters_added(qt, before)
     print("feature counters over warmup and serving "
           + json.dumps(moved), flush=True)
     check(moved.get("feature_page_fallback_total", 0) == 0,
@@ -1200,6 +1229,7 @@ def fallback_overlay_phase(torch, qt, topo, feat, src, n_id):
     staged merge serves it); with paging off, the overlay serves repeated
     gathers.  Rows bitwise equal to the source; returns a summary."""
     dev = torch.device(DEV)
+    before = feature_counters(qt)
     f = budgeted_feature(qt, topo, feat)
     t = f.paged.table
     check(t.pool_pages == max(8, t.n_host_pages // 4),
@@ -1214,7 +1244,7 @@ def fallback_overlay_phase(torch, qt, topo, feat, src, n_id):
           "fallback rows differ from the source")
     out = dict(default_pool_pages=t.pool_pages, host_pages=t.n_host_pages,
                staged_gather_ms=staged_ms,
-               counters=f.stats()["counters"])
+               counters=counters_added(qt, before))
     del f, rows
 
     f = budgeted_feature(qt, topo, feat, paged=False).enable_cold_cache()
@@ -2060,6 +2090,7 @@ def hop_batch_phase(torch, qt, topo, seeds, b1) -> dict:
     caps = hop_caps(P_BATCH, P_FANOUTS)
     capped = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, dedup="hop",
                                  frontier_caps=caps)
+    before = feature_counters(qt)
     batch = capped.sample(seeds, key_words=kw)
     drops = capped.overflow_stats()
     check(drops[0] > 0, f"hop 1 dropped no node under caps {caps}")
@@ -2069,7 +2100,8 @@ def hop_batch_phase(torch, qt, topo, seeds, b1) -> dict:
                               batch.layers, batch.drops), want,
                       "capped products hop vs xla")
     out.update(caps=caps, drops=drops.tolist(),
-               drops_counter=capped.frontier_drops.value,
+               drops_counter=counters_added(qt, before).get(
+                   "sampler_frontier_drops_total{mode=gpu}", 0.0),
                capped_num_nodes=int(batch.num_nodes))
     print("products hop batch: equal to xla, bit for bit "
           + json.dumps(out), flush=True)
@@ -2211,6 +2243,7 @@ def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
     equal the source.  Then a split of one batch run stage by stage.
     Returns the launches of the loop and a summary."""
     t0 = time.perf_counter()
+    before = feature_counters(qt)
     feature = qt.Feature(device_cache_size=HOT_BUDGET, csr_topo=topo,
                          device=DEV).from_cpu_tensor(feat)
     want_hot = min(qt.parse_size(HOT_BUDGET) // (P_DIM * 4), topo.node_count)
@@ -2280,7 +2313,7 @@ def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
     summary = {k: float(np.median(v[1:])) for k, v in rec.items()}
     summary.update(steps=STAGED_STEPS, losses=losses.tolist(),
                    launches=launches, peak_gib=peak_gib,
-                   counters=feature.stats()["counters"])
+                   counters=counters_added(qt, before))
     print("two-stage training (ms, median after the first step) "
           + json.dumps(summary), flush=True)
 
@@ -3438,8 +3471,7 @@ def uva_phase(torch, qt, topo, train, b1) -> dict:
         s._uva = uva  # the runs share the split built and timed above
         s.sample(seeds[0], key_words=kws[0])  # warm
         timings.clear()
-        for key in uva.counters:
-            uva.counters[key] = 0.0
+        before = feature_counters(qt)
         b1.window_sample.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3451,8 +3483,9 @@ def uva_phase(torch, qt, topo, train, b1) -> dict:
         check(launches == per_batch * UVA_BATCHES,
               f"UVA {label}: B1 launched {launches} times for "
               f"{UVA_BATCHES} batches")
-        hot = uva.counters["uva_seeds_total{tier=hot}"]
-        cold = uva.counters["uva_seeds_total{tier=cold}"]
+        seeds_by = counters_added(qt, before)
+        hot = seeds_by.get("uva_seeds_total{tier=hot}", 0.0)
+        cold = seeds_by.get("uva_seeds_total{tier=cold}", 0.0)
         runs[label] = batches
         out[label] = dict(
             ms_per_batch=wall * 1e3 / UVA_BATCHES,
@@ -4005,12 +4038,12 @@ def streaming_phase(torch, qt, topo, feat, feature, b1, b2, b3, b5):
         fb2 = budgeted_feature(qt, topo, feat)
         warmed = mgr2.attach_feature("reddit_200M", fb2)
         check(warmed > 0, "the coldcache restore warmed nothing")
-        faults = fb2.stats()["counters"].get("feature_page_faults_total", 0)
+        faults = feature_counters(qt).get("feature_page_faults_total", 0)
         b5.page_gather.launches = 0
         rows_fb2 = fb2[ids]
         b5_restore = b5.page_gather.launches
         check(b5_restore > 0, "B5 was not launched on the restored pages")
-        check(fb2.stats()["counters"].get("feature_page_faults_total", 0)
+        check(feature_counters(qt).get("feature_page_faults_total", 0)
               == faults, "restored pages faulted again")
         src_rows = torch.from_numpy(feat[ids]).to(dev)
         check(torch.equal(rows_fb2, src_rows) and torch.equal(rows_fb,
@@ -6005,7 +6038,216 @@ def lint_phase(child: dict) -> dict:
                 blind_spots=len(LINT_BLIND_SPOTS))
 
 
-def main() -> int:
+# -- phase 4m: the user entry points -------------------------------------------
+
+EXAMPLES_OUT = "chip_smoke_partition"  # preprocess_partition's --out, in build/
+# each example at its published widths; only epochs and steps are cut
+# (PERF.md section 4): (name, argv, config overrides, kernels that must
+# launch, what its loss must show: "falls" (the mean of the last tenth of
+# the steps below the first step's), "probe" (intra-community cosine
+# similarity above the inter) or None (random labels, nothing to learn))
+EXAMPLE_RUNS = (
+    ("reddit_sage", ["--epochs", "1"], {},
+     ("window_sample", "gather_rows"), "falls"),
+    ("ogbn_products_sage", ["--force-synthetic", "--synthetic-nodes",
+                            "2449029", "--cache", "1G", "--epochs", "1"], {},
+     ("window_sample", "gather_rows"), "falls"),
+    ("graph_sage_unsup", [], {}, ("window_sample", "gather_rows"), "probe"),
+    ("papers100M_dist", ["--mesh-devices", str(MESH_SHARDS)], {},
+     ("element_gather", "gather_rows"), None),
+    ("mag240m_rgat", [], {}, ("window_sample", "gather_rows"), None),
+    ("serving_reddit", [], {}, ("window_sample", "gather_rows"), None),
+    ("preprocess_partition", None, {}, (), None),
+    ("big_graph_single_chip", [], {}, ("window_sample", "gather_rows"),
+     None),
+    # the same under the paged store, its pool as large as the host tail
+    ("big_graph_single_chip", [], dict(feature_paged="on",
+                                       feature_page_pool=1 << 20),
+     ("window_sample", "page_gather"), None),
+    ("dgl_products_sage", [], {}, ("window_sample", "gather_rows"),
+     "falls"),
+)
+# the line each example ends with, as its JAX script prints it
+EXAMPLE_SUMMARY = {
+    "reddit_sage": r"^epoch \d+: [\d.]+s, loss [\d.]+, batch acc [\d.]+$",
+    "ogbn_products_sage": r"^full-graph val acc: [\d.]+$",
+    "graph_sage_unsup": (r"^intra-community cos sim -?[\d.]+ vs inter "
+                         r"-?[\d.]+$"),
+    "papers100M_dist": (r"^\d+ DP steps x \d+ replicas x \d+ seeds in "
+                        r"[\d.]+s \(\d+ ms/step\)$"),
+    "mag240m_rgat": r"^\d+ R-GAT steps in [\d.]+s \(\d+ ms/step\)$",
+    "serving_reddit": r"^served \d+: avg [\d.]+ms p99 [\d.]+ms \d+ rps$",
+    "preprocess_partition": (r"^load_quiver_feature_partition round-trip "
+                             r"OK; feed `book` to PartitionInfo"),
+    "big_graph_single_chip": (r"^\d+ steps in [\d.]+s \(\d+ ms/step\), "
+                              r"final loss [\d.]+$"),
+    "dgl_products_sage": (r"^\d+ steps in [\d.]+s; loss [\d.]+ -> [\d.]+ "
+                          r"\((dgl blocks|block_specs fallback)\)$"),
+}
+
+
+class _Tee:
+    """Standard output that also keeps what passes through it."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+        self._part = ""
+
+    def write(self, s):
+        self.out.write(s)
+        self._part += s
+        *done, self._part = self._part.split("\n")
+        self.lines += done
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def examples_phase(torch, qt, counters) -> dict:
+    """Phase 4m: the nine examples of ``quiver_tpu_torch.examples`` on the
+    card, one after another, in this process through ``main(argv)``
+    (EXAMPLE_RUNS).  Every launch counter is 0 just before each call and
+    read just after.  Each run must return 0, end with its summary line,
+    have finite losses, show what its data can learn, and launch its
+    kernels (every example but ``preprocess_partition`` at least one).
+    Returns each run's record: wall seconds, launches by kernel, its
+    summary line and times."""
+    import contextlib
+    import importlib
+    import re
+    import shutil
+
+    from quiver_tpu_torch import config
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", EXAMPLES_OUT)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    runs = []
+    try:
+        for name, argv, knobs, must, learns in EXAMPLE_RUNS:
+            argv = (["--out", out_dir] if argv is None else list(argv))
+            mod = importlib.import_module(f"quiver_tpu_torch.examples.{name}")
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            tee, report = _Tee(sys.stdout), {}
+            t0 = time.perf_counter()
+            with config.override(**knobs), contextlib.redirect_stdout(tee):
+                rc = mod.main(argv, report=report)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            where = name + (" (paged)" if knobs else "")
+            check(rc == 0, f"example {where} returned {rc}")
+            check(tee.lines and re.match(EXAMPLE_SUMMARY[name],
+                                         tee.lines[-1]),
+                  f"example {where} did not end with its summary line: "
+                  f"{tee.lines[-1:]}")
+            losses = report.get("losses", [])
+            check(all(np.isfinite(losses)), f"example {where}: a loss is "
+                  "not finite")
+            if learns == "falls":
+                tail = max(1, len(losses) // 10)
+                check(len(losses) > 1
+                      and np.mean(losses[-tail:]) < losses[0],
+                      f"example {where}: the loss did not fall "
+                      f"({losses[:1]} -> {losses[-tail:]})")
+            if learns == "probe":
+                check(report["intra"] > report["inter"],
+                      f"example {where}: intra-community similarity "
+                      f"{report['intra']} not above inter {report['inter']}")
+            for k in must:
+                check(launches[k] > 0, f"example {where} launched no {k} "
+                      "kernel")
+            if name != "preprocess_partition":
+                check(sum(launches.values()) > 0,
+                      f"example {where} launched no kernel")
+            rec = dict(example=name, argv=argv, knobs=knobs, wall_s=wall,
+                       launches=launches, summary=tee.lines[-1],
+                       first_loss=losses[0] if losses else None,
+                       last_loss=losses[-1] if losses else None,
+                       steps=len(losses))
+            for key in ("epoch_s", "steps_s", "full_graph_s", "p50_ms",
+                        "p99_ms", "avg_ms", "rps", "served", "lanes",
+                        "intra", "inter", "val_acc", "full_graph_acc",
+                        "fused", "replicas", "uva_split", "paged", "dgl"):
+                if key in report:
+                    rec[key] = report[key]
+            if knobs:
+                check(report.get("paged"), "the paged run built no paged "
+                      "store")
+            runs.append(rec)
+            print(f"example {where}: {wall:.2f} s, launches "
+                  + json.dumps({k: v for k, v in launches.items() if v}),
+                  flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(runs=runs, wall_s=sum(r["wall_s"] for r in runs))
+
+
+# the phases, in the order a whole run takes them; ``--phases`` names some
+PHASES = (
+    "kernel",         # 3: B1 and B2 against their plain versions (Reddit)
+    "serving",        # 4: the device lane at Reddit width
+    "weighted",       # 4b: weighted dedup="hop" serving, "blocked:3"
+    "host_sampler",   # 4c: the native host sampler
+    "hybrid",         # 4d: both serving lanes
+    "resilient",      # 4e: QoS, a device fault, a burst
+    "streaming",      # 4f: ingest, fold, checkpoint, boot
+    "sharding",       # 4g: the mesh and the dist stores
+    "bf16_mmap",      # 4i: bf16 serving, from_mmap
+    "budgeted",       # 5-8: B5, the budgeted lane, fallback and overlay
+    "products",       # 9-12: B1 at products' hops, B3/B4, both train lanes
+    "dp",             # 12b (4h): the data-parallel step
+    "full_graph",     # 13: exact inference of the trained models
+    "products_host",  # 13b: UVA, the mixed sampler, the torch loader
+    "rgat",           # 14: R-GAT at MAG240M widths
+    "fleet",          # 4j: three replica processes
+    "sanitize",       # 4k: serving under QUIVER_SANITIZE=1
+    "lint",           # 4l: the lint against 4k's transfers
+    "examples",       # 4m: the nine user entry points
+)
+# what a phase needs from an earlier one (its results, not only the data)
+PHASE_NEEDS = {"bf16_mmap": ("serving",), "full_graph": ("products",),
+               "lint": ("sanitize",)}
+# phases on the Reddit graph and table, and on the products data
+REDDIT_PHASES = {"kernel", "serving", "weighted", "host_sampler", "hybrid",
+                 "resilient", "streaming", "sharding", "bf16_mmap",
+                 "budgeted", "fleet", "sanitize"}
+PRODUCTS_PHASES = {"products", "dp", "full_graph", "products_host"}
+
+
+def select_phases(argv) -> list:
+    """The phases ``--phases a,b,...`` names, with those they need, in
+    run order; every phase without the argument.  An unknown name exits
+    with code 2."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="chip_smoke.py",
+        description="Smoke run of quiver_tpu_torch on one CUDA card.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (with the shared "
+                         "setup they need): " + ", ".join(PHASES))
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return list(PHASES)
+    names = [p.strip() for p in args.phases.split(",") if p.strip()]
+    unknown = [p for p in names if p not in PHASES]
+    if unknown or not names:
+        ap.error(f"unknown phase(s) {unknown or names!r}; choose from "
+                 + ", ".join(PHASES))
+    want = set(names)
+    for p in names:
+        want.update(PHASE_NEEDS.get(p, ()))
+    return [p for p in PHASES if p in want]
+
+
+def main(argv=None) -> int:
+    phases = select_phases(argv)
+    want = set(phases)
     import torch
 
     if not torch.cuda.is_available():
@@ -6032,6 +6274,8 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}", flush=True)
+    if len(phases) < len(PHASES):
+        print(f"phases: {phases}", flush=True)
 
     t0 = time.perf_counter()
     build.build_all(KERNELS)
@@ -6044,262 +6288,368 @@ def main() -> int:
     print(f"cudaLimitMaxL2FetchGranularity: {l2_fetch_granularity(torch)} B",
           flush=True)
 
-    t0 = time.perf_counter()
-    indptr, indices = qt.synthetic_csr(N_NODES, N_EDGES, seed=SEED)
-    topo = qt.CSRTopo(indptr=indptr, indices=indices)
-    feat = np.random.default_rng(SEED).standard_normal(
-        (N_NODES, DIM), dtype=np.float32)
-    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
-                         device=DEV).from_cpu_tensor(feat)
-    topo.to_device(DEV)
-    torch.cuda.synchronize()
-    print(f"graph {topo!r}, features {feature!r}: set up in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # the kernels line's records, by kernel; a phase that runs without the
+    # one that measures a kernel adds its launches to a bare record
+    recs = {}
 
-    kernels = kernel_phase(torch, qt, topo, feature, b1, b2)
-    launches, summary = serving_phase(torch, qt, topo, feat, feature, b1,
-                                      b2)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    launches_w, summary_w = weighted_serving_phase(torch, qt, topo, feature,
-                                                   b2, b3)
-    kernels[1]["launches_weighted_serving"] = launches_w["gather_rows"]
-    torch.cuda.empty_cache()
+    def kr(name: str) -> dict:
+        return recs.setdefault(name, {"name": name})
+
+    phase_s = {}
+    slice12 = {}
+    if want & REDDIT_PHASES:
+        t0 = time.perf_counter()
+        indptr, indices = qt.synthetic_csr(N_NODES, N_EDGES, seed=SEED)
+        topo = qt.CSRTopo(indptr=indptr, indices=indices)
+        feat = np.random.default_rng(SEED).standard_normal(
+            (N_NODES, DIM), dtype=np.float32)
+        feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                             device=DEV).from_cpu_tensor(feat)
+        topo.to_device(DEV)
+        torch.cuda.synchronize()
+        print(f"graph {topo!r}, features {feature!r}: set up in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    if "kernel" in want:
+        for rec in kernel_phase(torch, qt, topo, feature, b1, b2):
+            recs[rec["name"]] = rec
+    summary = None
+    if "serving" in want:
+        launches, summary = serving_phase(torch, qt, topo, feat, feature,
+                                          b1, b2)
+        for name in ("window_sample", "gather_rows"):
+            kr(name)["launches"] = launches[name]
+    launches_w = summary_w = None
+    if "weighted" in want:
+        launches_w, summary_w = weighted_serving_phase(
+            torch, qt, topo, feature, b2, b3)
+        kr("gather_rows")["launches_weighted_serving"] = \
+            launches_w["gather_rows"]
+        torch.cuda.empty_cache()
 
     # slice 9: the host sampler, then serving through both lanes
-    phase_s = {}
-    t0 = time.perf_counter()
-    host = host_sampler_phase(torch, qt, topo)
-    phase_s["host_sampler"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    launches_h, summary_h9 = hybrid_serving_phase(torch, qt, topo, feature,
-                                                  b1, b2)
-    phase_s["hybrid_serving"] = time.perf_counter() - t0
-    kernels[0]["launches_hybrid_serving"] = launches_h["window_sample"]
-    kernels[1]["launches_hybrid_serving"] = launches_h["gather_rows"]
-    kernels[1]["hybrid_cpu_lane_requests"] = \
-        summary_h9["cpu_lane"]["requests"]
-    torch.cuda.empty_cache()
+    host = summary_h9 = None
+    if "host_sampler" in want:
+        t0 = time.perf_counter()
+        host = host_sampler_phase(torch, qt, topo)
+        phase_s["host_sampler"] = time.perf_counter() - t0
+    if "hybrid" in want:
+        t0 = time.perf_counter()
+        launches_h, summary_h9 = hybrid_serving_phase(torch, qt, topo,
+                                                      feature, b1, b2)
+        phase_s["hybrid_serving"] = time.perf_counter() - t0
+        kr("window_sample")["launches_hybrid_serving"] = \
+            launches_h["window_sample"]
+        kr("gather_rows")["launches_hybrid_serving"] = \
+            launches_h["gather_rows"]
+        kr("gather_rows")["hybrid_cpu_lane_requests"] = \
+            summary_h9["cpu_lane"]["requests"]
+        torch.cuda.empty_cache()
 
     # slice 10: serving's safeguards and telemetry
-    launches_r10, summary_r10 = resilient_serving_phase(torch, qt, topo,
-                                                        feature, b1, b2)
-    kernels[0]["launches_resilient_serving"] = launches_r10["window_sample"]
-    kernels[1]["launches_resilient_serving"] = launches_r10["gather_rows"]
-    torch.cuda.empty_cache()
+    if "resilient" in want:
+        launches_r10, summary_r10 = resilient_serving_phase(
+            torch, qt, topo, feature, b1, b2)
+        kr("window_sample")["launches_resilient_serving"] = \
+            launches_r10["window_sample"]
+        kr("gather_rows")["launches_resilient_serving"] = \
+            launches_r10["gather_rows"]
+        torch.cuda.empty_cache()
 
     # slice 11: streaming serving, durability and a warm restart
-    t0 = time.perf_counter()
-    launches_s11, summary_s11 = streaming_phase(torch, qt, topo, feat,
-                                                feature, b1, b2, b3, b5)
-    phase_s["streaming"] = time.perf_counter() - t0
-    kernels[1]["launches_streaming_serving"] = launches_s11["gather_rows"]
-    torch.cuda.empty_cache()
+    launches_s11 = summary_s11 = None
+    if "streaming" in want:
+        t0 = time.perf_counter()
+        launches_s11, summary_s11 = streaming_phase(
+            torch, qt, topo, feat, feature, b1, b2, b3, b5)
+        phase_s["streaming"] = time.perf_counter() - t0
+        kr("gather_rows")["launches_streaming_serving"] = \
+            launches_s11["gather_rows"]
+        torch.cuda.empty_cache()
 
     # slice 12: sharding over a mesh on the card, bf16 models, from_mmap
-    slice12 = {}
-    t0 = time.perf_counter()
-    launches_m, b3_dist, slice12["sharding"] = sharding_phase(
-        torch, qt, topo, feat, feature, b1, b2, b3)
-    phase_s["sharding"] = time.perf_counter() - t0
-    kernels[1]["launches_mesh_serving"] = launches_m["gather_rows"]
-    kernels[1]["launches_dist_lookups"] = sum(
-        v["b2_launches"] for k, v in slice12["sharding"]["dist"].items()
-        if k in ("dist", "ring", "hier"))
-    t0 = time.perf_counter()
-    launches_16, slice12["bf16"] = bf16_phase(torch, qt, topo, feat, feature,
-                                              summary, b1, b2)
-    kernels[0]["launches_bf16_serving"] = launches_16["window_sample"]
-    kernels[1]["launches_bf16_serving"] = launches_16["gather_rows"]
-    slice12["mmap"] = mmap_phase(torch, qt, topo, feat, b2, b5)
-    kernels[1]["launches_mmap_staged"] = slice12["mmap"]["staged"][
-        "gather_rows"]
-    phase_s["bf16_and_mmap"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
+    launches_m = b3_dist = None
+    if "sharding" in want:
+        t0 = time.perf_counter()
+        launches_m, b3_dist, slice12["sharding"] = sharding_phase(
+            torch, qt, topo, feat, feature, b1, b2, b3)
+        phase_s["sharding"] = time.perf_counter() - t0
+        kr("gather_rows")["launches_mesh_serving"] = \
+            launches_m["gather_rows"]
+        kr("gather_rows")["launches_dist_lookups"] = sum(
+            v["b2_launches"] for k, v in slice12["sharding"]["dist"].items()
+            if k in ("dist", "ring", "hier"))
+    if "bf16_mmap" in want:
+        t0 = time.perf_counter()
+        launches_16, slice12["bf16"] = bf16_phase(
+            torch, qt, topo, feat, feature, summary, b1, b2)
+        kr("window_sample")["launches_bf16_serving"] = \
+            launches_16["window_sample"]
+        kr("gather_rows")["launches_bf16_serving"] = \
+            launches_16["gather_rows"]
+        slice12["mmap"] = mmap_phase(torch, qt, topo, feat, b2, b5)
+        kr("gather_rows")["launches_mmap_staged"] = slice12["mmap"][
+            "staged"]["gather_rows"]
+        phase_s["bf16_and_mmap"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
 
     # slice 2: every feature below compares with the source table by its
     # own feature_order (each from_cpu_tensor rewrites topo.feature_order)
-    src = torch.from_numpy(feat).to(DEV)
-    t0 = time.perf_counter()
-    budgeted = budgeted_feature(qt, topo, feat, pool_pages=N_NODES)
-    torch.cuda.synchronize()
-    print(f"budgeted feature built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    b5_record, n_id = b5_phase(torch, qt, topo, feat, budgeted, src, b5)
-    server_b, launches_b, summary_b = budgeted_serving_phase(
-        torch, qt, topo, budgeted, feature, src, b1, b5)
-    b5_record["launches"] = launches_b["page_gather"]
-    b5_record["launches_per_pass"] = (launches_b["page_gather"]
-                                      / summary_b["passes"])
-    b5_record["launches_coldcache_restore"] = launches_s11["page_gather"]
-    b5_record["launches_mmap_paged"] = slice12["mmap"]["paged"]["page_gather"]
-    kernels.append(b5_record)
-    summary_b["fallback_overlay"] = fallback_overlay_phase(
-        torch, qt, topo, feat, src, n_id)
-    stages = budgeted_stage_times(torch, server_b)
-    print("budgeted bucket-2048 pass split (ms, median of 5) "
-          + json.dumps(stages), flush=True)
-    prof = device_profile(torch, pass_runner(server_b.unfused_forward,
-                                             SEED + 8), stages["pass_wall"])
-    print("budgeted bucket-2048 pass on the card (torch.profiler) "
-          + json.dumps(prof), flush=True)
-    hprof = host_profile(torch, pass_runner(server_b.unfused_forward,
-                                            SEED + 9))
-    print("budgeted bucket-2048 pass on the host (cProfile, own time) "
-          + json.dumps(hprof), flush=True)
-    summary_b.update(stages_ms=stages, device_profile=prof,
-                     host_profile=hprof)
-
-    print("summary " + json.dumps(summary), flush=True)
-    print("budgeted summary " + json.dumps(summary_b), flush=True)
-    del budgeted, server_b, feature, src
+    if "budgeted" in want:
+        src = torch.from_numpy(feat).to(DEV)
+        t0 = time.perf_counter()
+        budgeted = budgeted_feature(qt, topo, feat, pool_pages=N_NODES)
+        torch.cuda.synchronize()
+        print(f"budgeted feature built in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        b5_record, n_id = b5_phase(torch, qt, topo, feat, budgeted, src, b5)
+        server_b, launches_b, summary_b = budgeted_serving_phase(
+            torch, qt, topo, budgeted, feature, src, b1, b5)
+        b5_record["launches"] = launches_b["page_gather"]
+        b5_record["launches_per_pass"] = (launches_b["page_gather"]
+                                          / summary_b["passes"])
+        if launches_s11 is not None:
+            b5_record["launches_coldcache_restore"] = \
+                launches_s11["page_gather"]
+        if "mmap" in slice12:
+            b5_record["launches_mmap_paged"] = \
+                slice12["mmap"]["paged"]["page_gather"]
+        b5_record.update(recs.get("page_gather", {}))
+        recs["page_gather"] = b5_record
+        summary_b["fallback_overlay"] = fallback_overlay_phase(
+            torch, qt, topo, feat, src, n_id)
+        stages = budgeted_stage_times(torch, server_b)
+        print("budgeted bucket-2048 pass split (ms, median of 5) "
+              + json.dumps(stages), flush=True)
+        prof = device_profile(torch, pass_runner(server_b.unfused_forward,
+                                                 SEED + 8),
+                              stages["pass_wall"])
+        print("budgeted bucket-2048 pass on the card (torch.profiler) "
+              + json.dumps(prof), flush=True)
+        hprof = host_profile(torch, pass_runner(server_b.unfused_forward,
+                                                SEED + 9))
+        print("budgeted bucket-2048 pass on the host (cProfile, own time) "
+              + json.dumps(hprof), flush=True)
+        summary_b.update(stages_ms=stages, device_profile=prof,
+                         host_profile=hprof)
+    if summary is not None:
+        print("summary " + json.dumps(summary), flush=True)
+    if "budgeted" in want:
+        print("budgeted summary " + json.dumps(summary_b), flush=True)
+        del budgeted, server_b, src
+    if want & REDDIT_PHASES:
+        del feature
     torch.cuda.empty_cache()
 
     # slice 3: training at ogbn-products width
-    t0 = time.perf_counter()
-    ptopo, pfeat, plabels, ptrain = products_data(qt)
-    ptopo.to_device(DEV)
-    torch.cuda.synchronize()
-    print(f"products graph {ptopo!r}, features {pfeat.shape}, "
-          f"{len(ptrain)} train seeds: made in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    b1_cases, b1_cost = b1_products_phase(torch, ptopo, ptrain, b1)
-    products = b1_record(b1, b1_cases)
-    kernels[0]["products"] = {k: products[k] for k in (
-        "ms", "plain_ms", "bound_ms", "host_ms", "literal_ms",
-        "literal_host_ms", "cases")}
-    kernels[0]["products"]["pipeline_cost"] = b1_cost
-    pip, pix = ptopo.to_device(DEV)
-    pseeds, pkw = products_batch(torch, torch.device(DEV), ptrain)
-    blocked_p = blocked_phase(torch, "products", lambda mode: run_pipeline(
-        "none", pip, pix, pseeds, pkw, P_FANOUTS, gather_mode=mode),
-        b3, 2 * len(P_FANOUTS))
-    b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
-    b3_record["launches_weighted_serving"] = launches_w["element_gather"]
-    b3_record["launches_streaming_serving"] = launches_s11["element_gather"]
-    b3_record["streaming_overlay_hops"] = summary_s11["overlay_hops"]
-    b3_record["launches_mesh_serving"] = launches_m["element_gather"]
-    b3_record["launches_dist_sampler"] = b3_dist
-    lanes, models, b2_products = fused_training_phase(
-        torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2, b3)
-    kernels[1]["products"] = b2_products
-    (launches_f, summary_f), (launches_a, summary_a), \
-        (launches_h, summary_h) = (lanes["pallas"], lanes["auto"],
-                                   lanes["auto hop"])
-    b3_record["launches"] = launches_f["element_gather"]
-    kernels[0]["launches_fused_training_auto"] = launches_a["window_sample"]
-    kernels[0]["launches_hop_training"] = launches_h["window_sample"]
-    kernels[1]["launches_fused_training"] = launches_f["gather_rows"]
-    kernels[1]["launches_hop_training"] = launches_h["gather_rows"]
-    for family in ("gat", "gcn"):
-        for rec, name in ((kernels[0], "window_sample"),
-                          (kernels[1], "gather_rows")):
-            rec[f"launches_{family}_training"] = lanes[family][0][name]
-    side = {}
-    for name, summ in (("none", summary_a), ("hop", summary_h)):
-        prof = summ["device_profile"]
-        side[name] = dict(
-            step_wall_ms=summ["step_wall_ms"],
-            sample_span_ms=summ["split_ms"]["sample"],
-            device_ms=prof["device_ms"],
-            sort_searchsorted_scatter=prof.get("families", {}).get(
-                "sort_searchsorted_scatter"),
-            busy_share=prof.get("busy_share"), peak_gib=summ["peak_gib"],
-            losses=summ["losses"])
-    if all(isinstance(side[n]["device_ms"], float) for n in side):
-        # the dedup's whole device cost: sort, compares, cumsum, scatter
-        side["hop"]["dedup_device_ms"] = (side["hop"]["device_ms"]
-                                          - side["none"]["device_ms"])
-    print("products fused training under \"auto\", dedup=\"hop\" beside "
-          "dedup=\"none\" " + json.dumps(side), flush=True)
-    launches_s, summary_s = staged_training_phase(
-        torch, qt, ptopo, pfeat, plabels, ptrain, b2, b4)
-    b4_record["launches"] = launches_s["lane_select"]
-    kernels[1]["launches_two_stage_training"] = launches_s["gather_rows"]
-    t0 = time.perf_counter()
-    launches_dp, slice12["data_parallel"] = dp_phase(
-        torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2)
-    phase_s["data_parallel"] = time.perf_counter() - t0
-    kernels[0]["launches_dp_training"] = launches_dp["window_sample"]
-    kernels[1]["launches_dp_training"] = launches_dp["gather_rows"]
-    kernels[2:2] = [b3_record, b4_record]
-    print("fused training summary " + json.dumps(summary_f), flush=True)
-    print("fused training summary, gather_mode=\"auto\" "
-          + json.dumps(summary_a), flush=True)
-    print("fused training summary, gather_mode=\"auto\", dedup=\"hop\" "
-          + json.dumps(summary_h), flush=True)
-    print("weighted hop serving summary " + json.dumps(summary_w), flush=True)
-    print(f"{BLOCKED_MODE} summary " + json.dumps(dict(
-        products=blocked_p, reddit_weighted_hop=summary_w["blocked"])),
-        flush=True)
-    print("two-stage training summary " + json.dumps(summary_s), flush=True)
-    for family in ("gat", "gcn"):
-        print(f"fused training summary, {family.upper()} "
-              + json.dumps(lanes[family][1]), flush=True)
+    if want & PRODUCTS_PHASES:
+        t0 = time.perf_counter()
+        ptopo, pfeat, plabels, ptrain = products_data(qt)
+        ptopo.to_device(DEV)
+        torch.cuda.synchronize()
+        print(f"products graph {ptopo!r}, features {pfeat.shape}, "
+              f"{len(ptrain)} train seeds: made in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if "products" in want:
+        b1_cases, b1_cost = b1_products_phase(torch, ptopo, ptrain, b1)
+        products = b1_record(b1, b1_cases)
+        kr("window_sample")["products"] = {k: products[k] for k in (
+            "ms", "plain_ms", "bound_ms", "host_ms", "literal_ms",
+            "literal_host_ms", "cases")}
+        kr("window_sample")["products"]["pipeline_cost"] = b1_cost
+        pip, pix = ptopo.to_device(DEV)
+        pseeds, pkw = products_batch(torch, torch.device(DEV), ptrain)
+        blocked_p = blocked_phase(
+            torch, "products", lambda mode: run_pipeline(
+                "none", pip, pix, pseeds, pkw, P_FANOUTS, gather_mode=mode),
+            b3, 2 * len(P_FANOUTS))
+        b3_record, b4_record = b3_b4_phase(torch, qt, ptopo, ptrain, b3, b4)
+        if launches_w is not None:
+            b3_record["launches_weighted_serving"] = \
+                launches_w["element_gather"]
+        if launches_s11 is not None:
+            b3_record["launches_streaming_serving"] = \
+                launches_s11["element_gather"]
+            b3_record["streaming_overlay_hops"] = \
+                summary_s11["overlay_hops"]
+        if launches_m is not None:
+            b3_record["launches_mesh_serving"] = launches_m["element_gather"]
+            b3_record["launches_dist_sampler"] = b3_dist
+        lanes, models, b2_products = fused_training_phase(
+            torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2, b3)
+        kr("gather_rows")["products"] = b2_products
+        (launches_f, summary_f), (launches_a, summary_a), \
+            (launches_h, summary_h) = (lanes["pallas"], lanes["auto"],
+                                       lanes["auto hop"])
+        b3_record["launches"] = launches_f["element_gather"]
+        kr("window_sample")["launches_fused_training_auto"] = \
+            launches_a["window_sample"]
+        kr("window_sample")["launches_hop_training"] = \
+            launches_h["window_sample"]
+        kr("gather_rows")["launches_fused_training"] = \
+            launches_f["gather_rows"]
+        kr("gather_rows")["launches_hop_training"] = \
+            launches_h["gather_rows"]
+        for family in ("gat", "gcn"):
+            for name in ("window_sample", "gather_rows"):
+                kr(name)[f"launches_{family}_training"] = \
+                    lanes[family][0][name]
+        side = {}
+        for name, summ in (("none", summary_a), ("hop", summary_h)):
+            prof = summ["device_profile"]
+            side[name] = dict(
+                step_wall_ms=summ["step_wall_ms"],
+                sample_span_ms=summ["split_ms"]["sample"],
+                device_ms=prof["device_ms"],
+                sort_searchsorted_scatter=prof.get("families", {}).get(
+                    "sort_searchsorted_scatter"),
+                busy_share=prof.get("busy_share"),
+                peak_gib=summ["peak_gib"], losses=summ["losses"])
+        if all(isinstance(side[n]["device_ms"], float) for n in side):
+            # the dedup's whole device cost: sort, compares, cumsum, scatter
+            side["hop"]["dedup_device_ms"] = (side["hop"]["device_ms"]
+                                              - side["none"]["device_ms"])
+        print("products fused training under \"auto\", dedup=\"hop\" beside "
+              "dedup=\"none\" " + json.dumps(side), flush=True)
+        launches_s, summary_s = staged_training_phase(
+            torch, qt, ptopo, pfeat, plabels, ptrain, b2, b4)
+        b4_record["launches"] = launches_s["lane_select"]
+        kr("gather_rows")["launches_two_stage_training"] = \
+            launches_s["gather_rows"]
+        b3_record.update(recs.get("element_gather", {}))
+        b4_record.update(recs.get("lane_select", {}))
+        recs["element_gather"], recs["lane_select"] = b3_record, b4_record
+    if "dp" in want:
+        t0 = time.perf_counter()
+        launches_dp, slice12["data_parallel"] = dp_phase(
+            torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2)
+        phase_s["data_parallel"] = time.perf_counter() - t0
+        kr("window_sample")["launches_dp_training"] = \
+            launches_dp["window_sample"]
+        kr("gather_rows")["launches_dp_training"] = \
+            launches_dp["gather_rows"]
+    if "products" in want:
+        print("fused training summary " + json.dumps(summary_f), flush=True)
+        print("fused training summary, gather_mode=\"auto\" "
+              + json.dumps(summary_a), flush=True)
+        print("fused training summary, gather_mode=\"auto\", dedup=\"hop\" "
+              + json.dumps(summary_h), flush=True)
+    if summary_w is not None:
+        print("weighted hop serving summary " + json.dumps(summary_w),
+              flush=True)
+    if "products" in want:
+        print(f"{BLOCKED_MODE} summary " + json.dumps(dict(
+            products=blocked_p,
+            reddit_weighted_hop=(summary_w or {}).get("blocked"))),
+            flush=True)
+        print("two-stage training summary " + json.dumps(summary_s),
+              flush=True)
+        for family in ("gat", "gcn"):
+            print(f"fused training summary, {family.upper()} "
+                  + json.dumps(lanes[family][1]), flush=True)
 
     # slice 7: exact inference of the trained models, then R-GAT
-    full = full_graph_phase(torch, qt, ptopo, pfeat, models)
-    print("full_graph_inference summary " + json.dumps(full), flush=True)
+    if "full_graph" in want:
+        full = full_graph_phase(torch, qt, ptopo, pfeat, models)
+        print("full_graph_inference summary " + json.dumps(full),
+              flush=True)
 
     # slice 9 at products size: UVA, the mixed sampler, the torch loader
-    t0 = time.perf_counter()
-    uva = uva_phase(torch, qt, ptopo, ptrain, b1)
-    phase_s["uva"] = time.perf_counter() - t0
-    kernels[0]["launches_uva"] = uva["overlap"]["b1_launches"]
-    t0 = time.perf_counter()
-    mixed = mixed_phase(torch, qt, ptopo, ptrain)
-    phase_s["mixed"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    loader = interop_phase(torch, qt, ptopo, pfeat, plabels, ptrain, b2)
-    phase_s["torch_loader"] = time.perf_counter() - t0
-    kernels[1]["launches_torch_loader"] = loader["b2_launches"]
-    print("slice 9 summary " + json.dumps(dict(
-        host_sampler=host, hybrid_serving={
-            k: v for k, v in summary_h9.items()
-            if k != "serving"},
-        uva=uva, mixed=mixed, torch_loader=loader, phase_s=phase_s)),
-        flush=True)
+    if "products_host" in want:
+        t0 = time.perf_counter()
+        uva = uva_phase(torch, qt, ptopo, ptrain, b1)
+        phase_s["uva"] = time.perf_counter() - t0
+        kr("window_sample")["launches_uva"] = uva["overlap"]["b1_launches"]
+        t0 = time.perf_counter()
+        mixed = mixed_phase(torch, qt, ptopo, ptrain)
+        phase_s["mixed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loader = interop_phase(torch, qt, ptopo, pfeat, plabels, ptrain, b2)
+        phase_s["torch_loader"] = time.perf_counter() - t0
+        kr("gather_rows")["launches_torch_loader"] = loader["b2_launches"]
+    if want & {"host_sampler", "hybrid", "products_host"}:
+        s9 = {}
+        if host is not None:
+            s9["host_sampler"] = host
+        if summary_h9 is not None:
+            s9["hybrid_serving"] = {k: v for k, v in summary_h9.items()
+                                    if k != "serving"}
+        if "products_host" in want:
+            s9.update(uva=uva, mixed=mixed, torch_loader=loader)
+        s9["phase_s"] = phase_s
+        print("slice 9 summary " + json.dumps(s9), flush=True)
     torch.cuda.empty_cache()
-    del models, lanes, ptopo, pfeat, pip, pix, pseeds
+    if want & PRODUCTS_PHASES:
+        if "products" in want:
+            del models, lanes, pip, pix, pseeds
+        del ptopo, pfeat
     torch.cuda.empty_cache()
-    launches_r, summary_r, b1_mag, b2_mag = rgat_phase(torch, qt, b1, b2)
-    kernels[0].update(launches_rgat_training=launches_r["window_sample"],
-                      mag=b1_mag)
-    kernels[1].update(launches_rgat_training=launches_r["gather_rows"],
-                      mag=b2_mag)
-    print("R-GAT training summary " + json.dumps(summary_r), flush=True)
-    slice12["phase_s"] = {k: phase_s[k] for k in (
-        "sharding", "bf16_and_mmap", "data_parallel")}
-    print("slice 12 summary " + json.dumps(slice12), flush=True)
+    if "rgat" in want:
+        launches_r, summary_r, b1_mag, b2_mag = rgat_phase(torch, qt, b1, b2)
+        kr("window_sample").update(
+            launches_rgat_training=launches_r["window_sample"], mag=b1_mag)
+        kr("gather_rows").update(
+            launches_rgat_training=launches_r["gather_rows"], mag=b2_mag)
+        print("R-GAT training summary " + json.dumps(summary_r), flush=True)
+    if want & {"sharding", "bf16_mmap", "dp"}:
+        slice12["phase_s"] = {k: phase_s[k] for k in (
+            "sharding", "bf16_and_mmap", "data_parallel") if k in phase_s}
+        print("slice 12 summary " + json.dumps(slice12), flush=True)
 
     # slice 13: the serving fleet, three replica processes on the card
-    torch.cuda.empty_cache()
-    fleet = fleet_phase(torch, qt, topo, feat, b2, b3)
-    for rec, name in ((kernels[1], "gather_rows"),
-                      (kernels[2], "element_gather")):
-        rec["launches_fleet_serving"] = {
-            rid: r["launches"][name] for rid, r in fleet["replicas"].items()}
-    print("slice 13 summary " + json.dumps(fleet), flush=True)
+    if "fleet" in want:
+        torch.cuda.empty_cache()
+        fleet = fleet_phase(torch, qt, topo, feat, b2, b3)
+        for name in ("gather_rows", "element_gather"):
+            kr(name)["launches_fleet_serving"] = {
+                rid: r["launches"][name]
+                for rid, r in fleet["replicas"].items()}
+        print("slice 13 summary " + json.dumps(fleet), flush=True)
 
     # slice 14: the port under its sanitizer, in a child process
-    torch.cuda.empty_cache()
-    sanitize = sanitize_phase(torch, qt, topo, feat)
-    for rec, name in ((kernels[0], "window_sample"),
-                      (kernels[1], "gather_rows")):
-        rec["launches_sanitized_serving"] = \
-            sanitize["child"]["serving"]["launches"][name]
-    kernels[2]["launches_sanitized_mesh"] = \
-        sanitize["child"]["mesh"]["b3_launches"]
-    kernels[4]["launches_sanitized_paged"] = \
-        sanitize["child"]["paged"]["b5_launches"]
-    print("slice 14 summary " + json.dumps(sanitize), flush=True)
+    if "sanitize" in want:
+        torch.cuda.empty_cache()
+        sanitize = sanitize_phase(torch, qt, topo, feat)
+        for name in ("window_sample", "gather_rows"):
+            kr(name)["launches_sanitized_serving"] = \
+                sanitize["child"]["serving"]["launches"][name]
+        kr("element_gather")["launches_sanitized_mesh"] = \
+            sanitize["child"]["mesh"]["b3_launches"]
+        kr("page_gather")["launches_sanitized_paged"] = \
+            sanitize["child"]["paged"]["b5_launches"]
+        print("slice 14 summary " + json.dumps(sanitize), flush=True)
 
     # slice 15: the fifteen-rule lint against the sanitizer's transfers
-    t0 = time.perf_counter()
-    lint = lint_phase(sanitize["child"])
-    lint["phase_s"] = time.perf_counter() - t0
-    print("slice 15 summary " + json.dumps(lint), flush=True)
+    if "lint" in want:
+        t0 = time.perf_counter()
+        lint = lint_phase(sanitize["child"])
+        lint["phase_s"] = time.perf_counter() - t0
+        print("slice 15 summary " + json.dumps(lint), flush=True)
 
+    # slice 16: the user entry points
+    if "examples" in want:
+        if want & REDDIT_PHASES:
+            del topo, feat
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        examples = examples_phase(torch, qt, {
+            "window_sample": b1.window_sample,
+            "gather_rows": b2.gather_rows,
+            "element_gather": b3.element_gather,
+            "lane_select": b4.lane_select,
+            "page_gather": b5.page_gather})
+        examples["phase_s"] = time.perf_counter() - t0
+        for name in KERNELS:
+            by = {}
+            for r in examples["runs"]:
+                key = r["example"] + (" (paged)" if r["knobs"] else "")
+                if r["launches"][name]:
+                    by[key] = r["launches"][name]
+            if by:
+                kr(name)["launches_examples"] = by
+        print("slice 16 summary " + json.dumps(examples), flush=True)
+
+    kernels = [recs[name] for name in KERNELS if name in recs]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6313,4 +6663,4 @@ if __name__ == "__main__":
         sys.exit(fleet_replica_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sanitize-child"]:
         sys.exit(sanitize_child_main(sys.argv[2]))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -38,10 +38,9 @@ arrays, cannot change it.
 package's ``Feature.prefetch``); ``SeedLoader`` calls it one batch ahead.
 
 Counters use the JAX package's telemetry names and land in the port's
-metrics registry where JAX ticks them; ``stats()["counters"]`` keeps
-this feature's own copy.  ``feature_h2d_bytes_total`` differs from JAX's:
-the port ships only real rows and pages, where JAX pads each copy to a
-shape bucket.
+metrics registry alone, where JAX ticks them.  ``feature_h2d_bytes_total``
+differs from JAX's: the port ships only real rows and pages, where JAX
+pads each copy to a shape bucket.
 """
 
 from __future__ import annotations
@@ -61,7 +60,6 @@ from .config import get_config
 from .ops.coldcache import ColdRowCache
 from .ops.cuda.gather_rows import gather_rows
 from .ops.paged import PagedStore, PageTable, default_page_rows
-from .telemetry.registry import metric_key
 from .utils.device import resolve_device
 from .utils.staging import HostStaging, upload
 from .utils.topology import CSRTopo, parse_size, reindex_feature
@@ -225,7 +223,6 @@ class Feature:
         self._order_dev: Optional[torch.Tensor] = None
         self._plock = threading.Lock()
         self._staging = HostStaging(self.device)
-        self._counts: dict = {}  # JAX metric key -> count
         # prefetch: one worker, staged rows by the ids' bytes, its futures
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: dict = {}
@@ -506,8 +503,7 @@ class Feature:
         table = PageTable(self.node_count, self.cache_count, R, pool_pages,
                           policy=policy)
         with self._plock:
-            self.paged = PagedStore(table, self.cold, self.hot,
-                                    self._count)
+            self.paged = PagedStore(table, self.cold, self.hot)
         return self
 
     def invalidate_rows(self, node_ids) -> int:
@@ -530,7 +526,8 @@ class Feature:
             if self.paged is not None:
                 self.paged.invalidate_rows(cold_ids)
             if dropped:
-                self._count("coldcache_invalidated_rows_total", dropped)
+                telemetry.counter(
+                    "coldcache_invalidated_rows_total").inc(float(dropped))
         return dropped
 
     # -- recovery ------------------------------------------------------
@@ -581,13 +578,13 @@ class Feature:
         return int(slots.size)
 
     def stats(self) -> dict:
-        """``counters`` under the JAX telemetry keys (rows by tier,
-        overlay hits, misses and evictions, page faults, hits, evictions
-        and fallbacks, bytes shipped, batches by tier), and the overlay's
-        and paged store's own stats."""
+        """The overlay's and the paged store's own stats.  The feature's
+        counters (rows by tier, overlay hits, misses and evictions, page
+        faults, hits, evictions and fallbacks, bytes shipped, batches by
+        tier) tick the registry alone, under the JAX telemetry keys:
+        ``telemetry.snapshot()["counters"]``."""
         with self._plock:
             return dict(
-                counters=dict(self._counts),
                 cold_cache=(self.cold_cache.stats()
                             if self.cold_cache is not None else None),
                 paged=self.paged.stats() if self.paged is not None else None)
@@ -602,16 +599,6 @@ class Feature:
     def _row_bytes(self) -> int:
         return self.hot.element_size() * self.dim
 
-    def _count(self, name: str, n, **labels) -> None:
-        """Add ``n`` to the counter ``name{labels}`` here (under its
-        registry key) and in the registry.  Caller holds ``_plock``."""
-        key = metric_key(name, labels)
-        self._counts[key] = self._counts.get(key, 0) + n
-        # quiverlint: ignore[QT006] -- every caller (here and PagedStore's
-        # `count` hook) passes a literal snake_case `*_total` name; the
-        # helper exists to keep the feature's own copy (ROADMAP item 7)
-        telemetry.counter(name, **labels).inc(float(n))
-
     def __getitem__(self, node_idx) -> torch.Tensor:
         """Rows by (old) node id, on the device.  With the whole table on
         the device, tensor ids stay there (:meth:`lookup_device`);
@@ -623,7 +610,7 @@ class Feature:
                 "feature_gather_seconds", tier=tier).time():
             rows = self._getitem(node_idx, full)
         with self._plock:
-            self._count("feature_gather_batches_total", 1, tier=tier)
+            telemetry.counter("feature_gather_batches_total", tier=tier).inc()
         return rows
 
     def _getitem(self, node_idx, full: bool) -> torch.Tensor:
@@ -637,8 +624,9 @@ class Feature:
         rows = self._take_staged(idx.tobytes())
         if self._pool is not None:
             with self._plock:
-                self._count("feature_prefetch_total", 1,
-                            result="hit" if rows is not None else "miss")
+                telemetry.counter(
+                    "feature_prefetch_total",
+                    result="hit" if rows is not None else "miss").inc()
         if rows is None:
             flat = self._rows_of(idx)
             with self._plock:
@@ -737,8 +725,8 @@ class Feature:
         buf = self._staging.buffer("rows", (len(rel), self.dim),
                                    self.cold.dtype)
         torch.index_select(self.cold, 0, torch.from_numpy(rel), out=buf)
-        self._count("feature_h2d_bytes_total",
-                    buf.numel() * buf.element_size())
+        telemetry.counter("feature_h2d_bytes_total").inc(
+            float(buf.numel() * buf.element_size()))
         return self._staging.send("rows", buf)
 
     def _stage(self, idx: np.ndarray) -> torch.Tensor:
@@ -753,15 +741,17 @@ class Feature:
             return self._stage_overlay(idx)
         cc = self.cache_count
         if cc == 0:
-            self._count("feature_rows_total", len(idx), tier="cold")
+            telemetry.counter("feature_rows_total", tier="cold").inc(
+                float(len(idx)))
             return self._upload_cold(idx)
         hot_mask = idx < cc
         cold_pos = np.nonzero(~hot_mask)[0]
-        self._count("feature_rows_total", len(idx) - len(cold_pos),
-                    tier="hot")
+        telemetry.counter("feature_rows_total", tier="hot").inc(
+            float(len(idx) - len(cold_pos)))
         out = self._hot_rows(np.where(hot_mask, idx, 0))
         if len(cold_pos):
-            self._count("feature_rows_total", len(cold_pos), tier="cold")
+            telemetry.counter("feature_rows_total", tier="cold").inc(
+                float(len(cold_pos)))
             rows = self._upload_cold(idx[cold_pos] - cc)
             out.index_copy_(0, self._to_device("cold_pos", cold_pos), rows)
         return out
@@ -776,10 +766,12 @@ class Feature:
         hot_mask = idx < cc
         cold_pos = np.nonzero(~hot_mask)[0]
         if cc > 0:
-            self._count("feature_rows_total", B - len(cold_pos), tier="hot")
+            telemetry.counter("feature_rows_total", tier="hot").inc(
+                float(B - len(cold_pos)))
         if len(cold_pos) == 0:
             return self._hot_rows(np.where(hot_mask, idx, 0))
-        self._count("feature_rows_total", len(cold_pos), tier="cold")
+        telemetry.counter("feature_rows_total", tier="cold").inc(
+            float(len(cold_pos)))
         rel = idx[cold_pos] - cc
         cache = self.cold_cache
         hit, slots = cache.probe(rel)
@@ -806,11 +798,13 @@ class Feature:
                 self._overlay.index_copy_(
                     0, self._to_device("adm_slot", slot.astype(np.int64)),
                     rows.index_select(0, self._to_device("adm_src", src)))
-        self._count("feature_coldcache_rows_total", n_hit, result="hit")
-        self._count("feature_coldcache_rows_total", len(rel) - n_hit,
-                    result="miss")
+        telemetry.counter("feature_coldcache_rows_total", result="hit").inc(
+            float(n_hit))
+        telemetry.counter("feature_coldcache_rows_total", result="miss").inc(
+            float(len(rel) - n_hit))
         if n_evicted:
-            self._count("feature_coldcache_evictions_total", n_evicted)
+            telemetry.counter("feature_coldcache_evictions_total").inc(
+                float(n_evicted))
         return out
 
     def lookup_device(self, idx: torch.Tensor) -> torch.Tensor:

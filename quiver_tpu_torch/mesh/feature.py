@@ -61,12 +61,6 @@ def sentinel_of(dtype: torch.dtype) -> float:
     return int(torch.iinfo(dtype).min)
 
 
-def _tick(name: str, n, **labels) -> None:
-    # quiverlint: ignore[QT006] -- the shard stores' `count` hook: every
-    # caller in ops/paged.py passes a literal snake_case `*_total` name
-    telemetry.counter(name, **labels).inc(float(n))
-
-
 class MeshFeature:
     """One logical feature table served by ``n_shards`` devices.
 
@@ -121,7 +115,7 @@ class MeshFeature:
                            page_rows=self.page_rows,
                            pool_pages=self.pool_pages)
             empty = torch.empty((0, self.dim), dtype=self.dtype, device=dev)
-            self._stores.append(PagedStore(pt, rows, empty, _tick))
+            self._stores.append(PagedStore(pt, rows, empty))
         self.pool_pages = self._stores[0].table.pool_pages  # post-clamp
         self._sentinel = sentinel_of(self.dtype)
         self._cache = program_cache("mesh_feature", owner=self)

@@ -30,7 +30,7 @@ that gather on the stream and cannot change what it reads.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -170,19 +170,19 @@ class PagedStore:
       table: the :class:`PageTable`.
       host_rows: the host tail, a CPU tensor ``[N - cache_count, D]``.
       hot: the hot prefix, a ``[cache_count, D]`` tensor on the device.
-      count: ``count(key, n)`` adds to the owning feature's counters
-        (JAX metric keys).
+
+    Faults, hits, evictions, fallbacks, rows by tier and bytes shipped
+    tick the ``feature_*`` counters of the registry, as in JAX.
     """
 
     def __init__(self, table: PageTable, host_rows: torch.Tensor,
-                 hot: torch.Tensor, count: Callable[[str, int], None]):
+                 hot: torch.Tensor):
         self.table = table
         self.device = hot.device
         self.dim = int(host_rows.shape[1])
         self.dtype = host_rows.dtype
         self._host = host_rows
         self._cc = int(hot.shape[0])
-        self._count = count
         self._staging = HostStaging(self.device)
         R = table.page_rows
         self.page_bytes = R * self.dim * host_rows.element_size()
@@ -210,7 +210,8 @@ class PagedStore:
         hit, _ = cache.probe(host_pages)
         fault = host_pages[~hit]
         if fault.size == 0:
-            self._count("feature_page_hits_total", int(host_pages.size))
+            telemetry.counter("feature_page_hits_total").inc(
+                float(host_pages.size))
             return 0
         # the batch's hit pages are read by this very gather: keep them
         protect = cache.slot_of[host_pages[hit]]
@@ -221,13 +222,14 @@ class PagedStore:
             return None
         k = int(fault.size)
         buf = self._copy_pages(fault, slots)
-        self._count("feature_page_faults_total", k)
-        self._count("feature_page_hits_total", int(hit.sum()))
+        telemetry.counter("feature_page_faults_total").inc(float(k))
+        telemetry.counter("feature_page_hits_total").inc(float(hit.sum()))
         # only real pages cross the link: no padding to a shape bucket
-        self._count("feature_h2d_bytes_total", int(buf.numel())
-                    * buf.element_size())
+        telemetry.counter("feature_h2d_bytes_total").inc(
+            float(buf.numel() * buf.element_size()))
         if n_evicted:
-            self._count("feature_page_evictions_total", n_evicted)
+            telemetry.counter("feature_page_evictions_total").inc(
+                float(n_evicted))
         telemetry.gauge("feature_page_resident_bytes").set(
             float(self.table.resident_pages() * self.page_bytes))
         return k
@@ -272,7 +274,7 @@ class PagedStore:
                 # owner's lock around stage() (Feature._plock,
                 # MeshFeature._lock); the guard is real, not lexical here
                 self.fallbacks += 1
-                self._count("feature_page_fallback_total", 1)
+                telemetry.counter("feature_page_fallback_total").inc()
                 return None
             slot = t.cache.slot_of[page[is_host] - t.hot_pages]
             if (slot < 0).any():
@@ -281,8 +283,9 @@ class PagedStore:
         if n_host:
             frame[is_host] = (t.hot_pages + slot).astype(np.int32)
         off = (idx % R).astype(np.int32)
-        self._count("feature_rows_total{tier=hot}", B - n_host)
-        self._count("feature_rows_total{tier=cold}", n_host)
+        telemetry.counter("feature_rows_total", tier="hot").inc(
+            float(B - n_host))
+        telemetry.counter("feature_rows_total", tier="cold").inc(float(n_host))
         return ("pg",) + plan_blocks(frame, off, self.block, self.ppb) + (B,)
 
     def finish(self, staged) -> torch.Tensor:

@@ -66,7 +66,6 @@ from .ops.sample import (SampleOut, key_words_pair, row_cumsum_weights,
                          sample_neighbors_weighted)
 from . import telemetry
 from .recovery.registry import program_cache
-from .telemetry import Counter
 from .utils.device import resolve_device
 from .utils.staging import upload
 from .utils.topology import CSRTopo
@@ -458,7 +457,6 @@ class GraphSageSampler:
                 cw, fill=float(cw[-1]) if len(cw) else None)).to(self.device)
         self.last_drops: Optional[torch.Tensor] = None
         self._drops_recorded = True
-        self.frontier_drops = Counter("sampler_frontier_drops_total")
         # overlay pipeline entries, keyed as JAX keys its executables
         self._programs = program_cache("sampler", owner=self)
         if mode == "GPU":
@@ -633,9 +631,9 @@ class GraphSageSampler:
         """``[L]`` per-hop counts of frontier nodes the caps dropped, as
         numpy: ``batch``'s, or the last :meth:`sample` call's (``None``
         before any).  The second form adds the dropped count to
-        ``sampler_frontier_drops_total{mode}`` in the registry (and to
-        ``frontier_drops``, this sampler's own count) once per ``sample``
-        call; a loader that samples ahead should pass the batch."""
+        ``sampler_frontier_drops_total{mode}`` in the registry once per
+        ``sample`` call; a loader that samples ahead should pass the
+        batch."""
         if batch is not None:
             # quiverlint: ignore[QT001] -- overflow_stats answers numpy by
             # contract; a diagnostic read
@@ -651,7 +649,6 @@ class GraphSageSampler:
         if not recorded:
             total = float(arr.sum())
             if total:
-                self.frontier_drops.inc(total)
                 telemetry.counter("sampler_frontier_drops_total",
                                   mode=self.mode.lower()).inc(total)
         return arr

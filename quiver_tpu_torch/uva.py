@@ -15,16 +15,13 @@ next hop copies that frontier back up.
 Activated by ``GraphSageSampler(..., mode="UVA", uva_budget=...)``.
 Without a budget, or with one that covers every edge, every row is hot.
 
-Counters land in the port's metrics registry under the JAX package's
-names, where JAX ticks them: ``uva_seeds_total{tier=hot|cold}`` and the
-``uva_host_tier_seconds`` histogram.  The object keeps its own copies too
-(``UVAGraph.counters``, ``UVAGraph.host_tier_seconds``), counted since it
-was built.
+Counters land in the port's metrics registry alone, under the JAX
+package's names, where JAX ticks them: ``uva_seeds_total{tier=hot|cold}``
+and the ``uva_host_tier_seconds`` histogram.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Optional, Sequence, Union
 
@@ -34,7 +31,6 @@ import torch
 from .cpp.native import CPUSampler
 from .ops.sample import sample_neighbors
 from . import telemetry
-from .telemetry import Histogram
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo, parse_size
 
@@ -92,22 +88,11 @@ class UVAGraph:
         self.indices_dev = torch.from_numpy(indices_hot).to(self.device)
         # the host tier keeps the full CSR: cold rows are read from it
         self.cpu = CPUSampler(topo.indptr, topo.indices, n_threads=n_threads)
-        self.counters = {"uva_seeds_total{tier=hot}": 0.0,
-                         "uva_seeds_total{tier=cold}": 0.0}
-        self.host_tier_seconds = Histogram("uva_host_tier_seconds")
-        self._lock = threading.Lock()
 
     def stats(self) -> dict:
         return dict(hot_edges=self.hot_edges, cold_edges=self.cold_edges,
                     hot_rows=int(self.is_hot.sum()),
                     hbm_bytes=int(self.hot_edges * 4))
-
-    def _count(self, hot: int, cold: int) -> None:
-        with self._lock:
-            self.counters["uva_seeds_total{tier=hot}"] += float(hot)
-            self.counters["uva_seeds_total{tier=cold}"] += float(cold)
-        telemetry.counter("uva_seeds_total", tier="hot").inc(float(hot))
-        telemetry.counter("uva_seeds_total", tier="cold").inc(float(cold))
 
 
 def sample_uva(uva: UVAGraph, sizes: Sequence[int], input_nodes, key_words,
@@ -145,9 +130,13 @@ def sample_uva(uva: UVAGraph, sizes: Sequence[int], input_nodes, key_words,
             host_dt = time.perf_counter() - t0
             if timings is not None:
                 timings["host_s"] = timings.get("host_s", 0.0) + host_dt
-            uva.host_tier_seconds.observe(host_dt)
             telemetry.histogram("uva_host_tier_seconds").observe(host_dt)
-        uva._count(hot.sum(), len(cold_idx))
+        # per-hop hot/cold seed attribution: how much of the frontier the
+        # device sub-CSR covered
+        telemetry.counter("uva_seeds_total", tier="hot").inc(
+            float(hot.sum()))
+        telemetry.counter("uva_seeds_total", tier="cold").inc(
+            float(len(cold_idx)))
         # the hop's one read-back: the tiers merge on the host
         # quiverlint: ignore[QT001] -- hot/cold merge happens on host: this is
         # the UVA design's one deliberate sync per hop, overlapped with the

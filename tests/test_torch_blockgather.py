@@ -29,6 +29,20 @@ from quiver_tpu_torch.ops import sample as qt_sample
 B, K = 64, 7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def _windows(U, frac):
     """Windows far wider than U rows for a tenth of the seeds under
     ``frac`` 0.25 (JAX's compacted fallback holds them) and for half under

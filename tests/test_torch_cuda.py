@@ -316,6 +316,22 @@ def test_page_gather_refuses_bad_input(card):
         b5.page_gather(frames, *plan, 0, 8)
 
 
+def _registry_counters() -> dict:
+    """The port registry's counters (their one source), switched on."""
+    from quiver_tpu_torch import telemetry
+
+    telemetry.set_enabled(True)
+    return dict(telemetry.snapshot()["counters"])
+
+
+def _registry_counters_added(before: dict) -> dict:
+    from quiver_tpu_torch import telemetry
+
+    now = telemetry.snapshot()["counters"]
+    return {k: v - before.get(k, 0.0) for k, v in now.items()
+            if v != before.get(k, 0.0)}
+
+
 @pytest.mark.parametrize("mode", ["paged", "overflow", "overlay", "staged"])
 def test_budgeted_feature_on_card_returns_source_rows(card, mode):
     """A budgeted feature on the card, over many batches (the pinned
@@ -333,6 +349,7 @@ def test_budgeted_feature_on_card_returns_source_rows(card, mode):
         f.enable_cold_cache(rows=500, admit_threshold=1)
     rng = np.random.default_rng(0)
     before = b5.page_gather.launches
+    counted = _registry_counters()
     for i in range(30):
         # every third batch is small enough for an 8-page pool
         ids = rng.integers(0, 3000, int(rng.integers(1, 4000)) if i % 3
@@ -340,7 +357,7 @@ def test_budgeted_feature_on_card_returns_source_rows(card, mode):
         rows = f[ids if i % 2 else torch.from_numpy(ids).to(card)]
         assert rows.device.type == "cuda"
         assert torch.equal(rows.cpu(), torch.from_numpy(feat[ids]))
-    c = f.stats()["counters"]
+    c = _registry_counters_added(counted)
     assert (b5.page_gather.launches > before) == (mode in ("paged",
                                                            "overflow"))
     if mode == "overflow":
@@ -599,6 +616,7 @@ def test_prefetch_then_read_on_card(card):
     f = qt.Feature(device_cache_size=600 * 100 * 4, csr_topo=topo,
                    device=card).from_cpu_tensor(feat)
     rng = np.random.default_rng(1)
+    counted = _registry_counters()
     try:
         nxt = rng.integers(0, 3000, 5000).astype(np.int32)
         for i in range(20):
@@ -608,7 +626,7 @@ def test_prefetch_then_read_on_card(card):
             rows = f[cur]
             assert torch.equal(rows.cpu(), torch.from_numpy(feat[cur]))
         assert torch.equal(f[nxt].cpu(), torch.from_numpy(feat[nxt]))
-        c = f.stats()["counters"]
+        c = _registry_counters_added(counted)
         assert c["feature_prefetch_total{result=hit}"] == 20
     finally:
         f.close()

@@ -29,6 +29,20 @@ from quiver_tpu_torch.ops.cuda import lane_select as b4
 NEG0 = np.float32(-0.0).view(np.int32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def bits(a) -> np.ndarray:
     """Bit patterns of a 4-byte array (numpy, JAX or torch)."""
     if isinstance(a, torch.Tensor):

@@ -22,6 +22,7 @@ from quiver_tpu.ops.coldcache import ColdRowCache as JaxCache
 from quiver_tpu.utils.topology import CSRTopo as JaxTopo
 
 import quiver_tpu_torch as qt
+from quiver_tpu_torch import telemetry as ptel
 from quiver_tpu_torch import config
 from quiver_tpu_torch.ops.coldcache import ColdRowCache
 from quiver_tpu_torch.utils.staging import HostStaging
@@ -44,9 +45,17 @@ def _jax_telemetry_on():
     a test file run earlier in the same worker may have left it off.
     After each test the JAX registry is emptied and the switch set back to
     its default, so nothing these tests record or switch reaches a later
-    file."""
+    file.
+
+    The port's counters live in the port's registry alone: it is
+    emptied and switched on for each test, and set back after."""
     telemetry.set_enabled(True)
+    on = ptel.enabled()
+    ptel.set_enabled(True)
+    ptel.reset()
     yield
+    ptel.reset()
+    ptel.set_enabled(on)
     telemetry.reset()
     telemetry.set_enabled(_JAX_TELEMETRY_DEFAULT)
 
@@ -58,8 +67,9 @@ def jax_counts() -> dict:
             if k.startswith(COUNTED) and v}
 
 
-def port_counts(f) -> dict:
-    return {k: float(v) for k, v in f.stats()["counters"].items()
+def port_counts() -> dict:
+    """The port's registry's feature counters, without zeros and bytes."""
+    return {k: float(v) for k, v in ptel.snapshot()["counters"].items()
             if k.startswith(COUNTED) and v}
 
 
@@ -208,7 +218,7 @@ def test_budgeted_rows_match_jax(data, hot, order):
         got = pf[ids]
         np.testing.assert_array_equal(got.numpy(), np.asarray(jf[ids]))
         np.testing.assert_array_equal(got.numpy(), feats[ids])
-    assert port_counts(pf) == jax_counts()
+    assert port_counts() == jax_counts()
 
 
 def test_budgeted_bf16_rows_match_jax(data):
@@ -220,7 +230,7 @@ def test_budgeted_bf16_rows_match_jax(data):
         assert got.dtype == torch.bfloat16
         np.testing.assert_array_equal(as_f32(got), as_f32(jf[ids]))
         assert torch.equal(got, src[ids])
-    assert port_counts(pf) == jax_counts()
+    assert port_counts() == jax_counts()
 
 
 def test_budgeted_shapes_and_device_ids(data):
@@ -263,7 +273,7 @@ def test_overlay_state_matches_jax_every_batch(data, hot, policy):
             assert_same_cache(jf.cold_cache, pf.cold_cache)
     stats = pf.stats()["cold_cache"]
     assert stats["hits"] > 0 and stats["evictions"] > 0
-    assert port_counts(pf) == jax_counts()
+    assert port_counts() == jax_counts()
 
 
 def test_overlay_default_size_matches_jax(data):

@@ -20,6 +20,20 @@ N, D = 600, 12
 HOT = 200  # rows [0, 200) are the hot tier
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def meshes(shape=(2, 4)):
     n = shape[0] * shape[1]
     pm = Mesh(np.array([torch.device("cpu")] * n, dtype=object).reshape(

@@ -49,6 +49,20 @@ FIXTURE_CFG = dict(
     bitexact_modules=("psum_seeded/*.py", "psum_clean/*.py", "mod.py"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def _lint(lint, config, root, source, name):
     p = root / name
     p.parent.mkdir(parents=True, exist_ok=True)

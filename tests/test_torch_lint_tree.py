@@ -17,6 +17,20 @@ COPIED = ("QT003", "QT004", "QT005", "QT006", "QT007", "QT008", "QT009",
           "QT010", "QT011", "QT012", "QT014")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def _key(f):
     return (f.rule, f.path, f.line, f.col, f.scope, f.message, f.snippet)
 

@@ -28,6 +28,7 @@ from quiver_tpu.utils.rng import make_key
 from quiver_tpu.utils.topology import CSRTopo as JaxTopo
 
 import quiver_tpu_torch as qt
+from quiver_tpu_torch import telemetry as ptel
 from quiver_tpu_torch.parallel import AsyncNeighborSampler
 
 N, D, HOT, B = 1500, 16, 400, 384
@@ -47,9 +48,17 @@ def _jax_telemetry_on():
     a test file run earlier in the same worker may have left it off.
     After each test the JAX registry is emptied and the switch set back to
     its default, so nothing these tests record or switch reaches a later
-    file."""
+    file.
+
+    The port's counters live in the port's registry alone: it is
+    emptied and switched on for each test, and set back after."""
     telemetry.set_enabled(True)
+    on = ptel.enabled()
+    ptel.set_enabled(True)
+    ptel.reset()
     yield
+    ptel.reset()
+    ptel.set_enabled(on)
     telemetry.reset()
     telemetry.set_enabled(_JAX_TELEMETRY_DEFAULT)
 
@@ -138,7 +147,7 @@ def test_seed_loader_matches_jax(data, prefetch):
     finally:
         pf.close()
     want = _counts(telemetry.snapshot()["counters"])
-    assert want == _counts(pf.stats()["counters"])
+    assert want == _counts(ptel.snapshot()["counters"])
     # batches 1 and 2 of each epoch were prefetched one batch ahead
     assert want["feature_prefetch_total{result=hit}"] == 4
 
@@ -158,7 +167,7 @@ def test_prefetch_then_read_keeps_rows(data):
             f.prefetch(nxt)
             assert torch.equal(f[cur], torch.from_numpy(feat[cur]))
             assert torch.equal(f[nxt.numpy()], torch.from_numpy(feat[nxt]))
-        c = f.stats()["counters"]
+        c = ptel.snapshot()["counters"]
         assert c["feature_prefetch_total{result=hit}"] == 4
         assert c["feature_prefetch_total{result=miss}"] == 4
         with pytest.raises(ValueError):

@@ -25,6 +25,20 @@ from quiver_tpu_torch.neighbour_num import expected_counts
 N = 900
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 @pytest.fixture(scope="module")
 def topos():
     indptr, indices = qt.synthetic_csr(N, 11_000, seed=14)

@@ -31,6 +31,20 @@ from quiver_tpu_torch.ops.cuda import window_sample as b1
 HOP_FIELDS = ("nbrs", "mask", "counts", "eid")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def _skewed_csr(seed=0, n=2000):
     """Degrees from 0 to far above any fanout, plus one very long row so
     the fp32 stratum bounds run at large degree."""

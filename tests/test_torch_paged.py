@@ -22,6 +22,7 @@ from quiver_tpu.ops import paged as jax_paged
 from quiver_tpu.ops.pallas.page_gather_kernel import page_gather as jax_pg
 
 import quiver_tpu_torch as qt
+from quiver_tpu_torch import telemetry as ptel
 from quiver_tpu_torch import config
 from quiver_tpu_torch.ops import paged
 from quiver_tpu_torch.ops.cuda import page_gather as b5
@@ -44,9 +45,17 @@ def _jax_telemetry_on():
     a test file run earlier in the same worker may have left it off.
     After each test the JAX registry is emptied and the switch set back to
     its default, so nothing these tests record or switch reaches a later
-    file."""
+    file.
+
+    The port's counters live in the port's registry alone: it is
+    emptied and switched on for each test, and set back after."""
     telemetry.set_enabled(True)
+    on = ptel.enabled()
+    ptel.set_enabled(True)
+    ptel.reset()
     yield
+    ptel.reset()
+    ptel.set_enabled(on)
     telemetry.reset()
     telemetry.set_enabled(_JAX_TELEMETRY_DEFAULT)
 
@@ -56,8 +65,9 @@ def jax_counts() -> dict:
             if k.startswith(COUNTED) and v}
 
 
-def port_counts(f) -> dict:
-    return {k: float(v) for k, v in f.stats()["counters"].items()
+def port_counts() -> dict:
+    """The port's registry's feature counters, without zeros and bytes."""
+    return {k: float(v) for k, v in ptel.snapshot()["counters"].items()
             if k.startswith(COUNTED) and v}
 
 
@@ -217,8 +227,8 @@ def test_plans_frames_and_counts_match_jax(policy):
     assert planned >= 10
     st = pf.paged.stats()
     assert st["cache"] == jf.paged.stats()["cache"]
-    assert port_counts(pf) == jax_counts()
-    assert port_counts(pf)["feature_page_evictions_total"] > 0
+    assert port_counts() == jax_counts()
+    assert port_counts()["feature_page_evictions_total"] > 0
 
 
 def test_vectorized_planner_equals_block_loop():
@@ -299,9 +309,9 @@ def test_paged_rows_every_residency_mix():
     assert f.paged.table.cache.resident == 0
     ids = rng.integers(HOT, HOT + 16 * R, 64)
     np.testing.assert_array_equal(f[ids].numpy(), feats[ids])
-    faults = f.stats()["counters"]["feature_page_faults_total"]
+    faults = ptel.snapshot()["counters"]["feature_page_faults_total"]
     np.testing.assert_array_equal(f[ids].numpy(), feats[ids])
-    c = f.stats()["counters"]
+    c = ptel.snapshot()["counters"]
     assert c["feature_page_faults_total"] == faults
     assert c["feature_page_hits_total"] > 0
     wide = HOT + rng.choice(N - HOT, 96, replace=False)
@@ -347,7 +357,7 @@ def test_pool_overflow_falls_back(overlay):
     ids = HOT + np.random.default_rng(2).choice(N - HOT, 96, replace=False)
     for _ in range(2):
         np.testing.assert_array_equal(f[ids].numpy(), feats[ids])
-    c = f.stats()["counters"]
+    c = ptel.snapshot()["counters"]
     assert c["feature_page_fallback_total"] == 2 == f.paged.fallbacks
     assert (c.get("feature_coldcache_rows_total{result=hit}", 0) > 0) \
         == overlay

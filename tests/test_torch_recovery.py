@@ -588,13 +588,14 @@ class TestColdcacheState:
         else:
             fresh, got = f._overlay, f2._overlay
         assert torch.equal(got, fresh)  # bitwise the gathered values
-        before = (f2.stats()["counters"].get(
+        before = (ptel.snapshot()["counters"].get(
             "feature_page_faults_total", 0) if paged
             else f2.cold_cache.hits)
         out = f2[hot_ids]
         assert torch.equal(out, torch.from_numpy(feats[hot_ids]))
-        after = (f2.stats()["counters"].get("feature_page_faults_total", 0)
-                 if paged else f2.cold_cache.hits)
+        after = (ptel.snapshot()["counters"].get(
+            "feature_page_faults_total", 0) if paged
+            else f2.cold_cache.hits)
         assert after == before if paged else after > before
 
     def test_overlay_state_and_checkpoint_bytes_match_jax(self, tmp_path):

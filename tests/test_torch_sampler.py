@@ -24,6 +24,20 @@ import quiver_tpu_torch as qt
 N_NODES = 2000
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def hop_words(key, n_hops):
     """The ``[L, 2]`` uint32 words the JAX pipeline derives from ``key``."""
     return np.array([[int(np.asarray(w)) for w in _fold_key_words(k)]

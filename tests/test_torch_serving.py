@@ -24,9 +24,42 @@ from quiver_tpu.utils.rng import make_key
 from quiver_tpu.utils.topology import CSRTopo as JaxTopo
 
 import quiver_tpu_torch as qt
+from quiver_tpu_torch import telemetry as ptel
 
 N_NODES, DIM, HIDDEN, OUT = 1500, 10, 16, 5
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
+def _port_counters_added(before: dict) -> dict:
+    """The counters the port's registry, their one source, gained since
+    ``before`` (a snapshot's ``counters``)."""
+    now = ptel.snapshot()["counters"]
+    return {k: v - before.get(k, 0.0) for k, v in now.items()
+            if v != before.get(k, 0.0)}
+
+
+@pytest.fixture
+def port_telemetry_on():
+    """The port's registry switched on for a test that reads its
+    counters, and the switch set back after."""
+    on = ptel.enabled()
+    ptel.set_enabled(True)
+    yield
+    ptel.set_enabled(on)
 
 
 def hop_words(key, n_hops):
@@ -255,7 +288,7 @@ def _budgeted(world, paged_pool=None):
 
 @pytest.mark.parametrize("pool", [None, 10_000, 4],
                          ids=["overlay", "paged", "paged-overflow"])
-def test_unfused_lane_matches_jax(world, pool):
+def test_unfused_lane_matches_jax(world, pool, port_telemetry_on):
     """A budgeted feature takes the unfused lane; for the same key words
     its frontier and gathered rows equal JAX's sampler and
     ``Feature.__getitem__`` bitwise, and its logits JAX's ``apply``."""
@@ -265,6 +298,7 @@ def test_unfused_lane_matches_jax(world, pool):
                        csr_topo=JaxTopo(indptr=jtopo.indptr,
                                         indices=jtopo.indices)
                        ).from_cpu_tensor(world["feat"])
+    before = ptel.snapshot()["counters"]
     pfeat = _budgeted(world, pool)
     server = qt.InferenceServer(world["psampler"], pfeat, port, None)
     assert not server._fused and pfeat.cold_cache is not None
@@ -282,7 +316,7 @@ def test_unfused_lane_matches_jax(world, pool):
         np.testing.assert_array_equal(jx, world["feat"][np.asarray(jb.n_id)])
         got = server.unfused_forward(padded, kw).numpy()
         np.testing.assert_allclose(got, want, **TOL)
-    c = pfeat.stats()["counters"]
+    c = _port_counters_added(before)
     if pool == 10_000:
         assert c["feature_page_faults_total"] > 0
         assert "feature_page_fallback_total" not in c
@@ -291,7 +325,8 @@ def test_unfused_lane_matches_jax(world, pool):
     assert c["feature_rows_total{tier=cold}"] > 0
 
 
-def test_unfused_server_answers_equal_direct_forward(world):
+def test_unfused_server_answers_equal_direct_forward(world,
+                                                      port_telemetry_on):
     """The lane end to end over a paged budgeted feature: every answer
     equals the unfused forward of its pass's recorded padded ids and key
     words, and the stage split has the JAX keys."""
@@ -299,6 +334,7 @@ def test_unfused_server_answers_equal_direct_forward(world):
     streams = [queue.Queue() for _ in range(2)]
     results = queue.Queue()
     rb = qt.RequestBatcher(streams, mode="Device", result_queue=results)
+    before = ptel.snapshot()["counters"]
     feat = _budgeted(world, 10_000)
     server = qt.InferenceServer_Debug(world["psampler"], feat, port,
                                       rb.device_batched_queue,
@@ -329,7 +365,7 @@ def test_unfused_server_answers_equal_direct_forward(world):
     st = server.stats()
     assert set(st["stage_breakdown_ms"]) == {"sample", "gather", "infer",
                                              "queue_wait"}
-    assert feat.stats()["counters"]["feature_page_faults_total"] > 0
+    assert _port_counters_added(before)["feature_page_faults_total"] > 0
 
 
 def test_lane_choice_and_overlay_veto(world):

@@ -24,6 +24,7 @@ from quiver_tpu.utils.topology import CSRTopo as JaxTopo
 from quiver_tpu.uva import UVAGraph as JaxUVAGraph
 
 import quiver_tpu_torch as qt
+from quiver_tpu_torch import telemetry as ptel
 
 N = 600  # n + 1 = 601: the last 89 ids lie past a 128 boundary
 SIZES = [4, 3]
@@ -35,10 +36,16 @@ _JAX_TELEMETRY_DEFAULT = telemetry.enabled()
 def _jax_telemetry_on():
     """The JAX counters compared here need JAX telemetry on; a file run
     earlier on the same worker may have left it off.  The registry is
-    emptied and the switch restored after each test."""
+    emptied and the switch restored after each test; the port's registry,
+    the one source of the port's counters, likewise."""
     telemetry.set_enabled(True)
     telemetry.reset()
+    on = ptel.enabled()
+    ptel.set_enabled(True)
+    ptel.reset()
     yield
+    ptel.reset()
+    ptel.set_enabled(on)
     telemetry.reset()
     telemetry.set_enabled(_JAX_TELEMETRY_DEFAULT)
 
@@ -127,11 +134,15 @@ def test_uva_sample_matches_jax(graph, which):
     if budget is not None:
         want = {k: v for k, v in telemetry.snapshot()["counters"].items()
                 if k.startswith("uva_seeds_total")}
-        got = ps._uva.counters
-        assert got == {k: want.get(k, 0.0) for k in got}
+        got = {k: v for k, v in ptel.snapshot()["counters"].items()
+               if k.startswith("uva_seeds_total")}
+        # two port samplers (overlap on and off) drew what JAX's one did
+        assert got == {k: 2 * want.get(k, 0.0) for k in got}
         assert got["uva_seeds_total{tier=cold}"] > 0
         assert timings["host_s"] > 0
-        assert ps._uva.host_tier_seconds.count == 3 * len(SIZES)
+        # both UVA samplers (overlap on and off) time their host tier
+        assert sum(ptel.snapshot()["histograms"]["uva_host_tier_seconds"][
+            "counts"]) == 2 * 3 * len(SIZES)
 
 
 def test_uva_draws_its_own_words_reproducibly(graph):

@@ -27,6 +27,20 @@ from quiver_tpu_torch.ops.cuda import window_sample as b1
 N_NODES = 255  # indptr holds 256 words: no padding after the last node
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_registry_left_empty():
+    """The JAX code this file runs sets gauges and counters in the JAX
+    package's registry: empty it when the file ends and set JAX's
+    telemetry switch back, so nothing reaches a later file on this
+    worker."""
+    from quiver_tpu import telemetry as jax_telemetry
+
+    on = jax_telemetry.enabled()
+    yield
+    jax_telemetry.reset()
+    jax_telemetry.set_enabled(on)
+
+
 def _graph():
     """Degrees 0, at most and above every fanout (up to 700); the edge
     count is a multiple of 128, so the last node's window ends at the
