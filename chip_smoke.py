@@ -4,12 +4,12 @@
 three replica processes, then under the sanitizer),
 ogbn-products-size training of GraphSAGE, GAT and GCN with exact
 inference, UVA and mixed sampling at products size, R-GAT at OGB-LSC
-MAG240M widths, and the nine user entry points (``quiver_tpu_torch.
-examples``).
+MAG240M widths, the nine user entry points (``quiver_tpu_torch.
+examples``), and JAX's threefry draws (``sample_rng="key"``).
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``quiver_tpu_torch/csrc`` (at
+Builds the port's six CUDA kernels from ``quiver_tpu_torch/csrc`` (at
 first use, with nvcc, one process per source, all at once), then:
 
 1. prints the card's name and power limit and the torch/CUDA versions;
@@ -288,11 +288,27 @@ first use, with nvcc, one process per source, all at once), then:
    unsup's intra-community similarity is above the inter), and launch its
    kernels; each run's wall seconds, launches by kernel, step or epoch
    times and serving p50/p99 are printed;
+4n. keyed phase (slice 17, ``--phases keyed``): the threefry kernel
+   (``csrc/threefry_uniform.cu``, JAX's ``jax.random.uniform``) bitwise
+   against its plain version on the card at KEYED_SHAPES (float bits
+   compared), timed against its bound (the integer operations at the
+   int32 issue rate: THREEFRY_INT_OPS, INT32_OPS_PER_S); after the
+   bf16/mmap phase, the 64-request plan served by a sampler under
+   ``sample_rng="key"`` (the auto gather mode is then ``"blocked"``: B3
+   twice a hop, one threefry launch a hop, B2 once a pass), every served
+   batch's ``n_id`` and masks bitwise the ``"xla"`` sampler's on the
+   card; ``key=rng.key(s)`` under each RNG on the card against the CPU
+   path the tests hold against JAX (no threefry launch under the hash);
+   a keyed hop against a hash hop; then, at products size after the
+   data-parallel phase, KEYED_STEPS fused steps under ``"key"`` and
+   ``gather_mode="pallas"``, each from ``key=rng.key(i)``, finite losses
+   and every batch bitwise ``"xla"``'s;
 15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --phases examples
     python3 chip_smoke.py --phases kernel,serving
+    python3 chip_smoke.py --phases keyed
 
 ``--phases`` runs only the named phases (PHASES), with the shared setup
 and the earlier phases whose results they need (PHASE_NEEDS); the
@@ -4199,7 +4215,8 @@ def sharding_phase(torch, qt, topo, feat, feature, b1, b2, b3):
     ip, ix = topo.to_device(DEV)
 
     def single_hop(f, k, w):
-        return run_hop(ip, ix, f, k, int(w[0]), int(w[1]), None, "pwindow")
+        return run_hop(ip, ix, f, k, int(w[0]), int(w[1]), None, "pwindow",
+                       "hash")
 
     ref_times = dict(hop=[], gather=[])
     with torch.inference_mode():
@@ -6187,6 +6204,278 @@ def examples_phase(torch, qt, counters) -> dict:
     return dict(runs=runs, wall_s=sum(r["wall_s"] for r in runs))
 
 
+# phase 4n: JAX's threefry key chain and sample_rng="key"
+KEYED_SHAPES = ((2048, 25), (53_248, 10), (1024, 15), (16_384, 10),
+                (180_224, 5), (15_360, 10), (153_600, 5), (12_345,))
+KEYED_PASS = ((2048, 25), (53_248, 10))  # the Reddit bucket-2048 pass's hops
+KEYED_STEPS = 10
+# the kernel's integer operations an element: 2 counter injections, 20
+# rounds of add, funnel-shift rotate and xor, 5 key injections of 2 adds,
+# then xor, shift and or (csrc/threefry_uniform.cu)
+THREEFRY_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
+# of which the rotates, the round xors and the final xor, shift and or
+# must issue on the int32 (ALU) pipe; the adds may also issue as IMAD on
+# the fp32 (FMA) pipe
+THREEFRY_ALU_OPS = 20 * 2 + 3
+# the card's int32 issue rate: 67 TFLOP/s of fp32 (an FMA is 2 flops) over
+# 128 fp32 lanes an SM, with 64 int32 lanes an SM (Hopper white paper)
+FP32_LANE_OPS_PER_S = 67e12 / 2
+INT32_OPS_PER_S = FP32_LANE_OPS_PER_S * 64 / 128
+
+
+def threefry_bound(n: int):
+    """The least time (ms) the card could take for ``n`` threefry uniforms,
+    and what bounds it: the output's bytes at HBM_BYTES_PER_S or the
+    integer operations at INT32_OPS_PER_S."""
+    by_bytes = n * 4 / HBM_BYTES_PER_S * 1e3
+    by_ops = n * THREEFRY_INT_OPS / INT32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def threefry_split_pipe_bound(n: int) -> float:
+    """A lower floor (ms) than :func:`threefry_bound`'s: the adds issue on
+    the fp32 pipe as IMAD, so the ALU-pipe operations at INT32_OPS_PER_S
+    and all operations at both pipes' lanes (FP32_LANE_OPS_PER_S) bound
+    the time, whichever is larger, with the output's bytes."""
+    return max(n * 4 / HBM_BYTES_PER_S,
+               n * THREEFRY_ALU_OPS / INT32_OPS_PER_S,
+               n * THREEFRY_INT_OPS / FP32_LANE_OPS_PER_S) * 1e3
+
+
+def threefry_cases(torch, qt, tf) -> list:
+    """The threefry kernel against its plain version on the card at
+    KEYED_SHAPES, bit for bit (float bits compared as int32), and timed:
+    kernel, plain version, bound.  No PyTorch call computes JAX's bits
+    (``torch.rand`` draws other numbers), so there is no library time."""
+    from quiver_tpu_torch.utils import rng
+
+    dev = torch.device(DEV)
+    cases = []
+    for i, shape in enumerate(KEYED_SHAPES):
+        key = rng.split(rng.key(SEED + 40 + i), 2)[1]
+        got = tf.threefry_uniform(key, shape, dev)
+        want = tf.threefry_uniform_plain(key, shape, dev)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(same, f"threefry kernel differs from its plain version at "
+              f"{shape} (max abs err {err})")
+        check(bool(((got >= 0) & (got < 1)).all()),
+              f"threefry uniforms outside [0, 1) at {shape}")
+        n = got.numel()
+        bound, by = threefry_bound(n)
+        cases.append(dict(
+            shape=list(shape), elements=n, bitwise=same, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: tf.threefry_uniform(key, shape, dev)),
+            plain_ms=cuda_ms(torch, lambda: tf.threefry_uniform_plain(
+                key, shape, dev), reps=5, warm=1),
+            host_ms=host_ms(torch, lambda: tf.threefry_uniform(key, shape,
+                                                               dev)),
+            bound_ms=bound, bound_by=by,
+            split_pipe_bound_ms=threefry_split_pipe_bound(n)))
+    print("threefry kernel against its plain version (bitwise; ms) "
+          + json.dumps(cases), flush=True)
+    return cases
+
+
+def threefry_record(tf, cases) -> dict:
+    """The threefry kernel's entry in the kernels line: the Reddit pass's
+    two hops (KEYED_PASS) summed, as B1's record sums its hops."""
+    main = [c for c in cases if tuple(c["shape"]) in KEYED_PASS]
+
+    def total(key):
+        return float(sum(c[key] for c in main))
+
+    return dict(name="threefry_uniform", route="cuda", source=tf.SOURCE,
+                replaces=tf.REPLACES,
+                replaces_note="no TPU kernel: XLA's jax.random.uniform",
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=total("ms"), plain_ms=total("plain_ms"),
+                bound_ms=total("bound_ms"), bound_by="operations",
+                split_pipe_bound_ms=total("split_pipe_bound_ms"),
+                library_ms=None, host_ms=total("host_ms"), cases=cases)
+
+
+def same_pipeline(torch, got, want, what: str) -> None:
+    """Two ``run_pipeline`` results: frontier, its mask and every block's
+    local ids and mask bitwise equal."""
+    check(torch.equal(got[0], want[0]), f"{what}: n_id differs")
+    check(torch.equal(got[1], want[1]), f"{what}: n_id mask differs")
+    for a, b in zip(got[3], want[3]):
+        check(torch.equal(a.nbr_local, b.nbr_local)
+              and torch.equal(a.mask, b.mask), f"{what}: a block differs")
+
+
+def keyed_hop_times(torch, qt, topo, tf) -> dict:
+    """One Reddit hop (2048 seeds, k=25) under ``"blocked"`` with each RNG
+    (the same reads, B3; the key adds one threefry launch) and the hash
+    hop under ``"pwindow"`` (B1, the default), device ms and the host's
+    ms to return from the call (its launches); then the whole bucket-2048
+    pipeline under each, both ways."""
+    from quiver_tpu_torch.ops.sample import run_hop
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    g = np.random.default_rng(SEED + 44)
+    seeds = torch.from_numpy(g.integers(0, N_NODES, 2048).astype(
+        np.int32)).to(dev)
+    k0, k1 = (int(w) for w in g.integers(0, 2**32, 2, dtype=np.uint32))
+    kw = g.integers(0, 2**32, (len(FANOUTS), 2), dtype=np.uint32)
+    out = {}
+    for label, mode, srng in (("key blocked", "blocked", "key"),
+                              ("hash blocked", "blocked", "hash"),
+                              ("hash pwindow", "pwindow", "hash")):
+        def hop():
+            return run_hop(ip, ix, seeds, FANOUTS[0], k0, k1, None, mode,
+                           srng)
+
+        def one_pass():
+            return run_pipeline("none", ip, ix, seeds, kw, FANOUTS,
+                                gather_mode=mode, sample_rng=srng)
+
+        out[label] = dict(hop_ms=cuda_ms(torch, hop),
+                          hop_host_ms=host_ms(torch, hop),
+                          pass_ms=cuda_ms(torch, one_pass),
+                          pass_host_ms=host_ms(torch, one_pass))
+    print("a keyed hop against a hash hop (device ms and host ms to "
+          "return, median of 15) "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def keyed_serving_phase(torch, qt, topo, feat, feature, b2, b3, tf):
+    """Phase 4n on the Reddit graph: the 64-request plan served by a
+    sampler under ``sample_rng="key"`` (the auto gather mode, which is
+    then ``"blocked"``: B3 twice a hop; one threefry launch a hop; B2 once
+    a pass), every served batch's ``n_id`` and masks bitwise the same
+    sampler's under ``"xla"`` on the card; then ``key=rng.key(s)`` under
+    each RNG on the card against the CPU path the tests hold against JAX
+    (no threefry launch under the hash); and the hop times."""
+    from quiver_tpu_torch.utils import rng
+
+    sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED,
+                                  sample_rng="key")
+    check((sampler.gather_mode, sampler.sample_rng) == ("blocked", "key"),
+          f"keyed sampler resolved to {sampler!r}")
+    counters = {"threefry_uniform": tf.threefry_uniform,
+                "element_gather": b3.element_gather,
+                "gather_rows": b2.gather_rows}
+    server, answers, sent, launches, _, summary = serve(
+        torch, qt, sampler, feature, seeded_model(torch, qt), counters)
+    chunks = [c for _, cs in server.pass_log for c in cs]
+    n_hops = len(FANOUTS)
+    for name, per in (("threefry_uniform", n_hops),
+                      ("element_gather", 2 * n_hops), ("gather_rows", 1)):
+        check(launches[name] == per * len(chunks),
+              f"keyed serving: {name} launched {launches[name]} times in "
+              f"{len(chunks)} passes, not {per} a pass")
+    xla = qt.GraphSageSampler(topo, FANOUTS, device=DEV, gather_mode="xla",
+                              sample_rng="key")
+    with torch.inference_mode():
+        for i, (padded, kw) in enumerate(chunks):
+            seeds = sampler.seed_tensor(padded)
+            same_pipeline(torch, sampler.pipeline(seeds, kw),
+                          xla.pipeline(seeds, kw), f"keyed pass {i}")
+    print(f"keyed serving: {len(chunks)} served batches bitwise the "
+          "\"xla\" sampler's under the same key", flush=True)
+
+    # from a seed alone, on the card and on the CPU
+    ids = np.random.default_rng(SEED + 45).integers(0, N_NODES, 2048)
+    seed_checks = {}
+    for srng in ("hash", "key"):
+        card_s = qt.GraphSageSampler(topo, FANOUTS, device=DEV,
+                                     sample_rng=srng)
+        cpu_s = qt.GraphSageSampler(topo, FANOUTS, device="cpu",
+                                    sample_rng=srng)
+        before = tf.threefry_uniform.launches
+        with torch.inference_mode():
+            got = card_s.sample(ids, key=rng.key(SEED + 46))
+            torch.cuda.synchronize()
+            ran = tf.threefry_uniform.launches - before
+            want = cpu_s.sample(ids, key=rng.key(SEED + 46))
+        check(ran == (n_hops if srng == "key" else 0),
+              f"{srng}: {ran} threefry launches in one {n_hops}-hop sample")
+        check(torch.equal(got.n_id.cpu(), want.n_id)
+              and torch.equal(got.n_id_mask.cpu(), want.n_id_mask),
+              f"{srng}: the card's n_id from key= differs from the CPU's")
+        seed_checks[srng] = dict(gather_mode=card_s.gather_mode,
+                                 threefry_launches=ran,
+                                 frontier=int(got.n_id.shape[0]))
+    print("key=rng.key(s) on the card against the CPU path: n_id equal "
+          + json.dumps(seed_checks), flush=True)
+    summary.update(launches=launches, served_batches=len(chunks),
+                   from_a_seed=seed_checks,
+                   hop_times=keyed_hop_times(torch, qt, topo, tf))
+    return launches, summary
+
+
+def keyed_training_phase(torch, qt, topo, feat, labels, train, b2, b3, tf):
+    """Phase 4n at products size: KEYED_STEPS fused steps under
+    ``sample_rng="key"``, ``gather_mode="pallas"`` (B3 twice a hop, one
+    threefry launch a hop, B2 once a step), each from ``key=rng.key(i)``;
+    finite losses, and each step's batch bitwise the ``"xla"`` sampler's
+    under the same key."""
+    from quiver_tpu_torch.utils import rng
+
+    t0 = time.perf_counter()
+    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                         device=DEV).from_cpu_tensor(feat)
+    labels_d = torch.from_numpy(labels).to(DEV)
+    sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
+                                  gather_mode="pallas", sample_rng="key")
+    xla = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, gather_mode="xla",
+                              sample_rng="key")
+    model = products_model(torch, qt)
+    opt = torch.optim.Adam(model.parameters(), lr=P_LR)
+    step = qt.make_fused_train_step(sampler, feature, model, opt, seed=SEED)
+    ones = torch.ones((P_BATCH,), dtype=torch.bool, device=DEV)
+    torch.cuda.synchronize()
+    print(f"keyed fused lane: {sampler!r}; set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    counters = {"threefry_uniform": tf.threefry_uniform,
+                "element_gather": b3.element_gather,
+                "gather_rows": b2.gather_rows}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, wall, steps = [], [], []
+    for i, (seeds, lab) in enumerate(batches(torch, train, labels_d,
+                                             KEYED_STEPS, SEED + 47,
+                                             P_BATCH)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(seeds, lab, ones, key=rng.key(SEED + 100 + i)))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+        steps.append(seeds)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_hops = len(P_FANOUTS)
+    for name, per in (("threefry_uniform", n_hops),
+                      ("element_gather", 2 * n_hops), ("gather_rows", 1)):
+        check(launches[name] == per * KEYED_STEPS,
+              f"keyed training: {name} launched {launches[name]} times in "
+              f"{KEYED_STEPS} steps, not {per} a step")
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(losses).all(), "a keyed step's loss is not finite")
+    # each step's batch again, from the same key, through "xla"
+    with torch.inference_mode():
+        for i, seeds in enumerate(steps):
+            words = sampler.words_of_key(rng.split(rng.key(
+                SEED + 100 + i))[0])
+            same_pipeline(torch, sampler.pipeline(seeds, words, False),
+                          xla.pipeline(seeds, words, False),
+                          f"keyed step {i}")
+    summary = dict(steps=KEYED_STEPS, gather_mode=sampler.gather_mode,
+                   sample_rng=sampler.sample_rng, launches=launches,
+                   losses=losses.tolist(),
+                   step_wall_ms=float(np.median(wall[2:])))
+    print("keyed fused training " + json.dumps(summary), flush=True)
+    del feature
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 # the phases, in the order a whole run takes them; ``--phases`` names some
 PHASES = (
     "kernel",         # 3: B1 and B2 against their plain versions (Reddit)
@@ -6207,6 +6496,7 @@ PHASES = (
     "fleet",          # 4j: three replica processes
     "sanitize",       # 4k: serving under QUIVER_SANITIZE=1
     "lint",           # 4l: the lint against 4k's transfers
+    "keyed",          # 4n: threefry keys, sample_rng="key" (Reddit, products)
     "examples",       # 4m: the nine user entry points
 )
 # what a phase needs from an earlier one (its results, not only the data)
@@ -6215,8 +6505,8 @@ PHASE_NEEDS = {"bf16_mmap": ("serving",), "full_graph": ("products",),
 # phases on the Reddit graph and table, and on the products data
 REDDIT_PHASES = {"kernel", "serving", "weighted", "host_sampler", "hybrid",
                  "resilient", "streaming", "sharding", "bf16_mmap",
-                 "budgeted", "fleet", "sanitize"}
-PRODUCTS_PHASES = {"products", "dp", "full_graph", "products_host"}
+                 "budgeted", "fleet", "sanitize", "keyed"}
+PRODUCTS_PHASES = {"products", "dp", "full_graph", "products_host", "keyed"}
 
 
 def select_phases(argv) -> list:
@@ -6264,6 +6554,7 @@ def main(argv=None) -> int:
     from quiver_tpu_torch.ops.cuda import gather_rows as b2
     from quiver_tpu_torch.ops.cuda import lane_select as b4
     from quiver_tpu_torch.ops.cuda import page_gather as b5
+    from quiver_tpu_torch.ops.cuda import threefry as tf
     from quiver_tpu_torch.ops.cuda import window_sample as b1
     from quiver_tpu_torch.sampler import run_pipeline
 
@@ -6391,6 +6682,23 @@ def main(argv=None) -> int:
         kr("gather_rows")["launches_mmap_staged"] = slice12["mmap"][
             "staged"]["gather_rows"]
         phase_s["bf16_and_mmap"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+    # slice 17: the threefry kernel, then Reddit served under the key
+    keyed = {}
+    if "keyed" in want:
+        t0 = time.perf_counter()
+        tf_cases = threefry_cases(torch, qt, tf)
+        launches_k, keyed["serving"] = keyed_serving_phase(
+            torch, qt, topo, feat, feature, b2, b3, tf)
+        recs["threefry_uniform"] = dict(
+            threefry_record(tf, tf_cases),
+            launches=launches_k["threefry_uniform"])
+        kr("element_gather")["launches_keyed_serving"] = \
+            launches_k["element_gather"]
+        kr("gather_rows")["launches_keyed_serving"] = \
+            launches_k["gather_rows"]
+        phase_s["keyed_serving"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
 
     # slice 2: every feature below compares with the source table by its
@@ -6528,6 +6836,20 @@ def main(argv=None) -> int:
             launches_dp["window_sample"]
         kr("gather_rows")["launches_dp_training"] = \
             launches_dp["gather_rows"]
+    if "keyed" in want:
+        t0 = time.perf_counter()
+        launches_kt, keyed["training"] = keyed_training_phase(
+            torch, qt, ptopo, pfeat, plabels, ptrain, b2, b3, tf)
+        kr("threefry_uniform")["launches_keyed_training"] = \
+            launches_kt["threefry_uniform"]
+        kr("element_gather")["launches_keyed_training"] = \
+            launches_kt["element_gather"]
+        kr("gather_rows")["launches_keyed_training"] = \
+            launches_kt["gather_rows"]
+        phase_s["keyed_training"] = time.perf_counter() - t0
+        keyed["phase_s"] = {k: phase_s[k] for k in (
+            "keyed_serving", "keyed_training")}
+        print("slice 17 summary " + json.dumps(keyed), flush=True)
     if "products" in want:
         print("fused training summary " + json.dumps(summary_f), flush=True)
         print("fused training summary, gather_mode=\"auto\" "
@@ -6637,7 +6959,8 @@ def main(argv=None) -> int:
             "gather_rows": b2.gather_rows,
             "element_gather": b3.element_gather,
             "lane_select": b4.lane_select,
-            "page_gather": b5.page_gather})
+            "page_gather": b5.page_gather,
+            "threefry_uniform": tf.threefry_uniform})
         examples["phase_s"] = time.perf_counter() - t0
         for name in KERNELS:
             by = {}

@@ -30,7 +30,8 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional, Tuple
 
 __all__ = ["Config", "get_config", "override", "resolve_dedup",
-           "resolve_gather_mode", "resolve_sample_rng"]
+           "resolve_gather_mode", "resolve_sample_rng",
+           "resolve_sampling"]
 
 # element-gather modes of the sampler's hops, besides "pwindow[:U]"
 _GATHER_MODES = ("auto", "xla", "lanes", "lanes_fused", "pallas")
@@ -353,23 +354,52 @@ def _validate_gather_mode(mode) -> None:
         f"'blocked[:U]', got {mode!r}")
 
 
-def resolve_gather_mode(gather_mode: str) -> str:
+def resolve_gather_mode(gather_mode: str,
+                        sample_rng: Optional[str] = None) -> str:
     """The element-gather mode a sampler runs.
 
     An explicit mode wins, then ``QUIVER_TPU_GATHER_MODE``; ``"auto"``
     resolves to ``"pwindow"``, the fused hop of kernel B1.  (JAX resolves
     it to ``"lanes"`` on an accelerator, a choice made against the TPU's
     serialized scalar gather, which the card does not have.)  Every mode
-    draws the same neighbours under the counter-hash RNG; ``pwindow``'s
-    ``U`` sizes a TPU VMEM window and ``blocked``'s a block of TPU rows;
-    both are accepted but unused (``ops/blockgather.py``).
-    """
+    draws the same neighbours under either RNG; ``pwindow``'s ``U`` sizes
+    a TPU VMEM window and ``blocked``'s a block of TPU rows; both are
+    accepted but unused (``ops/blockgather.py``).
+
+    ``sample_rng`` is the caller's raw argument, as in JAX
+    (``quiver_tpu/config.py:582-604``): B1 fuses the counter hash, so an
+    ``"auto"`` that lands on ``"pwindow"`` becomes ``"blocked"`` (its
+    key-capable counterpart, the same draws through B3) when the RNG is
+    ``"key"``: an explicit ``"key"`` over a ``"pwindow"`` pin, as in JAX,
+    and an explicit or pinned ``"key"`` over the port's default.  An
+    explicit ``"pwindow"`` is never rewritten: with ``"key"`` it raises at
+    the op."""
     _validate_gather_mode(gather_mode)
     if gather_mode != "auto":
         return gather_mode
-    cfg = get_config().gather_mode
-    _validate_gather_mode(cfg)
-    return "pwindow" if cfg == "auto" else cfg
+    cfg = get_config()
+    _validate_gather_mode(cfg.gather_mode)
+    if cfg.gather_mode != "auto":
+        keyed, resolved = sample_rng == "key", cfg.gather_mode
+    else:
+        rng = sample_rng if sample_rng not in (None, "auto") \
+            else cfg.sample_rng
+        keyed, resolved = rng == "key", "pwindow"
+    if keyed and resolved.startswith("pwindow"):
+        return "blocked" + resolved[len("pwindow"):]
+    return resolved
+
+
+def resolve_sampling(gather_mode: str,
+                     sample_rng: str) -> Tuple[str, str]:
+    """The gather mode and the RNG a sampler runs, from the caller's raw
+    arguments, in JAX's order (``quiver_tpu/config.py:582-604``): the
+    mode first, since a ``"key"`` RNG turns the default ``"pwindow"``
+    into ``"blocked"`` (:func:`resolve_gather_mode`), then the RNG under
+    the resolved mode (:func:`resolve_sample_rng`).  Every sampling entry
+    resolves through here."""
+    gm = resolve_gather_mode(gather_mode, sample_rng)
+    return gm, resolve_sample_rng(sample_rng, gm)
 
 
 def resolve_dedup(dedup: str) -> str:
@@ -385,21 +415,39 @@ def resolve_dedup(dedup: str) -> str:
     return "none" if cfg == "auto" else resolve_dedup(cfg)
 
 
-def resolve_sample_rng(sample_rng: str) -> str:
-    """The uniform source of the sampling hops: always the counter hash.
-    An explicit ``"hash"`` wins; ``"auto"`` reads
-    ``QUIVER_TPU_SAMPLE_RNG`` (``Config.sample_rng``), and resolves to
-    ``"hash"`` when that is ``"auto"`` too.  JAX's threefry ``"key"`` has
-    no counterpart in the port (ROADMAP §C) and raises, as an argument and
-    as a pin alike."""
-    if sample_rng == "auto":
-        pinned = get_config().sample_rng
-        return "hash" if pinned == "auto" else resolve_sample_rng(pinned)
-    if sample_rng == "hash":
+def resolve_sample_rng(sample_rng: str,
+                       gather_mode: Optional[str] = None) -> str:
+    """The uniform source of the sampling hops: ``"hash"`` (the counter
+    hash, kernel B1's) or ``"key"`` (JAX's threefry
+    ``jax.random.uniform`` of each hop key, ``ops/threefry.py``).
+
+    An explicit ``"hash"`` or ``"key"`` wins; ``"auto"`` reads
+    ``QUIVER_TPU_SAMPLE_RNG`` (``Config.sample_rng``) and is ``"hash"``
+    when that is ``"auto"`` too: JAX's default on an accelerator, and the
+    port's backend is the card.  ``gather_mode`` is the resolved mode, as
+    in JAX (``quiver_tpu/config.py:473-520``): under ``"pwindow"``, which
+    fuses the hash, ``"auto"`` is ``"hash"``, and a pinned ``"key"`` warns
+    that it is overridden; an explicit ``"key"`` returns here and raises
+    at the op."""
+    if sample_rng not in ("auto", "key", "hash"):
+        raise ValueError(f"sample_rng must be auto|key|hash, got "
+                         f"{sample_rng!r}")
+    if sample_rng != "auto":
+        return sample_rng
+    pinned = get_config().sample_rng
+    if pinned not in ("auto", "key", "hash"):
+        raise ValueError(f"sample_rng must be auto|key|hash, got "
+                         f"{pinned!r}")
+    if gather_mode is not None and gather_mode.startswith("pwindow"):
+        if pinned == "key":
+            import warnings
+
+            warnings.warn(
+                "sample_rng='key' pinned via QUIVER_TPU_SAMPLE_RNG is "
+                "overridden to 'hash': gather_mode='pwindow' fuses the "
+                "counter-hash RNG in-kernel. Pass sample_rng='key' "
+                "explicitly to get a hard error, or pick a "
+                "'blocked:U'/'lanes' gather mode to keep key-based "
+                "draws.", stacklevel=2)
         return "hash"
-    if sample_rng == "key":
-        raise ValueError(
-            "sample_rng='key' (JAX's threefry draws) has no counterpart in "
-            "the port, which samples with the counter hash only (ROADMAP "
-            "§C); pass 'hash' or 'auto'")
-    raise ValueError(f"sample_rng must be auto|key|hash, got {sample_rng!r}")
+    return "hash" if pinned == "auto" else pinned

@@ -13,10 +13,13 @@ runs ``"blocked[:U]"``, and ``"pallas"``/``"lanes_fused"`` run
 ``"lanes"``; under ``"blocked"`` every read of the per-shard hop goes
 through kernel B3.  All modes draw the same neighbours.
 
-Each hop of each rank draws with its own two key words: JAX's are the
-folded words of ``fold_in(split(key)[1], rank)`` hop by hop, which a
-caller passes as ``key_words [L, n_ranks, 2]``; without them the words
-come from a generator seeded by ``key``.
+Each hop of each rank draws with its own two key words, which
+``sample(seed_batches, key=seed)`` derives as JAX does
+(``quiver_tpu/dist/sampler.py:203, 232, 244``): ``k = key(seed)``, then
+per hop ``k, sub = split(k)`` and per rank ``fold_in(sub, rank)``, folded
+under ``sample_rng="hash"`` and taken raw under ``"key"``
+(:meth:`DistGraphSampler.words_of_seed`).  A caller may pass the words
+instead, ``key_words [L, n_ranks, 2]``.
 """
 
 from __future__ import annotations
@@ -27,13 +30,14 @@ from typing import List
 import numpy as np
 import torch
 
-from ..config import resolve_gather_mode, resolve_sample_rng
+from ..config import resolve_sampling
 from ..ops.cuda.gather_rows import gather_rows
-from ..ops.sample import run_hop
+from ..ops.sample import hop_key_words, run_hop
 from ..resilience import chaos
 from ..resilience.errors import PeerTimeout
 from ..resilience.retry import Backoff, retry_call
 from ..sampler import LayerBlock
+from ..utils import rng as _rng
 from ..utils.topology import CSRTopo
 from .buckets import bucket, pack_ids
 from .comm import all_to_all
@@ -110,8 +114,7 @@ class DistGraphSampler:
         self.topo = topo
         self.mesh = mesh
         self.axis = axis
-        self.sample_rng = resolve_sample_rng(sample_rng)
-        gm = resolve_gather_mode(gather_mode)
+        gm, self.sample_rng = resolve_sampling(gather_mode, sample_rng)
         # JAX's resolution for the per-shard hop: the fused window modes
         # read as their element-gather equivalents (same draws)
         if gm.startswith("pwindow"):
@@ -172,7 +175,7 @@ class DistGraphSampler:
                                 ip.shape[0] - 2)
             k0, k1 = int(words[r][0]), int(words[r][1])
             out = run_hop(ip, self._ix[r], local, k, k0, k1, rvalid,
-                          self.gather_mode)
+                          self.gather_mode, self.sample_rng)
             payloads.append(torch.where(out.mask, out.nbrs + 1,
                                         torch.zeros_like(out.nbrs))
                             .view(n, cap, k))
@@ -231,11 +234,32 @@ class DistGraphSampler:
                 stack([m.sum().to(torch.int32) for m in fmask]), layers,
                 stack([torch.stack(o) for o in ocounts]))
 
+    def words_of_seed(self, seed: int) -> np.ndarray:
+        """``[L, n_ranks, 2]`` uint32 words of each hop and rank from an
+        integer seed, as JAX's pipeline derives them inside its program:
+        ``key(seed)`` of the int32 seed (``QUIVER_TPU_PRNG`` is honoured,
+        and ``rbg`` refused), then per hop ``k, sub = split(k)`` and per
+        rank ``fold_in(sub, rank)``, each folded under ``"hash"`` or raw
+        under ``"key"``."""
+        if not -2**31 <= int(seed) < 2**31:
+            raise OverflowError(f"Python integer {seed} out of bounds for "
+                                "int32")
+        k = _rng.key(int(seed), _rng.default_impl())
+        words = []
+        for _ in self.sizes:
+            k, sub = _rng.split(k)
+            words.append(hop_key_words(
+                [_rng.fold_in(sub, r) for r in range(self.n)],
+                self.sample_rng))
+        return np.array(words, np.uint32).reshape(len(self.sizes), self.n,
+                                                  2)
+
     def sample(self, seed_batches, key=None, key_words=None):
         """``seed_batches``: ``[n_ranks, B]``, one seed batch a rank.
-        ``key_words``: ``[L, n_ranks, 2]`` uint32 words of each hop and
-        rank; without them words come from a generator seeded by ``key``
-        (an int, random when None).  Returns ``(n_id, n_id_mask,
+        ``key``: an int seed (random when None) whose words
+        :meth:`words_of_seed` derives, as JAX does; or ``key_words``:
+        ``[L, n_ranks, 2]`` uint32 words of each hop and rank.  Returns
+        ``(n_id, n_id_mask,
         num_nodes, blocks)``, each stacked on a leading rank axis on the
         first rank's device, blocks outermost first.
 
@@ -250,9 +274,7 @@ class DistGraphSampler:
         if key_words is None:
             if key is None:
                 key = np.random.randint(0, 2**31 - 1)
-            g = torch.Generator().manual_seed(int(key))
-            key_words = torch.randint(0, 2**32, (L, nd, 2), generator=g,
-                                      dtype=torch.int64).numpy()
+            key_words = self.words_of_seed(key)
         key_words = np.asarray(key_words, dtype=np.uint32).reshape(L, nd, 2)
         seed_l = [seeds[r].to(d) for r, d in enumerate(self.devices)]
 

@@ -9,8 +9,10 @@ report=None) -> int`` is the entry; a caller that passes a dict as
 ``report`` gets the run's first seed batch, losses and times in it.
 
 The helpers below are what the modules share: the ``--device`` flag, the
-key words a JAX script draws from ``PRNGKey(i)``, seeded model weights and
-a host clock that waits for the card.
+key words a JAX script's sampler derives from ``PRNGKey(i)``, seeded model
+weights and a host clock that waits for the card.  Where a JAX script
+hands ``PRNGKey(i)`` to something that splits it otherwise (the fused
+step, the hetero sampler), the module passes ``key=rng.key(i)`` instead.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..ops.sample import hop_key_words
+from ..utils import rng
 from ..utils.device import resolve_device
 
 __all__ = ["EXAMPLES", "add_device_flag", "device_of", "key_words",
@@ -61,10 +65,17 @@ def mesh_devices(dev: torch.device, n: int) -> list:
 
 def key_words(i: int, hops: int, width: int = 2) -> np.ndarray:
     """``[hops, width]`` uint32 sampling key words of step ``i``: what a
-    JAX script's ``PRNGKey(i)`` is to its sampler, drawn from
-    ``default_rng(i)``."""
-    return np.random.default_rng(i).integers(0, 2**32, (hops, width),
-                                             dtype=np.uint32)
+    JAX script's ``sampler.sample(seeds, key=PRNGKey(i))`` draws on an
+    accelerator (``sample_rng="hash"``), the folded words of
+    ``split(PRNGKey(i), hops)``; a third column holds each hop key's last
+    word (a UVA sampler's host-tier seeds)."""
+    keys = rng.split(rng.key(i), hops)
+    words = hop_key_words(keys, "hash")
+    if width == 3:
+        return np.concatenate([words, keys[:, -1:]], axis=1)
+    if width != 2:
+        raise ValueError(f"key words are 2 or 3 wide, got {width}")
+    return words
 
 
 @contextlib.contextmanager

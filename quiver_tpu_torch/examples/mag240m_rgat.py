@@ -19,8 +19,8 @@ import argparse
 import numpy as np
 import torch
 
-from . import (Clock, add_device_flag, device_of, key_words, losses_of, put,
-               seeded)
+from . import Clock, add_device_flag, device_of, losses_of, put, seeded
+from ..utils.rng import key as prng_key
 
 CITES = ("paper", "cites", "paper")
 WRITES = ("author", "writes", "paper")
@@ -91,7 +91,6 @@ def main(argv=None, report=None) -> int:
     state = TrainState.create(model, lr=1e-3)
     step = make_train_step(state.model, state.optimizer)
     ones = torch.ones((B,), dtype=torch.bool, device=dev)
-    n_blocks = sampler.num_blocks(B)
     labels_dev = torch.from_numpy(labels).to(dev)
 
     clock = Clock(dev)
@@ -100,7 +99,7 @@ def main(argv=None, report=None) -> int:
         seeds = rng.integers(0, args.papers, B)
         if first is None:
             first = seeds.copy()
-        batch = sampler.sample(seeds, key_words=key_words(2 + i, n_blocks))
+        batch = sampler.sample(seeds, key=prng_key(2 + i))
         loss = step(feats.lookup(batch), batch,
                     labels_dev[torch.from_numpy(seeds).to(dev)], ones)
         losses.append(loss)

@@ -29,6 +29,7 @@ import torch
 
 from . import (Clock, add_device_flag, device_of, key_words, losses_of,
                mesh_devices, put, seeded)
+from ..utils.rng import key as prng_key
 from ..utils.topology import CSRTopo
 
 # OGB's files of ogbn-products, under the dataset root
@@ -230,7 +231,7 @@ def main(argv=None, report=None) -> int:
             seeds_dev = torch.from_numpy(seeds).to(dev)
             if fused is not None:
                 loss = fused(seeds_dev, labels_dev[seeds_dev], ones,
-                             key_words(10_000 + i, 3))
+                             key=prng_key(10_000 + i))
             else:
                 batch = sampler.sample(seeds, key_words=key_words(
                     epoch * n_batches + i, 3))

@@ -19,9 +19,12 @@ Those lengths follow from the seed count and the sizes alone, so the
 frontiers are allocated once at their final length and each block writes
 its slice: nothing on the path reads the card back.
 
-Key words: JAX splits ``key, sub = split(key)`` once per sampled block and
-folds ``sub`` into two uint32 words; the port takes those words, one pair
-per sampled block in block order, ``[n_blocks, 2]``.
+Keys: JAX splits ``key, sub = split(key)`` once per sampled block; under
+``sample_rng="hash"`` it folds ``sub`` into two uint32 words, under
+``"key"`` it draws threefry uniforms from ``sub`` itself.
+``sample(..., key=)`` derives the same words from the batch key; the
+pipeline takes them as ``[n_blocks, 2]`` words, one pair per sampled block
+in block order (``key_words=``).
 """
 
 from __future__ import annotations
@@ -31,9 +34,10 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .config import resolve_gather_mode, resolve_sample_rng
+from .config import resolve_sampling
 from .feature import Feature
-from .ops.sample import key_words_pair, run_hop
+from .ops.sample import hop_key_words, key_words_pair, run_hop
+from .utils import rng as _rng
 from .utils.device import resolve_device
 from .utils.topology import CSRTopo
 
@@ -159,9 +163,11 @@ class HeteroGraphSageSampler:
       gather_mode: element-gather mode of each hop
         (``config.resolve_gather_mode``; ``"auto"`` is ``"pwindow"``, one
         launch of B1's literal entry a block).
-      sample_rng: ``"auto"`` or ``"hash"``; ``"key"`` raises.
+      sample_rng: ``"hash"``, ``"key"`` (JAX's threefry uniforms of each
+        block's key; ``"auto"`` gather is then ``"blocked"``) or
+        ``"auto"`` (``config.resolve_sample_rng``).
       seed: seed of the generator that draws key words when a call gives
-        none.
+        neither ``key`` nor ``key_words``.
     """
 
     def __init__(self, topo: HeteroCSRTopo, sizes, num_hops: int = None,
@@ -170,8 +176,8 @@ class HeteroGraphSageSampler:
                  seed: int = 0):
         self.topo = topo
         self.device = resolve_device(device)
-        self.gather_mode = resolve_gather_mode(gather_mode)
-        resolve_sample_rng(sample_rng)  # validates: the port has one RNG
+        self.gather_mode, self.sample_rng = resolve_sampling(gather_mode,
+                                                             sample_rng)
         if isinstance(sizes, (list, tuple)):
             self.hop_sizes = [self._norm(s) for s in sizes]
         else:
@@ -238,14 +244,34 @@ class HeteroGraphSageSampler:
             raise ValueError(f"{self.seed_type} ids must lie in [0, {n})")
         return torch.from_numpy(ids.astype(np.int32)).to(self.device)
 
-    def sample(self, input_nodes, key_words=None) -> HeteroSampledBatch:
+    def words_of_key(self, key, n_blocks: int) -> np.ndarray:
+        """The ``[n_blocks, 2]`` words JAX's hetero pipeline derives from
+        the batch ``key``: ``key, sub = split(key)`` before each sampled
+        block, in block order (``quiver_tpu/hetero.py:188``), each ``sub``
+        folded under ``"hash"`` or taken raw under ``"key"``."""
+        k = _rng.key_data(key)
+        subs = []
+        for _ in range(n_blocks):
+            k, sub = _rng.split(k)
+            subs.append(sub)
+        return hop_key_words(np.array(subs, np.uint32).reshape(-1, 2),
+                             self.sample_rng)
+
+    def sample(self, input_nodes, key_words=None, *,
+               key=None) -> HeteroSampledBatch:
         """Sample every hop for ``input_nodes`` (ids of ``seed_type``)
-        under ``key_words`` (``[n_blocks, 2]`` uint32, one pair per sampled
-        block in block order; drawn here when ``None``)."""
+        under the batch ``key`` (two uint32 words: JAX's
+        ``sample(input_nodes, key=...)``, :meth:`words_of_key`) or
+        ``key_words`` (``[n_blocks, 2]`` uint32, one pair per sampled block
+        in block order); words are drawn here when neither is given."""
         seeds = self.seed_tensor(input_nodes)
         B = int(seeds.shape[0])
         hops, lens = self.plan(B)
         n_blocks = sum(len(hop) for hop in hops)
+        if key is not None:
+            if key_words is not None:
+                raise ValueError("pass key or key_words, not both")
+            key_words = self.words_of_key(key, n_blocks)
         if key_words is None:
             key_words = self.draw_key_words(B)
         key_words = np.asarray(key_words, dtype=np.uint32).reshape(-1, 2)
@@ -270,7 +296,7 @@ class HeteroGraphSageSampler:
                 dst_mask = n_mask[d_t][:t]
                 out = run_hop(indptr, indices, n_id[d_t][:t], k,
                               *key_words_pair(key_words[i]), dst_mask,
-                              self.gather_mode)
+                              self.gather_mode, self.sample_rng)
                 i += 1
                 pos = (base
                        + torch.arange(t, dtype=torch.int32,
@@ -293,4 +319,5 @@ class HeteroGraphSageSampler:
     def __repr__(self):
         return (f"HeteroGraphSageSampler(hops={len(self.hop_sizes)}, "
                 f"seed_type={self.seed_type!r}, gather={self.gather_mode!r}, "
+                f"rng={self.sample_rng!r}, "
                 f"device={self.device})")

@@ -5,8 +5,10 @@ Each shard holds the CSR rows of its own row range (a local ``indptr``
 over ``rows_per_shard`` rows, global ids in ``indices``) and samples the
 whole frontier with :func:`~quiver_tpu_torch.ops.sample.
 sample_neighbors_overlay`, the op the streaming tier serves, under a
-``seed_mask`` of the rows it owns.  The op's uniforms are keyed by the
-key words and ``(B, k)`` alone, never by seed ids, so each shard draws
+``seed_mask`` of the rows it owns.  The op's uniforms (the counter hash,
+or threefry under ``sample_rng="key"``: one launch of its kernel a hop a
+shard) are keyed by the key words and ``(B, k)`` alone, never by seed
+ids, so each shard draws
 exactly the single-device sampler's neighbours for its rows; the
 per-shard outputs are disjoint, and ``pmax`` on ``nbrs``/``mask``/``eid``
 with ``psum`` on ``counts`` reassembles the single-device ``SampleOut``
@@ -26,7 +28,7 @@ import torch
 
 from .. import telemetry
 from ..analysis.staging import no_sync
-from ..config import resolve_gather_mode, resolve_sample_rng
+from ..config import resolve_sampling
 from ..dist.comm import pmax, psum
 from ..ops.sample import SampleOut, key_words_pair, sample_neighbors_overlay
 from ..recovery.registry import program_cache
@@ -55,7 +57,9 @@ class MeshSampler:
       n_shards: shard count (default ``config.mesh_shards``).
       mesh: a mesh with a ``"shard"`` axis (default ``build_mesh``).
       gather_mode: the per-shard reads (``config.resolve_gather_mode``).
-      sample_rng: ``"auto"`` or ``"hash"`` (the port's one RNG).
+      sample_rng: ``"hash"``, ``"key"`` (the two words of :meth:`sample`
+        are then the hop key's raw data) or ``"auto"``
+        (``config.resolve_sample_rng``, as JAX resolves it).
     """
 
     def __init__(self, indptr: np.ndarray, indices: np.ndarray,
@@ -78,8 +82,8 @@ class MeshSampler:
             raise ValueError(f"mesh has {len(self.devices)} devices on "
                              f"{self.axis!r}, not {self.n_shards}")
         self.device = self.devices[0]
-        self.gather_mode = resolve_gather_mode(gather_mode)
-        self.sample_rng = resolve_sample_rng(sample_rng)
+        self.gather_mode, self.sample_rng = resolve_sampling(gather_mode,
+                                                             sample_rng)
         indptr = np.asarray(indptr, dtype=np.int64)
         indices = np.asarray(indices, dtype=np.int32)
         self.node_count = len(indptr) - 1
@@ -149,7 +153,7 @@ class MeshSampler:
             out = sample_neighbors_overlay(
                 t["indptr"], t["indices"], t["tomb"], t["d_indptr"],
                 t["d_indices"], local, int(k), k0, k1, seed_mask=owned,
-                gather_mode=self.gather_mode)
+                gather_mode=self.gather_mode, sample_rng=self.sample_rng)
             # shard-local edge positions -> global: offset by the shard's
             # first edge (eid stays -1 where masked)
             eid = torch.where(out.eid >= 0, out.eid + t["base"],

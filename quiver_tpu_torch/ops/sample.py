@@ -6,12 +6,17 @@ in the JAX package.  Slot ``j`` of seed ``b`` draws uniformly from stratum
 counter ``b*k + j``, keyed by the folded key words ``(k0, k1)``.  The hash
 is integer arithmetic and the stratum bounds are correctly rounded fp32,
 so every draw equals the JAX package's ``sample_rng="hash"`` draw bit for
-bit.  The port has this one RNG; JAX's threefry ``sample_rng="key"`` has
-no counterpart.
+bit.  Under ``sample_rng="key"`` the two words are the hop key's raw data
+and the uniforms are JAX's threefry ``jax.random.uniform`` of that key
+(:func:`_uniform`, ``ops/threefry.py``: one kernel launch a draw site on
+the card), so those draws equal JAX's ``"key"`` draws too.
+:func:`fold_key_words` folds a key into the hash's words, and
+:func:`hop_key_words` gives a pipeline's per-hop words under either RNG.
 
 The hop's element gathers follow ``gather_mode``, as in the JAX package:
 ``"pwindow"`` (what ``"auto"`` resolves to) is one launch of kernel B1
-(``ops/cuda/window_sample.py``), the fused hop; every other mode computes
+(``ops/cuda/window_sample.py``), the fused hop, under the hash only; every
+other mode computes
 the uniforms and positions here and reads ``indptr`` twice and ``indices``
 once through :func:`_gather`: ``"xla"`` a clipped index, ``"lanes"`` and
 ``"lanes_fused"`` the lane-select gather (``ops/fastgather.py``, the
@@ -54,13 +59,14 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import resolve_gather_mode
+from ..config import resolve_sampling
 from ..utils.device import resolve_device
 
 __all__ = ["sample_neighbors", "sample_neighbors_weighted",
            "sample_neighbors_overlay", "sample_hop",
            "sample_hop_plain", "SampleOut", "to_ragged", "key_words_pair",
-           "row_cumsum_weights"]
+           "row_cumsum_weights", "fold_key_words", "hop_key_words",
+           "run_hop"]
 
 
 class SampleOut(NamedTuple):
@@ -110,6 +116,45 @@ def _hash_uniform(k0: int, k1: int, shape, device=None) -> torch.Tensor:
     x = _fmix32(x ^ k1)
     # x >> 8 < 2**24 converts exactly; the scale is a power of two
     return ((x >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
+
+
+def fold_key_words(key) -> Tuple[int, int]:
+    """The counter hash's two words from a key's raw data: JAX's
+    ``_fold_key_words`` (``quiver_tpu/ops/sample.py:64-80``), a
+    position-sensitive multiplicative chain over the words."""
+    k0, k1 = 0, HASH_PHI
+    for i, w in enumerate(np.asarray(key, dtype=np.uint32).reshape(-1)):
+        w = int(w)
+        k0 = (((k0 ^ w) * HASH_MUL1) + i + 1) & _M32
+        k1 = (((k1 + w) * HASH_MUL2) & _M32) ^ (((i + 1) * HASH_PHI) & _M32)
+    return k0, k1
+
+
+def hop_key_words(keys, sample_rng: str) -> np.ndarray:
+    """``[L, 2]`` uint32 words of per-hop keys ``[L, 2]`` (a ``split`` of
+    the batch key): folded (:func:`fold_key_words`) under ``"hash"``, the
+    keys' raw data under ``"key"``."""
+    keys = np.asarray(keys, dtype=np.uint32).reshape(-1, 2)
+    if sample_rng == "key":
+        return keys.copy()
+    if sample_rng != "hash":
+        raise ValueError(f"sample_rng must be resolved to 'hash' or 'key', "
+                         f"got {sample_rng!r}")
+    return np.array([fold_key_words(k) for k in keys],
+                    dtype=np.uint32).reshape(-1, 2)
+
+
+def _uniform(k0: int, k1: int, shape, sample_rng: str,
+             device=None) -> torch.Tensor:
+    """The draw sites' uniforms (JAX's ``_uniform``,
+    ``quiver_tpu/ops/sample.py:113-116``): the counter hash of the folded
+    words under ``"hash"``, threefry's ``jax.random.uniform`` of the raw
+    key words under ``"key"`` (one kernel launch on the card)."""
+    if sample_rng == "key":
+        from .cuda.threefry import threefry_uniform
+
+        return threefry_uniform((k0, k1), shape, device)
+    return _hash_uniform(k0, k1, shape, device=device)
 
 
 def _stratified_positions(u: torch.Tensor, deg: torch.Tensor,
@@ -194,11 +239,13 @@ def sample_hop_plain(indptr: torch.Tensor, indices: torch.Tensor,
 def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
                seeds: torch.Tensor, k: int, k0: int, k1: int,
                seed_mask: Optional[torch.Tensor] = None,
-               gather_mode: str = "xla") -> SampleOut:
+               gather_mode: str = "xla",
+               sample_rng: str = "hash") -> SampleOut:
     """One sampling hop (``ops/sample.py:208-273`` of the JAX package)
     whose element gathers run by ``gather_mode``: the seeds' bounds
     (:func:`_gather_bounds`, one launch under ``"pallas"``, two reads
-    otherwise) and the draws (:func:`_gather`).
+    otherwise) and the draws (:func:`_gather`).  The uniforms follow the
+    resolved ``sample_rng`` (:func:`_uniform`).
 
     Reads of ``indptr``/``indices`` are clipped to the (padded) tables,
     as the JAX gathers clip."""
@@ -209,7 +256,7 @@ def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
         deg = torch.where(seed_mask, deg, torch.zeros_like(deg))
     counts = torch.clamp_max(deg, k).to(torch.int32)
     j = torch.arange(k, dtype=torch.int32, device=seeds.device)[None, :]
-    u = _hash_uniform(k0, k1, (seeds.shape[0], k), device=seeds.device)
+    u = _uniform(k0, k1, (seeds.shape[0], k), sample_rng, seeds.device)
     pos = _stratified_positions(u, deg, k)
     mask = j < counts[:, None]
     idx = start[:, None] + pos
@@ -227,15 +274,17 @@ def sample_neighbors_overlay(indptr: torch.Tensor, indices: torch.Tensor,
                              base_ts: Optional[torch.Tensor] = None,
                              d_ts: Optional[torch.Tensor] = None,
                              window: Optional[Tuple[int, int]] = None,
-                             gather_mode: str = "xla") -> SampleOut:
+                             gather_mode: str = "xla",
+                             sample_rng: str = "hash") -> SampleOut:
     """One hop over a base CSR **plus a delta-CSR overlay**
     (``ops/sample.py:276-377`` of the JAX package), on tensors already on
     one device, in a resolved ``gather_mode``.
 
     A seed's degree is ``base_deg + delta_deg``; the stratified positions
     index the virtual concatenation ``[base | delta]`` with the frozen
-    hop's math (:func:`_hash_uniform`, :func:`_stratified_positions`), so
-    with zero deltas and no tombstones the draws equal the frozen path's.
+    hop's math (:func:`_uniform` under the resolved ``sample_rng``,
+    :func:`_stratified_positions`), so with zero deltas and no tombstones
+    the draws equal the frozen path's.
     Deletions and the window reject, they do not resample: a draw on a
     tombstoned base edge (``tomb[pos] != 0``) or with a timestamp outside
     ``window = (lo, hi)``, ``lo <= ts < hi``, is masked out, so ``counts``
@@ -257,7 +306,7 @@ def sample_neighbors_overlay(indptr: torch.Tensor, indices: torch.Tensor,
         ddeg = torch.where(seed_mask, ddeg, zero)
     deg = bdeg + ddeg
     j = torch.arange(k, dtype=torch.int32, device=seeds.device)[None, :]
-    u = _hash_uniform(k0, k1, (seeds.shape[0], k), device=seeds.device)
+    u = _uniform(k0, k1, (seeds.shape[0], k), sample_rng, seeds.device)
     pos = _stratified_positions(u, deg, k)
     # position < base_deg draws from the base segment, the rest from the
     # delta segment; both indices are clipped so the untaken side of each
@@ -303,7 +352,8 @@ def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
                               k: int, key_words,
                               seed_mask: Optional[torch.Tensor] = None,
                               gather_mode: str = "xla",
-                              bits: int = 24) -> SampleOut:
+                              bits: int = 24,
+                              sample_rng: str = "auto") -> SampleOut:
     """Weight-proportional neighbour sampling, with replacement
     (``ops/sample.py:382-469`` of the JAX package; the reference's
     ``weight_sample``), on tensors already on one device.
@@ -315,9 +365,11 @@ def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
     ``"blocked"`` read through B3 here).  JAX's ``"blocked"`` count over
     the CDF block finds the same positions.
     ``deg <= k`` rows return every neighbour once, in CSR order, as the
-    uniform hop does.  ``key_words`` are the hop's two folded words."""
+    uniform hop does.  ``key_words`` are the hop's two words: folded under
+    ``sample_rng="hash"``, the hop key's raw data under ``"key"``
+    (``config.resolve_sample_rng``)."""
     k0, k1 = key_words_pair(key_words)
-    gather_mode = resolve_gather_mode(gather_mode)
+    gather_mode, sample_rng = resolve_sampling(gather_mode, sample_rng)
     seeds = seeds.to(torch.int32)
     B = seeds.shape[0]
     start, end = _gather_bounds(indptr, seeds, gather_mode)
@@ -330,7 +382,7 @@ def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
     # the row total is the last entry of its inclusive cumulative weights
     last = _gather(cum_weights, torch.clamp_min(end - 1, 0), gather_mode)
     total = torch.where(deg > 0, last, torch.zeros_like(last))
-    u = _hash_uniform(k0, k1, (B, k), device=seeds.device) * total[:, None]
+    u = _uniform(k0, k1, (B, k), sample_rng, seeds.device) * total[:, None]
     pos = _cdf_search(cum_weights, start, end, u, bits, gather_mode)
     pos = torch.where(deg[:, None] <= k, start[:, None] + j, pos)
     nbrs = _gather(indices, torch.where(mask, pos, torch.zeros_like(pos)),
@@ -362,7 +414,8 @@ def key_words_pair(key_words) -> Tuple[int, int]:
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
                      seeds: torch.Tensor, k: int, key_words,
                      seed_mask: Optional[torch.Tensor] = None,
-                     device=None, gather_mode: str = "auto") -> SampleOut:
+                     device=None, gather_mode: str = "auto",
+                     sample_rng: str = "auto") -> SampleOut:
     """Sample up to ``k`` distinct neighbours per seed from a CSR graph.
 
     Args:
@@ -371,12 +424,16 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
       seeds: ``[B]`` node ids; where ``seed_mask`` is False a seed counts
         as degree 0.
       k: fanout.
-      key_words: the two folded uint32 key words ``(k0, k1)``.
+      key_words: two uint32 words ``(k0, k1)``: the folded words under
+        ``"hash"``, the hop key's raw data under ``"key"``.
       device: where the hop runs (``None``: the card).
       gather_mode: element-gather mode (``config.resolve_gather_mode``;
-        ``"auto"`` is ``"pwindow"``): ``"pwindow[:U]"`` is kernel B1, any
-        other mode element gathers (two under ``"pallas"``, three
-        otherwise); the draws are the same.
+        ``"auto"`` is ``"pwindow"``, or ``"blocked"`` under ``"key"``):
+        ``"pwindow[:U]"`` is kernel B1, any other mode element gathers
+        (two under ``"pallas"``, three otherwise); the draws are the same.
+      sample_rng: ``"hash"``, ``"key"`` or ``"auto"``
+        (``config.resolve_sample_rng``); ``"key"`` with ``"pwindow"``
+        raises.
 
     ``deg <= k`` returns every neighbour in CSR order; ``deg > k`` returns
     k distinct neighbours, one per stratum.
@@ -385,23 +442,31 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
     k0, k1 = key_words_pair(key_words)
     if seed_mask is not None:
         seed_mask = seed_mask.to(dev)
+    gm, sample_rng = resolve_sampling(gather_mode, sample_rng)
     return run_hop(indptr.to(dev), indices.to(dev),
-                   seeds.to(dev, torch.int32), k, k0, k1, seed_mask,
-                   resolve_gather_mode(gather_mode))
+                   seeds.to(dev, torch.int32), k, k0, k1, seed_mask, gm,
+                   sample_rng)
 
 
 def run_hop(indptr: torch.Tensor, indices: torch.Tensor, seeds: torch.Tensor,
             k: int, k0: int, k1: int, seed_mask: Optional[torch.Tensor],
-            gather_mode: str) -> SampleOut:
-    """One hop on tensors already on one device, in a gather mode that
-    :func:`resolve_gather_mode` has resolved: ``"pwindow[:U]"`` launches
-    kernel B1, any other mode runs :func:`sample_hop`."""
+            gather_mode: str, sample_rng: str) -> SampleOut:
+    """One hop on tensors already on one device, in a gather mode and RNG
+    that :func:`config.resolve_sampling` has resolved: ``"pwindow[:U]"`` launches kernel B1, which fuses the
+    counter hash (with ``"key"`` it raises, as JAX's op does,
+    ``quiver_tpu/ops/sample.py:243-248``), any other mode runs
+    :func:`sample_hop`."""
     if gather_mode.startswith("pwindow"):
+        if sample_rng != "hash":
+            raise ValueError(
+                "gather_mode='pwindow' fuses the counter-hash RNG in-kernel "
+                "and requires sample_rng='hash' (the accelerator default); "
+                f"got sample_rng={sample_rng!r}")
         from .cuda.window_sample import window_sample
 
         return window_sample(indptr, indices, seeds, k, k0, k1, seed_mask)
     return sample_hop(indptr, indices, seeds, k, k0, k1, seed_mask,
-                      gather_mode)
+                      gather_mode, sample_rng)
 
 
 def to_ragged(out: SampleOut) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -9,8 +9,13 @@ a sequence of launches on one stream.  The feature must hold its whole
 table on the device; a budgeted feature trains through ``SeedLoader``
 and ``make_train_step`` instead.
 
-The step takes the sampling key words explicitly, ``[L, 2]`` uint32, as
-the sampler does, or has the sampler draw them.
+The step takes JAX's ``key`` (two uint32 words): ``ks, kd = split(key)``
+(``quiver_tpu/pipeline.py:61``) and ``ks`` drives the hops, as the
+sampler's ``sample(key=)`` splits its key; ``kd`` goes unused, since
+dropout draws from the step's seeded ``torch.Generator``.  The epoch
+splits its key into one a step (``:108``); eval samples from its key
+directly.  Each also takes per-hop key words, ``[L, 2]`` uint32, or has
+the sampler draw them.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from .parallel.train import make_train_step
+from .utils import rng as _rng
 
 __all__ = ["make_fused_train_step", "make_fused_eval_fn", "make_scan_epoch"]
 
@@ -31,6 +37,19 @@ def _check(feature) -> None:
             "the fused pipeline needs the whole feature table on the device "
             f"({feature.cache_count} of {feature.node_count} rows are); use "
             "SeedLoader for a budgeted feature")
+
+
+def _hop_words(sampler, key_words, key, split_first: bool):
+    """Per-hop words from ``key_words``, or from ``key`` (after JAX's
+    ``ks, kd = split(key)`` when ``split_first``), or ``None`` (the
+    sampler draws them)."""
+    if key is None:
+        return key_words
+    if key_words is not None:
+        raise ValueError("pass key or key_words, not both")
+    if split_first:
+        key = _rng.split(_rng.key_data(key))[0]
+    return sampler.words_of_key(key)
 
 
 def _sample_rows(sampler, feature, seeds, key_words):
@@ -47,28 +66,32 @@ def _sample_rows(sampler, feature, seeds, key_words):
 
 def make_fused_train_step(sampler, feature, model, optimizer,
                           loss_fn: Optional[Callable] = None, seed: int = 0):
-    """Build ``step(seeds, labels, label_mask, key_words=None) -> loss``:
-    sample ``seeds`` (a device tensor or host ids), gather, train one step.
-    ``seed`` seeds the step's dropout generator."""
+    """Build ``step(seeds, labels, label_mask, key_words=None, *,
+    key=None) -> loss``: sample ``seeds`` (a device tensor or host ids),
+    gather, train one step.  ``seed`` seeds the step's dropout
+    generator."""
     _check(feature)
     train = make_train_step(model, optimizer, loss_fn, seed=seed)
 
-    def step(seeds, labels, label_mask, key_words=None) -> torch.Tensor:
-        x, blocks = _sample_rows(sampler, feature, seeds, key_words)
+    def step(seeds, labels, label_mask, key_words=None, *,
+             key=None) -> torch.Tensor:
+        words = _hop_words(sampler, key_words, key, split_first=True)
+        x, blocks = _sample_rows(sampler, feature, seeds, words)
         return train(x, blocks, labels, label_mask)
 
     return step
 
 
 def make_fused_eval_fn(sampler, feature, model):
-    """Build ``eval_fn(seeds, key_words=None) -> logits`` (eval mode, no
-    gradients)."""
+    """Build ``eval_fn(seeds, key_words=None, *, key=None) -> logits``
+    (eval mode, no gradients)."""
     _check(feature)
 
-    def eval_fn(seeds, key_words=None) -> torch.Tensor:
+    def eval_fn(seeds, key_words=None, *, key=None) -> torch.Tensor:
+        words = _hop_words(sampler, key_words, key, split_first=False)
         model.eval()
         with torch.no_grad():
-            x, blocks = _sample_rows(sampler, feature, seeds, key_words)
+            x, blocks = _sample_rows(sampler, feature, seeds, words)
             return model(x, blocks)
 
     return eval_fn
@@ -76,19 +99,26 @@ def make_fused_eval_fn(sampler, feature, model):
 
 def make_scan_epoch(sampler, feature, model, optimizer,
                     loss_fn: Optional[Callable] = None, seed: int = 0):
-    """Build ``epoch(seeds [S, B], labels [S, B], key_words=None) ->
-    losses [S]``: the fused step over S batches, every label valid.  JAX
-    scans it as one program; here it is a loop, and the losses stay on
-    the device.  ``key_words`` is ``[S, L, 2]``, or drawn by the sampler
-    per step."""
+    """Build ``epoch(seeds [S, B], labels [S, B], key_words=None, *,
+    key=None) -> losses [S]``: the fused step over S batches, every label
+    valid.  JAX scans it as one program; here it is a loop, and the losses
+    stay on the device.  ``key`` is split into one key a step, as JAX
+    does; ``key_words`` is ``[S, L, 2]``; without either the sampler draws
+    words per step."""
     step = make_fused_train_step(sampler, feature, model, optimizer, loss_fn,
                                  seed=seed)
 
-    def epoch(seeds, labels, key_words=None) -> torch.Tensor:
+    def epoch(seeds, labels, key_words=None, *, key=None) -> torch.Tensor:
         S, B = seeds.shape
+        if key is not None and key_words is not None:
+            raise ValueError("pass key or key_words, not both")
+        keys = None if key is None else _rng.split(_rng.key_data(key), S)
         ones = torch.ones((B,), dtype=torch.bool, device=sampler.device)
         losses = []
         for s in range(S):
+            if keys is not None:
+                losses.append(step(seeds[s], labels[s], ones, key=keys[s]))
+                continue
             kw = None if key_words is None else np.asarray(key_words)[s]
             losses.append(step(seeds[s], labels[s], ones, kw))
         return torch.stack(losses)

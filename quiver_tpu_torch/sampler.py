@@ -15,9 +15,15 @@ the JAX package's two frontier rules (``dedup``):
 With ``edge_weights`` every hop draws weight-proportionally
 (``ops/sample.py::sample_neighbors_weighted``).
 
-Key words: the JAX pipeline splits one key per hop and folds each into two
-uint32 words.  The port takes those words directly, ``[L, 2]`` uint32, one
-pair per hop, so the same words give the same batch in both packages.
+Keys: the JAX pipeline splits its batch key into one key per hop
+(``jax.random.split(key, L)``).  ``sample(..., key=)`` takes that batch key
+(two uint32 words: ``utils.rng.key(seed)``, or JAX's ``key_data``) and
+splits it the same way, so one seed gives the neighbours JAX draws.  The
+pipeline itself takes per-hop words, ``[L, 2]`` uint32
+(``ops/sample.py::hop_key_words``): under ``sample_rng="hash"`` each hop
+key folded into the counter hash's two words, under ``"key"`` the hop
+key's raw data, whose threefry uniforms are JAX's.  ``key_words=`` passes
+such words directly.
 
 Two more modes sample on the host, as in the JAX package:
 
@@ -54,18 +60,19 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .config import resolve_dedup, resolve_gather_mode, resolve_sample_rng
+from .config import resolve_dedup, resolve_sampling
 from .cpp.native import CPUSampler
 from .interop import to_torch_adjs
 from .ops.cuda.window_sample import window_sample_frontier
 from .ops.fastgather import pad_table_128
 from .ops.prob import sample_prob
 from .ops.reindex import ReindexOut, reindex
-from .ops.sample import (SampleOut, key_words_pair, row_cumsum_weights,
-                         run_hop, sample_neighbors_overlay,
-                         sample_neighbors_weighted)
+from .ops.sample import (SampleOut, hop_key_words, key_words_pair,
+                         row_cumsum_weights, run_hop,
+                         sample_neighbors_overlay, sample_neighbors_weighted)
 from . import telemetry
 from .recovery.registry import program_cache
+from .utils import rng as _rng
 from .utils.device import resolve_device
 from .utils.staging import upload
 from .utils.topology import CSRTopo
@@ -111,27 +118,29 @@ class SampledBatch(NamedTuple):
 
 
 def _hop(indptr, indices, frontier, k, key_words, fmask, gather_mode,
-         cum_weights) -> SampleOut:
+         cum_weights, sample_rng) -> SampleOut:
     """One hop of the generic loop: weighted when ``cum_weights`` is
     given, else uniform (``run_hop``: B1's literal entry under
     ``"pwindow"``)."""
     if cum_weights is not None:
         return sample_neighbors_weighted(indptr, indices, cum_weights,
                                          frontier, k, key_words, fmask,
-                                         gather_mode)
+                                         gather_mode, sample_rng=sample_rng)
     return run_hop(indptr, indices, frontier, k, *key_words_pair(key_words),
-                   fmask, gather_mode)
+                   fmask, gather_mode, sample_rng)
 
 
 def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
-                             return_eid, gather_mode, cum_weights):
+                             return_eid, gather_mode, cum_weights,
+                             sample_rng):
     """Multi-hop pipeline without dedup; one hop per layer.  A uniform
     pipeline under ``"pwindow"`` runs each hop as one launch of kernel
     B1's pipeline entry, which also writes the hop's frontier tail, mask
     tail and local ids (:func:`_pwindow_pipeline`); every other pipeline
     runs :func:`_hop` and builds those with torch ops, as the JAX pipeline
     does."""
-    if gather_mode.startswith("pwindow") and cum_weights is None:
+    if (gather_mode.startswith("pwindow") and cum_weights is None
+            and sample_rng == "hash"):
         return _pwindow_pipeline(indptr, indices, seeds, key_words, sizes,
                                  return_eid)
     dev = indptr.device
@@ -141,7 +150,7 @@ def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
     blocks = []
     for l, k in enumerate(sizes):
         out = _hop(indptr, indices, frontier, k, key_words[l], fmask,
-                   gather_mode, cum_weights)
+                   gather_mode, cum_weights, sample_rng)
         t = frontier.shape[0]
         pos = (t + torch.arange(t, dtype=torch.int32, device=dev)[:, None] * k
                + torch.arange(k, dtype=torch.int32, device=dev)[None, :])
@@ -211,7 +220,8 @@ def _relabel_positions(B: int, sizes, dev) -> list:
 
 
 def _sample_pipeline_overlay(indptr, indices, overlay, seeds, key_words,
-                             sizes, return_eid, gather_mode, relabel=None):
+                             sizes, return_eid, gather_mode, sample_rng,
+                             relabel=None):
     """The positional pipeline over base CSR + delta overlay
     (``quiver_tpu/sampler.py:155-190``): the generic loop of
     :func:`_sample_pipeline_nodedup` with each hop drawn by
@@ -235,7 +245,7 @@ def _sample_pipeline_overlay(indptr, indices, overlay, seeds, key_words,
             overlay["d_indices"], frontier, k,
             *key_words_pair(key_words[l]), fmask,
             overlay.get("base_ts"), overlay.get("d_ts"), window,
-            gather_mode)
+            gather_mode, sample_rng)
         pos = relabel[l]
         blocks.append(LayerBlock(
             nbr_local=torch.where(out.mask, pos, torch.zeros_like(pos)),
@@ -253,7 +263,7 @@ def _sample_pipeline_overlay(indptr, indices, overlay, seeds, key_words,
 
 
 def _sample_pipeline(indptr, indices, seeds, key_words, sizes, caps,
-                     return_eid, gather_mode, cum_weights):
+                     return_eid, gather_mode, cum_weights, sample_rng):
     """Multi-hop pipeline with exact dedup every hop
     (``quiver_tpu/sampler.py:201-248``): sample, :func:`reindex`, block.
 
@@ -267,7 +277,7 @@ def _sample_pipeline(indptr, indices, seeds, key_words, sizes, caps,
     blocks, drops = [], []
     for l, (k, cap) in enumerate(zip(sizes, caps)):
         out = _hop(indptr, indices, frontier, k, key_words[l], fmask,
-                   gather_mode, cum_weights)
+                   gather_mode, cum_weights, sample_rng)
         r = reindex(frontier, out.nbrs, out.mask, fmask)
         blk = LayerBlock(nbr_local=r.local_nbrs, mask=r.mask,
                          num_targets=fmask.sum().to(torch.int32),
@@ -299,14 +309,17 @@ def _is_stream_graph(obj) -> bool:
 
 def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes, caps=None,
                  return_eid=False, gather_mode="auto", cum_weights=None,
-                 overlay=None):
+                 overlay=None, sample_rng="auto"):
     """Multi-hop sampling under ``dedup`` ``"none"`` or ``"hop"``.
 
-    ``key_words`` is ``[L, 2]`` uint32; ``caps`` one frontier cap (or
-    ``None``) per hop, read under ``"hop"`` only; ``gather_mode`` is
-    resolved here (``config.resolve_gather_mode``); ``cum_weights`` (the
-    128-padded ``row_cumsum_weights`` on the device) makes every hop
-    weighted.  Returns ``(n_id, n_id_mask, num_nodes, blocks, drops)``.
+    ``key_words`` is ``[L, 2]`` uint32, one pair a hop
+    (``ops/sample.py::hop_key_words``); ``caps`` one frontier cap (or
+    ``None``) per hop, read under ``"hop"`` only; ``gather_mode`` and
+    ``sample_rng`` are resolved here (``config.resolve_sampling``; a
+    uniform hop under ``"pwindow"`` with
+    ``"key"`` raises, as in JAX); ``cum_weights`` (the 128-padded
+    ``row_cumsum_weights`` on the device) makes every hop weighted.
+    Returns ``(n_id, n_id_mask, num_nodes, blocks, drops)``.
 
     ``overlay`` (JAX's dict: ``tomb``, ``d_indptr``, ``d_indices``, and
     ``base_ts``, ``d_ts``, ``window_lo``, ``window_hi`` with ``windowed``
@@ -318,7 +331,7 @@ def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes, caps=None,
     if key_words.shape[0] != len(sizes):
         raise ValueError(f"{key_words.shape[0]} key-word pairs for "
                          f"{len(sizes)} hops")
-    gather_mode = resolve_gather_mode(gather_mode)
+    gather_mode, sample_rng = resolve_sampling(gather_mode, sample_rng)
     if overlay is not None:
         if dedup != "none":
             raise ValueError(
@@ -328,16 +341,16 @@ def run_pipeline(dedup, indptr, indices, seeds, key_words, sizes, caps=None,
             raise ValueError("overlay sampling is uniform-only")
         return _sample_pipeline_overlay(indptr, indices, overlay, seeds,
                                         key_words, sizes, return_eid,
-                                        gather_mode)
+                                        gather_mode, sample_rng)
     if dedup == "none":
         return _sample_pipeline_nodedup(indptr, indices, seeds, key_words,
                                         sizes, return_eid, gather_mode,
-                                        cum_weights)
+                                        cum_weights, sample_rng)
     caps = [None] * len(sizes) if caps is None else list(caps)
     if len(caps) != len(sizes):
         raise ValueError(f"{len(caps)} frontier caps for {len(sizes)} hops")
     return _sample_pipeline(indptr, indices, seeds, key_words, sizes, caps,
-                            return_eid, gather_mode, cum_weights)
+                            return_eid, gather_mode, cum_weights, sample_rng)
 
 
 class GraphSageSampler:
@@ -355,13 +368,14 @@ class GraphSageSampler:
         budget the device mode).
       return_eid: fill ``LayerBlock.eid`` with global edge positions.
       seed: seed of the generator that draws key words when a call gives
-        none.
+        neither ``key`` nor ``key_words``.
       gather_mode: how each hop reads ``indptr`` and ``indices``
         (``config.resolve_gather_mode``): ``"auto"``/``"pwindow"`` is the
         fused hop of kernel B1, ``"pallas"`` kernel B3, ``"lanes_fused"``
         kernel B4 (its fused entry, with no row gather), ``"blocked[:U]"``
         kernel B3 as well (``ops/blockgather.py``), ``"lanes"`` and
         ``"xla"`` plain PyTorch.  Every mode samples the same neighbours.
+        Under ``sample_rng="key"``, ``"auto"`` is ``"blocked"``.
       dedup: ``"none"`` (the positional pipeline), ``"hop"`` (exact dedup
         every hop, ``ops/reindex.py``) or ``"auto"``
         (``config.resolve_dedup``).
@@ -370,8 +384,12 @@ class GraphSageSampler:
         counted (:meth:`overflow_stats`).
       edge_weights: ``[E]`` weights; every hop then draws
         weight-proportionally, with replacement.
-      sample_rng: ``"auto"`` or ``"hash"``, the counter hash; JAX's
-        ``"key"`` is refused (``config.resolve_sample_rng``).
+      sample_rng: ``"hash"`` (the counter hash), ``"key"`` (JAX's threefry
+        uniforms of each hop key, one launch of the threefry kernel a hop
+        on the card) or ``"auto"`` (``config.resolve_sample_rng``: the
+        hash unless ``QUIVER_TPU_SAMPLE_RNG`` pins ``"key"``).  It reaches
+        every device path: the pipeline, the overlay, ``sample_layer``,
+        UVA's device tier, the fused steps and both serving lanes.
       uva_budget: device bytes for the hot rows' edge lists in UVA mode
         (``parse_size``).  UVA mode takes the positional pipeline only
         (``dedup="auto"`` resolves to ``"none"``) and refuses
@@ -415,8 +433,8 @@ class GraphSageSampler:
             raise ValueError(f"{len(self.frontier_caps)} frontier caps for "
                              f"{len(self.sizes)} hops")
         self.device = resolve_device(device)
-        self.gather_mode = resolve_gather_mode(gather_mode)
-        resolve_sample_rng(sample_rng)  # validates: the port has one RNG
+        self.gather_mode, self.sample_rng = resolve_sampling(gather_mode,
+                                                             sample_rng)
         self.dedup = resolve_dedup(dedup)
         if mode == "UVA" and (self.dedup != "none" or edge_weights is not None
                               or return_eid):
@@ -491,6 +509,19 @@ class GraphSageSampler:
         return self._rng.integers(0, 2**32, size=(len(self.sizes), width),
                                   dtype=np.uint32)
 
+    def words_of_key(self, key) -> np.ndarray:
+        """The per-hop words JAX's pipeline derives from the batch ``key``
+        (two uint32 words): ``split(key, L)``, each hop key folded under
+        ``"hash"`` or taken raw under ``"key"``; ``[L, 2]`` uint32, or
+        ``[L, 3]`` in UVA mode, whose third word (each hop's host-tier
+        seed) is the hop key's last word, as JAX seeds it
+        (``quiver_tpu/uva.py:133-152``)."""
+        keys = _rng.split(_rng.key_data(key), len(self.sizes))
+        words = hop_key_words(keys, self.sample_rng)
+        if self.mode == "UVA":
+            return np.concatenate([words, keys[:, -1:]], axis=1)
+        return words
+
     def seed_tensor(self, input_nodes) -> torch.Tensor:
         if isinstance(input_nodes, torch.Tensor):
             return input_nodes.to(self.device, torch.int32)
@@ -503,13 +534,14 @@ class GraphSageSampler:
         every graph version, and the entry serves every version of one
         shape."""
         sizes, gm, ret_eid = self.sizes, self.gather_mode, self.return_eid
+        srng = self.sample_rng
         relabel = _relabel_positions(B, sizes, self.device)
 
         def fn(indptr, indices, seeds, key_words, overlay):
             words = np.asarray(key_words, dtype=np.uint32).reshape(
                 len(sizes), 2)
             return _sample_pipeline_overlay(indptr, indices, overlay, seeds,
-                                            words, sizes, ret_eid, gm,
+                                            words, sizes, ret_eid, gm, srng,
                                             relabel)
 
         return fn
@@ -517,8 +549,9 @@ class GraphSageSampler:
     def pipeline(self, seeds: torch.Tensor, key_words, weighted: bool = True,
                  snapshot=None, time_window=None):
         """``run_pipeline`` over this sampler's graph, fanouts, dedup,
-        caps, gather mode and (when ``weighted``) edge weights, from
-        ``seeds`` on the device; returns its five outputs.
+        caps, gather mode, RNG and (when ``weighted``) edge weights, from
+        ``seeds`` on the device under per-hop ``key_words``; returns its
+        five outputs.
 
         A streaming sampler samples ``snapshot`` (the graph's current one
         when ``None``) through the overlay, restricted to ``time_window
@@ -541,7 +574,8 @@ class GraphSageSampler:
                 self.dedup, indptr, indices, seeds, key_words, self.sizes,
                 self.frontier_caps, return_eid=self.return_eid,
                 gather_mode=self.gather_mode,
-                cum_weights=self._cum_weights if weighted else None)
+                cum_weights=self._cum_weights if weighted else None,
+                sample_rng=self.sample_rng)
         B = int(seeds.shape[0])
         snap = (snapshot if snapshot is not None
                 else self._stream.snapshot(self.device))
@@ -573,9 +607,13 @@ class GraphSageSampler:
         return fn(snap.indptr, snap.indices, seeds, key_words, overlay)
 
     def sample(self, input_nodes, key_words=None, host_seeds=None,
-               time_window=None) -> SampledBatch:
-        """Sample the k-hop neighbourhood of ``input_nodes`` under per-hop
-        ``key_words`` (``[L, 2]`` uint32; drawn here when ``None``).
+               time_window=None, *, key=None) -> SampledBatch:
+        """Sample the k-hop neighbourhood of ``input_nodes`` under the
+        batch ``key`` (two uint32 words, ``utils.rng.key(seed)`` or JAX's
+        ``key_data``: per hop the words :meth:`words_of_key` derives, so
+        the batch is JAX's ``sample(input_nodes, key=...)``), or under
+        per-hop ``key_words`` (``[L, 2]`` uint32), or words drawn here
+        when neither is given.
 
         CPU mode reads no key words.  UVA mode takes ``[L, 2]`` words with
         ``host_seeds`` (``[L]``, each hop's host-tier seed) or ``[L, 3]``
@@ -594,20 +632,25 @@ class GraphSageSampler:
         with telemetry.span("sampler.sample"), telemetry.histogram(
                 "sampler_sample_seconds", mode=mode).time():
             batch = self._sample(input_nodes, key_words, host_seeds,
-                                 time_window)
+                                 time_window, key)
         telemetry.counter("sampler_batches_total", mode=mode).inc()
         telemetry.counter("sampler_seeds_total", mode=mode).inc(
             float(batch.batch_size))
         return batch
 
     def _sample(self, input_nodes, key_words, host_seeds,
-                time_window=None) -> SampledBatch:
+                time_window=None, key=None) -> SampledBatch:
         if self._stream is None and time_window is not None:
             raise ValueError(
                 "time_window requires a StreamingGraph with per-edge "
                 "timestamps (quiver_tpu_torch.stream)")
         if self.mode == "CPU":
             return self._sample_cpu(input_nodes)
+        if key is not None:
+            if key_words is not None or host_seeds is not None:
+                raise ValueError("pass key, or key_words (and host_seeds), "
+                                 "not both")
+            key_words = self.words_of_key(key)
         if key_words is None:
             key_words = self.draw_key_words()
         if self.mode == "UVA":
@@ -719,19 +762,27 @@ class GraphSageSampler:
         n_id, n_mask, num, blocks = sample_uva(
             uva, self.sizes, seeds, words[:, :2], host_seeds,
             gather_mode=self.gather_mode, overlap=self.uva_overlap,
-            timings=self.uva_timings)
+            timings=self.uva_timings, sample_rng=self.sample_rng)
         return self._host_batch(n_id, n_mask, num, len(seeds), blocks)
 
     # -- the single-hop API (the reference's sample_layer / reindex /
     #    sample_sub) --------------------------------------------------
-    def sample_layer(self, batch, size: int, key_words=None) -> SampleOut:
-        """One uniform hop of fanout ``size`` from ``batch`` under two key
-        words (the first hop's of :meth:`draw_key_words` when ``None``)."""
+    def sample_layer(self, batch, size: int, key_words=None, *,
+                     key=None) -> SampleOut:
+        """One uniform hop of fanout ``size`` from ``batch`` under the hop
+        ``key`` (folded under ``"hash"``, raw under ``"key"``), or two
+        key words (the first hop's of :meth:`draw_key_words` when neither
+        is given)."""
+        if key is not None:
+            if key_words is not None:
+                raise ValueError("pass key or key_words, not both")
+            key_words = hop_key_words(_rng.key_data(key), self.sample_rng)[0]
         if key_words is None:
             key_words = self.draw_key_words()[0]
         indptr, indices = self.csr_topo.to_device(self.device)
         return run_hop(indptr, indices, self.seed_tensor(batch), size,
-                       *key_words_pair(key_words), None, self.gather_mode)
+                       *key_words_pair(key_words), None, self.gather_mode,
+                       self.sample_rng)
 
     def reindex(self, inputs, nbrs: torch.Tensor,
                 mask: torch.Tensor) -> ReindexOut:
@@ -739,12 +790,12 @@ class GraphSageSampler:
         (``ops/reindex.py``)."""
         return reindex(self.seed_tensor(inputs), nbrs, mask)
 
-    def sample_sub(self, seeds, size: int, key_words=None):
+    def sample_sub(self, seeds, size: int, key_words=None, *, key=None):
         """One-hop subgraph on the host: ``(nodes, row, col)`` numpy, with
         ``nodes[:len(seeds)] == seeds`` and ``(row, col)`` the sampled
         edges in local ids (the reference's ``sample_sub``)."""
         seeds = np.asarray(seeds)
-        out = self.sample_layer(seeds, size, key_words)
+        out = self.sample_layer(seeds, size, key_words, key=key)
         r = self.reindex(seeds, out.nbrs, out.mask)
         # quiverlint: ignore[QT001] -- sample_sub answers numpy by contract
         nodes = r.n_id[: int(r.num_nodes)].cpu().numpy()
@@ -771,6 +822,7 @@ class GraphSageSampler:
         options = dict(
             device=str(self.device), return_eid=self.return_eid,
             seed=self.seed, gather_mode=self.gather_mode, dedup=self.dedup,
+            sample_rng=self.sample_rng,
             frontier_caps=self.frontier_caps,
             edge_weights=(None if self._edge_weights is None
                           else np.asarray(self._edge_weights)),
@@ -785,4 +837,5 @@ class GraphSageSampler:
     def __repr__(self):
         return (f"GraphSageSampler(sizes={self.sizes}, mode={self.mode!r}, "
                 f"dedup={self.dedup!r}, gather={self.gather_mode!r}, "
+                f"rng={self.sample_rng!r}, "
                 f"device={self.device}, graph={self.csr_topo!r})")

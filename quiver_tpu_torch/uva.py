@@ -97,11 +97,14 @@ class UVAGraph:
 
 def sample_uva(uva: UVAGraph, sizes: Sequence[int], input_nodes, key_words,
                host_seeds, gather_mode: str = "auto", overlap: bool = True,
-               timings: Optional[dict] = None):
+               timings: Optional[dict] = None, sample_rng: str = "auto"):
     """Multi-hop positional sampling over the hot/cold split.
 
-    ``key_words`` (``[L, 2]`` uint32) drive each hop's device tier and
-    ``host_seeds`` (``[L]``) seed its host tier.  ``overlap=False`` waits
+    ``key_words`` (``[L, 2]`` uint32) drive each hop's device tier under
+    ``sample_rng`` (folded words under ``"hash"``, the hop keys' raw data
+    under ``"key"``) and ``host_seeds`` (``[L]``) seed its host tier; from
+    a batch key JAX's are ``split(key, L)`` and each hop key's last word
+    (``GraphSageSampler.words_of_key``).  ``overlap=False`` waits
     for the device tier before the host tier runs.  ``timings`` accumulates
     the host tier's seconds under ``"host_s"``.  Returns host arrays
     ``(n_id, n_id_mask, num_nodes, blocks)``, blocks outermost first, each
@@ -116,7 +119,8 @@ def sample_uva(uva: UVAGraph, sizes: Sequence[int], input_nodes, key_words,
         out = sample_neighbors(uva.indptr_dev, uva.indices_dev,
                                torch.from_numpy(frontier), k, key_words[l],
                                seed_mask=torch.from_numpy(hot), device=dev,
-                               gather_mode=gather_mode)
+                               gather_mode=gather_mode,
+                               sample_rng=sample_rng)
         if not overlap and dev.type == "cuda":
             # quiverlint: ignore[QT001] -- overlap=False A/B baseline
             # serializes device-then-host on purpose (measures the win)

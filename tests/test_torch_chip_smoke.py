@@ -9,6 +9,7 @@ import io
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -91,3 +92,48 @@ def test_examples_phase_runs_every_example():
     paged = [r for r in chip_smoke.EXAMPLE_RUNS if r[2]]
     assert len(paged) == 1 and "page_gather" in paged[0][3]
     assert paged[0][2]["feature_paged"] == "on"
+
+
+def test_keyed_phase_is_selectable_alone():
+    """``--phases keyed`` runs alone: it needs the Reddit graph and the
+    products data, and no earlier phase's results."""
+    assert chip_smoke.select_phases(["--phases", "keyed"]) == ["keyed"]
+    assert "keyed" in chip_smoke.REDDIT_PHASES
+    assert "keyed" in chip_smoke.PRODUCTS_PHASES
+    assert "keyed" not in chip_smoke.PHASE_NEEDS
+
+
+def test_threefry_bound_is_integer_issue():
+    """The kernel's bound: 75 int32 operations an element at the card's
+    int32 rate (half the fp32 lanes at 67 TFLOP/s), above the output's 4
+    bytes at 3.35 TB/s."""
+    assert chip_smoke.THREEFRY_INT_OPS == 75
+    assert chip_smoke.INT32_OPS_PER_S == pytest.approx(16.75e12)
+    ms, by = chip_smoke.threefry_bound(901_120)
+    assert by == "operations"
+    assert ms == pytest.approx(901_120 * 75 / 16.75e12 * 1e3)
+    assert ms > 901_120 * 4 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert chip_smoke.threefry_bound(0) == (0.0, "operations")
+    # the floor with the adds on the fp32 pipe: 43 ALU-pipe operations at
+    # 64 lanes an SM outweigh all 75 at 128
+    assert chip_smoke.THREEFRY_ALU_OPS == 43
+    split = chip_smoke.threefry_split_pipe_bound(901_120)
+    assert split == pytest.approx(901_120 * 43 / 16.75e12 * 1e3)
+    assert ms / split == pytest.approx(75 / 43)
+
+
+def test_keyed_shapes_cover_the_main_path_hops():
+    """The threefry kernel is held against its plain version at every hop
+    shape the keyed phase runs: Reddit's bucket-2048 pass and products'
+    1,024-seed batch, plus an odd size."""
+    shapes = set(chip_smoke.KEYED_SHAPES)
+    t = 2048
+    for k in chip_smoke.FANOUTS:
+        assert (t, k) in shapes
+        t += t * k
+    t = chip_smoke.P_BATCH
+    for k in chip_smoke.P_FANOUTS:
+        assert (t, k) in shapes
+        t += t * k
+    assert set(chip_smoke.KEYED_PASS) <= shapes
+    assert any(np.prod(s) % 2 for s in shapes)

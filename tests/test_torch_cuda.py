@@ -19,6 +19,7 @@ from quiver_tpu_torch.ops.cuda import element_gather as b3
 from quiver_tpu_torch.ops.cuda import gather_rows as b2
 from quiver_tpu_torch.ops.cuda import lane_select as b4
 from quiver_tpu_torch.ops.cuda import page_gather as b5
+from quiver_tpu_torch.ops.cuda import threefry as tf
 from quiver_tpu_torch.ops.cuda import window_sample as b1
 from quiver_tpu_torch.ops.paged import plan_blocks
 
@@ -1354,3 +1355,66 @@ def test_bf16_graphsage_on_card(card):
     assert c.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in mb.parameters())
     assert (a - c.float()).abs().max() <= 2**-5 * a.abs().max()
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (2048, 25), (1024, 15),
+                                   (16_384, 10), (180_224, 5), (12_345,),
+                                   (3, 5, 2)])
+def test_threefry_uniform_kernel_equals_plain(card, shape):
+    """The threefry kernel's bits are its plain version's (JAX's
+    ``jax.random.uniform``), at the hops' shapes and ragged ones; one
+    launch a call, none for an empty shape."""
+    from quiver_tpu_torch.utils import rng
+
+    for key in (rng.key(0), rng.key(2**31 - 1), rng.split(rng.key(5), 3)[2],
+                np.array([0xFFFFFFFF, 0x80000000], np.uint32)):
+        before = tf.threefry_uniform.launches
+        got = tf.threefry_uniform(key, shape, card)
+        torch.cuda.synchronize()
+        assert tf.threefry_uniform.launches == before + 1
+        want = tf.threefry_uniform_plain(key, shape, card)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert bool(((got >= 0) & (got < 1)).all())
+    before = tf.threefry_uniform.launches
+    assert tf.threefry_uniform(rng.key(1), (0, 4), card).shape == (0, 4)
+    assert tf.threefry_uniform.launches == before
+
+
+def test_threefry_uniform_refuses_bad_input(card):
+    with pytest.raises(tf.KernelArgumentError):
+        tf.threefry_uniform([1, 2, 3], (4,), card)
+    with pytest.raises(tf.KernelArgumentError):
+        tf.threefry_uniform([1, 2], (-1, 4), card)
+    with pytest.raises(tf.KernelArgumentError):
+        tf.threefry_uniform([1, 2**32], (4,), card)
+
+
+@pytest.mark.parametrize("mode", ["auto", "pallas", "blocked", "xla"])
+@pytest.mark.parametrize("dedup", ["none", "hop"])
+def test_keyed_sampler_on_card_equals_cpu(card, mode, dedup):
+    """``sample_rng="key"`` on the card: one threefry launch a hop, and the
+    batch bitwise the CPU's (``"auto"`` is ``"blocked"`` under the key)."""
+    from quiver_tpu_torch.utils import rng
+
+    topo = _graph(8, n=3000)
+    ids = np.arange(0, 3000, 41)
+    s = qt.GraphSageSampler(topo, [10, 5, 3], device=card,
+                            gather_mode=mode, sample_rng="key", dedup=dedup)
+    assert s.gather_mode == ("blocked" if mode == "auto" else mode)
+    before = tf.threefry_uniform.launches
+    got = s.sample(ids, key=rng.key(4))
+    torch.cuda.synchronize()
+    assert tf.threefry_uniform.launches == before + 3
+    want = qt.GraphSageSampler(topo, [10, 5, 3], device="cpu",
+                               gather_mode="xla", sample_rng="key",
+                               dedup=dedup).sample(ids, key=rng.key(4))
+    assert torch.equal(got.n_id.cpu(), want.n_id)
+    assert torch.equal(got.n_id_mask.cpu(), want.n_id_mask)
+    for a, b in zip(got.layers, want.layers):
+        assert torch.equal(a.nbr_local.cpu(), b.nbr_local)
+        assert torch.equal(a.mask.cpu(), b.mask)
+    hashed = qt.GraphSageSampler(topo, [10, 5, 3], device=card)
+    before = tf.threefry_uniform.launches
+    hashed.sample(ids, key=rng.key(4))
+    assert tf.threefry_uniform.launches == before

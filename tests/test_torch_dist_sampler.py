@@ -235,8 +235,13 @@ def test_dist_sampler_degrades_all_pallas_modes(graph):
                      ("auto", "blocked")):
         s = DistGraphSampler(ptopo, pm, [3], gather_mode=gm)
         assert s.gather_mode == want, (gm, s.gather_mode)
-    with pytest.raises(ValueError, match="key"):
-        DistGraphSampler(ptopo, pm, [3], sample_rng="key")
+    # "key" is accepted and resolves as JAX resolves it: the auto mode
+    # lands on "blocked", which the per-shard hop runs as it is
+    s = DistGraphSampler(ptopo, pm, [3], sample_rng="key")
+    assert (s.gather_mode, s.sample_rng) == ("blocked", "key")
+    s = DistGraphSampler(ptopo, pm, [3], gather_mode="pallas",
+                         sample_rng="key")
+    assert (s.gather_mode, s.sample_rng) == ("lanes", "key")
 
 
 def test_exchange_retries_a_peer_timeout_once(graph):

@@ -170,9 +170,13 @@ def test_sampler_draws_and_refusals(graph):
     b = s.sample(np.arange(B), key_words=kw)
     for t in a.n_id:
         assert torch.equal(a.n_id[t], b.n_id[t])
-    with pytest.raises(ValueError, match="key"):
+    keyed = qt.HeteroGraphSageSampler(ptopo, 2, num_hops=1, device="cpu",
+                                      sample_rng="key")
+    assert (keyed.gather_mode, keyed.sample_rng) == ("blocked", "key")
+    with pytest.raises(ValueError, match="pwindow"):
         qt.HeteroGraphSageSampler(ptopo, 2, num_hops=1, device="cpu",
-                                  sample_rng="key")
+                                  gather_mode="pwindow",
+                                  sample_rng="key").sample(np.arange(B))
     with pytest.raises(ValueError, match="key-word pairs"):
         s.sample(np.arange(B), key_words=kw[:4])
     with pytest.raises(ValueError, match="num_hops"):

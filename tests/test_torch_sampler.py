@@ -206,24 +206,45 @@ def test_feature_partial_budget_raises(feat):
 def test_sample_rng_pin_is_read_from_the_environment(monkeypatch, csr, pin):
     """``QUIVER_TPU_SAMPLE_RNG`` reaches ``Config.sample_rng`` as in JAX
     (``quiver_tpu/config.py:34-36``); ``resolve_sample_rng("auto")``
-    honours it, and a ``"key"`` pin is refused as the argument is."""
+    honours it, a ``"key"`` pin included, and resolves as JAX's does:
+    a ``"key"`` pin over the default gather mode samples through
+    ``"blocked"``, and under an explicit ``"pwindow"`` it warns and
+    becomes ``"hash"``; a bogus pin is refused."""
+    from quiver_tpu import config as jax_config
     from quiver_tpu_torch import config
 
     monkeypatch.setenv("QUIVER_TPU_SAMPLE_RNG", pin)
     monkeypatch.setattr(config, "_config", None)  # built anew from the env
+    monkeypatch.setattr(jax_config, "_config", None)
     assert config.get_config().sample_rng == pin
     topo = qt.CSRTopo(indptr=csr[0], indices=csr[1])
     if pin in ("hash", "auto"):
         assert config.resolve_sample_rng("auto") == "hash"
-        qt.GraphSageSampler(topo, [3], device="cpu")
-        return
-    with pytest.raises(ValueError) as pinned:
-        config.resolve_sample_rng("auto")
-    with pytest.raises(ValueError):
-        qt.GraphSageSampler(topo, [3], device="cpu")
-    if pin == "key":
+        s = qt.GraphSageSampler(topo, [3], device="cpu")
+        assert (s.gather_mode, s.sample_rng) == ("pwindow", "hash")
+    elif pin == "key":
+        assert config.resolve_sample_rng("auto") == "key"
+        assert config.resolve_sample_rng("auto") == \
+            jax_config.resolve_sample_rng("auto")
+        s = qt.GraphSageSampler(topo, [3], device="cpu")
+        assert (s.gather_mode, s.sample_rng) == ("blocked", "key")
+        # an explicit "pwindow" keeps the hash, with JAX's warning
+        for resolve in (config.resolve_sample_rng,
+                        jax_config.resolve_sample_rng):
+            with pytest.warns(UserWarning, match="overridden to 'hash'"):
+                assert resolve("auto", "pwindow") == "hash"
+        with pytest.warns(UserWarning, match="overridden"):
+            s = qt.GraphSageSampler(topo, [3], device="cpu",
+                                    gather_mode="pwindow")
+        assert s.sample_rng == "hash"
+    else:
+        with pytest.raises(ValueError) as pinned:
+            config.resolve_sample_rng("auto")
+        with pytest.raises(ValueError):
+            qt.GraphSageSampler(topo, [3], device="cpu")
         with pytest.raises(ValueError) as explicit:
-            config.resolve_sample_rng("key")
+            config.resolve_sample_rng(pin)
         assert str(pinned.value) == str(explicit.value)
-    # an explicit "hash" wins over any pin
+    # an explicit choice wins over any pin
     assert config.resolve_sample_rng("hash") == "hash"
+    assert config.resolve_sample_rng("key") == "key"
