@@ -288,21 +288,30 @@ first use, with nvcc, one process per source, all at once), then:
    unsup's intra-community similarity is above the inter), and launch its
    kernels; each run's wall seconds, launches by kernel, step or epoch
    times and serving p50/p99 are printed;
-4n. keyed phase (slice 17, ``--phases keyed``): the threefry kernel
-   (``csrc/threefry_uniform.cu``, JAX's ``jax.random.uniform``) bitwise
-   against its plain version on the card at KEYED_SHAPES (float bits
-   compared), timed against its bound (the integer operations at the
-   int32 issue rate: THREEFRY_INT_OPS, INT32_OPS_PER_S); after the
-   bf16/mmap phase, the 64-request plan served by a sampler under
-   ``sample_rng="key"`` (the auto gather mode is then ``"blocked"``: B3
-   twice a hop, one threefry launch a hop, B2 once a pass), every served
-   batch's ``n_id`` and masks bitwise the ``"xla"`` sampler's on the
-   card; ``key=rng.key(s)`` under each RNG on the card against the CPU
-   path the tests hold against JAX (no threefry launch under the hash);
-   a keyed hop against a hash hop; then, at products size after the
-   data-parallel phase, KEYED_STEPS fused steps under ``"key"`` and
-   ``gather_mode="pallas"``, each from ``key=rng.key(i)``, finite losses
-   and every batch bitwise ``"xla"``'s;
+4n. keyed phase (slices 17 and 18, ``--phases keyed``): the threefry
+   kernel (``csrc/threefry_uniform.cu``, JAX's ``jax.random.uniform``)
+   bitwise against its plain version on the card at KEYED_SHAPES (float
+   bits compared), timed against its bound (the integer operations at
+   the int32 issue rate: THREEFRY_INT_OPS, INT32_OPS_PER_S); B1's
+   threefry instance (``csrc/window_sample.cu`` over ``threefry.cuh``)
+   through both entries at the Reddit pass (KEYED_PASS), bitwise its
+   plain version, timed against the larger of its sector bound and the
+   cipher's integer issue, and its ``"blocked"`` pipeline's device
+   operations a hop (B1 alone); after the bf16/mmap phase, the
+   64-request plan served by a sampler under ``sample_rng="key"`` (the
+   auto gather mode is then ``"blocked"``: B1's keyed pipeline entry
+   once a hop, B2 once a pass, no threefry and no B3 launch), every
+   served batch's ``n_id`` and masks bitwise the ``"xla"`` sampler's on
+   the card; ``key=rng.key(s)`` under each RNG on the card against the
+   CPU path the tests hold against JAX (no threefry launch under
+   either); a keyed hop and pass fused, unfused (the threefry kernel and
+   B3) and hashed (``"pwindow"``), each as device and host ms; then, at
+   products size after the data-parallel phase, B1's threefry instance
+   at products' hops against its plain version, and KEYED_STEPS fused
+   steps under ``"key"`` in each of KEYED_LANES (``"pallas"``: the
+   threefry kernel and B3; the default: B1's keyed entry), each from
+   ``key=rng.key(i)``, finite losses and every batch bitwise
+   ``"xla"``'s;
 15. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -485,14 +494,20 @@ def int_err(pairs) -> float:
                       for a, b in pairs if a.numel()] or [0]))
 
 
-def b1_hops(torch, b1, ip, ix, seeds, fanouts, kw, where: str):
+def b1_hops(torch, b1, ip, ix, seeds, fanouts, kw, where: str,
+            sample_rng: str = "hash"):
     """Kernel B1 at each hop of one positional pipeline from ``seeds``,
     through both entries: the pipeline entry (one launch a hop under
-    ``"pwindow"``; it writes the hop's frontier tail, mask tail and local
-    ids) and the literal entry, each held against its plain version
-    exactly, on the frontier the kernel itself builds.  Times kernel (CUDA
-    events), host launch and plain version per hop and entry.  Returns the
-    cases and the final frontier and mask."""
+    ``"pwindow"``, and under ``"blocked"`` with the key; it writes the
+    hop's frontier tail, mask tail and local ids) and the literal entry,
+    each held against its plain version exactly, on the frontier the
+    kernel itself builds, with uniforms by ``sample_rng`` (the hash
+    instance or the threefry one).  Times kernel (CUDA events), host
+    launch and plain version per hop and entry; under the key the bound
+    is the larger of the sector bytes' and the cipher's integer issue
+    (``THREEFRY_INT_OPS`` for each draw whose uniform decides its
+    position: a live seed's window wider than k).  Returns the cases and
+    the final frontier and mask."""
     dev = ip.device
     t = seeds.shape[0]
     total = t
@@ -510,17 +525,19 @@ def b1_hops(torch, b1, ip, ix, seeds, fanouts, kw, where: str):
 
         def pipe():
             return b1.window_sample_frontier(ip, ix, frontier, fmask, t, k,
-                                             k0, k1)
+                                             k0, k1, sample_rng=sample_rng)
 
         def pipe_plain():
-            return b1.window_sample_frontier_plain(ip, ix, ref_f, ref_m, t,
-                                                   k, k0, k1)
+            return b1.window_sample_frontier_plain(
+                ip, ix, ref_f, ref_m, t, k, k0, k1, sample_rng=sample_rng)
 
         def lit():
-            return b1.window_sample(ip, ix, s, k, k0, k1, m)
+            return b1.window_sample(ip, ix, s, k, k0, k1, m,
+                                    sample_rng=sample_rng)
 
         def lit_plain():
-            return b1.window_sample_plain(ip, ix, s, k, k0, k1, m)
+            return b1.window_sample_plain(ip, ix, s, k, k0, k1, m,
+                                          sample_rng)
 
         got, want, lgot, lwant = pipe(), pipe_plain(), lit(), lit_plain()
         torch.cuda.synchronize()
@@ -543,13 +560,28 @@ def b1_hops(torch, b1, ip, ix, seeds, fanouts, kw, where: str):
         nbytes = (t * (4 + 1 + 4) + sector_bytes(torch, live, live + 1)
                   + sector_bytes(torch, lgot.eid[lgot.mask]) + n * (4 + 1 + 4))
         draws = int(lgot.counts.sum())
+        bound = dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes")
+        if sample_rng == "key":
+            wide = (ip[live + 1] - ip[live]) > k
+            ciphered = int(wide.sum()) * k
+            by_ops = ciphered * THREEFRY_INT_OPS / INT32_OPS_PER_S * 1e3
+            bound.update(
+                bytes_bound_ms=bound["bound_ms"], ops_bound_ms=by_ops,
+                ciphered_draws=ciphered,
+                # every slot ciphered, as the kernel does
+                ops_bound_all_slots_ms=n * THREEFRY_INT_OPS
+                / INT32_OPS_PER_S * 1e3,
+                no_overlap_bound_ms=bound["bound_ms"] + by_ops)
+            if by_ops > bound["bound_ms"]:
+                bound.update(bound_ms=by_ops, bound_by="operations")
         for entry, fn, plain in (("pipeline", pipe, pipe_plain),
                                  ("literal", lit, lit_plain)):
             cases.append(dict(
                 entry=entry, shape=f"{where} hop {hop}: B={t}, k={k}",
-                max_abs_err=err, ms=cuda_ms(torch, fn),
+                sample_rng=sample_rng, max_abs_err=err, ms=cuda_ms(torch, fn),
                 host_ms=host_ms(torch, fn), plain_ms=cuda_ms(torch, plain),
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, draws=draws))
+                draws=draws, **bound))
             if entry == "pipeline":
                 # the scattered reads with 32-byte fetches (side timing)
                 cases[-1]["ms_l2_fetch"] = dict(zip(
@@ -563,23 +595,34 @@ def b1_hops(torch, b1, ip, ix, seeds, fanouts, kw, where: str):
     return cases, frontier, fmask
 
 
-def b1_record(b1, cases) -> dict:
+def b1_record(b1, cases, name: str = "window_sample") -> dict:
     """B1's entry in the kernels line: the pipeline entry's times (what
-    the main path runs) summed over the hops; each case listed."""
+    the main path runs) summed over the hops; each case listed.  Under
+    the key (``name`` ``"window_sample_key"``) the bound sums the hops'
+    bounds and says which of bytes and operations is the larger in
+    sum."""
     pipe = [c for c in cases if c["entry"] == "pipeline"]
     lit = [c for c in cases if c["entry"] == "literal"]
 
     def total(cs, key):
         return float(sum(c[key] for c in cs))
 
-    return dict(name="window_sample", route="cuda", source=b1.SOURCE,
-                replaces=b1.REPLACES,
-                max_abs_err=max(c["max_abs_err"] for c in cases),
-                ms=total(pipe, "ms"), plain_ms=total(pipe, "plain_ms"),
-                bound_ms=total(pipe, "bound_ms"), bound_by="bytes",
-                library_ms=None, host_ms=total(pipe, "host_ms"),
-                literal_ms=total(lit, "ms"),
-                literal_host_ms=total(lit, "host_ms"), cases=cases)
+    rec = dict(name=name, route="cuda", source=b1.SOURCE,
+               replaces=b1.REPLACES,
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               ms=total(pipe, "ms"), plain_ms=total(pipe, "plain_ms"),
+               bound_ms=total(pipe, "bound_ms"), bound_by="bytes",
+               library_ms=None, host_ms=total(pipe, "host_ms"),
+               literal_ms=total(lit, "ms"),
+               literal_host_ms=total(lit, "host_ms"), cases=cases)
+    if "ops_bound_ms" in pipe[0]:
+        for key in ("bytes_bound_ms", "ops_bound_ms",
+                    "ops_bound_all_slots_ms", "no_overlap_bound_ms"):
+            rec[key] = total(pipe, key)
+        rec["ciphered_draws"] = int(total(pipe, "ciphered_draws"))
+        if rec["ops_bound_ms"] > rec["bytes_bound_ms"]:
+            rec["bound_by"] = "operations"
+    return rec
 
 
 def kernel_phase(torch, qt, topo, feature, b1, b2):
@@ -1557,7 +1600,7 @@ def device_ops(torch, fn, tries: int = 3) -> tuple:
 
 def pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
                   gather_mode="pwindow", complete=None,
-                  tries: int = 1) -> list:
+                  tries: int = 1, sample_rng: str = "hash") -> list:
     """One ``run_pipeline`` call at each depth of ``fanouts`` (its first 1,
     2, ... hops): the host time to return (its launches, median of 15), the
     device span (CUDA events behind a spin kernel) and the device
@@ -1571,7 +1614,8 @@ def pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
     for depth in range(1, len(fanouts) + 1):
         def fn():
             return run_pipeline("none", ip, ix, seeds, kw[:depth],
-                                fanouts[:depth], gather_mode=gather_mode)
+                                fanouts[:depth], gather_mode=gather_mode,
+                                sample_rng=sample_rng)
 
         for capture in range(1, tries + 1):
             ops, api_launches = device_ops(torch, fn)
@@ -1596,17 +1640,22 @@ def pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
     return rows
 
 
-def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
-    """The ``"pwindow"`` pipeline's cost per depth (``pipeline_cost``);
-    checks that it launches B1 once a hop and that each hop adds no device
+def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1,
+                           gather_mode: str = "pwindow",
+                           sample_rng: str = "hash"):
+    """The pipeline's cost per depth (``pipeline_cost``) under
+    ``gather_mode`` and ``sample_rng`` (``"pwindow"`` under the hash, or
+    ``"blocked"`` under the key: B1's pipeline entry either way); checks
+    that it launches B1 once a hop and that each hop adds no device
     operation but B1's kernel: the hop's frontier, mask and local ids come
     from that launch alone."""
     from quiver_tpu_torch.sampler import run_pipeline
 
+    mode = dict(gather_mode=gather_mode, sample_rng=sample_rng)
     before = b1.window_sample.launches
-    run_pipeline("none", ip, ix, seeds, kw, fanouts, gather_mode="pwindow")
+    run_pipeline("none", ip, ix, seeds, kw, fanouts, **mode)
     check(b1.window_sample.launches - before == len(fanouts),
-          f"{where}: the pwindow pipeline launched B1 "
+          f"{where}: the {gather_mode} pipeline launched B1 "
           f"{b1.window_sample.launches - before} times for "
           f"{len(fanouts)} hops")
     # the profiler on the card sometimes drops a device event from a
@@ -1619,7 +1668,7 @@ def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
     for depth in range(1, len(fanouts) + 1):
         before = b1.window_sample.launches
         run_pipeline("none", ip, ix, seeds, kw[:depth], fanouts[:depth],
-                     gather_mode="pwindow")
+                     **mode)
         launched.append(b1.window_sample.launches - before)
 
     def b1_in(row):
@@ -1631,14 +1680,14 @@ def pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts, where, b1):
             launched[depth - 1]
 
     rows = pipeline_cost(torch, run_pipeline, ip, ix, seeds, kw, fanouts,
-                         complete=whole, tries=8)
-    print(f"{where} pwindow pipeline, cost by depth "
+                         complete=whole, tries=8, **mode)
+    print(f"{where} {gather_mode} pipeline, cost by depth "
           + json.dumps(dict(fanouts=list(fanouts), B=int(seeds.shape[0]),
-                            rows=rows)), flush=True)
+                            rows=rows, **mode)), flush=True)
     hprof = host_profile(torch, lambda: run_pipeline(
-        "none", ip, ix, seeds, kw, fanouts, gather_mode="pwindow"))
-    print(f"{where} pwindow pipeline on the host (cProfile, own time) "
-          + json.dumps(hprof), flush=True)
+        "none", ip, ix, seeds, kw, fanouts, **mode))
+    print(f"{where} {gather_mode} pipeline on the host (cProfile, own "
+          "time) " + json.dumps(hprof), flush=True)
     check(rows[0]["device_ops"] and rows[-1]["device_ops"],
           f"{where}: the profiler saw no device operation")
 
@@ -6281,7 +6330,9 @@ def threefry_cases(torch, qt, tf) -> list:
 
 def threefry_record(tf, cases) -> dict:
     """The threefry kernel's entry in the kernels line: the Reddit pass's
-    two hops (KEYED_PASS) summed, as B1's record sums its hops."""
+    two hops (KEYED_PASS) summed, as B1's record sums its hops (the
+    shapes it was first timed at; its launches are the keyed ``"pallas"``
+    lane's, the path that still reaches it)."""
     main = [c for c in cases if tuple(c["shape"]) in KEYED_PASS]
 
     def total(key):
@@ -6307,13 +6358,67 @@ def same_pipeline(torch, got, want, what: str) -> None:
               and torch.equal(a.mask, b.mask), f"{what}: a block differs")
 
 
-def keyed_hop_times(torch, qt, topo, tf) -> dict:
-    """One Reddit hop (2048 seeds, k=25) under ``"blocked"`` with each RNG
-    (the same reads, B3; the key adds one threefry launch) and the hash
-    hop under ``"pwindow"`` (B1, the default), device ms and the host's
-    ms to return from the call (its launches); then the whole bucket-2048
-    pipeline under each, both ways."""
-    from quiver_tpu_torch.ops.sample import run_hop
+class KeyedLaunches:
+    """B1's launches under the key (``window_sample.launches_key``) behind
+    the ``launches`` attribute that ``serve`` and the lanes set to 0 and
+    read, as they do a wrapper's own count."""
+
+    def __init__(self, b1):
+        self.fn = b1.window_sample
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches_key
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches_key = n
+
+
+def keyed_b1_phase(torch, topo, b1) -> dict:
+    """B1's threefry instance at the Reddit bucket-2048 pass (KEYED_PASS)
+    through both entries, bitwise its plain version (``"xla"`` reads,
+    ``threefry_uniform_plain``) and timed against its bound
+    (``b1_hops``); then the keyed ``"blocked"`` pipeline's device
+    operations a depth: B1 alone a hop (``pwindow_pipeline_phase``).
+    Returns the kernels line's record."""
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    g = np.random.default_rng(SEED + 48)
+    seeds = torch.from_numpy(g.integers(0, N_NODES, KEYED_PASS[0][0]).astype(
+        np.int32)).to(dev)
+    kw = g.integers(0, 2**32, (len(KEYED_PASS), 2), dtype=np.uint32)
+    fanouts = [k for _, k in KEYED_PASS]
+    cases, n_id, _ = b1_hops(torch, b1, ip, ix, seeds, fanouts, kw,
+                             "Reddit keyed", "key")
+    check(n_id.shape[0] == KEYED_PASS[-1][0] * (1 + KEYED_PASS[-1][1]),
+          f"keyed frontier {n_id.shape[0]}")
+    cost = pwindow_pipeline_phase(torch, ip, ix, seeds, kw, fanouts,
+                                  "Reddit keyed", b1, gather_mode="blocked",
+                                  sample_rng="key")
+    rec = b1_record(b1, cases, name="window_sample_key")
+    rec.update(pipeline_cost=cost, replaces_note=(
+        "B1's threefry instance; JAX's keyed \"blocked\" hop is XLA's "
+        "jax.random.uniform (jax_uniform) and its block gather"),
+        jax_uniform="quiver_tpu/ops/sample.py:218")
+    print("B1 keyed entry at the Reddit pass " + json.dumps(
+        {k: v for k, v in rec.items() if k not in ("cases",
+                                                   "pipeline_cost")}),
+        flush=True)
+    return rec
+
+
+def keyed_hop_times(torch, qt, topo, b1, tf, b3) -> dict:
+    """One Reddit hop (2048 seeds, k=25) and the bucket-2048 pass, three
+    ways in one call, each as device ms and the host's ms to return from
+    the call (its launches): under the key fused (``"blocked"``: B1's
+    threefry instance, one launch a hop), under the key unfused (the hop
+    as ``sample_hop(..., "blocked", "key")`` composed it before B1 drew
+    threefry: B3's pair entry, a threefry launch, B3, the stratified math
+    in torch; the pass as the generic loop over the same kernels, which
+    is ``"pallas"``'s route), and the hash under ``"pwindow"`` (B1's hash
+    instance).  Checks each way's launches a pass."""
+    from quiver_tpu_torch.ops.sample import run_hop, sample_hop
     from quiver_tpu_torch.sampler import run_pipeline
 
     dev = torch.device(DEV)
@@ -6323,51 +6428,95 @@ def keyed_hop_times(torch, qt, topo, tf) -> dict:
         np.int32)).to(dev)
     k0, k1 = (int(w) for w in g.integers(0, 2**32, 2, dtype=np.uint32))
     kw = g.integers(0, 2**32, (len(FANOUTS), 2), dtype=np.uint32)
+    n_hops = len(FANOUTS)
+    k = FANOUTS[0]
+    ways = {
+        "key fused": (
+            lambda: run_hop(ip, ix, seeds, k, k0, k1, None, "blocked",
+                            "key"),
+            lambda: run_pipeline("none", ip, ix, seeds, kw, FANOUTS,
+                                 gather_mode="blocked", sample_rng="key"),
+            dict(b1=n_hops, b1_key=n_hops, threefry=0, b3=0)),
+        "key unfused": (
+            lambda: sample_hop(ip, ix, seeds, k, k0, k1, None, "blocked",
+                               "key"),
+            lambda: run_pipeline("none", ip, ix, seeds, kw, FANOUTS,
+                                 gather_mode="pallas", sample_rng="key"),
+            dict(b1=0, b1_key=0, threefry=n_hops, b3=2 * n_hops)),
+        "hash pwindow": (
+            lambda: run_hop(ip, ix, seeds, k, k0, k1, None, "pwindow",
+                            "hash"),
+            lambda: run_pipeline("none", ip, ix, seeds, kw, FANOUTS,
+                                 gather_mode="pwindow", sample_rng="hash"),
+            dict(b1=n_hops, b1_key=0, threefry=0, b3=0)),
+    }
+
+    def counts():
+        return dict(b1=b1.window_sample.launches,
+                    b1_key=b1.window_sample.launches_key,
+                    threefry=tf.threefry_uniform.launches,
+                    b3=b3.element_gather.launches)
+
     out = {}
-    for label, mode, srng in (("key blocked", "blocked", "key"),
-                              ("hash blocked", "blocked", "hash"),
-                              ("hash pwindow", "pwindow", "hash")):
-        def hop():
-            return run_hop(ip, ix, seeds, FANOUTS[0], k0, k1, None, mode,
-                           srng)
-
-        def one_pass():
-            return run_pipeline("none", ip, ix, seeds, kw, FANOUTS,
-                                gather_mode=mode, sample_rng=srng)
-
+    for label, (hop, one_pass, per_pass) in ways.items():
+        before = counts()
+        one_pass()
+        torch.cuda.synchronize()
+        ran = {n: c - before[n] for n, c in counts().items()}
+        check(ran == per_pass, f"{label}: a pass launched {ran}, not "
+              f"{per_pass}")
         out[label] = dict(hop_ms=cuda_ms(torch, hop),
                           hop_host_ms=host_ms(torch, hop),
                           pass_ms=cuda_ms(torch, one_pass),
-                          pass_host_ms=host_ms(torch, one_pass))
-    print("a keyed hop against a hash hop (device ms and host ms to "
-          "return, median of 15) "
-          + json.dumps(out), flush=True)
+                          pass_host_ms=host_ms(torch, one_pass),
+                          launches_a_pass=ran)
+    fused, flat = ways["key fused"][1](), ways["key unfused"][1]()
+    torch.cuda.synchronize()
+    same_pipeline(torch, fused, flat, "the fused keyed pass")
+    for key in ("pass_ms", "pass_host_ms"):
+        out[f"fused_over_pwindow_{key}"] = (out["key fused"][key]
+                                            / out["hash pwindow"][key])
+        out[f"unfused_over_fused_{key}"] = (out["key unfused"][key]
+                                            / out["key fused"][key])
+    print("a keyed hop and pass, fused and unfused, beside the hashed "
+          "\"pwindow\" ones (device ms and host ms to return, median of "
+          "15) " + json.dumps(out), flush=True)
     return out
 
 
-def keyed_serving_phase(torch, qt, topo, feat, feature, b2, b3, tf):
+def keyed_serving_phase(torch, qt, topo, feat, feature, b1, b2, b3, tf):
     """Phase 4n on the Reddit graph: the 64-request plan served by a
     sampler under ``sample_rng="key"`` (the auto gather mode, which is
-    then ``"blocked"``: B3 twice a hop; one threefry launch a hop; B2 once
-    a pass), every served batch's ``n_id`` and masks bitwise the same
-    sampler's under ``"xla"`` on the card; then ``key=rng.key(s)`` under
-    each RNG on the card against the CPU path the tests hold against JAX
-    (no threefry launch under the hash); and the hop times."""
+    then ``"blocked"``: B1's keyed pipeline entry once a hop, B2 once a
+    pass, no threefry and no B3 launch, warm-up included), every served
+    batch's ``n_id`` and masks bitwise the same sampler's under ``"xla"``
+    on the card; then ``key=rng.key(s)`` under each RNG on the card
+    against the CPU path the tests hold against JAX (B1's hash instance
+    under the hash, its keyed one under the key, no threefry launch under
+    either); and the hop times."""
     from quiver_tpu_torch.utils import rng
 
     sampler = qt.GraphSageSampler(topo, FANOUTS, device=DEV, seed=SEED,
                                   sample_rng="key")
     check((sampler.gather_mode, sampler.sample_rng) == ("blocked", "key"),
           f"keyed sampler resolved to {sampler!r}")
-    counters = {"threefry_uniform": tf.threefry_uniform,
-                "element_gather": b3.element_gather,
+    counters = {"window_sample": b1.window_sample,
+                "window_sample_key": KeyedLaunches(b1),
                 "gather_rows": b2.gather_rows}
+    # kernels the keyed plan must not launch, from warm-up on
+    absent = {"threefry_uniform": tf.threefry_uniform,
+              "element_gather": b3.element_gather}
+    for fn in absent.values():
+        fn.launches = 0
     server, answers, sent, launches, _, summary = serve(
         torch, qt, sampler, feature, seeded_model(torch, qt), counters)
+    launches.update({name: fn.launches for name, fn in absent.items()})
     chunks = [c for _, cs in server.pass_log for c in cs]
     n_hops = len(FANOUTS)
-    for name, per in (("threefry_uniform", n_hops),
-                      ("element_gather", 2 * n_hops), ("gather_rows", 1)):
+    for name, per in (("window_sample", n_hops),
+                      ("window_sample_key", n_hops),
+                      ("threefry_uniform", 0), ("element_gather", 0),
+                      ("gather_rows", 1)):
         check(launches[name] == per * len(chunks),
               f"keyed serving: {name} launched {launches[name]} times in "
               f"{len(chunks)} passes, not {per} a pass")
@@ -6389,91 +6538,127 @@ def keyed_serving_phase(torch, qt, topo, feat, feature, b2, b3, tf):
                                      sample_rng=srng)
         cpu_s = qt.GraphSageSampler(topo, FANOUTS, device="cpu",
                                     sample_rng=srng)
-        before = tf.threefry_uniform.launches
+        before = (b1.window_sample.launches, b1.window_sample.launches_key,
+                  tf.threefry_uniform.launches)
         with torch.inference_mode():
             got = card_s.sample(ids, key=rng.key(SEED + 46))
             torch.cuda.synchronize()
-            ran = tf.threefry_uniform.launches - before
+            ran = tuple(a - b for a, b in zip(
+                (b1.window_sample.launches, b1.window_sample.launches_key,
+                 tf.threefry_uniform.launches), before))
             want = cpu_s.sample(ids, key=rng.key(SEED + 46))
-        check(ran == (n_hops if srng == "key" else 0),
-              f"{srng}: {ran} threefry launches in one {n_hops}-hop sample")
+        check(ran == (n_hops, n_hops if srng == "key" else 0, 0),
+              f"{srng}: (B1, B1 keyed, threefry) launched {ran} in one "
+              f"{n_hops}-hop sample")
         check(torch.equal(got.n_id.cpu(), want.n_id)
               and torch.equal(got.n_id_mask.cpu(), want.n_id_mask),
               f"{srng}: the card's n_id from key= differs from the CPU's")
         seed_checks[srng] = dict(gather_mode=card_s.gather_mode,
-                                 threefry_launches=ran,
+                                 b1_launches=ran[0], b1_key_launches=ran[1],
+                                 threefry_launches=ran[2],
                                  frontier=int(got.n_id.shape[0]))
     print("key=rng.key(s) on the card against the CPU path: n_id equal "
           + json.dumps(seed_checks), flush=True)
     summary.update(launches=launches, served_batches=len(chunks),
                    from_a_seed=seed_checks,
-                   hop_times=keyed_hop_times(torch, qt, topo, tf))
+                   hop_times=keyed_hop_times(torch, qt, topo, b1, tf, b3))
     return launches, summary
 
 
-def keyed_training_phase(torch, qt, topo, feat, labels, train, b2, b3, tf):
-    """Phase 4n at products size: KEYED_STEPS fused steps under
-    ``sample_rng="key"``, ``gather_mode="pallas"`` (B3 twice a hop, one
-    threefry launch a hop, B2 once a step), each from ``key=rng.key(i)``;
-    finite losses, and each step's batch bitwise the ``"xla"`` sampler's
-    under the same key."""
+# the keyed products lanes: gather mode, then each kernel's launches a
+# step by its count's name (B1 counted under both RNGs and under the key)
+KEYED_LANES = (
+    ("pallas", dict(window_sample=0, window_sample_key=0,
+                    threefry_uniform=len(P_FANOUTS),
+                    element_gather=2 * len(P_FANOUTS), gather_rows=1)),
+    ("auto", dict(window_sample=len(P_FANOUTS),
+                  window_sample_key=len(P_FANOUTS), threefry_uniform=0,
+                  element_gather=0, gather_rows=1)),
+)
+
+
+def keyed_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3,
+                         tf):
+    """Phase 4n at products size: B1's threefry instance at products'
+    three hops against its plain version (``b1_hops``), then KEYED_STEPS
+    fused steps under ``sample_rng="key"`` in each of KEYED_LANES:
+    ``gather_mode="pallas"`` (B3 twice a hop, one threefry launch a hop,
+    B2 once a step) and the default (``"blocked"``: B1's keyed pipeline
+    entry once a hop, B2 once a step), each step from
+    ``key=rng.key(i)``; finite losses, and each step's batch bitwise the
+    ``"xla"`` sampler's under the same key.  Returns the launches and
+    summary of each lane and B1's products cases."""
     from quiver_tpu_torch.utils import rng
 
     t0 = time.perf_counter()
     feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                          device=DEV).from_cpu_tensor(feat)
     labels_d = torch.from_numpy(labels).to(DEV)
-    sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
-                                  gather_mode="pallas", sample_rng="key")
+    ip, ix = topo.to_device(DEV)
+    pseeds, pkw = products_batch(torch, torch.device(DEV), train)
+    b1_cases, _, _ = b1_hops(torch, b1, ip, ix, pseeds, P_FANOUTS, pkw,
+                             "products keyed", "key")
     xla = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, gather_mode="xla",
                               sample_rng="key")
-    model = products_model(torch, qt)
-    opt = torch.optim.Adam(model.parameters(), lr=P_LR)
-    step = qt.make_fused_train_step(sampler, feature, model, opt, seed=SEED)
     ones = torch.ones((P_BATCH,), dtype=torch.bool, device=DEV)
-    torch.cuda.synchronize()
-    print(f"keyed fused lane: {sampler!r}; set up in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    counters = {"threefry_uniform": tf.threefry_uniform,
+    counters = {"window_sample": b1.window_sample,
+                "window_sample_key": KeyedLaunches(b1),
+                "threefry_uniform": tf.threefry_uniform,
                 "element_gather": b3.element_gather,
                 "gather_rows": b2.gather_rows}
-    for fn in counters.values():
-        fn.launches = 0
-    losses, wall, steps = [], [], []
-    for i, (seeds, lab) in enumerate(batches(torch, train, labels_d,
-                                             KEYED_STEPS, SEED + 47,
-                                             P_BATCH)):
+    out = {}
+    for mode, per in KEYED_LANES:
+        sampler = qt.GraphSageSampler(topo, P_FANOUTS, device=DEV, seed=SEED,
+                                      gather_mode=mode, sample_rng="key")
+        model = products_model(torch, qt)
+        opt = torch.optim.Adam(model.parameters(), lr=P_LR)
+        step = qt.make_fused_train_step(sampler, feature, model, opt,
+                                        seed=SEED)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        losses.append(step(seeds, lab, ones, key=rng.key(SEED + 100 + i)))
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t1) * 1e3)
-        steps.append(seeds)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    n_hops = len(P_FANOUTS)
-    for name, per in (("threefry_uniform", n_hops),
-                      ("element_gather", 2 * n_hops), ("gather_rows", 1)):
-        check(launches[name] == per * KEYED_STEPS,
-              f"keyed training: {name} launched {launches[name]} times in "
-              f"{KEYED_STEPS} steps, not {per} a step")
-    losses = torch.stack(losses).cpu().numpy()
-    check(np.isfinite(losses).all(), "a keyed step's loss is not finite")
-    # each step's batch again, from the same key, through "xla"
-    with torch.inference_mode():
-        for i, seeds in enumerate(steps):
-            words = sampler.words_of_key(rng.split(rng.key(
-                SEED + 100 + i))[0])
-            same_pipeline(torch, sampler.pipeline(seeds, words, False),
-                          xla.pipeline(seeds, words, False),
-                          f"keyed step {i}")
-    summary = dict(steps=KEYED_STEPS, gather_mode=sampler.gather_mode,
-                   sample_rng=sampler.sample_rng, launches=launches,
-                   losses=losses.tolist(),
-                   step_wall_ms=float(np.median(wall[2:])))
-    print("keyed fused training " + json.dumps(summary), flush=True)
+        print(f"keyed fused lane {mode!r}: {sampler!r}; set up in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for fn in counters.values():
+            fn.launches = 0
+        losses, wall, steps = [], [], []
+        for i, (seeds, lab) in enumerate(batches(torch, train, labels_d,
+                                                 KEYED_STEPS, SEED + 47,
+                                                 P_BATCH)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(step(seeds, lab, ones,
+                               key=rng.key(SEED + 100 + i)))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t1) * 1e3)
+            steps.append(seeds)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for name, n in per.items():
+            check(launches[name] == n * KEYED_STEPS,
+                  f"keyed training ({mode}): {name} launched "
+                  f"{launches[name]} times in {KEYED_STEPS} steps, not {n} "
+                  "a step")
+        losses = torch.stack(losses).cpu().numpy()
+        check(np.isfinite(losses).all(),
+              f"a keyed step's loss is not finite ({mode})")
+        # each step's batch again, from the same key, through "xla"
+        with torch.inference_mode():
+            for i, seeds in enumerate(steps):
+                words = sampler.words_of_key(rng.split(rng.key(
+                    SEED + 100 + i))[0])
+                same_pipeline(torch, sampler.pipeline(seeds, words, False),
+                              xla.pipeline(seeds, words, False),
+                              f"keyed step {i} ({mode})")
+        summary = dict(steps=KEYED_STEPS, gather_mode=sampler.gather_mode,
+                       sample_rng=sampler.sample_rng, launches=launches,
+                       losses=losses.tolist(),
+                       step_wall_ms=float(np.median(wall[2:])))
+        print(f"keyed fused training ({mode}) " + json.dumps(summary),
+              flush=True)
+        out[mode] = (launches, summary)
+        del step, opt, model
+        t0 = time.perf_counter()
     del feature
     torch.cuda.empty_cache()
-    return launches, summary
+    return out, b1_cases
 
 
 # the phases, in the order a whole run takes them; ``--phases`` names some
@@ -6684,20 +6869,23 @@ def main(argv=None) -> int:
         phase_s["bf16_and_mmap"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
 
-    # slice 17: the threefry kernel, then Reddit served under the key
+    # slices 17 and 18: the threefry kernel, B1's threefry instance, then
+    # Reddit served under the key
     keyed = {}
     if "keyed" in want:
         t0 = time.perf_counter()
         tf_cases = threefry_cases(torch, qt, tf)
+        b1_key = keyed_b1_phase(torch, topo, b1)
         launches_k, keyed["serving"] = keyed_serving_phase(
-            torch, qt, topo, feat, feature, b2, b3, tf)
+            torch, qt, topo, feat, feature, b1, b2, b3, tf)
+        # the threefry kernel's launches are the keyed "pallas" lane's
         recs["threefry_uniform"] = dict(
             threefry_record(tf, tf_cases),
-            launches=launches_k["threefry_uniform"])
-        kr("element_gather")["launches_keyed_serving"] = \
-            launches_k["element_gather"]
-        kr("gather_rows")["launches_keyed_serving"] = \
-            launches_k["gather_rows"]
+            launches_keyed_serving=launches_k["threefry_uniform"])
+        recs["window_sample_key"] = dict(
+            b1_key, launches=launches_k["window_sample_key"])
+        for name in ("window_sample", "element_gather", "gather_rows"):
+            kr(name)["launches_keyed_serving"] = launches_k[name]
         phase_s["keyed_serving"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
 
@@ -6838,18 +7026,31 @@ def main(argv=None) -> int:
             launches_dp["gather_rows"]
     if "keyed" in want:
         t0 = time.perf_counter()
-        launches_kt, keyed["training"] = keyed_training_phase(
-            torch, qt, ptopo, pfeat, plabels, ptrain, b2, b3, tf)
+        lanes_k, b1_key_p = keyed_training_phase(
+            torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2, b3, tf)
+        keyed["training"] = {mode: summ for mode, (_, summ) in
+                             lanes_k.items()}
+        pallas_k, auto_k = lanes_k["pallas"][0], lanes_k["auto"][0]
+        kr("threefry_uniform")["launches"] = pallas_k["threefry_uniform"]
         kr("threefry_uniform")["launches_keyed_training"] = \
-            launches_kt["threefry_uniform"]
+            pallas_k["threefry_uniform"]
         kr("element_gather")["launches_keyed_training"] = \
-            launches_kt["element_gather"]
-        kr("gather_rows")["launches_keyed_training"] = \
-            launches_kt["gather_rows"]
+            pallas_k["element_gather"]
+        kr("window_sample")["launches_keyed_training"] = \
+            auto_k["window_sample"]
+        products_key = b1_record(b1, b1_key_p, name="window_sample_key")
+        kr("window_sample_key").update(
+            launches_keyed_training=auto_k["window_sample_key"],
+            products={k: products_key[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "host_ms",
+                "literal_ms", "literal_host_ms", "cases")})
+        kr("gather_rows")["launches_keyed_training"] = {
+            mode: launches["gather_rows"] for mode, (launches, _) in
+            lanes_k.items()}
         phase_s["keyed_training"] = time.perf_counter() - t0
         keyed["phase_s"] = {k: phase_s[k] for k in (
             "keyed_serving", "keyed_training")}
-        print("slice 17 summary " + json.dumps(keyed), flush=True)
+        print("slices 17 and 18 summary " + json.dumps(keyed), flush=True)
     if "products" in want:
         print("fused training summary " + json.dumps(summary_f), flush=True)
         print("fused training summary, gather_mode=\"auto\" "
@@ -6972,7 +7173,9 @@ def main(argv=None) -> int:
                 kr(name)["launches_examples"] = by
         print("slice 16 summary " + json.dumps(examples), flush=True)
 
-    kernels = [recs[name] for name in KERNELS if name in recs]
+    # B1's threefry instance has its own record after B1's
+    kernels = [recs[name] for name in ("window_sample", "window_sample_key",
+                                       *KERNELS[1:]) if name in recs]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -367,11 +367,13 @@ def resolve_gather_mode(gather_mode: str,
     accepted but unused (``ops/blockgather.py``).
 
     ``sample_rng`` is the caller's raw argument, as in JAX
-    (``quiver_tpu/config.py:582-604``): B1 fuses the counter hash, so an
-    ``"auto"`` that lands on ``"pwindow"`` becomes ``"blocked"`` (its
-    key-capable counterpart, the same draws through B3) when the RNG is
-    ``"key"``: an explicit ``"key"`` over a ``"pwindow"`` pin, as in JAX,
-    and an explicit or pinned ``"key"`` over the port's default.  An
+    (``quiver_tpu/config.py:582-604``): ``"pwindow"`` fuses the counter
+    hash, so an ``"auto"`` that lands on ``"pwindow"`` becomes
+    ``"blocked"`` (its key-capable counterpart, the same draws; on the
+    card a uniform ``"blocked"`` hop under the key is B1's threefry
+    instance, ``ops/sample.py::run_hop``) when the RNG is ``"key"``: an
+    explicit ``"key"`` over a ``"pwindow"`` pin, as in JAX, and an
+    explicit or pinned ``"key"`` over the port's default.  An
     explicit ``"pwindow"`` is never rewritten: with ``"key"`` it raises at
     the op."""
     _validate_gather_mode(gather_mode)

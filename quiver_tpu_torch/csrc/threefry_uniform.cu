@@ -6,17 +6,15 @@
 // draw site of a sampling hop under sample_rng="key".  The port gives
 // them one launch: in plain torch a hop would run some 150 elementwise
 // launches, since torch emulates uint32 in int64 (an add, a mask, two
-// shifts, an or and an xor for each of the 20 rounds).
+// shifts, an or and an xor for each of the 20 rounds).  A uniform
+// "blocked[:U]" hop does not come here: kernel B1's keyed instance
+// (window_sample.cu) draws the same cipher in registers.  This kernel
+// serves the other keyed draw sites: the "pallas", "xla" and "lanes*"
+// hops, the weighted hop and the overlay hop.
 //
 // What it computes, bit for bit as JAX 0.9 does with
-// jax_threefry_partitionable on (its default):
-//   (x0, x1) = (i >> 32, i & 0xFFFFFFFF)       iota_2x32_shape
-//   (y0, y1) = threefry2x32(k0, k1, x0, x1)    20 rounds, 5 injections
-//   bits     = y0 ^ y1                         32-bit random bits
-//   out[i]   = float((bits >> 9) | 0x3F800000) - 1.0f
-// Everything is integer arithmetic but the last subtraction, which is
-// exact (the float lies in [1, 2)); it is written __fsub_rn so that no
-// contraction or fast-math flag can touch it.
+// jax_threefry_partitionable on (its default), is the cipher of
+// threefry.cuh (qtt::threefry_uniform_at) at every flat index i < n.
 //
 // What bounds it on the H100: integer issue, not memory.  Each element
 // takes 75 integer operations (2 injections of the counter, 20 rounds of
@@ -33,41 +31,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-#define QTT_ROUND(r)     \
-  x0 += x1;              \
-  x1 = rotl(x1, r) ^ x0;
 
 __global__ void threefry_uniform_kernel(uint32_t k0, uint32_t k1,
                                         float* __restrict__ out, int64_t n) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
-       i < n; i += stride) {
-    uint32_t x0 = static_cast<uint32_t>(static_cast<uint64_t>(i) >> 32) + k0;
-    uint32_t x1 = static_cast<uint32_t>(i) + k1;
-    QTT_ROUND(13) QTT_ROUND(15) QTT_ROUND(26) QTT_ROUND(6)
-    x0 += k1; x1 += k2 + 1u;
-    QTT_ROUND(17) QTT_ROUND(29) QTT_ROUND(16) QTT_ROUND(24)
-    x0 += k2; x1 += k0 + 2u;
-    QTT_ROUND(13) QTT_ROUND(15) QTT_ROUND(26) QTT_ROUND(6)
-    x0 += k0; x1 += k1 + 3u;
-    QTT_ROUND(17) QTT_ROUND(29) QTT_ROUND(16) QTT_ROUND(24)
-    x0 += k1; x1 += k2 + 4u;
-    QTT_ROUND(13) QTT_ROUND(15) QTT_ROUND(26) QTT_ROUND(6)
-    x0 += k2; x1 += k0 + 5u;
-    const uint32_t bits = ((x0 ^ x1) >> 9) | 0x3F800000u;
-    out[i] = __fsub_rn(__uint_as_float(bits), 1.0f);
-  }
+       i < n; i += stride)
+    out[i] = qtt::threefry_uniform_at(k0, k1, static_cast<uint64_t>(i));
 }
-
-#undef QTT_ROUND
 
 }  // namespace
 

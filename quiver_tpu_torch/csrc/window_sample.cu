@@ -2,11 +2,22 @@
 //
 // Replaces quiver_tpu/ops/pallas/window_sample_kernel.py::pallas_window_sample
 // (body _make_kernel).  For seed b with window [start, start + deg) of the
-// CSR indices, draw t = b*k + j takes the counter-hash uniform at counter t,
-// keyed by the folded words (k0, k1), maps it to the stratified position
-// pos (quiver_tpu/ops/sample.py::_stratified_positions) and reads
-// indices[start + pos].  One launch writes any of these outputs (a null
-// pointer is not written):
+// CSR indices, draw t = b*k + j takes a uniform at counter t, maps it to
+// the stratified position pos (quiver_tpu/ops/sample.py::
+// _stratified_positions) and reads indices[start + pos].  The uniform
+// source is a template argument, picked at launch by `rng`:
+//   0, the hash instance: the counter hash keyed by the folded words
+//      (k0, k1), JAX's sample_rng="hash" draw (its Pallas kernel's);
+//   1, the threefry instance: threefry.cuh's cipher keyed by the hop
+//      key's raw words (k0, k1), element t of JAX's
+//      jax.random.uniform(key, (B, k)), so a uniform "blocked[:U]" hop
+//      under sample_rng="key" is this one launch and draws what JAX's
+//      keyed "xla" hop draws (JAX itself runs XLA's threefry and a
+//      gather there: its Pallas kernel fuses the hash only).
+// A template, not a runtime branch, so the hash instance carries none of
+// the cipher's code: its registers and occupancy are its own.
+// One launch writes any of these outputs (a null pointer is not
+// written):
 //   literal entry (window_sample):
 //     nbrs[t]   = indices[start + pos]   (-1 where masked)
 //     mask[t]   = j < min(deg, k)
@@ -40,6 +51,13 @@
 // not move it, so the reads bound it, not the per-draw work.  Where the
 // design saves time is the pipeline entry: a hop of the pipeline is one
 // launch and no other device operation.
+// The threefry instance adds 75 integer operations a draw (threefry.cuh)
+// to the same reads.  The warp's 32 draws are ciphered at one place, at
+// the top of the step, by all 32 lanes converged and before the window
+// read, which does not depend on them: the cipher's integer issue
+// overlaps the latency of the seed-then-indptr load chain.  Measured on
+// the H100 (PERF.md): the threefry instance takes the hash instance's
+// time, with the same 36 registers.
 // The TPU kernel's VMEM window copy, its U-row limit and the fallback for
 // long rows (_fit_split) exist only because of TPU memory and have no
 // counterpart: every read goes straight to global memory.
@@ -54,6 +72,7 @@
 #include <stdint.h>
 
 #include "element_gather.cuh"
+#include "threefry.cuh"
 
 namespace {
 
@@ -86,12 +105,22 @@ __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
+// counter-hash uniform (quiver_tpu/ops/sample.py::_hash_uniform)
+__device__ __forceinline__ float hash_uniform(uint32_t t, uint32_t k0,
+                                              uint32_t k1) {
+  uint32_t x = t * kHashPhi;
+  x = fmix32(x ^ k0);
+  x = fmix32(x ^ k1);
+  return __fmul_rn(__uint2float_rn(x >> 8), 1.0f / 16777216.0f);
+}
+
 // n / k for n < 2**31 (Granlund-Montgomery, round-up variant)
 __device__ __forceinline__ uint32_t div_k(uint32_t n, uint32_t mul,
                                           uint32_t shift) {
   return (__umulhi(n, mul) + n) >> shift;
 }
 
+template <bool kThreefry>
 __global__ void __launch_bounds__(kBlock) window_sample_kernel(
     const int32_t* __restrict__ indptr, int64_t indptr_len,
     const int32_t* __restrict__ indices, int64_t indices_len,
@@ -104,6 +133,9 @@ __global__ void __launch_bounds__(kBlock) window_sample_kernel(
   for (uint32_t base = (blockIdx.x * kBlock + threadIdx.x) & ~31u;
        base < total; base += stride) {
     const uint32_t t = base + lane;
+    // the threefry instance ciphers the warp's 32 draws here, converged
+    float u_key = 0.0f;
+    if constexpr (kThreefry) u_key = qtt::threefry_uniform_at(k0, k1, t);
     const uint32_t b = div_k(t, k_mul, k_shift);
     const int32_t j = static_cast<int32_t>(t - b * static_cast<uint32_t>(k));
     const uint32_t b0 = div_k(base, k_mul, k_shift);
@@ -129,11 +161,7 @@ __global__ void __launch_bounds__(kBlock) window_sample_kernel(
     const int32_t cnt = deg < k ? deg : k;
     if (j == 0 && out.counts != nullptr) out.counts[b] = cnt;
 
-    // counter-hash uniform (quiver_tpu/ops/sample.py::_hash_uniform)
-    uint32_t x = t * kHashPhi;
-    x = fmix32(x ^ k0);
-    x = fmix32(x ^ k1);
-    const float u = __fmul_rn(__uint2float_rn(x >> 8), 1.0f / 16777216.0f);
+    const float u = kThreefry ? u_key : hash_uniform(t, k0, k1);
 
     // stratified position, op for op
     const float degf = __int2float_rn(deg);
@@ -160,25 +188,42 @@ __global__ void __launch_bounds__(kBlock) window_sample_kernel(
   }
 }
 
+template <bool kThreefry>
+cudaError_t launch_as(const int32_t* indptr, int64_t indptr_len,
+                      const int32_t* indices, int64_t indices_len,
+                      const int32_t* seeds, const uint8_t* seed_mask,
+                      uint32_t total, int k, uint32_t k_mul, uint32_t k_shift,
+                      uint32_t k0, uint32_t k1, const Outputs& out,
+                      cudaStream_t s) {
+  unsigned blocks = 0;
+  cudaError_t e =
+      qtt::grid_for<window_sample_kernel<kThreefry>, kBlock>(total, &blocks);
+  if (e != cudaSuccess) return e;
+  window_sample_kernel<kThreefry><<<blocks, kBlock, 0, s>>>(
+      indptr, indptr_len, indices, indices_len, seeds, seed_mask, total, k,
+      k_mul, k_shift, k0, k1, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// (k_mul, k_shift) divide by k (div_magic); frontier and fmask point at the
-// hop's tail; t0 is the frontier length before the hop.
+// (k_mul, k_shift) divide by k (div_magic); rng 0 draws the counter hash of
+// the folded words (k0, k1), rng 1 threefry of the raw key words; frontier
+// and fmask point at the hop's tail; t0 is the frontier length before the
+// hop.
 extern "C" int window_sample(const void* indptr, int64_t indptr_len,
                              const void* indices, int64_t indices_len,
                              const void* seeds, const void* seed_mask,
                              int64_t n_seeds, int k, uint32_t k_mul,
                              uint32_t k_shift, uint32_t k0, uint32_t k1,
-                             void* nbrs, void* mask, void* counts, void* eid,
-                             void* frontier, void* fmask, void* nbr_local,
-                             int32_t t0, void* stream) {
+                             int rng, void* nbrs, void* mask, void* counts,
+                             void* eid, void* frontier, void* fmask,
+                             void* nbr_local, int32_t t0, void* stream) {
   const int64_t total = n_seeds * k;
+  if (rng != 0 && rng != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (total <= 0) return static_cast<int>(cudaGetLastError());
   if (k < 1 || total > INT32_MAX || t0 < 0 || total > INT32_MAX - t0)
     return static_cast<int>(cudaErrorInvalidValue);
-  unsigned blocks = 0;
-  cudaError_t e = qtt::grid_for<window_sample_kernel, kBlock>(total, &blocks);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const Outputs out{static_cast<int32_t*>(nbrs),
                     static_cast<uint8_t*>(mask),
                     static_cast<int32_t*>(eid),
@@ -187,12 +232,11 @@ extern "C" int window_sample(const void* indptr, int64_t indptr_len,
                     static_cast<uint8_t*>(fmask),
                     static_cast<int32_t*>(nbr_local),
                     t0};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  window_sample_kernel<<<blocks, kBlock, 0, s>>>(
+  auto* const launch = rng == 1 ? &launch_as<true> : &launch_as<false>;
+  return static_cast<int>(launch(
       static_cast<const int32_t*>(indptr), indptr_len,
       static_cast<const int32_t*>(indices), indices_len,
       static_cast<const int32_t*>(seeds),
       static_cast<const uint8_t*>(seed_mask), static_cast<uint32_t>(total),
-      k, k_mul, k_shift, k0, k1, out);
-  return static_cast<int>(cudaGetLastError());
+      k, k_mul, k_shift, k0, k1, out, static_cast<cudaStream_t>(stream)));
 }

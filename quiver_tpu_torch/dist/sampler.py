@@ -11,7 +11,9 @@ samples them on its shard (``ops/sample.py::run_hop``), and a second
 Gather modes resolve as in JAX: ``"pwindow[:U]"`` (what ``"auto"`` is)
 runs ``"blocked[:U]"``, and ``"pallas"``/``"lanes_fused"`` run
 ``"lanes"``; under ``"blocked"`` every read of the per-shard hop goes
-through kernel B3.  All modes draw the same neighbours.
+through kernel B3 under the hash, and the hop is one launch of kernel
+B1's keyed instance under the key (``ops/sample.py::run_hop``).  All
+modes draw the same neighbours.
 
 Each hop of each rank draws with its own two key words, which
 ``sample(seed_batches, key=seed)`` derives as JAX does

@@ -10,7 +10,8 @@ with no dedup, as the homogeneous ``dedup="none"`` pipeline does:
   whose DST snapshot is empty is skipped and uses no key words;
 - every other relation, in the dict order of the hop's sizes, samples
   ``k`` sources for each DST id of the snapshot (one hop of
-  ``ops/sample.py::run_hop``: B1's literal entry under ``"pwindow"``),
+  ``ops/sample.py::run_hop``: B1's literal entry under ``"pwindow"``,
+  and its keyed instance under ``"blocked[:U]"`` with ``"key"``),
   and appends them, 0 where masked, to its SRC type's frontier; its
   block's ``nbr_local[b, j]`` is ``base + b*k + j`` where valid, ``base``
   being the SRC frontier's length at that moment.

@@ -5,8 +5,12 @@ Counterpart of XLA's ``jax.random.uniform`` at the JAX package's three
 draw sites under ``sample_rng="key"`` (``quiver_tpu/ops/sample.py:113-116``,
 reached from ``:218``, ``:344`` and ``:424``): it replaces no Pallas
 kernel.  The CUDA source, ``csrc/threefry_uniform.cu``, says what bounds
-it (integer issue) and what its design does about that.  The plain
-version is ``ops/threefry.py::threefry_uniform_plain``.
+it (integer issue) and what its design does about that; its cipher is
+``csrc/threefry.cuh``, which kernel B1's keyed instance draws in
+registers, so a uniform ``"blocked[:U]"`` hop under the key launches B1
+alone and not this kernel.  This kernel serves the keyed ``"pallas"``,
+``"xla"`` and ``"lanes*"`` hops, the weighted and the overlay hops.  The
+plain version is ``ops/threefry.py::threefry_uniform_plain``.
 
 :func:`threefry_uniform` runs the plain version on the CPU and the kernel
 on the card; a kernel that does not build or launch raises.

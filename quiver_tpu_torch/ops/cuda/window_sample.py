@@ -7,6 +7,14 @@ warp, each seed's window read once and shared by warp shuffles, 32-bit
 index math, one wave of blocks, and a pipeline entry that makes a hop one
 launch).
 
+The kernel draws its uniforms in registers from either source, by
+``sample_rng``: ``"hash"``, the counter hash of the folded key words (the
+JAX Pallas kernel's draw, what ``"pwindow"`` runs), or ``"key"``, JAX's
+threefry ``jax.random.uniform`` of the hop key's raw words
+(``csrc/threefry.cuh``), what a uniform ``"blocked[:U]"`` hop runs under
+``sample_rng="key"``.  Both give the draws of the JAX package's
+``"xla"`` hop under the same RNG.
+
 Two entries of one kernel:
 
 - :func:`window_sample`, the literal hop ``(nbrs, mask, counts, eid)``,
@@ -19,8 +27,12 @@ Two entries of one kernel:
   version is :func:`window_sample_frontier_plain`.
 
 Both run the plain version for tensors on the CPU and the kernel for
-tensors on the card; a kernel that does not build or launch raises.
-``window_sample.launches`` counts the kernel launches of both entries.
+tensors on the card; a kernel that does not build or launch raises
+:class:`~.build.KernelError`, and a ``sample_rng`` other than ``"hash"``
+or ``"key"`` :class:`~.build.KernelArgumentError`: neither falls back to
+another route.  ``window_sample.launches`` counts the kernel launches of
+both entries under both RNGs, ``window_sample.launches_key`` those under
+``"key"``.
 """
 
 from __future__ import annotations
@@ -48,7 +60,10 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 _ARGTYPES = (_P, _I64, _P, _I64, _P, _P, _I64, ctypes.c_int, _U32, _U32,
-             _U32, _U32, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int32, _P)
+             _U32, _U32, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+             ctypes.c_int32, _P)
+# the kernel's uniform sources (csrc/window_sample.cu's `rng`)
+_RNG = {"hash": 0, "key": 1}
 _MAX_K = 2**20
 _INT32_MAX = 2**31 - 1
 
@@ -72,6 +87,15 @@ def div_magic(k: int) -> Tuple[int, int]:
     return ((1 << 32) * ((1 << shift) - k)) // k + 1, shift
 
 
+def _rng_code(what: str, sample_rng) -> int:
+    code = _RNG.get(sample_rng) if isinstance(sample_rng, str) else None
+    if code is None:
+        raise KernelArgumentError(
+            f"{what}: sample_rng must be 'hash' or 'key', got "
+            f"{sample_rng!r}")
+    return code
+
+
 def _check_tables(what: str, indptr: torch.Tensor, indices: torch.Tensor,
                   seeds: torch.Tensor) -> None:
     if seeds.device.type != "cuda":
@@ -88,29 +112,36 @@ def _check_tables(what: str, indptr: torch.Tensor, indices: torch.Tensor,
                 f"{seeds.device}")
 
 
-def _launch(indptr, indices, seeds, seed_mask, n_seeds, k, k0, k1, *,
+def _launch(indptr, indices, seeds, seed_mask, n_seeds, k, k0, k1, rng, *,
             nbrs=None, mask=None, counts=None, eid=None, frontier=None,
             fmask=None, nbr_local=None, t0=0) -> None:
-    """One launch of the kernel on the tables' device; ``seeds``,
-    ``seed_mask`` and each output are device addresses or ``None`` (an
-    output that is ``None`` is not written)."""
+    """One launch of the kernel on the tables' device with uniform source
+    ``rng`` (:data:`_RNG`); ``seeds``, ``seed_mask`` and each output are
+    device addresses or ``None`` (an output that is ``None`` is not
+    written)."""
     mul, shift = div_magic(k)
     build.launch(build.load("window_sample", "window_sample", _ARGTYPES),
                  indptr.device, indptr.data_ptr(), indptr.shape[0],
                  indices.data_ptr(), indices.shape[0], seeds, seed_mask,
                  n_seeds, k, mul, shift, k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF,
-                 nbrs, mask, counts, eid, frontier, fmask, nbr_local, t0)
+                 rng, nbrs, mask, counts, eid, frontier, fmask, nbr_local, t0)
     window_sample.launches += 1
+    if rng == _RNG["key"]:
+        window_sample.launches_key += 1
 
 
 @profiled("kernel")
 def window_sample(indptr: torch.Tensor, indices: torch.Tensor,
                   seeds: torch.Tensor, k: int, k0: int, k1: int,
-                  seed_mask: Optional[torch.Tensor] = None) -> SampleOut:
+                  seed_mask: Optional[torch.Tensor] = None,
+                  sample_rng: str = "hash") -> SampleOut:
     """One hop: ``(nbrs, mask, counts, eid)`` for ``seeds`` at fanout ``k``
-    under key words ``(k0, k1)``.  All tensors on one device."""
+    under key words ``(k0, k1)`` (folded under ``sample_rng="hash"``, the
+    hop key's raw data under ``"key"``).  All tensors on one device."""
+    rng = _rng_code("window_sample", sample_rng)
     if seeds.device.type == "cpu":
-        return sample_hop_plain(indptr, indices, seeds, k, k0, k1, seed_mask)
+        return sample_hop_plain(indptr, indices, seeds, k, k0, k1, seed_mask,
+                                sample_rng)
     if not 1 <= k <= _MAX_K:
         raise KernelArgumentError(f"window_sample: fanout {k} out of range")
     _check_tables("window_sample", indptr, indices, seeds)
@@ -134,12 +165,13 @@ def window_sample(indptr: torch.Tensor, indices: torch.Tensor,
     eid = torch.empty((B, k), dtype=torch.int32, device=dev)
     _launch(indptr, indices, seeds.data_ptr(),
             seed_mask.data_ptr() if seed_mask is not None else None, B, k,
-            k0, k1, nbrs=nbrs.data_ptr(), mask=mask.data_ptr(),
+            k0, k1, rng, nbrs=nbrs.data_ptr(), mask=mask.data_ptr(),
             counts=counts.data_ptr(), eid=eid.data_ptr())
     return SampleOut(nbrs=nbrs, mask=mask, counts=counts, eid=eid)
 
 
 window_sample.launches = 0
+window_sample.launches_key = 0
 
 
 def _check_frontier(frontier: torch.Tensor, fmask: torch.Tensor, t: int,
@@ -176,14 +208,16 @@ def _check_frontier(frontier: torch.Tensor, fmask: torch.Tensor, t: int,
 def window_sample_frontier_plain(indptr: torch.Tensor, indices: torch.Tensor,
                                  frontier: torch.Tensor, fmask: torch.Tensor,
                                  t: int, k: int, k0: int, k1: int,
-                                 return_eid: bool = False) -> FrontierHop:
+                                 return_eid: bool = False,
+                                 sample_rng: str = "hash") -> FrontierHop:
     """The pipeline entry in plain PyTorch: :func:`sample_hop_plain` over
-    ``frontier[:t]`` (masked by ``fmask[:t]``), then the positional
-    pipeline's epilogue written into ``frontier[t : t + t*k]`` (neighbours,
-    0 where masked) and ``fmask[t : t + t*k]``."""
+    ``frontier[:t]`` (masked by ``fmask[:t]``) under ``sample_rng``, then
+    the positional pipeline's epilogue written into ``frontier[t : t +
+    t*k]`` (neighbours, 0 where masked) and ``fmask[t : t + t*k]``."""
+    _rng_code("window_sample_frontier", sample_rng)
     _check_frontier(frontier, fmask, t, k)
     out = sample_hop_plain(indptr, indices, frontier[:t], k, k0, k1,
-                           fmask[:t])
+                           fmask[:t], sample_rng)
     n = t * k
     dev = frontier.device
     frontier[t:t + n] = torch.where(out.mask, out.nbrs,
@@ -201,17 +235,20 @@ def window_sample_frontier_plain(indptr: torch.Tensor, indices: torch.Tensor,
 def window_sample_frontier(indptr: torch.Tensor, indices: torch.Tensor,
                            frontier: torch.Tensor, fmask: torch.Tensor,
                            t: int, k: int, k0: int, k1: int,
-                           return_eid: bool = False) -> FrontierHop:
+                           return_eid: bool = False,
+                           sample_rng: str = "hash") -> FrontierHop:
     """One hop of the positional pipeline over ``frontier[:t]`` (seeds
-    masked by ``fmask[:t]``) at fanout ``k`` under key words ``(k0, k1)``,
-    in one launch: writes ``frontier[t + b*k + j]`` (the neighbour, 0 where
-    masked), ``fmask[t + b*k + j]`` and returns the block's local ids,
-    mask (a view of ``fmask``), counts and, if asked, edge ids.  The
-    buffers hold at least ``t * (1 + k)`` ids; all tensors on one
-    device."""
+    masked by ``fmask[:t]``) at fanout ``k`` under key words ``(k0, k1)``
+    and ``sample_rng`` (as :func:`window_sample`), in one launch: writes
+    ``frontier[t + b*k + j]`` (the neighbour, 0 where masked), ``fmask[t
+    + b*k + j]`` and returns the block's local ids, mask (a view of
+    ``fmask``), counts and, if asked, edge ids.  The buffers hold at least
+    ``t * (1 + k)`` ids; all tensors on one device."""
+    rng = _rng_code("window_sample_frontier", sample_rng)
     if frontier.device.type == "cpu":
         return window_sample_frontier_plain(indptr, indices, frontier, fmask,
-                                            t, k, k0, k1, return_eid)
+                                            t, k, k0, k1, return_eid,
+                                            sample_rng)
     _check_frontier(frontier, fmask, t, k)
     _check_tables("window_sample_frontier", indptr, indices, frontier)
     dev = frontier.device
@@ -220,7 +257,7 @@ def window_sample_frontier(indptr: torch.Tensor, indices: torch.Tensor,
     eid = (torch.empty((t, k), dtype=torch.int32, device=dev)
            if return_eid else None)
     _launch(indptr, indices, frontier.data_ptr(), fmask.data_ptr(), t, k,
-            k0, k1, counts=counts.data_ptr(),
+            k0, k1, rng, counts=counts.data_ptr(),
             eid=eid.data_ptr() if return_eid else None,
             frontier=frontier.data_ptr() + 4 * t,
             fmask=fmask.data_ptr() + t, nbr_local=nbr_local.data_ptr(),

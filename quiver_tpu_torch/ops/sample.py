@@ -7,16 +7,21 @@ counter ``b*k + j``, keyed by the folded key words ``(k0, k1)``.  The hash
 is integer arithmetic and the stratum bounds are correctly rounded fp32,
 so every draw equals the JAX package's ``sample_rng="hash"`` draw bit for
 bit.  Under ``sample_rng="key"`` the two words are the hop key's raw data
-and the uniforms are JAX's threefry ``jax.random.uniform`` of that key
-(:func:`_uniform`, ``ops/threefry.py``: one kernel launch a draw site on
-the card), so those draws equal JAX's ``"key"`` draws too.
+and the uniforms are JAX's threefry ``jax.random.uniform`` of that key,
+so those draws equal JAX's ``"key"`` draws too: drawn in registers by
+kernel B1's keyed instance on a uniform ``"blocked[:U]"`` hop, and at
+every other draw site by :func:`_uniform` (``ops/threefry.py``: one
+launch of the threefry kernel a draw site on the card).
 :func:`fold_key_words` folds a key into the hash's words, and
 :func:`hop_key_words` gives a pipeline's per-hop words under either RNG.
 
 The hop's element gathers follow ``gather_mode``, as in the JAX package:
 ``"pwindow"`` (what ``"auto"`` resolves to) is one launch of kernel B1
-(``ops/cuda/window_sample.py``), the fused hop, under the hash only; every
-other mode computes
+(``ops/cuda/window_sample.py``), the fused hop, under the hash only;
+under ``"key"`` a uniform ``"blocked[:U]"`` hop (what ``"auto"`` then
+resolves to) is one launch of B1's keyed instance, where JAX runs XLA's
+threefry and its block gather (:func:`run_hop`); every other mode, and a
+hashed ``"blocked"`` hop, computes
 the uniforms and positions here and reads ``indptr`` twice and ``indices``
 once through :func:`_gather`: ``"xla"`` a clipped index, ``"lanes"`` and
 ``"lanes_fused"`` the lane-select gather (``ops/fastgather.py``, the
@@ -29,7 +34,7 @@ reference.
 
 Under ``"blocked*"`` and ``"pwindow*"`` the scattered element reads (the
 bounds from ``indptr``, the weighted sampler's totals, CDF search and
-draws, and every read of a ``"blocked"`` hop) go through kernel B3, the
+draws, and every read of a hashed ``"blocked"`` hop) go through kernel B3, the
 card's fastest scattered read; JAX sends them through ``"lanes"`` and
 reads a ``"blocked"`` hop's windows as whole rows
 (``ops/blockgather.py``).  The values read are the same.
@@ -144,13 +149,18 @@ def hop_key_words(keys, sample_rng: str) -> np.ndarray:
                     dtype=np.uint32).reshape(-1, 2)
 
 
-def _uniform(k0: int, k1: int, shape, sample_rng: str,
-             device=None) -> torch.Tensor:
+def _uniform(k0: int, k1: int, shape, sample_rng: str, device=None,
+             plain: bool = False) -> torch.Tensor:
     """The draw sites' uniforms (JAX's ``_uniform``,
     ``quiver_tpu/ops/sample.py:113-116``): the counter hash of the folded
     words under ``"hash"``, threefry's ``jax.random.uniform`` of the raw
-    key words under ``"key"`` (one kernel launch on the card)."""
+    key words under ``"key"`` (one kernel launch on the card; its plain
+    version with ``plain``)."""
     if sample_rng == "key":
+        if plain:
+            from .threefry import threefry_uniform_plain
+
+            return threefry_uniform_plain((k0, k1), shape, device)
         from .cuda.threefry import threefry_uniform
 
         return threefry_uniform((k0, k1), shape, device)
@@ -231,21 +241,26 @@ def _gather_bounds(indptr: torch.Tensor, seeds: torch.Tensor,
 
 def sample_hop_plain(indptr: torch.Tensor, indices: torch.Tensor,
                      seeds: torch.Tensor, k: int, k0: int, k1: int,
-                     seed_mask: Optional[torch.Tensor] = None) -> SampleOut:
-    """One sampling hop in plain PyTorch: the reference for kernel B1."""
-    return sample_hop(indptr, indices, seeds, k, k0, k1, seed_mask, "xla")
+                     seed_mask: Optional[torch.Tensor] = None,
+                     sample_rng: str = "hash") -> SampleOut:
+    """One sampling hop in plain PyTorch, on any device: the reference for
+    kernel B1 under either RNG (``"xla"`` reads; under ``"key"`` the
+    uniforms of ``threefry_uniform_plain``, no kernel)."""
+    return sample_hop(indptr, indices, seeds, k, k0, k1, seed_mask, "xla",
+                      sample_rng, plain=True)
 
 
 def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
                seeds: torch.Tensor, k: int, k0: int, k1: int,
                seed_mask: Optional[torch.Tensor] = None,
                gather_mode: str = "xla",
-               sample_rng: str = "hash") -> SampleOut:
+               sample_rng: str = "hash", *, plain: bool = False) -> SampleOut:
     """One sampling hop (``ops/sample.py:208-273`` of the JAX package)
     whose element gathers run by ``gather_mode``: the seeds' bounds
     (:func:`_gather_bounds`, one launch under ``"pallas"``, two reads
     otherwise) and the draws (:func:`_gather`).  The uniforms follow the
-    resolved ``sample_rng`` (:func:`_uniform`).
+    resolved ``sample_rng`` (:func:`_uniform`; ``plain`` draws threefry
+    by its plain version, as :func:`sample_hop_plain` does).
 
     Reads of ``indptr``/``indices`` are clipped to the (padded) tables,
     as the JAX gathers clip."""
@@ -256,7 +271,8 @@ def sample_hop(indptr: torch.Tensor, indices: torch.Tensor,
         deg = torch.where(seed_mask, deg, torch.zeros_like(deg))
     counts = torch.clamp_max(deg, k).to(torch.int32)
     j = torch.arange(k, dtype=torch.int32, device=seeds.device)[None, :]
-    u = _uniform(k0, k1, (seeds.shape[0], k), sample_rng, seeds.device)
+    u = _uniform(k0, k1, (seeds.shape[0], k), sample_rng, seeds.device,
+                 plain)
     pos = _stratified_positions(u, deg, k)
     mask = j < counts[:, None]
     idx = start[:, None] + pos
@@ -429,8 +445,9 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
       device: where the hop runs (``None``: the card).
       gather_mode: element-gather mode (``config.resolve_gather_mode``;
         ``"auto"`` is ``"pwindow"``, or ``"blocked"`` under ``"key"``):
-        ``"pwindow[:U]"`` is kernel B1, any other mode element gathers
-        (two under ``"pallas"``, three otherwise); the draws are the same.
+        ``"pwindow[:U]"`` is kernel B1, and so is ``"blocked[:U]"`` under
+        ``"key"``; any other mode element gathers (two under
+        ``"pallas"``, three otherwise); the draws are the same.
       sample_rng: ``"hash"``, ``"key"`` or ``"auto"``
         (``config.resolve_sample_rng``); ``"key"`` with ``"pwindow"``
         raises.
@@ -452,10 +469,13 @@ def run_hop(indptr: torch.Tensor, indices: torch.Tensor, seeds: torch.Tensor,
             k: int, k0: int, k1: int, seed_mask: Optional[torch.Tensor],
             gather_mode: str, sample_rng: str) -> SampleOut:
     """One hop on tensors already on one device, in a gather mode and RNG
-    that :func:`config.resolve_sampling` has resolved: ``"pwindow[:U]"`` launches kernel B1, which fuses the
-    counter hash (with ``"key"`` it raises, as JAX's op does,
-    ``quiver_tpu/ops/sample.py:243-248``), any other mode runs
-    :func:`sample_hop`."""
+    that :func:`config.resolve_sampling` has resolved.  Kernel B1 draws in
+    registers: ``"pwindow[:U]"`` launches its hash instance (with
+    ``"key"`` it raises, as JAX's op does,
+    ``quiver_tpu/ops/sample.py:243-248``), and ``"blocked[:U]"`` under
+    ``"key"`` its threefry instance, the same draws as JAX's keyed
+    ``"blocked"`` hop (XLA's threefry, then its block gather).  Any other
+    mode, and ``"blocked"`` under the hash, runs :func:`sample_hop`."""
     if gather_mode.startswith("pwindow"):
         if sample_rng != "hash":
             raise ValueError(
@@ -465,6 +485,11 @@ def run_hop(indptr: torch.Tensor, indices: torch.Tensor, seeds: torch.Tensor,
         from .cuda.window_sample import window_sample
 
         return window_sample(indptr, indices, seeds, k, k0, k1, seed_mask)
+    if sample_rng == "key" and gather_mode.startswith("blocked"):
+        from .cuda.window_sample import window_sample
+
+        return window_sample(indptr, indices, seeds, k, k0, k1, seed_mask,
+                             "key")
     return sample_hop(indptr, indices, seeds, k, k0, k1, seed_mask,
                       gather_mode, sample_rng)
 

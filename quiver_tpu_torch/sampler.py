@@ -121,7 +121,8 @@ def _hop(indptr, indices, frontier, k, key_words, fmask, gather_mode,
          cum_weights, sample_rng) -> SampleOut:
     """One hop of the generic loop: weighted when ``cum_weights`` is
     given, else uniform (``run_hop``: B1's literal entry under
-    ``"pwindow"``)."""
+    ``"pwindow"``, and its keyed instance under ``"blocked[:U]"`` with
+    ``"key"``)."""
     if cum_weights is not None:
         return sample_neighbors_weighted(indptr, indices, cum_weights,
                                          frontier, k, key_words, fmask,
@@ -134,15 +135,18 @@ def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
                              return_eid, gather_mode, cum_weights,
                              sample_rng):
     """Multi-hop pipeline without dedup; one hop per layer.  A uniform
-    pipeline under ``"pwindow"`` runs each hop as one launch of kernel
-    B1's pipeline entry, which also writes the hop's frontier tail, mask
-    tail and local ids (:func:`_pwindow_pipeline`); every other pipeline
-    runs :func:`_hop` and builds those with torch ops, as the JAX pipeline
-    does."""
-    if (gather_mode.startswith("pwindow") and cum_weights is None
-            and sample_rng == "hash"):
+    pipeline that kernel B1 draws (``"pwindow"`` under the hash,
+    ``"blocked[:U]"`` under the key) runs each hop as one launch of B1's
+    pipeline entry, which also writes the hop's frontier tail, mask tail
+    and local ids (:func:`_pwindow_pipeline`); every other pipeline runs
+    :func:`_hop` and builds those with torch ops, as the JAX pipeline
+    does.  The two give the same batch: the entry's counter ``b*k + j``
+    runs over ``frontier[:t]``, masked slots included, as the loop's
+    ``[t, k]`` draw does."""
+    fused = "blocked" if sample_rng == "key" else "pwindow"
+    if cum_weights is None and gather_mode.startswith(fused):
         return _pwindow_pipeline(indptr, indices, seeds, key_words, sizes,
-                                 return_eid)
+                                 return_eid, sample_rng)
     dev = indptr.device
     B = seeds.shape[0]
     frontier = seeds.to(dev, torch.int32)
@@ -170,14 +174,17 @@ def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
     return frontier, fmask, num_nodes, tuple(blocks[::-1]), drops
 
 
-def _pwindow_pipeline(indptr, indices, seeds, key_words, sizes, return_eid):
-    """The positional pipeline through B1's pipeline entry: the frontier
-    and its mask are allocated once at their final length ``B * prod(1 +
-    k)``, the seeds copied in, and hop l reads ``frontier[:t]`` and writes
-    ``frontier[t : t + t*k]`` and its mask in its one launch.  Each block's
-    mask is a view of the frontier mask, which nothing writes again; the
-    target counts are views of one running count of that mask, taken after
-    the last hop, so a hop launches nothing but B1."""
+def _pwindow_pipeline(indptr, indices, seeds, key_words, sizes, return_eid,
+                      sample_rng="hash"):
+    """The positional pipeline through B1's pipeline entry, drawing by
+    ``sample_rng`` (the hash's folded words or the key's raw words in
+    ``key_words``): the frontier and its mask are allocated once at their
+    final length ``B * prod(1 + k)``, the seeds copied in, and hop l reads
+    ``frontier[:t]`` and writes ``frontier[t : t + t*k]`` and its mask in
+    its one launch.  Each block's mask is a view of the frontier mask,
+    which nothing writes again; the target counts are views of one running
+    count of that mask, taken after the last hop, so a hop launches
+    nothing but B1."""
     dev = indptr.device
     t = seeds.shape[0]
     total = t
@@ -192,7 +199,7 @@ def _pwindow_pipeline(indptr, indices, seeds, key_words, sizes, return_eid):
         hops.append(window_sample_frontier(indptr, indices, frontier, fmask,
                                            t, k,
                                            *key_words_pair(key_words[l]),
-                                           return_eid))
+                                           return_eid, sample_rng))
         starts.append(t)
         t += t * k
     # live[i]: valid ids in frontier[:i]
@@ -373,9 +380,10 @@ class GraphSageSampler:
         (``config.resolve_gather_mode``): ``"auto"``/``"pwindow"`` is the
         fused hop of kernel B1, ``"pallas"`` kernel B3, ``"lanes_fused"``
         kernel B4 (its fused entry, with no row gather), ``"blocked[:U]"``
-        kernel B3 as well (``ops/blockgather.py``), ``"lanes"`` and
-        ``"xla"`` plain PyTorch.  Every mode samples the same neighbours.
-        Under ``sample_rng="key"``, ``"auto"`` is ``"blocked"``.
+        kernel B3 as well (``ops/blockgather.py``) under the hash and B1's
+        keyed instance under the key, ``"lanes"`` and ``"xla"`` plain
+        PyTorch.  Every mode samples the same neighbours.  Under
+        ``sample_rng="key"``, ``"auto"`` is ``"blocked"``.
       dedup: ``"none"`` (the positional pipeline), ``"hop"`` (exact dedup
         every hop, ``ops/reindex.py``) or ``"auto"``
         (``config.resolve_dedup``).
@@ -385,9 +393,11 @@ class GraphSageSampler:
       edge_weights: ``[E]`` weights; every hop then draws
         weight-proportionally, with replacement.
       sample_rng: ``"hash"`` (the counter hash), ``"key"`` (JAX's threefry
-        uniforms of each hop key, one launch of the threefry kernel a hop
-        on the card) or ``"auto"`` (``config.resolve_sample_rng``: the
-        hash unless ``QUIVER_TPU_SAMPLE_RNG`` pins ``"key"``).  It reaches
+        uniforms of each hop key: drawn inside kernel B1 on a uniform
+        ``"blocked[:U]"`` hop, what ``"auto"`` resolves to, else one
+        launch of the threefry kernel a hop on the card) or ``"auto"``
+        (``config.resolve_sample_rng``: the hash unless
+        ``QUIVER_TPU_SAMPLE_RNG`` pins ``"key"``).  It reaches
         every device path: the pipeline, the overlay, ``sample_layer``,
         UVA's device tier, the fused steps and both serving lanes.
       uva_budget: device bytes for the hot rows' edge lists in UVA mode

@@ -1381,6 +1381,94 @@ def test_threefry_uniform_kernel_equals_plain(card, shape):
     assert tf.threefry_uniform.launches == before
 
 
+# jax.random.uniform(jax.random.PRNGKey(s), shape) as JAX 0.9 gives them
+# (jax_threefry_partitionable on), float bits as uint32
+THREEFRY_GOLDEN = {
+    (0, (8,)): (0x3F729A4E, 0x3F7A8436, 0x3EAA221C, 0x3EEFF550, 0x3F11E43A,
+                0x3E2979A0, 0x3E9ED1D4, 0x3F3081CC),
+    (2**31 - 1, (3, 5)): (0x3E488268, 0x3E9348A8, 0x3EA9298C, 0x3EC4D054,
+                          0x3F3602AC, 0x3F45E7B4, 0x3C13B880, 0x3DE25AC0,
+                          0x3F5F4090, 0x3F63B12C, 0x3E1E6358, 0x3F108968,
+                          0x3F598E84, 0x3EA7A740, 0x3E4B9508),
+}
+
+
+@pytest.mark.parametrize("seed,shape", list(THREEFRY_GOLDEN))
+def test_threefry_uniform_kernel_keeps_jax_bits(card, seed, shape):
+    """The threefry kernel over the shared cipher (``threefry.cuh``)
+    writes JAX's own bits, recorded from JAX, not from the plain
+    version."""
+    from quiver_tpu_torch.utils import rng
+
+    got = tf.threefry_uniform(rng.key(seed), shape, card)
+    torch.cuda.synchronize()
+    want = np.array(THREEFRY_GOLDEN[seed, shape], np.uint32).view(np.int32)
+    assert torch.equal(got.view(torch.int32).reshape(-1).cpu(),
+                       torch.from_numpy(want))
+
+
+# B1's keyed instance at the main path's hop shapes: Reddit's two hops,
+# products' three, a MAG240M block (papers at hop 2), and k = 1
+KEYED_B1_SHAPES = [(2048, 25), (53_248, 10), (1024, 15), (16_384, 10),
+                   (180_224, 5), (26_624, 15), (4096, 1)]
+
+
+@pytest.mark.parametrize("B,k", KEYED_B1_SHAPES)
+def test_keyed_window_sample_kernel_equals_plain(card, B, k):
+    """B1's threefry instance, both entries, bitwise its plain version
+    (``"xla"`` reads and ``threefry_uniform_plain``, no kernel) over a
+    frontier with masked seeds and one without; each launch counted once
+    in ``launches`` and once in ``launches_key``, and no threefry kernel
+    launched."""
+    from quiver_tpu_torch.utils import rng
+
+    topo = _graph(k)
+    ip, ix = topo.to_device(card)
+    g = np.random.default_rng(B + k)
+    seeds = torch.from_numpy(np.concatenate([
+        np.arange(12), g.integers(0, 3000, B - 13), [2999]]).astype(
+            np.int32)).to(card)
+    mask = torch.from_numpy(g.random(B) < 0.7).to(card)
+    k0, k1 = (int(w) for w in rng.split(rng.key(B), 2)[1])
+    tf_before = tf.threefry_uniform.launches
+    for m in (mask, None):
+        before = (b1.window_sample.launches, b1.window_sample.launches_key)
+        got = b1.window_sample(ip, ix, seeds, k, k0, k1, m, sample_rng="key")
+        torch.cuda.synchronize()
+        assert (b1.window_sample.launches,
+                b1.window_sample.launches_key) == (before[0] + 1,
+                                                   before[1] + 1)
+        want = b1.window_sample_plain(ip, ix, seeds, k, k0, k1, m, "key")
+        for name, a, b in zip(("nbrs", "mask", "counts", "eid"), got, want):
+            assert torch.equal(a, b), name
+    bufs = [_frontier_buffers(seeds, mask, k) for _ in range(2)]
+    before = b1.window_sample.launches_key
+    got = b1.window_sample_frontier(ip, ix, *bufs[0], B, k, k0, k1,
+                                    return_eid=True, sample_rng="key")
+    torch.cuda.synchronize()
+    assert b1.window_sample.launches_key == before + 1
+    want = b1.window_sample_frontier_plain(ip, ix, *bufs[1], B, k, k0, k1,
+                                           return_eid=True, sample_rng="key")
+    assert torch.equal(bufs[0][0], bufs[1][0])
+    assert torch.equal(bufs[0][1], bufs[1][1])
+    for name in ("nbr_local", "mask", "counts", "eid"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert tf.threefry_uniform.launches == tf_before
+    # the hash instance on the same inputs draws other neighbours
+    hashed = b1.window_sample(ip, ix, seeds, k, k0, k1, mask)
+    assert not torch.equal(hashed.eid, want.eid)
+
+
+def test_keyed_window_sample_refuses_a_bad_rng(card):
+    ip, ix, seeds, _ = _b1_inputs(card, 3)
+    with pytest.raises(b1.KernelArgumentError, match="sample_rng"):
+        b1.window_sample(ip, ix, seeds, 3, 1, 2, sample_rng="auto")
+    frontier, fmask = _frontier_buffers(seeds, seeds >= 0, 3)
+    with pytest.raises(b1.KernelArgumentError, match="sample_rng"):
+        b1.window_sample_frontier(ip, ix, frontier, fmask, seeds.shape[0], 3,
+                                  1, 2, sample_rng="threefry")
+
+
 def test_threefry_uniform_refuses_bad_input(card):
     with pytest.raises(tf.KernelArgumentError):
         tf.threefry_uniform([1, 2, 3], (4,), card)
@@ -1393,8 +1481,12 @@ def test_threefry_uniform_refuses_bad_input(card):
 @pytest.mark.parametrize("mode", ["auto", "pallas", "blocked", "xla"])
 @pytest.mark.parametrize("dedup", ["none", "hop"])
 def test_keyed_sampler_on_card_equals_cpu(card, mode, dedup):
-    """``sample_rng="key"`` on the card: one threefry launch a hop, and the
-    batch bitwise the CPU's (``"auto"`` is ``"blocked"`` under the key)."""
+    """``sample_rng="key"`` on the card, the batch bitwise the CPU's
+    (``"auto"`` is ``"blocked"`` under the key).  A ``"blocked"`` hop is
+    one launch of B1's keyed instance (its pipeline entry under
+    ``dedup="none"``, its literal entry under ``"hop"``), with no threefry
+    and no B3 launch; ``"pallas"`` and ``"xla"`` hops launch the threefry
+    kernel once a hop and never B1."""
     from quiver_tpu_torch.utils import rng
 
     topo = _graph(8, n=3000)
@@ -1402,10 +1494,19 @@ def test_keyed_sampler_on_card_equals_cpu(card, mode, dedup):
     s = qt.GraphSageSampler(topo, [10, 5, 3], device=card,
                             gather_mode=mode, sample_rng="key", dedup=dedup)
     assert s.gather_mode == ("blocked" if mode == "auto" else mode)
-    before = tf.threefry_uniform.launches
+    fused = s.gather_mode == "blocked"
+    before = (tf.threefry_uniform.launches, b1.window_sample.launches,
+              b1.window_sample.launches_key, b3.element_gather.launches)
     got = s.sample(ids, key=rng.key(4))
     torch.cuda.synchronize()
-    assert tf.threefry_uniform.launches == before + 3
+    ran = (tf.threefry_uniform.launches, b1.window_sample.launches,
+           b1.window_sample.launches_key, b3.element_gather.launches)
+    ran = tuple(a - b for a, b in zip(ran, before))
+    if fused:
+        assert ran == (0, 3, 3, 0)
+    else:
+        assert ran[:3] == (3, 0, 0)
+        assert (ran[3] > 0) == (mode == "pallas")
     want = qt.GraphSageSampler(topo, [10, 5, 3], device="cpu",
                                gather_mode="xla", sample_rng="key",
                                dedup=dedup).sample(ids, key=rng.key(4))

@@ -93,14 +93,16 @@ def _fresh_singletons():
         ch.uninstall()
         rec.reset()
     yield
+    # unsealed before the registries are emptied: unseal() sets the
+    # registry_sealed_state gauge, which a later file would read
+    for reg in (get_program_registry(), jax_registry()):
+        reg.unseal()
     for tel, ch, rec in ((ptel, chaos, pflightrec),
                          (jtel, jchaos, jflightrec)):
         ch.uninstall()
         rec.set_version_provider(None)
         rec.reset()
         tel.reset()
-    for reg in (get_program_registry(), jax_registry()):
-        reg.unseal()
     get_program_registry().disable_persistent_cache()
     set_active(None)
     jmanager.set_active(None)

@@ -270,8 +270,11 @@ def test_pipeline_from_a_seed_matches_jax(csr, srng, dedup, caps, mode):
 
 @pytest.mark.parametrize("srng", RNGS)
 def test_pipeline_counts_one_threefry_call_a_hop(csr, srng, monkeypatch):
-    """A keyed pipeline draws its uniforms once a hop (one kernel launch
-    a hop on the card); a hashed one never calls threefry."""
+    """A keyed ``"pallas"`` pipeline calls the threefry kernel's wrapper
+    once a hop (one kernel launch a hop on the card); a keyed pipeline
+    under the auto gather mode (``"blocked"``) calls it never, since B1's
+    keyed instance draws the uniforms (its plain version here, with
+    ``threefry_uniform_plain``); a hashed one never calls threefry."""
     calls = []
     real = tf_kernel.threefry_uniform
 
@@ -281,9 +284,13 @@ def test_pipeline_counts_one_threefry_call_a_hop(csr, srng, monkeypatch):
 
     monkeypatch.setattr(tf_kernel, "threefry_uniform", spy)
     pt = qt.CSRTopo(indptr=csr[0], indices=csr[1])
-    ps = qt.GraphSageSampler(pt, [5, 4, 3], device="cpu", sample_rng=srng)
-    ps.sample(_seeds(1, b=16), key=rng.key(1))
-    assert calls == ([(16, 5), (96, 4), (480, 3)] if srng == "key" else [])
+    for mode in ("pallas", "auto"):
+        calls.clear()
+        ps = qt.GraphSageSampler(pt, [5, 4, 3], device="cpu",
+                                 sample_rng=srng, gather_mode=mode)
+        ps.sample(_seeds(1, b=16), key=rng.key(1))
+        assert calls == ([(16, 5), (96, 4), (480, 3)]
+                         if srng == "key" and mode == "pallas" else [])
 
 
 @pytest.mark.parametrize("srng", RNGS)
