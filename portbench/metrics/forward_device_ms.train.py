@@ -1,0 +1,6 @@
+"""Card milliseconds a training step launched inside the program's ``train.forward`` span."""
+from portbench.phases import device_ms
+
+
+def read(run):
+    return device_ms(run, "forward")

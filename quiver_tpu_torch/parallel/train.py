@@ -19,6 +19,11 @@ the replicas' gradients into the model's parameters (XLA's gradient
 Dropout draws from a ``torch.Generator`` that the step holds, seeded when
 the step is made (one a replica under ``mesh=``); its bits cannot match
 Flax's.
+
+While span events are retained (``QUIVER_TPU_TRACE=1``), the
+single-device step records ``train.forward`` (model and loss),
+``train.backward`` and ``train.optimizer``; otherwise it reads one global
+(``telemetry.spans``).  The mesh step records none.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import telemetry
+from ..telemetry import spans as _spans
 
 __all__ = ["TrainState", "make_train_step", "masked_cross_entropy",
            "shard_batch", "replicate"]
@@ -151,10 +159,22 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     def step(x, blocks, labels, label_mask) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        if _spans._HOT:
+            return traced(x, blocks, labels, label_mask)
         logits = model(x, blocks, generator=gen)
         loss = loss_fn(logits, labels, label_mask)
         loss.backward()
         optimizer.step()
+        return loss.detach()
+
+    def traced(x, blocks, labels, label_mask) -> torch.Tensor:
+        with telemetry.span("train.forward"):
+            logits = model(x, blocks, generator=gen)
+            loss = loss_fn(logits, labels, label_mask)
+        with telemetry.span("train.backward"):
+            loss.backward()
+        with telemetry.span("train.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step

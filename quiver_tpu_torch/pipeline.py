@@ -16,6 +16,12 @@ dropout draws from the step's seeded ``torch.Generator``.  The epoch
 splits its key into one a step (``:108``); eval samples from its key
 directly.  Each also takes per-hop key words, ``[L, 2]`` uint32, or has
 the sampler draw them.
+
+While span events are retained (``QUIVER_TPU_TRACE=1``), a training step
+records ``train.step`` and under it ``train.sample`` (the sampler's
+pipeline), ``train.lookup`` (the rows' gather) and the model step's
+``train.forward``, ``train.backward`` and ``train.optimizer``; otherwise
+each site reads one global (``telemetry.spans``).
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import telemetry
 from .parallel.train import make_train_step
+from .telemetry import spans as _spans
 from .utils import rng as _rng
 
 __all__ = ["make_fused_train_step", "make_fused_eval_fn", "make_scan_epoch"]
@@ -52,16 +60,24 @@ def _hop_words(sampler, key_words, key, split_first: bool):
     return sampler.words_of_key(key)
 
 
-def _sample_rows(sampler, feature, seeds, key_words):
+def _sample_rows(sampler, feature, seeds, key_words, traced=False):
     """Blocks and the rows of the outermost frontier, all on the device.
     The sampler's dedup and frontier caps apply; its edge weights do not:
     the JAX package's fused step samples uniformly even for a weighted
-    sampler (``quiver_tpu/pipeline.py:62-65``), and so does this one."""
+    sampler (``quiver_tpu/pipeline.py:62-65``), and so does this one.
+    ``traced``: record the ``train.sample`` and ``train.lookup`` spans."""
     if key_words is None:
         key_words = sampler.draw_key_words()
-    n_id, _, _, blocks, _ = sampler.pipeline(sampler.seed_tensor(seeds),
-                                             key_words, weighted=False)
-    return feature.lookup_device(n_id), blocks
+    seeds = sampler.seed_tensor(seeds)
+    if not traced:
+        n_id, _, _, blocks, _ = sampler.pipeline(seeds, key_words,
+                                                 weighted=False)
+        return feature.lookup_device(n_id), blocks
+    with telemetry.span("train.sample"):
+        n_id, _, _, blocks, _ = sampler.pipeline(seeds, key_words,
+                                                 weighted=False)
+    with telemetry.span("train.lookup"):
+        return feature.lookup_device(n_id), blocks
 
 
 def make_fused_train_step(sampler, feature, model, optimizer,
@@ -75,9 +91,18 @@ def make_fused_train_step(sampler, feature, model, optimizer,
 
     def step(seeds, labels, label_mask, key_words=None, *,
              key=None) -> torch.Tensor:
+        if _spans._HOT:
+            return traced(seeds, labels, label_mask, key_words, key)
         words = _hop_words(sampler, key_words, key, split_first=True)
         x, blocks = _sample_rows(sampler, feature, seeds, words)
         return train(x, blocks, labels, label_mask)
+
+    def traced(seeds, labels, label_mask, key_words, key) -> torch.Tensor:
+        with telemetry.span("train.step"):
+            words = _hop_words(sampler, key_words, key, split_first=True)
+            x, blocks = _sample_rows(sampler, feature, seeds, words,
+                                     traced=True)
+            return train(x, blocks, labels, label_mask)
 
     return step
 

@@ -21,7 +21,8 @@ Gating: ``QUIVER_TELEMETRY=off`` (or ``0``/``false``/``no``) makes every
 helper answer with a shared do-nothing singleton from :mod:`.noop` —
 no locks, no clocks, no net allocations.  Default is ON.  Span *event
 retention* (Chrome traces) stays opt-in via ``QUIVER_TPU_TRACE=1`` or
-``get_tracer().set_tracing(True)`` either way.
+``get_tracer().set_tracing(True)`` either way; the training step's
+``train.*`` spans record only while both are on (``spans._HOT``).
 
 The HTTP exporter lives in :mod:`.export` and is imported lazily.
 """
@@ -36,6 +37,7 @@ from . import noop as _noop
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        DEFAULT_TIME_BUCKETS, metric_key, parse_metric_key,
                        snapshot_delta, summarize_snapshot)
+from . import spans as _spans
 from .spans import Span, SpanTracer
 
 __all__ = [
@@ -52,6 +54,7 @@ _ENABLED = os.environ.get("QUIVER_TELEMETRY", "on").strip().lower() not in (
 
 _registry = MetricsRegistry()
 _tracer = SpanTracer()
+_spans.gate(_tracer, _ENABLED)
 
 # the package's root, for the companion singletons reset() reaches
 _ROOT = __name__.rsplit(".", 1)[0]
@@ -67,6 +70,7 @@ def set_enabled(on: bool) -> None:
     # quiverlint: ignore[QT008] -- single atomic bool rebind; worker
     # readers tolerate one stale observation by design (noop fallback)
     _ENABLED = bool(on)
+    _spans.gate(_tracer, _ENABLED)
 
 
 def get_registry() -> MetricsRegistry:

@@ -9,9 +9,21 @@ switches:
     adds per span.
   * **event retention** (``set_tracing(True)`` or env
     ``QUIVER_TPU_TRACE=1``) additionally appends one event record per
-    span — name, start/duration in µs, pid/tid, nesting depth — which
+    span — name, start/duration in µs, pid/tid, nesting depth, the
+    enclosing span's name and the id of the outermost span of its thread
+    (one id a root, shared by everything under it) — which
     ``chrome_trace()`` serializes as Chrome trace-event JSON
     (``{"traceEvents": [...]}``) loadable in Perfetto / chrome://tracing.
+    While a retained span is open under a ``torch.profiler`` capture, it
+    also opens ``record_function("quiver.<name>")``, so the profiler's
+    trace shows it on the card's clock, over the kernels it launched.
+
+The training step's spans (``train.*``) are hot-path sites: they record
+only while the process-wide tracer retains events and telemetry is
+enabled, and otherwise cost their site one read of :data:`_HOT` and
+nothing else (no ``Span``, no clock, no lock), so aggregation alone never
+reaches them.  :func:`gate` and ``SpanTracer.set_tracing`` keep that one
+global current.
 
 A word on async launches: a span around work on the card measures the
 **launch** unless you pass ``block=`` a tensor (or a list of tensors):
@@ -21,6 +33,7 @@ one) before it closes, so it covers the device time.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -34,6 +47,39 @@ from . import timeline as _timeline
 __all__ = ["SpanTracer", "Span", "synchronize"]
 
 _MAX_EVENTS = 200_000  # retention cap: ~25 MB of events, then drop
+PROFILER_PREFIX = "quiver."  # names of the spans in a torch.profiler trace
+# the process id stamped on each event: ``os.getpid`` is a system call (2-4
+# µs on an H100 machine's host, a third of a retained span there), so it is
+# read once, and again in a forked child
+_PID = os.getpid()
+
+
+def _refresh_pid() -> None:
+    global _PID
+    _PID = os.getpid()
+
+
+os.register_at_fork(after_in_child=_refresh_pid)
+
+# THE gate of the hot-path spans: the process-wide tracer retains events
+# and telemetry is enabled.  Their sites read this one module global;
+# everything else they do is only reachable when it is True.
+_HOT = False
+_process: Optional["SpanTracer"] = None   # the telemetry package's tracer
+_telemetry_on = True
+
+
+def gate(tracer: "SpanTracer", telemetry_on: bool) -> None:
+    """Name the process-wide ``tracer`` and whether telemetry is enabled
+    (the telemetry package calls this), and set :data:`_HOT` from them."""
+    global _process, _telemetry_on
+    _process, _telemetry_on = tracer, bool(telemetry_on)
+    _regate()
+
+
+def _regate() -> None:
+    global _HOT
+    _HOT = _telemetry_on and _process._tracing
 
 
 def _env_tracing() -> bool:
@@ -54,7 +100,8 @@ class Span:
     enabled); closing folds into the tracer's aggregate and, when
     tracing, appends an event record."""
 
-    __slots__ = ("_tracer", "name", "_block", "_t0", "_depth")
+    __slots__ = ("_tracer", "name", "_block", "_t0", "_depth", "_parent",
+                 "_root", "_rf")
 
     def __init__(self, tracer: "SpanTracer", name: str, block=None):
         self._tracer = tracer
@@ -62,9 +109,20 @@ class Span:
         self._block = block
 
     def __enter__(self):
-        tls = self._tracer._tls
-        self._depth = getattr(tls, "depth", 0)
-        tls.depth = self._depth + 1
+        tracer = self._tracer
+        tls = tracer._tls
+        parent = getattr(tls, "top", None)
+        self._parent = parent
+        if parent is None:
+            self._depth, self._root = 0, next(tracer._roots)
+        else:
+            self._depth, self._root = parent._depth + 1, parent._root
+        tls.top = self
+        self._rf = None
+        if tracer._tracing and torch.autograd._profiler_enabled():
+            self._rf = torch.autograd.profiler.record_function(
+                PROFILER_PREFIX + self.name)
+            self._rf.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -72,8 +130,13 @@ class Span:
         if self._block is not None:
             synchronize(self._block)
         t1 = time.perf_counter()
-        self._tracer._tls.depth = self._depth
-        self._tracer._close(self.name, self._t0, t1, self._depth)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        parent = self._parent
+        self._tracer._tls.top = parent
+        self._tracer._close(self.name, self._t0, t1, self._depth,
+                            None if parent is None else parent.name,
+                            self._root)
         return False
 
 
@@ -86,6 +149,7 @@ class SpanTracer:
         self._events: List[dict] = []
         self._dropped = 0
         self._tls = threading.local()
+        self._roots = itertools.count(1)
         self._epoch = time.perf_counter()
         self._tracing = _env_tracing() if tracing is None else bool(tracing)
 
@@ -93,7 +157,8 @@ class SpanTracer:
     def span(self, name: str, block=None) -> Span:
         return Span(self, name, block=block)
 
-    def _close(self, name: str, t0: float, t1: float, depth: int) -> None:
+    def _close(self, name: str, t0: float, t1: float, depth: int,
+               parent: Optional[str], root: int) -> None:
         dt = t1 - t0
         with self._lock:
             s = self._agg.get(name)
@@ -108,9 +173,11 @@ class SpanTracer:
                         "name": name,
                         "ts_us": (t0 - self._epoch) * 1e6,
                         "dur_us": dt * 1e6,
-                        "pid": os.getpid(),
+                        "pid": _PID,
                         "tid": threading.get_ident(),
                         "depth": depth,
+                        "parent": parent,
+                        "root": root,
                     })
                 else:
                     self._dropped += 1
@@ -125,6 +192,8 @@ class SpanTracer:
 
     def set_tracing(self, on: bool) -> None:
         self._tracing = bool(on)
+        if self is _process:
+            _regate()
 
     # -- readout ----------------------------------------------------------
     def summary(self) -> Dict[str, dict]:
@@ -164,7 +233,8 @@ class SpanTracer:
                     "dur": e["dur_us"],
                     "pid": e["pid"],
                     "tid": e["tid"],
-                    "args": {"depth": e["depth"]},
+                    "args": {"depth": e["depth"], "parent": e["parent"],
+                             "root": e["root"]},
                 }
                 for e in self._events
             ]
@@ -197,5 +267,7 @@ class SpanTracer:
                 "pid": e["pid"],
                 "tid": e["tid"],
                 "depth": e.get("args", {}).get("depth", 0),
+                "parent": e.get("args", {}).get("parent"),
+                "root": e.get("args", {}).get("root"),
             })
         return out
