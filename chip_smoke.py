@@ -2220,7 +2220,8 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     ``"auto"`` for FAMILY_STEPS steps each (GAT_LANE, GCN_LANE).  Then each
     lane's eval batch against the plain versions on the CPU within
     CPU_TOL.  Returns each lane's launches and summary, and its trained
-    model, by lane."""
+    model, by lane, B2's products record and SAGE's mean kernels' records
+    (``sage_mean_records``)."""
     t0 = time.perf_counter()
     feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                          device=DEV).from_cpu_tensor(feat)
@@ -2229,22 +2230,34 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     print(f"whole products table on the card in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     b2_products = b2_products_case(torch, topo, feature, train, b2)
+    from quiver_tpu_torch.ops.cuda import sage_mean as sm
+
+    sage_records = sage_mean_records(torch, topo, feature, train, sm)
     counters = {"window_sample": b1.window_sample,
                 "element_gather": b3.element_gather,
-                "gather_rows": b2.gather_rows}
+                "gather_rows": b2.gather_rows,
+                "sage_mean": sm.sage_mean,
+                "sage_mean_backward": sm.sage_mean_backward}
     n_hops = len(P_FANOUTS)
+    # SAGE: the mean kernel once a layer, its backward at every layer but
+    # the first (B2's rows take no gradient); GAT and GCN launch neither
+    sage = dict(sage_mean=n_hops, sage_mean_backward=n_hops - 1)
+    other = dict(sage_mean=0, sage_mean_backward=0)
     b1_lane = dict(window_sample=n_hops, element_gather=0, gather_rows=1)
     lanes = {}
     for label, mode, dedup, steps, per_step, spec in (
             ("pallas", "pallas", "none", FUSED_STEPS,
              dict(window_sample=0, element_gather=2 * n_hops,
-                  gather_rows=1), None),
-            ("auto", "auto", "none", AUTO_STEPS, b1_lane, None),
-            ("auto hop", "auto", "hop", AUTO_STEPS, b1_lane, None),
+                  gather_rows=1, **sage), None),
+            ("auto", "auto", "none", AUTO_STEPS, dict(b1_lane, **sage), None),
+            ("auto hop", "auto", "hop", AUTO_STEPS, dict(b1_lane, **sage),
+             None),
             # slice 7: GAT and GCN through the same fused step
             ("gat", "auto", "none", FAMILY_STEPS, dict(
-                b1_lane, window_sample=len(GAT_LANE["fanouts"])), GAT_LANE),
-            ("gcn", "auto", "none", FAMILY_STEPS, b1_lane, GCN_LANE)):
+                b1_lane, window_sample=len(GAT_LANE["fanouts"]), **other),
+             GAT_LANE),
+            ("gcn", "auto", "none", FAMILY_STEPS, dict(b1_lane, **other),
+             GCN_LANE)):
         lanes[label] = fused_lane(torch, qt, topo, feature, labels_d, train,
                                   mode, steps, counters, per_step, dedup,
                                   spec)
@@ -2278,7 +2291,7 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
         out[label] = (launches, summary)
         models[label] = model
     out["auto hop"][1]["batch_checks"] = hop_checks
-    return out, models, b2_products
+    return out, models, b2_products, sage_records
 
 
 def b2_products_case(torch, topo, feature, train, b2) -> dict:
@@ -2297,6 +2310,108 @@ def b2_products_case(torch, topo, feature, train, b2) -> dict:
           f"products frontier {n_id.shape[0]}")
     return b2_case(torch, b2, "products", feature.hot, n_id,
                    feature._order_dev)
+
+
+def sage_mean_records(torch, topo, feature, train, sm) -> list:
+    """SAGEConv's neighbour mean at the fused step's three layers: the
+    products batch's blocks (the ``"pwindow"`` pipeline's layout and
+    padding), layer 0 over the batch's looked-up 100-wide rows, layers 1
+    and 2 over seeded 256-wide rows.  Each kernel bitwise its plain version;
+    timed beside its bound (valid rows, indices and masks read once, the
+    output written once; the backward writes ``[N, D]`` once and reads the
+    mean's and the self rows' gradients), the plain version and the library
+    chain it replaced: ``index_select``, the broadcast mask, ``sum`` and the
+    divide forward; autograd's backward of that chain and of the self
+    rows' slice (two zero-filled ``[N, D]``, the ``index_add``, their sum)
+    for the backward, and ``index_add`` alone beside it.  Layer 0's input
+    takes no gradient in the step, so the backward runs at layers 1 and
+    2.  Returns the forward's and the backward's kernel records."""
+    from quiver_tpu_torch.sampler import run_pipeline
+
+    dev = torch.device(DEV)
+    ip, ix = topo.to_device(dev)
+    seeds, kw = products_batch(torch, dev, train)
+    with torch.no_grad():  # the blocks and rows feed autograd below
+        n_id, _, _, blocks, _ = run_pipeline("none", ip, ix, seeds, kw,
+                                             P_FANOUTS, gather_mode="pwindow")
+        x0 = feature.lookup_device(n_id)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def chain(x, nbr, mask):
+        t, k = nbr.shape
+        x_src = x.index_select(0, nbr.reshape(-1)).reshape(t, k, x.shape[1])
+        m = mask[..., None].to(x.dtype)
+        return (x_src * m).sum(dim=1) / torch.clamp_min(m.sum(dim=1), 1.0)
+
+    fwd, bwd = [], []
+    for layer, blk in enumerate(blocks):
+        nbr, mask = blk.nbr_local, blk.mask
+        t, k = nbr.shape
+        x = x0 if layer == 0 else torch.randn(
+            (t + t * k, P_HIDDEN), generator=g, device=dev)
+        n, d = x.shape
+        check(n == t + t * k, f"SAGE layer {layer}: {n} rows for {t} x {k}")
+        valid = int(mask.sum())
+        row = d * x.element_size()
+        slots = t * k * (nbr.element_size() + 1)
+        shape = f"layer {layer}: T={t}, k={k}, N={n}, D={d}"
+        got, want = sm.sage_mean(x, nbr, mask), sm.sage_mean_plain(x, nbr,
+                                                                   mask)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"sage_mean {shape} differs from the "
+              "plain version")
+        fwd.append(dict(
+            shape=shape, valid_slots=valid,
+            max_abs_err=float((got - chain(x, nbr, mask)).abs().max()),
+            ms=cuda_ms(torch, lambda: sm.sage_mean(x, nbr, mask)),
+            host_ms=host_ms(torch, lambda: sm.sage_mean(x, nbr, mask)),
+            plain_ms=cuda_ms(torch, lambda: sm.sage_mean_plain(x, nbr, mask)),
+            library_ms=cuda_ms(torch, lambda: chain(x, nbr, mask)),
+            bound_ms=(valid * row + t * row + slots) / HBM_BYTES_PER_S * 1e3))
+        print(f"sage_mean {shape}: exact; {json.dumps(fwd[-1])}", flush=True)
+        if layer == 0:
+            continue
+        gm = torch.randn((t, d), generator=g, device=dev)
+        gs = torch.randn((t, d), generator=g, device=dev)
+        got = sm.sage_mean_backward(gm, nbr, mask, n, gs)
+        want = sm.sage_mean_backward_plain(gm, nbr, mask, n, gs)
+        xr = x.clone().requires_grad_()
+
+        def autograd_chain():
+            return torch.autograd.grad((chain(xr, nbr, mask), xr[:t]), xr,
+                                       (gm, gs))[0]
+
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"sage_mean_backward {shape} differs "
+              "from the plain version")
+        flat = nbr.reshape(-1).long()
+        src = (gm / mask.sum(1, keepdim=True).clamp_min(1)).repeat_interleave(
+            k, dim=0)
+        bwd.append(dict(
+            shape=shape, valid_slots=valid,
+            max_abs_err=float((got - autograd_chain()).abs().max()),
+            ms=cuda_ms(torch, lambda: sm.sage_mean_backward(gm, nbr, mask, n,
+                                                            gs)),
+            host_ms=host_ms(torch, lambda: sm.sage_mean_backward(
+                gm, nbr, mask, n, gs)),
+            plain_ms=cuda_ms(torch, lambda: sm.sage_mean_backward_plain(
+                gm, nbr, mask, n, gs)),
+            library_ms=cuda_ms(torch, autograd_chain),
+            index_add_ms=cuda_ms(torch, lambda: torch.zeros_like(x).index_add_(
+                0, flat, src)),
+            bound_ms=(n * row + 2 * t * row + slots) / HBM_BYTES_PER_S * 1e3))
+        print(f"sage_mean_backward {shape}: exact; {json.dumps(bwd[-1])}",
+              flush=True)
+        del xr, got, want, src
+    records = []
+    for name, cases in (("sage_mean", fwd), ("sage_mean_backward", bwd)):
+        records.append(dict(
+            name=name, route="cuda", source=sm.SOURCE, replaces=sm.REPLACES,
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            **{key: float(sum(c[key] for c in cases)) for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "host_ms")},
+            bound_by="bytes", cases=cases))
+    return records
 
 
 def staged_training_phase(torch, qt, topo, feat, labels, train, b2, b4):
@@ -6739,6 +6854,7 @@ def main(argv=None) -> int:
     from quiver_tpu_torch.ops.cuda import gather_rows as b2
     from quiver_tpu_torch.ops.cuda import lane_select as b4
     from quiver_tpu_torch.ops.cuda import page_gather as b5
+    from quiver_tpu_torch.ops.cuda import sage_mean as sm
     from quiver_tpu_torch.ops.cuda import threefry as tf
     from quiver_tpu_torch.ops.cuda import window_sample as b1
     from quiver_tpu_torch.sampler import run_pipeline
@@ -6971,9 +7087,15 @@ def main(argv=None) -> int:
         if launches_m is not None:
             b3_record["launches_mesh_serving"] = launches_m["element_gather"]
             b3_record["launches_dist_sampler"] = b3_dist
-        lanes, models, b2_products = fused_training_phase(
+        lanes, models, b2_products, sage_records = fused_training_phase(
             torch, qt, ptopo, pfeat, plabels, ptrain, b1, b2, b3)
         kr("gather_rows")["products"] = b2_products
+        for rec in sage_records:
+            r = kr(rec["name"])
+            r.update(rec)
+            for lane in ("pallas", "auto", "auto hop", "gat", "gcn"):
+                key = f"launches_{lane.replace(' ', '_')}_training"
+                r[key] = lanes[lane][0][rec["name"]]
         (launches_f, summary_f), (launches_a, summary_a), \
             (launches_h, summary_h) = (lanes["pallas"], lanes["auto"],
                                        lanes["auto hop"])
@@ -7155,15 +7277,18 @@ def main(argv=None) -> int:
             del topo, feat
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        examples = examples_phase(torch, qt, {
+        example_counters = {
             "window_sample": b1.window_sample,
             "gather_rows": b2.gather_rows,
             "element_gather": b3.element_gather,
             "lane_select": b4.lane_select,
             "page_gather": b5.page_gather,
-            "threefry_uniform": tf.threefry_uniform})
+            "threefry_uniform": tf.threefry_uniform,
+            "sage_mean": sm.sage_mean,
+            "sage_mean_backward": sm.sage_mean_backward}
+        examples = examples_phase(torch, qt, example_counters)
         examples["phase_s"] = time.perf_counter() - t0
-        for name in KERNELS:
+        for name in example_counters:
             by = {}
             for r in examples["runs"]:
                 key = r["example"] + (" (paged)" if r["knobs"] else "")
@@ -7175,7 +7300,8 @@ def main(argv=None) -> int:
 
     # B1's threefry instance has its own record after B1's
     kernels = [recs[name] for name in ("window_sample", "window_sample_key",
-                                       *KERNELS[1:]) if name in recs]
+                                       *KERNELS[1:], "sage_mean_backward")
+               if name in recs]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """Dense-block GNN layers (counterpart of ``quiver_tpu/models/layers.py``).
 
 Layers consume the sampler's dense ``[T, k]`` neighbour blocks: aggregation
-is an index, a masked sum (a mean or an attention-weighted sum) in plain
-PyTorch, as the JAX package leaves it to XLA.
+is an index, a masked sum (a mean or an attention-weighted sum).  SAGE's
+neighbour mean is one hand-written kernel forward and one backward on the
+card (``ops/cuda/sage_mean.py``); the others stay plain PyTorch, as the
+JAX package leaves them to XLA.
 
 ``dtype=`` (e.g. ``torch.bfloat16``) casts as Flax's ``nn.Dense(dtype=)``
 does: at each dense layer the input, weight and bias go to ``dtype`` and
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.sage_mean import sage_aggregate
 from ..utils.device import resolve_device
 
 __all__ = ["SAGEConv", "GATConv", "masked_softmax", "dense"]
@@ -49,12 +52,17 @@ def _dropout(x: torch.Tensor, p: float, training: bool,
 class SAGEConv(nn.Module):
     """GraphSAGE mean aggregator: ``W_self x + W_nbr mean(x_N(v))``.
 
+    The neighbour mean and the self rows come from
+    :func:`~quiver_tpu_torch.ops.cuda.sage_mean.sage_aggregate`: on the
+    card one gather-mean kernel, and under autograd one scatter kernel that
+    writes ``x``'s whole gradient; on the CPU their plain versions.
     With ``edge_feat [T, k, De]`` (rows of an edge-feature table gathered by
     ``LayerBlock.eid``) the neighbour half becomes
     ``W_nbr concat(mean x_N(v), mean e)``; the two means are taken apart, so
-    no ``[T, k, D + De]`` tensor is built.  ``edge_dim`` sizes ``lin_nbr``
-    for that concat.  Parameters live on ``device`` (``None``: the card);
-    ``dtype`` is the compute dtype of the two dense layers.
+    no ``[T, k, D + De]`` tensor is built, and the edge mean is plain
+    PyTorch.  ``edge_dim`` sizes ``lin_nbr`` for that concat.  Parameters
+    live on ``device`` (``None``: the card); ``dtype`` is the compute dtype
+    of the two dense layers.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -70,16 +78,13 @@ class SAGEConv(nn.Module):
 
     def forward(self, x: torch.Tensor, block,
                 edge_feat: Optional[torch.Tensor] = None) -> torch.Tensor:
-        t, k = block.nbr_local.shape
-        x_src = x.index_select(0, block.nbr_local.reshape(-1))
-        x_src = x_src.reshape(t, k, x.shape[1])              # [T, k, D]
-        m = block.mask[..., None].to(x.dtype)
-        cnt = torch.clamp_min(m.sum(dim=1), 1.0)             # [T, 1]
-        mean_nbr = (x_src * m).sum(dim=1) / cnt              # [T, D]
+        mean_nbr, x_self = sage_aggregate(x, block.nbr_local, block.mask)
         if edge_feat is not None:
+            m = block.mask[..., None].to(x.dtype)
+            cnt = torch.clamp_min(m.sum(dim=1), 1.0)             # [T, 1]
             mean_e = (edge_feat.to(x.dtype) * m).sum(dim=1) / cnt
             mean_nbr = torch.cat([mean_nbr, mean_e], dim=-1)
-        return (dense(self.lin_self, x[:t], self.dtype)
+        return (dense(self.lin_self, x_self, self.dtype)
                 + dense(self.lin_nbr, mean_nbr, self.dtype))
 
 

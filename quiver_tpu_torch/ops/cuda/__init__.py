@@ -5,10 +5,12 @@ the ``csrc`` headers it includes (B3 and B4 share ``element_gather.cuh``;
 B1 and ``threefry_uniform`` share the cipher of ``threefry.cuh``).  The
 first five replace the JAX package's Pallas kernels B1-B5;
 ``threefry_uniform`` is the counterpart of XLA's ``jax.random.uniform``
-under ``sample_rng="key"`` at the draw sites B1 does not fuse.
+under ``sample_rng="key"`` at the draw sites B1 does not fuse;
+``sage_mean`` is SAGEConv's neighbour mean and its gradient, which the JAX
+package leaves to XLA.
 """
 
 KERNELS = ("window_sample", "gather_rows", "element_gather", "lane_select",
-           "page_gather", "threefry_uniform")
+           "page_gather", "threefry_uniform", "sage_mean")
 
 __all__ = ["KERNELS"]

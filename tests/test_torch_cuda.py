@@ -19,8 +19,10 @@ from quiver_tpu_torch.ops.cuda import element_gather as b3
 from quiver_tpu_torch.ops.cuda import gather_rows as b2
 from quiver_tpu_torch.ops.cuda import lane_select as b4
 from quiver_tpu_torch.ops.cuda import page_gather as b5
+from quiver_tpu_torch.ops.cuda import sage_mean as sm
 from quiver_tpu_torch.ops.cuda import threefry as tf
 from quiver_tpu_torch.ops.cuda import window_sample as b1
+from quiver_tpu_torch.ops.cuda.build import KernelArgumentError
 from quiver_tpu_torch.ops.paged import plan_blocks
 
 pytestmark = pytest.mark.cuda
@@ -1519,3 +1521,135 @@ def test_keyed_sampler_on_card_equals_cpu(card, mode, dedup):
     before = tf.threefry_uniform.launches
     hashed.sample(ids, key=rng.key(4))
     assert tf.threefry_uniform.launches == before
+
+
+# SAGEConv's neighbour mean: products' three layers (targets, k, width) and
+# Reddit's first, whose 2,408-byte fp32 rows take 8-byte units; then k over
+# one warp's 32 slots, k = 1 and an odd bf16 width (2-byte units)
+SAGE_MEAN_SHAPES = [(180_224, 5, 100), (16_384, 10, 256), (1_024, 15, 256),
+                    (2_048, 25, 602), (300, 70, 9), (513, 1, 33)]
+
+
+def _sage_block(card, t, k, seed, unique=True):
+    """A ``[t, k]`` block as the pipeline lays it out (``t + b*k + j``
+    where valid, 0 where masked; about 13% masked, a few targets with no
+    valid slot) or, with ``unique=False``, valid slots drawn from the
+    block's rows with repeats (as under ``dedup="hop"``)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    mask = torch.rand((t, k), generator=g, device=card) < 0.87
+    mask[::97] = False
+    n = t + t * k
+    if unique:
+        pos = torch.arange(t * k, device=card, dtype=torch.int32).view(t, k)
+        nbr = torch.where(mask, pos + t, torch.zeros_like(pos))
+    else:
+        n = max(t // 3, 1)
+        nbr = torch.randint(0, n, (t, k), generator=g, device=card,
+                            dtype=torch.int32)
+    return nbr, mask, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SAGE_MEAN_SHAPES)
+def test_sage_mean_kernel_equals_plain(card, dtype, shape):
+    """The forward kernel bitwise its plain version, on ``x`` and on the
+    ``x[1:]`` view (another alignment of the rows); one launch a call."""
+    t, k, d = shape
+    nbr, mask, n = _sage_block(card, t, k, t + k)
+    g = torch.Generator(device=card).manual_seed(d)
+    x = torch.randn((n + 1, d), generator=g, device=card).to(dtype)
+    bits = _b2_bits
+    for rows in (x[:n], x[1:]):
+        want = sm.sage_mean_plain(rows, nbr, mask)
+        before = sm.sage_mean.launches
+        got = sm.sage_mean(rows, nbr, mask)
+        torch.cuda.synchronize()
+        assert sm.sage_mean.launches == before + 1
+        assert got.shape == (t, d) and got.dtype == dtype
+        assert torch.equal(bits(got), bits(want))
+    assert not bool(got[::97].any())  # no valid slot: zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SAGE_MEAN_SHAPES)
+def test_sage_mean_backward_kernel_equals_plain(card, dtype, shape):
+    """The backward kernel bitwise its plain version where each row takes
+    one valid slot (the pipeline's layout), with and without the self
+    rows' gradient.  Where rows repeat, the atomics add in another order,
+    each add rounding: every row within ``2 (c + 1) u S`` of the exact sum
+    (fp64), for ``c`` adds into the row, ``S`` the sum of their
+    magnitudes and ``u`` the dtype's unit roundoff."""
+    t, k, d = shape
+    g = torch.Generator(device=card).manual_seed(d + 1)
+    grad = torch.randn((t, d), generator=g, device=card).to(dtype)
+    gself = torch.randn((t, d), generator=g, device=card).to(dtype)
+    for unique in (True, False):
+        nbr, mask, n = _sage_block(card, t, k, t + k, unique)
+        for self_rows in ((None,) if t > n else (None, gself)):
+            want = sm.sage_mean_backward_plain(grad, nbr, mask, n, self_rows)
+            before = sm.sage_mean_backward.launches
+            got = sm.sage_mean_backward(grad, nbr, mask, n, self_rows)
+            torch.cuda.synchronize()
+            assert sm.sage_mean_backward.launches == before + 1
+            assert got.shape == (n, d) and got.dtype == dtype
+            if unique:
+                assert torch.equal(_b2_bits(got), _b2_bits(want))
+                continue
+            exact = sm.sage_mean_backward_plain(grad.double(), nbr, mask, n)
+            mag = sm.sage_mean_backward_plain(grad.double().abs(), nbr,
+                                              mask, n)
+            adds = torch.bincount(nbr[mask].long(), minlength=n)
+            u = 2.0**-24 if dtype == torch.float32 else 2.0**-8
+            bound = 2 * (adds[:, None] + 1) * u * mag
+            for rows in (got, want):
+                assert bool(((rows.double() - exact).abs() <= bound).all())
+
+
+def test_sage_conv_launches_per_products_step(card):
+    """A three-layer GraphSAGE fused step on the card launches the forward
+    kernel once a layer and the backward twice (layer 0's input, B2's rows,
+    takes no gradient)."""
+    topo = _graph(4, n=2000)
+    feat = np.random.default_rng(2).standard_normal(
+        (2000, 24)).astype(np.float32)
+    labels = torch.from_numpy(np.random.default_rng(3).integers(0, 7, 2000))
+    torch.manual_seed(0)
+    model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0, device=card)
+    s = qt.GraphSageSampler(topo, [6, 4, 3], device=card)
+    f = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                   device=card).from_cpu_tensor(feat)
+    step = qt.make_fused_train_step(
+        s, f, model, torch.optim.Adam(model.parameters(), lr=3e-3))
+    ids = np.arange(0, 2000, 7)
+    lab = labels[ids].to(card)
+    ones = torch.ones(len(ids), dtype=torch.bool, device=card)
+    before = (sm.sage_mean.launches, sm.sage_mean_backward.launches)
+    for i in range(4):
+        step(ids, lab, ones, np.array([[1, i], [2, i], [3, i]], np.uint32))
+    torch.cuda.synchronize()
+    assert (sm.sage_mean.launches - before[0],
+            sm.sage_mean_backward.launches - before[1]) == (12, 8)
+
+
+def test_sage_mean_refuses_bad_input(card):
+    x = torch.zeros((40, 8), device=card)
+    nbr, mask, _ = _sage_block(card, 4, 3, 0)
+    for args in ((x.double(), nbr, mask), (x.half(), nbr, mask),
+                 (x[:, 1:], nbr, mask), (x[0], nbr, mask),
+                 (x, nbr.to(torch.int16), mask), (x, nbr.long(), mask),
+                 (x, nbr.cpu(), mask),
+                 (x, nbr.t(), mask.t()), (x, nbr, mask.to(torch.uint8)),
+                 (x, nbr, mask[:, :2].contiguous()),
+                 (torch.zeros((0, 8), device=card), nbr, mask)):
+        with pytest.raises(KernelArgumentError):
+            sm.sage_mean(*args)
+    g = torch.zeros((4, 8), device=card)
+    for args, kw in (((g.double(), nbr, mask, 40), {}),
+                     ((g[:, 1:], nbr, mask, 40), {}),
+                     ((g[:3], nbr, mask, 40), {}),
+                     ((g, nbr, mask, -1), {}),
+                     ((g, nbr, mask, 40), {"grad_self": g[:2]}),
+                     ((g, nbr, mask, 40), {"grad_self": g.bfloat16()}),
+                     ((g, nbr, mask, 2), {"grad_self": g})):
+        with pytest.raises(KernelArgumentError):
+            sm.sage_mean_backward(*args, **kw)
