@@ -399,8 +399,12 @@ MAG_CHUNK_ROWS = 262_144  # feature rows drawn on the card at a time
 # device operations counted by name in a step's profile (lower case)
 KERNEL_FAMILIES = {"B1": ("window_sample_kernel",),
                    "sort_searchsorted_scatter": ("sort", "searchsorted",
-                                                 "scatter")}
+                                                 "scatter"),
+                   "sage_mean": ("sage_mean_fwd",),
+                   "sage_mean_backward": ("sage_mean_bwd",)}
 BLOCKED_MODE = "blocked:3"
+# the hand-written mean's kernels (launch counter names, profile families)
+SAGE_MEAN_KERNELS = ("sage_mean", "sage_mean_backward")
 
 
 def fail(msg: str):
@@ -859,6 +863,12 @@ def device_profile(torch, run, wall_ms: float, top: int = 8,
                 count=sum(counts[n] for n in names), ms=ms,
                 share=ms / busy_ms)
     return out
+
+
+def family_count(prof: dict, label: str) -> int:
+    """How many device operations of ``label``'s family a
+    :func:`device_profile` counted (0 where it saw none)."""
+    return prof.get("families", {}).get(label, {}).get("count") or 0
 
 
 def request_plan():
@@ -1990,16 +2000,27 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     if spec["learns"]:
         check(last < first,
               f"the {lane} loss did not fall: {first} -> {last}")
+    # the step replays the model's kernels from CUDA graphs: the host
+    # launches them in the capture's warm-up pass and in the capture
+    # itself, not in a replay; every batch has one shape, so the first
+    # call captures and no call runs eagerly
+    captures, eager = step.train.captures, step.train.eager_calls
+    check((captures, eager) == (1, 0), f"{lane}: {captures} captures and "
+          f"{eager} eager calls in {steps} steps of one shape")
+    passes = 2 * captures + eager
     for name, n in launches.items():
-        check(n == per_step[name] * steps, f"{lane}: {name} launched {n} "
-              f"times in {steps} steps, not {per_step[name]} a step")
+        k = passes if name.startswith("sage_mean") else steps
+        check(n == per_step[name] * k, f"{lane}: {name} launched {n} "
+              f"times in {k} passes of {steps} steps, not "
+              f"{per_step[name]} a pass")
     summary = dict(family=spec["family"], fanouts=fanouts, batch=size,
                    lr=spec["lr"], gather_mode=mode, dedup=dedup, steps=steps,
                    losses=losses.tolist(), loss_first5_mean=first,
                    loss_last5_mean=last,
                    step_wall_ms=float(np.median(wall[2:])),
                    step_event_ms=float(np.median(dev_ms[2:])),
-                   launches=launches, peak_gib=peak_gib)
+                   launches=launches, peak_gib=peak_gib,
+                   captures=captures, eager_calls=eager)
     print(f"fused training {lane} " + json.dumps(summary), flush=True)
     if spec is SAGE_LANE and dedup == "none" and mode == "auto":
         summary["checkpoint"] = checkpoint_check(torch, qt, sampler, feature,
@@ -2020,8 +2041,28 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
 
     b1_fn = counters.get("window_sample")
     b1_before = b1_fn.launches if b1_fn is not None else 0
+    mean_before = {k: counters[k].launches for k in SAGE_MEAN_KERNELS}
     prof = device_profile(torch, profiled_step, summary["step_wall_ms"],
                           top=12, families=KERNEL_FAMILIES)
+    if spec is SAGE_LANE:
+        # the replayed step runs the hand-written mean and its backward at
+        # every layer, though the host launches neither: the profile must
+        # count each kernel per_step times (taken up to 8 times, since the
+        # card's profiler drops device events from some captures)
+        for _ in range(7):
+            if all(family_count(prof, k) == per_step[k]
+                   for k in SAGE_MEAN_KERNELS):
+                break
+            prof = device_profile(torch, profiled_step,
+                                  summary["step_wall_ms"], top=12,
+                                  families=KERNEL_FAMILIES)
+        for k in SAGE_MEAN_KERNELS:
+            host = counters[k].launches - mean_before[k]
+            check(host == 0, f"{lane}: the host launched {k} {host} times "
+                  f"in {runs[0]} replayed steps")
+            check(family_count(prof, k) == per_step[k], f"{lane}: "
+                  f"{family_count(prof, k)} {k} kernels in the profile of "
+                  f"one replayed step, not {per_step[k]}")
     if dedup == "hop":
         # the launch counter holds B1 to exactly once a hop in every run
         # of the step, the profiled ones too; the profile must show B1 on
@@ -2031,13 +2072,12 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
         # as the R-GAT step's is
         n_b1 = per_step["window_sample"]
         for _ in range(7):
-            b1_ops = prof.get("families", {}).get("B1", {}).get("count") or 0
-            if b1_ops >= n_b1:
+            if family_count(prof, "B1") >= n_b1:
                 break
             prof = device_profile(torch, profiled_step,
                                   summary["step_wall_ms"], top=12,
                                   families=KERNEL_FAMILIES)
-        b1_ops = prof.get("families", {}).get("B1", {}).get("count") or 0
+        b1_ops = family_count(prof, "B1")
         ran = b1_fn.launches - b1_before
         check(ran == n_b1 * runs[0], f"{lane}: B1 launched {ran} times in "
               f"{runs[0]} profiled steps, not {n_b1} a step")
@@ -2840,7 +2880,7 @@ def rgat_phase(torch, qt, b1, b2):
     for _ in range(3):
         prof = device_profile(torch, one_step, summary["step_wall_ms"],
                               top=12, families=KERNEL_FAMILIES)
-        b1_ops = prof.get("families", {}).get("B1", {}).get("count") or 0
+        b1_ops = family_count(prof, "B1")
         if b1_ops == n_blocks:
             break
     print("R-GAT step on the card (torch.profiler) " + json.dumps(prof),

@@ -46,6 +46,7 @@ pads each copy to a shape bucket.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -182,6 +183,9 @@ class Feature:
         ``ici_shard`` hot prefix is sharded over (without one it is
         replicated, as in JAX).
     """
+
+    # (thread id, alloc) while that thread is inside :meth:`_rows_into`
+    _into: Optional[tuple] = None
 
     def __init__(self, rank: int = 0, device_list: Optional[Sequence] = None,
                  device_cache_size: Union[int, str] = 0,
@@ -708,12 +712,13 @@ class Feature:
         return self._staging.send(name, buf)
 
     def _gather_hot(self, idx: torch.Tensor,
-                    order: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """B2 over the hot prefix: one call, or one a shard under
-        ``ici_shard``."""
+                    order: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """B2 over the hot prefix: one call (into ``out`` when given), or
+        one a shard under ``ici_shard`` (into a new tensor)."""
         if isinstance(self.hot, ShardedRows):
             return self.hot.gather(idx, order)
-        return gather_rows(self.hot, idx, order)
+        return gather_rows(self.hot, idx, order, out)
 
     def _hot_rows(self, rows: np.ndarray) -> torch.Tensor:
         return self._gather_hot(self._to_device("hot",
@@ -813,7 +818,8 @@ class Feature:
         to ``[0, N)`` before ``feature_order`` is applied, as the JAX
         package clips them; without an order the clip keeps B2 inside the
         table (the ids are never read back to the host to be checked).
-        Clip, order and copy are one call of B2."""
+        Clip, order and copy are one call of B2, into the buffer that
+        :meth:`_rows_into` gives where it gives one."""
         self._check_built()
         if self.cache_count < self.node_count:
             raise RuntimeError(
@@ -823,7 +829,24 @@ class Feature:
         idx = idx.to(self.device)
         if idx.dtype not in (torch.int32, torch.int64):
             idx = idx.to(torch.int64)
-        return self._gather_hot(idx, self._order_dev)
+        out, into = None, self._into
+        if into is not None and into[0] == threading.get_ident():
+            out = into[1]((idx.shape[0], self.dim), self.hot.dtype)
+        return self._gather_hot(idx, self._order_dev, out)
+
+    @contextlib.contextmanager
+    def _rows_into(self, alloc):
+        """While the block runs, this thread's :meth:`lookup_device` writes
+        its rows into ``alloc(shape, dtype)`` where that returns a tensor,
+        and returns that tensor, in place of a new one.  The fused training
+        step passes the static input of its CUDA graphs, so that B2 writes
+        the graphs' rows and no copy follows; the next such lookup
+        overwrites them.  Another thread's lookups are unaffected."""
+        self._into = (threading.get_ident(), alloc)
+        try:
+            yield
+        finally:
+            self._into = None
 
     def size(self, dim: int) -> int:
         return (self.node_count, self.dim)[dim]

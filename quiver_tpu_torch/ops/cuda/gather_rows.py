@@ -91,14 +91,18 @@ def route(m: int, n: int, row_bytes: int) -> str:
 
 @profiled("kernel")
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
-                order: Optional[torch.Tensor] = None) -> torch.Tensor:
+                order: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows ``table[order[clamp(idx, 0, N - 1)]]`` of a 2-D ``table
     [N, D]`` for int32 or int64 ``idx [M]`` of any length and values, with
-    ``order`` an int32 ``[N]`` map onto the table's rows or ``None``."""
+    ``order`` an int32 ``[N]`` map onto the table's rows or ``None``;
+    written into ``out`` (a contiguous ``[M, D]`` tensor of the table's
+    dtype and device) and returned when it is given."""
     if table.device.type == "cpu":
-        return gather_rows_plain(table, idx, order)
-    n, row_bytes = _check(table, idx, order)
-    return _launch(table, idx, order, route(idx.shape[0], n, row_bytes))
+        rows = gather_rows_plain(table, idx, order)
+        return rows if out is None else out.copy_(rows)
+    n, row_bytes = _check(table, idx, order, out)
+    return _launch(table, idx, order, route(idx.shape[0], n, row_bytes), out)
 
 
 def gather_rows_route(table: torch.Tensor, idx: torch.Tensor,
@@ -117,7 +121,7 @@ def gather_rows_route(table: torch.Tensor, idx: torch.Tensor,
     return _launch(table, idx, order, which)
 
 
-def _check(table, idx, order):
+def _check(table, idx, order, out=None):
     if table.device.type != "cuda":
         raise KernelArgumentError(
             f"gather_rows: unsupported device {table.device}")
@@ -138,23 +142,31 @@ def _check(table, idx, order):
             "the table's device")
     if n == 0 and idx.shape[0]:
         raise KernelArgumentError("gather_rows: ids into a table with no rows")
+    if out is not None and (out.shape != (idx.shape[0], table.shape[1])
+                            or out.dtype != table.dtype
+                            or out.device != table.device
+                            or not out.is_contiguous()):
+        raise KernelArgumentError(
+            "gather_rows: out must be a contiguous [M, D] tensor of the "
+            "table's dtype on its device")
     return n, table.shape[1] * table.element_size()
 
 
-def _launch(table, idx, order, which):
+def _launch(table, idx, order, which, out=None):
     idx = idx.contiguous()
     order = None if order is None else order.contiguous()
     m, n = idx.shape[0], table.shape[0]
     row_bytes = table.shape[1] * table.element_size()
-    out = torch.empty((m, table.shape[1]), dtype=table.dtype,
-                      device=table.device)
+    if out is None:
+        out = torch.empty((m, table.shape[1]), dtype=table.dtype,
+                          device=table.device)
     grouped = which == "grouped"
     scratch = None
     if grouped and m and row_bytes:
         # counts, tile sums, then the grouped rows and positions
         scratch = torch.empty(n + -(-n // _SCAN_TILE) + 2 * m,
                               dtype=torch.int32, device=table.device)
-    unit = vector_bytes(row_bytes, table.data_ptr())
+    unit = vector_bytes(row_bytes, table.data_ptr(), out.data_ptr())
     build.launch(build.load("gather_rows", "gather_rows", _ARGTYPES),
                  table.device, table.data_ptr(), n, idx.data_ptr(),
                  int(idx.dtype == torch.int64),

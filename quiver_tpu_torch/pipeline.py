@@ -9,6 +9,18 @@ a sequence of launches on one stream.  The feature must hold its whole
 table on the device; a budgeted feature trains through ``SeedLoader``
 and ``make_train_step`` instead.
 
+On the card the model's forward with its loss, and autograd's backward,
+are replayed from two CUDA graphs (``parallel.train.GraphedStep``), so
+the host issues a few launches a step where it issued a few dozen; B2
+writes the rows straight into the graphs' static input
+(``Feature._rows_into``), so no copy of them follows.  Three parts stay
+eager, launched every step as before: the sampler's pipeline, since B1
+takes its key words by value and a replay would draw the same neighbours
+every step; the lookup, whose call the caller may wrap on the instance
+(the benchmark records its rows that way); and the optimizer, since a
+plain ``torch.optim.Adam`` cannot be captured.  On the CPU the step is
+the eager step.
+
 The step takes JAX's ``key`` (two uint32 words): ``ks, kd = split(key)``
 (``quiver_tpu/pipeline.py:61``) and ``ks`` drives the hops, as the
 sampler's ``sample(key=)`` splits its key; ``kd`` goes unused, since
@@ -32,7 +44,7 @@ import numpy as np
 import torch
 
 from . import telemetry
-from .parallel.train import make_train_step
+from .parallel.train import GraphedStep, make_train_step
 from .telemetry import spans as _spans
 from .utils import rng as _rng
 
@@ -60,24 +72,35 @@ def _hop_words(sampler, key_words, key, split_first: bool):
     return sampler.words_of_key(key)
 
 
-def _sample_rows(sampler, feature, seeds, key_words, traced=False):
+def _sample_rows(sampler, feature, seeds, key_words, traced=False,
+                 rows=None):
     """Blocks and the rows of the outermost frontier, all on the device.
     The sampler's dedup and frontier caps apply; its edge weights do not:
     the JAX package's fused step samples uniformly even for a weighted
     sampler (``quiver_tpu/pipeline.py:62-65``), and so does this one.
-    ``traced``: record the ``train.sample`` and ``train.lookup`` spans."""
+    ``traced``: record the ``train.sample`` and ``train.lookup`` spans;
+    ``rows(shape, dtype)``: where the lookup writes the rows, if given."""
     if key_words is None:
         key_words = sampler.draw_key_words()
     seeds = sampler.seed_tensor(seeds)
     if not traced:
         n_id, _, _, blocks, _ = sampler.pipeline(seeds, key_words,
                                                  weighted=False)
-        return feature.lookup_device(n_id), blocks
+        return _lookup(feature, n_id, rows), blocks
     with telemetry.span("train.sample"):
         n_id, _, _, blocks, _ = sampler.pipeline(seeds, key_words,
                                                  weighted=False)
     with telemetry.span("train.lookup"):
-        return feature.lookup_device(n_id), blocks
+        return _lookup(feature, n_id, rows), blocks
+
+
+def _lookup(feature, n_id, rows):
+    """``feature.lookup_device(n_id)``, called as ever, writing into
+    ``rows(shape, dtype)`` where that gives a tensor."""
+    if rows is None:
+        return feature.lookup_device(n_id)
+    with feature._rows_into(rows):
+        return feature.lookup_device(n_id)
 
 
 def make_fused_train_step(sampler, feature, model, optimizer,
@@ -85,25 +108,33 @@ def make_fused_train_step(sampler, feature, model, optimizer,
     """Build ``step(seeds, labels, label_mask, key_words=None, *,
     key=None) -> loss``: sample ``seeds`` (a device tensor or host ids),
     gather, train one step.  ``seed`` seeds the step's dropout
-    generator."""
+    generator.  ``step.train`` is the model step it calls: a
+    :class:`~quiver_tpu_torch.parallel.train.GraphedStep` on the card,
+    :func:`make_train_step`'s eager step on the CPU."""
     _check(feature)
-    train = make_train_step(model, optimizer, loss_fn, seed=seed)
+    if next(model.parameters()).device.type == "cuda":
+        train = GraphedStep(model, optimizer, loss_fn, seed=seed)
+        rows = train.rows_buffer
+    else:
+        train, rows = make_train_step(model, optimizer, loss_fn,
+                                      seed=seed), None
 
     def step(seeds, labels, label_mask, key_words=None, *,
              key=None) -> torch.Tensor:
         if _spans._HOT:
             return traced(seeds, labels, label_mask, key_words, key)
         words = _hop_words(sampler, key_words, key, split_first=True)
-        x, blocks = _sample_rows(sampler, feature, seeds, words)
+        x, blocks = _sample_rows(sampler, feature, seeds, words, rows=rows)
         return train(x, blocks, labels, label_mask)
 
     def traced(seeds, labels, label_mask, key_words, key) -> torch.Tensor:
         with telemetry.span("train.step"):
             words = _hop_words(sampler, key_words, key, split_first=True)
             x, blocks = _sample_rows(sampler, feature, seeds, words,
-                                     traced=True)
+                                     traced=True, rows=rows)
             return train(x, blocks, labels, label_mask)
 
+    step.train = train
     return step
 
 

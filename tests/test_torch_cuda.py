@@ -1608,7 +1608,11 @@ def test_sage_mean_backward_kernel_equals_plain(card, dtype, shape):
 def test_sage_conv_launches_per_products_step(card):
     """A three-layer GraphSAGE fused step on the card launches the forward
     kernel once a layer and the backward twice (layer 0's input, B2's rows,
-    takes no gradient)."""
+    takes no gradient) in each pass of the model: the first call's warm-up
+    pass and its capture of the step's CUDA graphs; the later calls replay
+    them and launch none.  A replayed step's profile holds both kernels as
+    many times a step (taken up to 8 times: the profiler may drop device
+    events from a capture)."""
     topo = _graph(4, n=2000)
     feat = np.random.default_rng(2).standard_normal(
         (2000, 24)).astype(np.float32)
@@ -1623,12 +1627,117 @@ def test_sage_conv_launches_per_products_step(card):
     ids = np.arange(0, 2000, 7)
     lab = labels[ids].to(card)
     ones = torch.ones(len(ids), dtype=torch.bool, device=card)
-    before = (sm.sage_mean.launches, sm.sage_mean_backward.launches)
+    added = []
     for i in range(4):
+        before = (sm.sage_mean.launches, sm.sage_mean_backward.launches)
         step(ids, lab, ones, np.array([[1, i], [2, i], [3, i]], np.uint32))
+        added.append((sm.sage_mean.launches - before[0],
+                      sm.sage_mean_backward.launches - before[1]))
     torch.cuda.synchronize()
-    assert (sm.sage_mean.launches - before[0],
-            sm.sage_mean_backward.launches - before[1]) == (12, 8)
+    assert added == [(6, 4), (0, 0), (0, 0), (0, 0)]
+    assert (step.train.captures, step.train.eager_calls) == (1, 0)
+    for i in range(8):
+        kernels = _replayed_mean_kernels(
+            lambda: step(ids, lab, ones,
+                         np.array([[1, i], [2, i], [3, i]], np.uint32)))
+        if kernels == (3, 2):
+            break
+    assert kernels == (3, 2)
+
+
+def _replayed_mean_kernels(run):
+    """The ``sage_mean_fwd`` and ``sage_mean_bwd`` kernels the card ran in
+    ``run()`` under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return tuple(sum(k in n for n in names)
+                 for k in ("sage_mean_fwd", "sage_mean_bwd"))
+
+
+def _products_step_objects(card, topo, feat, base):
+    """A sampler, whole-table feature, GraphSAGE at ``base``'s weights and
+    Adam on the card, at products' widths."""
+    model = qt.GraphSAGE(100, 256, 47, num_layers=3, dropout=0.5,
+                         device=card)
+    model.load_state_dict(base.state_dict())
+    sampler = qt.GraphSageSampler(topo, [15, 10, 5], device=card)
+    feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
+                         device=card).from_cpu_tensor(feat)
+    return sampler, feature, model, torch.optim.Adam(model.parameters(),
+                                                     lr=3e-3)
+
+
+def test_graphed_fused_step_is_bitwise_the_eager_step(card, monkeypatch):
+    """The fused step on the card (forward and backward replayed from CUDA
+    graphs) against the eager step (``make_train_step`` over the same
+    sampler's pipeline and lookup) from the same weights, dropout seed and
+    feeds, at products' widths (100 -> 256 -> 256 -> 47, fanouts
+    [15, 10, 5], batch 1,024) on a small graph: every loss, the first
+    gradients and the parameters after every step are bitwise equal (so
+    are the dropout masks), and the returned losses are distinct tensors.
+    The 5 steps run through one capture, 2 replays a step.  Then two
+    batches of 512 (eager) and one of 1,024 (replayed) stay bitwise the
+    eager step's."""
+    from quiver_tpu_torch.parallel.train import make_train_step
+
+    n = 20_000
+    indptr, indices = qt.synthetic_csr(n, 400_000, seed=5)
+    topo = qt.CSRTopo(indptr=indptr, indices=indices)
+    rng = np.random.default_rng(6)
+    feat = rng.standard_normal((n, 100)).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(0, 47, n)).to(card)
+    torch.manual_seed(0)
+    base = qt.GraphSAGE(100, 256, 47, num_layers=3, dropout=0.5,
+                        device=card)
+    gs, gf, gm, go = _products_step_objects(card, topo, feat, base)
+    es, ef, em, eo = _products_step_objects(card, topo, feat, base)
+    graphed = qt.make_fused_train_step(gs, gf, gm, go, seed=7)
+    eager = make_train_step(em, eo, seed=7)
+    replays = [0]
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        replays[0] += 1
+        return replay(self)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+
+    def both(size, i):
+        ids = rng.choice(n, size, replace=False).astype(np.int64)
+        lab = labels[torch.from_numpy(ids).to(card)]
+        ones = torch.ones(size, dtype=torch.bool, device=card)
+        kw = rng.integers(0, 2**32, (3, 2), dtype=np.uint32)
+        lg = graphed(ids, lab, ones, kw)
+        n_id, _, _, blocks, _ = es.pipeline(es.seed_tensor(ids), kw,
+                                            weighted=False)
+        le = eager(ef.lookup_device(n_id), blocks, lab, ones)
+        assert torch.equal(lg, le), f"step {i}: loss {lg} != {le}"
+        for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+            assert torch.equal(p, q), f"step {i}: {name} differs"
+        return lg
+
+    losses = []
+    for i in range(5):
+        losses.append(both(1024, i))
+        if i == 0:
+            for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+                assert torch.equal(p.grad, q.grad), f"gradient of {name}"
+    torch.cuda.synchronize()
+    assert replays[0] == 10
+    assert (graphed.train.captures, graphed.train.eager_calls) == (1, 0)
+    assert len({x.data_ptr() for x in losses}) == 5
+    assert len({float(x) for x in losses}) == 5
+    for i, size in enumerate((512, 512, 1024)):
+        both(size, 5 + i)
+    assert (graphed.train.captures, graphed.train.eager_calls) == (1, 2)
+    assert replays[0] == 12
 
 
 def test_sage_mean_refuses_bad_input(card):
