@@ -401,10 +401,15 @@ KERNEL_FAMILIES = {"B1": ("window_sample_kernel",),
                    "sort_searchsorted_scatter": ("sort", "searchsorted",
                                                  "scatter"),
                    "sage_mean": ("sage_mean_fwd",),
-                   "sage_mean_backward": ("sage_mean_bwd",)}
+                   "sage_mean_backward": ("sage_mean_bwd",),
+                   "sage_act": ("sage_act_fwd",),
+                   "sage_act_backward": ("sage_act_bwd",),
+                   "threshold_backward": ("threshold",)}
 BLOCKED_MODE = "blocked:3"
-# the hand-written mean's kernels (launch counter names, profile families)
-SAGE_MEAN_KERNELS = ("sage_mean", "sage_mean_backward")
+# GraphSAGE's hand-written kernels, the mean's and the hidden layers'
+# activation's (launch counter names, profile families)
+SAGE_KERNELS = ("sage_mean", "sage_mean_backward", "sage_act",
+                "sage_act_backward")
 
 
 def fail(msg: str):
@@ -2009,7 +2014,7 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
           f"{eager} eager calls in {steps} steps of one shape")
     passes = 2 * captures + eager
     for name, n in launches.items():
-        k = passes if name.startswith("sage_mean") else steps
+        k = passes if name.startswith("sage_") else steps
         check(n == per_step[name] * k, f"{lane}: {name} launched {n} "
               f"times in {k} passes of {steps} steps, not "
               f"{per_step[name]} a pass")
@@ -2041,28 +2046,34 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
 
     b1_fn = counters.get("window_sample")
     b1_before = b1_fn.launches if b1_fn is not None else 0
-    mean_before = {k: counters[k].launches for k in SAGE_MEAN_KERNELS}
+    mean_before = {k: counters[k].launches for k in SAGE_KERNELS}
     prof = device_profile(torch, profiled_step, summary["step_wall_ms"],
                           top=12, families=KERNEL_FAMILIES)
     if spec is SAGE_LANE:
         # the replayed step runs the hand-written mean and its backward at
-        # every layer, though the host launches neither: the profile must
-        # count each kernel per_step times (taken up to 8 times, since the
-        # card's profiler drops device events from some captures)
+        # every layer and the activation kernels at each hidden layer,
+        # though the host launches none: the profile must count each
+        # kernel per_step times (taken up to 8 times, since the card's
+        # profiler drops device events from some captures), and ReLU's
+        # threshold_backward, which the activation's backward replaced,
+        # not at all
         for _ in range(7):
             if all(family_count(prof, k) == per_step[k]
-                   for k in SAGE_MEAN_KERNELS):
+                   for k in SAGE_KERNELS):
                 break
             prof = device_profile(torch, profiled_step,
                                   summary["step_wall_ms"], top=12,
                                   families=KERNEL_FAMILIES)
-        for k in SAGE_MEAN_KERNELS:
+        for k in SAGE_KERNELS:
             host = counters[k].launches - mean_before[k]
             check(host == 0, f"{lane}: the host launched {k} {host} times "
                   f"in {runs[0]} replayed steps")
             check(family_count(prof, k) == per_step[k], f"{lane}: "
                   f"{family_count(prof, k)} {k} kernels in the profile of "
                   f"one replayed step, not {per_step[k]}")
+        thr = family_count(prof, "threshold_backward")
+        check(thr == 0, f"{lane}: {thr} threshold_backward kernels in the "
+              "profile of one replayed step")
     if dedup == "hop":
         # the launch counter holds B1 to exactly once a hop in every run
         # of the step, the profiled ones too; the profile must show B1 on
@@ -2260,8 +2271,8 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     ``"auto"`` for FAMILY_STEPS steps each (GAT_LANE, GCN_LANE).  Then each
     lane's eval batch against the plain versions on the CPU within
     CPU_TOL.  Returns each lane's launches and summary, and its trained
-    model, by lane, B2's products record and SAGE's mean kernels' records
-    (``sage_mean_records``)."""
+    model, by lane, B2's products record and SAGE's kernels' records
+    (``sage_mean_records``, ``sage_act_records``)."""
     t0 = time.perf_counter()
     feature = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                          device=DEV).from_cpu_tensor(feat)
@@ -2270,19 +2281,25 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
     print(f"whole products table on the card in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     b2_products = b2_products_case(torch, topo, feature, train, b2)
+    from quiver_tpu_torch.ops.cuda import sage_act as sa
     from quiver_tpu_torch.ops.cuda import sage_mean as sm
 
-    sage_records = sage_mean_records(torch, topo, feature, train, sm)
+    sage_records = (sage_mean_records(torch, topo, feature, train, sm)
+                    + sage_act_records(torch, sa))
     counters = {"window_sample": b1.window_sample,
                 "element_gather": b3.element_gather,
                 "gather_rows": b2.gather_rows,
                 "sage_mean": sm.sage_mean,
-                "sage_mean_backward": sm.sage_mean_backward}
+                "sage_mean_backward": sm.sage_mean_backward,
+                "sage_act": sa.sage_act,
+                "sage_act_backward": sa.sage_act_backward}
     n_hops = len(P_FANOUTS)
     # SAGE: the mean kernel once a layer, its backward at every layer but
-    # the first (B2's rows take no gradient); GAT and GCN launch neither
-    sage = dict(sage_mean=n_hops, sage_mean_backward=n_hops - 1)
-    other = dict(sage_mean=0, sage_mean_backward=0)
+    # the first (B2's rows take no gradient), the activation kernels at
+    # each hidden layer (dropout 0.5); GAT and GCN launch none
+    sage = dict(sage_mean=n_hops, sage_mean_backward=n_hops - 1,
+                sage_act=n_hops - 1, sage_act_backward=n_hops - 1)
+    other = dict.fromkeys(SAGE_KERNELS, 0)
     b1_lane = dict(window_sample=n_hops, element_gather=0, gather_rows=1)
     lanes = {}
     for label, mode, dedup, steps, per_step, spec in (
@@ -2451,6 +2468,79 @@ def sage_mean_records(torch, topo, feature, train, sm) -> list:
             **{key: float(sum(c[key] for c in cases)) for key in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "host_ms")},
             bound_by="bytes", cases=cases))
+    return records
+
+
+def sage_act_records(torch, sa) -> list:
+    """GraphSAGE's hidden-layer activation at the products step's two
+    hidden layers (layer 0: 180,224 targets, layer 1: 16,384; 256 wide,
+    fp32, dropout 0.5), over seeded addends, a keep draw and a gradient.
+    Each kernel bitwise its plain version, and the Function's gradient
+    bitwise autograd's of the chain; timed beside its bound (the forward
+    reads ``a``, ``b`` and ``keep`` and writes ``y`` and the code byte; the
+    backward reads ``dy`` and the byte and writes ``dx``), the plain
+    version, and the chain it replaced: ``F.relu(a + b) * keep / (1 - p)``
+    forward, autograd's backward of it (the division's, the product's and
+    ``threshold_backward``) backward.  Returns the forward's and the
+    backward's kernel records."""
+    import torch.nn.functional as F
+
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    p = 0.5
+    fwd, bwd = [], []
+    for layer, t in enumerate(frontier_sizes(P_BATCH)[-2:0:-1]):
+        shape = f"layer {layer}: T={t}, H={P_HIDDEN}"
+        a, b, dy = (torch.randn((t, P_HIDDEN), generator=g, device=dev)
+                    for _ in range(3))
+        keep = torch.empty_like(a).bernoulli_(1.0 - p, generator=g)
+        y, code = sa.sage_act(a, b, keep, p)
+        y_p, code_p = sa.sage_act_plain(a, b, keep, p)
+        dx = sa.sage_act_backward(dy, code, p)
+        dx_p = sa.sage_act_backward_plain(dy, code, p)
+        ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+        chain = F.relu(ar + br) * keep / (1.0 - p)
+        dx_chain, = torch.autograd.grad(chain, ar, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        check(torch.equal(y.view(torch.int32), y_p.view(torch.int32))
+              and torch.equal(code, code_p),
+              f"sage_act {shape} differs from the plain version")
+        check(torch.equal(dx.view(torch.int32), dx_p.view(torch.int32)),
+              f"sage_act_backward {shape} differs from the plain version")
+        check(torch.equal(dx.view(torch.int32), dx_chain.view(torch.int32)),
+              f"sage_act_backward {shape} differs from the chain's autograd")
+        n = a.numel()
+        fwd.append(dict(
+            shape=shape,
+            ms=cuda_ms(torch, lambda: sa.sage_act(a, b, keep, p)),
+            host_ms=host_ms(torch, lambda: sa.sage_act(a, b, keep, p)),
+            plain_ms=cuda_ms(torch, lambda: sa.sage_act_plain(a, b, keep, p)),
+            library_ms=cuda_ms(torch, lambda: F.relu(a + b) * keep / (1 - p)),
+            bound_ms=n * (4 * 4 + 1) / HBM_BYTES_PER_S * 1e3))
+        print(f"sage_act {shape}: exact; {json.dumps(fwd[-1])}", flush=True)
+        bwd.append(dict(
+            shape=shape,
+            ms=cuda_ms(torch, lambda: sa.sage_act_backward(dy, code, p)),
+            host_ms=host_ms(torch, lambda: sa.sage_act_backward(dy, code,
+                                                                p)),
+            plain_ms=cuda_ms(torch, lambda: sa.sage_act_backward_plain(
+                dy, code, p)),
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                chain, ar, dy, retain_graph=True)),
+            bound_ms=n * (2 * 4 + 1) / HBM_BYTES_PER_S * 1e3))
+        print(f"sage_act_backward {shape}: exact; {json.dumps(bwd[-1])}",
+              flush=True)
+        del ar, br, chain
+    records = []
+    for name, cases in (("sage_act", fwd), ("sage_act_backward", bwd)):
+        rec = dict(name=name, route="cuda", source=sa.SOURCE,
+                   replaces=sa.REPLACES, max_abs_err=0.0,
+                   **{key: float(sum(c[key] for c in cases)) for key in (
+                       "ms", "plain_ms", "bound_ms", "library_ms",
+                       "host_ms")},
+                   bound_by="bytes", cases=cases)
+        rec["layer0_bound_share"] = cases[0]["bound_ms"] / cases[0]["ms"]
+        records.append(rec)
     return records
 
 
@@ -6894,6 +6984,7 @@ def main(argv=None) -> int:
     from quiver_tpu_torch.ops.cuda import gather_rows as b2
     from quiver_tpu_torch.ops.cuda import lane_select as b4
     from quiver_tpu_torch.ops.cuda import page_gather as b5
+    from quiver_tpu_torch.ops.cuda import sage_act as sa
     from quiver_tpu_torch.ops.cuda import sage_mean as sm
     from quiver_tpu_torch.ops.cuda import threefry as tf
     from quiver_tpu_torch.ops.cuda import window_sample as b1
@@ -7325,7 +7416,9 @@ def main(argv=None) -> int:
             "page_gather": b5.page_gather,
             "threefry_uniform": tf.threefry_uniform,
             "sage_mean": sm.sage_mean,
-            "sage_mean_backward": sm.sage_mean_backward}
+            "sage_mean_backward": sm.sage_mean_backward,
+            "sage_act": sa.sage_act,
+            "sage_act_backward": sa.sage_act_backward}
         examples = examples_phase(torch, qt, example_counters)
         examples["phase_s"] = time.perf_counter() - t0
         for name in example_counters:
@@ -7340,7 +7433,8 @@ def main(argv=None) -> int:
 
     # B1's threefry instance has its own record after B1's
     kernels = [recs[name] for name in ("window_sample", "window_sample_key",
-                                       *KERNELS[1:], "sage_mean_backward")
+                                       *KERNELS[1:-1], "sage_mean_backward",
+                                       "sage_act", "sage_act_backward")
                if name in recs]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)

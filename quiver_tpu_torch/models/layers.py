@@ -15,7 +15,7 @@ JAX's does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,16 +76,24 @@ class SAGEConv(nn.Module):
         self.lin_nbr = nn.Linear(in_features + edge_dim, out_features,
                                  bias=False, device=dev)
 
-    def forward(self, x: torch.Tensor, block,
-                edge_feat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def addends(self, x: torch.Tensor, block,
+                edge_feat: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The two terms :meth:`forward` adds: ``lin_self`` of the self
+        rows (bias included) and ``lin_nbr`` of the neighbour mean."""
         mean_nbr, x_self = sage_aggregate(x, block.nbr_local, block.mask)
         if edge_feat is not None:
             m = block.mask[..., None].to(x.dtype)
             cnt = torch.clamp_min(m.sum(dim=1), 1.0)             # [T, 1]
             mean_e = (edge_feat.to(x.dtype) * m).sum(dim=1) / cnt
             mean_nbr = torch.cat([mean_nbr, mean_e], dim=-1)
-        return (dense(self.lin_self, x_self, self.dtype)
-                + dense(self.lin_nbr, mean_nbr, self.dtype))
+        return (dense(self.lin_self, x_self, self.dtype),
+                dense(self.lin_nbr, mean_nbr, self.dtype))
+
+    def forward(self, x: torch.Tensor, block,
+                edge_feat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        a, b = self.addends(x, block, edge_feat)
+        return a + b
 
 
 def masked_softmax(e: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -9,14 +9,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.sage_act import SageAct
 from ..utils.device import resolve_device
 from .layers import SAGEConv, _dropout
 
 __all__ = ["GraphSAGE", "full_graph_inference"]
 
 
+def _act_kernel_takes(x: torch.Tensor) -> bool:
+    """Whether ``sage_act``'s kernel runs on the device of ``x`` (a layer's
+    input, where its addends lie): the card's."""
+    return x.is_cuda
+
+
 class GraphSAGE(nn.Module):
     """``num_layers`` SAGEConvs with ReLU and dropout between them.
+
+    In training with dropout on the card, a hidden layer's add, ReLU and
+    dropout are one ``sage_act`` kernel forward and one backward
+    (:class:`~quiver_tpu_torch.ops.cuda.sage_act.SageAct`), bitwise the op
+    chain that runs everywhere else (evaluation, ``dropout=0``, the CPU);
+    there the hidden convs' :meth:`SAGEConv.addends` runs in place of
+    their ``forward``, so their forward hooks do not fire.
 
     PyTorch needs the input width up front (``in_dim``); the JAX module
     infers it.  ``edge_dim`` > 0 sizes every layer for an edge-feature
@@ -57,6 +71,15 @@ class GraphSAGE(nn.Module):
                                      "sample with return_eid=True")
                 eid = torch.clamp_min(blk.eid, 0).to(torch.int64)
                 efeat = edge_feat_table[eid]
+            if (i != self.num_layers - 1 and self.training
+                    and self.dropout > 0 and _act_kernel_takes(x)):
+                # the keep mask drawn as _dropout draws it, then the add,
+                # ReLU and dropout as one kernel and its backward as one
+                a, b = self.convs[i].addends(x, blk, efeat)
+                keep = torch.empty_like(a).bernoulli_(1.0 - self.dropout,
+                                                      generator=generator)
+                x = SageAct.apply(a, b, keep, self.dropout)
+                continue
             x = self.convs[i](x, blk, efeat)
             if i != self.num_layers - 1:
                 x = F.relu(x)

@@ -12,6 +12,7 @@ such a machine may lack):
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import quiver_tpu_torch as qt
 from quiver_tpu_torch.ops import fastgather
@@ -19,6 +20,7 @@ from quiver_tpu_torch.ops.cuda import element_gather as b3
 from quiver_tpu_torch.ops.cuda import gather_rows as b2
 from quiver_tpu_torch.ops.cuda import lane_select as b4
 from quiver_tpu_torch.ops.cuda import page_gather as b5
+from quiver_tpu_torch.ops.cuda import sage_act as sa
 from quiver_tpu_torch.ops.cuda import sage_mean as sm
 from quiver_tpu_torch.ops.cuda import threefry as tf
 from quiver_tpu_torch.ops.cuda import window_sample as b1
@@ -1605,20 +1607,19 @@ def test_sage_mean_backward_kernel_equals_plain(card, dtype, shape):
                 assert bool(((rows.double() - exact).abs() <= bound).all())
 
 
-def test_sage_conv_launches_per_products_step(card):
-    """A three-layer GraphSAGE fused step on the card launches the forward
-    kernel once a layer and the backward twice (layer 0's input, B2's rows,
-    takes no gradient) in each pass of the model: the first call's warm-up
-    pass and its capture of the step's CUDA graphs; the later calls replay
-    them and launch none.  A replayed step's profile holds both kernels as
-    many times a step (taken up to 8 times: the profiler may drop device
-    events from a capture)."""
+def _products_launches(card, dropout):
+    """A three-layer GraphSAGE fused step on the card (small graph,
+    widths 24 -> 32 -> 32 -> 7) at ``dropout``: the four hand-written
+    kernels' launches added by each of 4 calls, and the kernels a replayed
+    step's profile holds (taken up to 8 times, until it holds the count
+    the model runs: the profiler may drop device events from a capture)."""
     topo = _graph(4, n=2000)
     feat = np.random.default_rng(2).standard_normal(
         (2000, 24)).astype(np.float32)
     labels = torch.from_numpy(np.random.default_rng(3).integers(0, 7, 2000))
     torch.manual_seed(0)
-    model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.0, device=card)
+    model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=dropout,
+                         device=card)
     s = qt.GraphSageSampler(topo, [6, 4, 3], device=card)
     f = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                    device=card).from_cpu_tensor(feat)
@@ -1627,27 +1628,52 @@ def test_sage_conv_launches_per_products_step(card):
     ids = np.arange(0, 2000, 7)
     lab = labels[ids].to(card)
     ones = torch.ones(len(ids), dtype=torch.bool, device=card)
+    fns = (sm.sage_mean, sm.sage_mean_backward, sa.sage_act,
+           sa.sage_act_backward)
     added = []
     for i in range(4):
-        before = (sm.sage_mean.launches, sm.sage_mean_backward.launches)
+        before = tuple(fn.launches for fn in fns)
         step(ids, lab, ones, np.array([[1, i], [2, i], [3, i]], np.uint32))
-        added.append((sm.sage_mean.launches - before[0],
-                      sm.sage_mean_backward.launches - before[1]))
+        added.append(tuple(fn.launches - b for fn, b in zip(fns, before)))
     torch.cuda.synchronize()
-    assert added == [(6, 4), (0, 0), (0, 0), (0, 0)]
     assert (step.train.captures, step.train.eager_calls) == (1, 0)
+    want = (3, 2) + ((2, 2) if dropout else (0, 0))
     for i in range(8):
-        kernels = _replayed_mean_kernels(
+        kernels = _replayed_kernels(
             lambda: step(ids, lab, ones,
                          np.array([[1, i], [2, i], [3, i]], np.uint32)))
-        if kernels == (3, 2):
+        if kernels == want:
             break
-    assert kernels == (3, 2)
+    return added, kernels
 
 
-def _replayed_mean_kernels(run):
-    """The ``sage_mean_fwd`` and ``sage_mean_bwd`` kernels the card ran in
-    ``run()`` under ``torch.profiler``."""
+def test_sage_conv_launches_per_products_step(card):
+    """A three-layer GraphSAGE fused step on the card launches the forward
+    kernel once a layer and the backward twice (layer 0's input, B2's rows,
+    takes no gradient) in each pass of the model: the first call's warm-up
+    pass and its capture of the step's CUDA graphs; the later calls replay
+    them and launch none.  A replayed step's profile holds both kernels as
+    many times a step.  Without dropout the activation kernels run
+    nowhere."""
+    added, kernels = _products_launches(card, 0.0)
+    assert added == [(6, 4, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0)]
+    assert kernels == (3, 2, 0, 0)
+
+
+def test_sage_act_launches_per_products_step(card):
+    """With dropout 0.5 each hidden layer's activation is one
+    ``sage_act`` launch forward and one ``sage_act_backward`` in each of
+    the first call's two passes, none in a replay; a replayed step's
+    profile holds 2 and 2 of their kernels."""
+    added, kernels = _products_launches(card, 0.5)
+    assert added == [(6, 4, 4, 4), (0, 0, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0)]
+    assert kernels == (3, 2, 2, 2)
+
+
+def _replayed_kernels(run):
+    """The ``sage_mean_fwd``, ``sage_mean_bwd``, ``sage_act_fwd`` and
+    ``sage_act_bwd`` kernels the card ran in ``run()`` under
+    ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1658,7 +1684,8 @@ def _replayed_mean_kernels(run):
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     return tuple(sum(k in n for n in names)
-                 for k in ("sage_mean_fwd", "sage_mean_bwd"))
+                 for k in ("sage_mean_fwd", "sage_mean_bwd", "sage_act_fwd",
+                           "sage_act_bwd"))
 
 
 def _products_step_objects(card, topo, feat, base):
@@ -1762,3 +1789,187 @@ def test_sage_mean_refuses_bad_input(card):
                      ((g, nbr, mask, 2), {"grad_self": g})):
         with pytest.raises(KernelArgumentError):
             sm.sage_mean_backward(*args, **kw)
+
+
+# GraphSAGE's hidden-layer activation: widths 1, 3 (under a 16-byte unit),
+# 100 (products' input width), 256 (its hidden width) and 257
+SAGE_ACT_WIDTHS = [1, 3, 100, 256, 257]
+SAGE_ACT_SPECIAL = [float("nan"), float("inf"), float("-inf"), 0.0, -0.0,
+                    -1.5, 2.5, 1e-30, -1e-30, 3.0e38, -3.0e38, 0.7]
+
+
+def _sage_act_inputs(card, dtype, width, seed, offset=0):
+    """``a``, ``b``, ``keep`` and ``dy`` ``[T, width]`` on the card, each a
+    view ``offset`` elements into its storage: the addends hold every pair
+    of the special values (NaN, +-Inf, +-0.0, negatives, tiny and huge),
+    then normal draws of both signs; ``keep`` is a 0/1 draw at 0.6."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    s = torch.tensor(SAGE_ACT_SPECIAL, device=card)
+    pairs = torch.cartesian_prod(s, s)
+    t = -(-(pairs.shape[0] + 600) // width)
+    n = t * width
+
+    def view(x):
+        buf = torch.empty(n + offset, dtype=dtype, device=card)
+        buf[offset:] = x.to(dtype)
+        return buf[offset:].view(t, width)
+
+    a = torch.randn(n, generator=g, device=card)
+    b = torch.randn(n, generator=g, device=card)
+    a[:pairs.shape[0]], b[:pairs.shape[0]] = pairs[:, 0], pairs[:, 1]
+    keep = torch.empty(n, device=card).bernoulli_(0.6, generator=g)
+    dy = torch.randn(n, generator=g, device=card)
+    dy[:5] = torch.tensor([-0.0, 0.0, -1e-30, 3.0e38, float("nan")])
+    return view(a), view(b), view(keep), view(dy)
+
+
+def _first_difference(got, want, *inputs):
+    bad = (_b2_bits(got) != _b2_bits(want)).nonzero()
+    if not len(bad):
+        return ""
+    i = tuple(bad[0].tolist())
+    return (f"{len(bad)} differ; first at {i}: got {got[i].item()!r}, want "
+            f"{want[i].item()!r}, inputs "
+            f"{[x[i].item() for x in inputs]}")
+
+
+@pytest.mark.parametrize("p", [0.5, 0.3, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", SAGE_ACT_WIDTHS)
+def test_sage_act_kernels_equal_plain_and_the_chain(card, width, dtype, p):
+    """Forward and backward kernels bitwise their plain versions run on
+    the card, and ``SageAct``'s gradient bitwise autograd's of the chain
+    (``F.relu(a + b) * keep / (1 - p)``), on aligned tensors (16-byte
+    vectors) and on views one element in (the scalar loop), the code
+    aligned and one byte in; one launch a call."""
+    for offset in (0, 1):
+        a, b, keep, dy = _sage_act_inputs(card, dtype, width, width, offset)
+        before = (sa.sage_act.launches, sa.sage_act_backward.launches)
+        y, code = sa.sage_act(a, b, keep, p)
+        y_p, code_p = sa.sage_act_plain(a, b, keep, p)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and code.dtype == torch.uint8
+        assert torch.equal(_b2_bits(y), _b2_bits(y_p)), _first_difference(
+            y, y_p, a, b, keep)
+        assert torch.equal(code, code_p)
+        codes = (code, torch.empty(code.numel() + 1, dtype=torch.uint8,
+                                   device=card)[1:].view(code.shape))
+        codes[1].copy_(code)
+        for c in codes:
+            dx = sa.sage_act_backward(dy, c, p)
+            dx_p = sa.sage_act_backward_plain(dy, c, p)
+            torch.cuda.synchronize()
+            assert torch.equal(_b2_bits(dx), _b2_bits(dx_p)), \
+                _first_difference(dx, dx_p, dy, c)
+        assert (sa.sage_act.launches - before[0],
+                sa.sage_act_backward.launches - before[1]) == (1, 2)
+        ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+        got = torch.autograd.grad(sa.SageAct.apply(ar, br, keep, p),
+                                  (ar, br), dy)
+        ac, bc = a.clone().requires_grad_(), b.clone().requires_grad_()
+        want = torch.autograd.grad(F.relu(ac + bc) * keep / (1.0 - p),
+                                   (ac, bc), dy)
+        for g, w in zip(got, want):
+            assert torch.equal(_b2_bits(g), _b2_bits(w)), _first_difference(
+                g, w, a, b, keep, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sage_act_in_a_cuda_graph(card, dtype):
+    """``SageAct`` forward and backward captured in a CUDA graph: each
+    replay over new inputs gives the plain versions' outputs bitwise."""
+    a, b, keep, dy = _sage_act_inputs(card, dtype, 256, 9)
+    a.requires_grad_()
+    b.requires_grad_()
+
+    def run():
+        y = sa.SageAct.apply(a, b, keep, 0.5)
+        return (y,) + torch.autograd.grad(y, (a, b), dy)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed in (10, 11):
+        na, nb, nk, nd = _sage_act_inputs(card, dtype, 256, seed)
+        with torch.no_grad():
+            for dst, src in ((a, na), (b, nb), (keep, nk), (dy, nd)):
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        y_p, code_p = sa.sage_act_plain(na, nb, nk, 0.5)
+        dx_p = sa.sage_act_backward_plain(nd, code_p, 0.5)
+        for got, want in zip(outs, (y_p, dx_p, dx_p)):
+            assert torch.equal(_b2_bits(got), _b2_bits(want))
+
+
+def test_graphed_step_with_sage_act_is_bitwise_the_chain(card, monkeypatch):
+    """The graphed fused step at products' widths (100 -> 256 -> 256 ->
+    47, dropout 0.5, fanouts [15, 10, 5], batch 1,024), whose hidden layers
+    run ``sage_act``, against the eager step of a model that runs the
+    chain it replaced, from the same weights, dropout seed and feeds: over
+    5 steps every loss, the first gradients and the parameters after every
+    step are bitwise equal."""
+    from quiver_tpu_torch.models import sage as sage_mod
+    from quiver_tpu_torch.parallel.train import make_train_step
+
+    kernel = [True]
+    monkeypatch.setattr(sage_mod, "_act_kernel_takes",
+                        lambda t: kernel[0] and t.is_cuda)
+    n = 20_000
+    indptr, indices = qt.synthetic_csr(n, 400_000, seed=8)
+    topo = qt.CSRTopo(indptr=indptr, indices=indices)
+    rng = np.random.default_rng(9)
+    feat = rng.standard_normal((n, 100)).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(0, 47, n)).to(card)
+    torch.manual_seed(1)
+    base = qt.GraphSAGE(100, 256, 47, num_layers=3, dropout=0.5,
+                        device=card)
+    gs, gf, gm, go = _products_step_objects(card, topo, feat, base)
+    es, ef, em, eo = _products_step_objects(card, topo, feat, base)
+    graphed = qt.make_fused_train_step(gs, gf, gm, go, seed=3)
+    eager = make_train_step(em, eo, seed=3)
+    before = sa.sage_act.launches
+    for i in range(5):
+        ids = rng.choice(n, 1024, replace=False).astype(np.int64)
+        lab = labels[torch.from_numpy(ids).to(card)]
+        ones = torch.ones(1024, dtype=torch.bool, device=card)
+        kw = rng.integers(0, 2**32, (3, 2), dtype=np.uint32)
+        kernel[0] = True
+        lg = graphed(ids, lab, ones, kw)
+        kernel[0] = False
+        n_id, _, _, blocks, _ = es.pipeline(es.seed_tensor(ids), kw,
+                                            weighted=False)
+        le = eager(ef.lookup_device(n_id), blocks, lab, ones)
+        assert torch.equal(lg, le), f"step {i}: loss {lg} != {le}"
+        if i == 0:
+            for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+                assert torch.equal(p.grad, q.grad), f"gradient of {name}"
+        for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+            assert torch.equal(p, q), f"step {i}: {name} differs"
+    torch.cuda.synchronize()
+    assert sa.sage_act.launches - before == 4  # the first call's passes
+    assert (graphed.train.captures, graphed.train.eager_calls) == (1, 0)
+
+
+def test_sage_act_refuses_bad_input(card):
+    a = torch.zeros((40, 8), device=card)
+    for args in ((a.double(), a.double(), a.double(), 0.5),
+                 (a.half(), a.half(), a.half(), 0.5),
+                 (a, a.bfloat16(), a, 0.5), (a, a, a[:, :4], 0.5),
+                 (a, a.t(), a, 0.5), (a[:, ::2], a[:, ::2], a[:, ::2], 0.5),
+                 (a, a.cpu(), a, 0.5), (a, a, a, 1.5), (a, a, a, -0.1),
+                 (a, a, a, float("nan"))):
+        with pytest.raises(KernelArgumentError):
+            sa.sage_act(*args)
+    code = torch.zeros((40, 8), dtype=torch.uint8, device=card)
+    for args in ((a.double(), code, 0.5), (a, code.bool(), 0.5),
+                 (a, code[:20], 0.5), (a, code.t(), 0.5),
+                 (a[:, ::2], code[:, ::2], 0.5), (a, code.cpu(), 0.5),
+                 (a, code, 2.0)):
+        with pytest.raises(KernelArgumentError):
+            sa.sage_act_backward(*args)
