@@ -20,21 +20,24 @@ Dropout draws from a ``torch.Generator`` that the step holds, seeded when
 the step is made (one a replica under ``mesh=``); its bits cannot match
 Flax's.
 
-:class:`GraphedStep` is the single-device step for the fused pipeline on
-the card: the forward with its loss and autograd's backward replayed from
-two CUDA graphs, bitwise the eager step's.  The optimizer steps eagerly
+:class:`GraphedStep` is the fused pipeline's single-device step, and
+alone chooses graphs or eager: on the card the forward with its loss and
+autograd's backward are replayed from two CUDA graphs, bitwise the eager
+step's; elsewhere it runs the eager step.  The optimizer steps eagerly
 after the replays (a plain ``torch.optim.Adam`` cannot be captured);
 sampling and the lookup are the caller's, and stay eager
 (``pipeline.py`` says why).  :func:`make_train_step` stays eager.
 
 While span events are retained (``QUIVER_TPU_TRACE=1``), the
 single-device step records ``train.forward`` (model and loss),
-``train.backward`` and ``train.optimizer``; otherwise it reads one global
-(``telemetry.spans``).  The mesh step records none.
+``train.backward`` and ``train.optimizer``; otherwise it reads
+``telemetry.spans._HOT`` once and enters :data:`_OFF`.  The mesh step
+records none.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -47,6 +50,9 @@ from ..telemetry import spans as _spans
 
 __all__ = ["TrainState", "make_train_step", "GraphedStep",
            "masked_cross_entropy", "shard_batch", "replicate"]
+
+# what a phase enters in place of its span while the gate is off
+_OFF = contextlib.nullcontext()
 
 
 class TrainState:
@@ -172,21 +178,13 @@ def _eager_step(model, optimizer, loss_fn, gen):
     def step(x, blocks, labels, label_mask) -> torch.Tensor:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        if _spans._HOT:
-            return traced(x, blocks, labels, label_mask)
-        logits = model(x, blocks, generator=gen)
-        loss = loss_fn(logits, labels, label_mask)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    def traced(x, blocks, labels, label_mask) -> torch.Tensor:
-        with telemetry.span("train.forward"):
+        hot = _spans._HOT
+        with (telemetry.span("train.forward") if hot else _OFF):
             logits = model(x, blocks, generator=gen)
             loss = loss_fn(logits, labels, label_mask)
-        with telemetry.span("train.backward"):
+        with (telemetry.span("train.backward") if hot else _OFF):
             loss.backward()
-        with telemetry.span("train.optimizer"):
+        with (telemetry.span("train.optimizer") if hot else _OFF):
             optimizer.step()
         return loss.detach()
 
@@ -205,13 +203,13 @@ class _Graphs:
 
 
 class GraphedStep:
-    """The single-device step on the card, ``step(x, blocks, labels,
-    label_mask) -> loss``, with the model's forward and loss replayed from
-    one CUDA graph and autograd's backward from another (two graphs on
-    one pool, as ``torch.cuda.make_graphed_callables`` builds them): two
-    launches where autograd and the modules launch a few dozen kernels
-    one by one.  Losses, gradients and parameters are bitwise the eager
-    step's (:func:`make_train_step`'s).
+    """The fused pipeline's single-device step, ``step(x, blocks, labels,
+    label_mask) -> loss``.  On the card the model's forward and loss are
+    replayed from one CUDA graph and autograd's backward from another
+    (two graphs on one pool, as ``torch.cuda.make_graphed_callables``
+    builds them): two launches where autograd and the modules launch a
+    few dozen kernels one by one.  Losses, gradients and parameters are
+    bitwise the eager step's (:func:`make_train_step`'s).
 
     - The first call captures the graphs over its own inputs, after one
       eager pass on the capture stream (kernel loading, cuBLAS's handle
@@ -230,10 +228,11 @@ class GraphedStep:
       fixed buffer, which becomes the parameter's ``.grad``; the
       optimizer then steps eagerly (a plain ``torch.optim.Adam`` cannot
       be captured).
-    - A call whose tensors differ in shape, dtype or device from the
-      captured ones, or whose parameters moved, runs eagerly.  A capture
-      that fails raises: the step never falls back to eager for any
-      other reason.
+    - A call the graphs cannot take runs eagerly: an input off the card
+      (every call on the CPU), tensors that differ in shape, dtype or
+      device from the captured ones, or parameters that moved.
+      A capture that fails raises: the step never falls back to eager for
+      any other reason.
 
     ``captures`` and ``eager_calls`` count both.  While span events are
     retained, the input copies, the forward's replay and the loss's copy
@@ -269,32 +268,22 @@ class GraphedStep:
         _tree_map(leaves.append, args)
         g = self._graphs
         sig = self._signature(leaves)
-        if g is None and sig is not None:
+        if g is None and sig is not None and all(a.is_cuda for a in leaves):
             g = self._capture(sig, args, leaves)
         if g is None or sig != g.sig:
             self.eager_calls += 1
             return self.eager(*args)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        if _spans._HOT:
-            return self._traced(g, leaves)
-        self._copy_in(g, leaves)
-        g.fwd.replay()
-        loss = g.loss.clone()
-        g.bwd.replay()
-        self._set_grads(g)
-        self.optimizer.step()
-        return loss
-
-    def _traced(self, g: _Graphs, leaves) -> torch.Tensor:
-        with telemetry.span("train.forward"):
+        hot = _spans._HOT
+        with (telemetry.span("train.forward") if hot else _OFF):
             self._copy_in(g, leaves)
             g.fwd.replay()
             loss = g.loss.clone()
-        with telemetry.span("train.backward"):
+        with (telemetry.span("train.backward") if hot else _OFF):
             g.bwd.replay()
             self._set_grads(g)
-        with telemetry.span("train.optimizer"):
+        with (telemetry.span("train.optimizer") if hot else _OFF):
             self.optimizer.step()
         return loss
 

@@ -9,17 +9,18 @@ a sequence of launches on one stream.  The feature must hold its whole
 table on the device; a budgeted feature trains through ``SeedLoader``
 and ``make_train_step`` instead.
 
-On the card the model's forward with its loss, and autograd's backward,
-are replayed from two CUDA graphs (``parallel.train.GraphedStep``), so
-the host issues a few launches a step where it issued a few dozen; B2
-writes the rows straight into the graphs' static input
-(``Feature._rows_into``), so no copy of them follows.  Three parts stay
-eager, launched every step as before: the sampler's pipeline, since B1
-takes its key words by value and a replay would draw the same neighbours
-every step; the lookup, whose call the caller may wrap on the instance
-(the benchmark records its rows that way); and the optimizer, since a
-plain ``torch.optim.Adam`` cannot be captured.  On the CPU the step is
-the eager step.
+The model step, ``parallel.train.GraphedStep``, chooses alone between
+graphs and eager.  On the card it replays the model's forward with its
+loss, and autograd's backward, from two CUDA graphs, so the host issues
+a few launches a step where it issued a few dozen; B2 writes the rows
+straight into the graphs' static input (``Feature._rows_into``), so no
+copy of them follows.  Three parts stay eager, launched every step as
+before: the sampler's pipeline, since B1 takes its key words by value
+and a replay would draw the same neighbours every step; the lookup,
+whose call the caller may wrap on the instance (the benchmark records
+its rows that way); and the optimizer, since a plain
+``torch.optim.Adam`` cannot be captured.  On the CPU it runs its eager
+step and the lookup makes its own rows.
 
 The step takes JAX's ``key`` (two uint32 words): ``ks, kd = split(key)``
 (``quiver_tpu/pipeline.py:61``) and ``ks`` drives the hops, as the
@@ -33,7 +34,8 @@ While span events are retained (``QUIVER_TPU_TRACE=1``), a training step
 records ``train.step`` and under it ``train.sample`` (the sampler's
 pipeline), ``train.lookup`` (the rows' gather) and the model step's
 ``train.forward``, ``train.backward`` and ``train.optimizer``; otherwise
-each site reads one global (``telemetry.spans``).
+each site reads ``telemetry.spans._HOT`` once and enters a shared no-op
+context.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from . import telemetry
-from .parallel.train import GraphedStep, make_train_step
+from .parallel.train import _OFF, GraphedStep
 from .telemetry import spans as _spans
 from .utils import rng as _rng
 
@@ -72,25 +74,21 @@ def _hop_words(sampler, key_words, key, split_first: bool):
     return sampler.words_of_key(key)
 
 
-def _sample_rows(sampler, feature, seeds, key_words, traced=False,
-                 rows=None):
+def _sample_rows(sampler, feature, seeds, key_words, hot, rows=None):
     """Blocks and the rows of the outermost frontier, all on the device.
     The sampler's dedup and frontier caps apply; its edge weights do not:
     the JAX package's fused step samples uniformly even for a weighted
     sampler (``quiver_tpu/pipeline.py:62-65``), and so does this one.
-    ``traced``: record the ``train.sample`` and ``train.lookup`` spans;
-    ``rows(shape, dtype)``: where the lookup writes the rows, if given."""
+    ``hot``: the caller's read of the span gate (record ``train.sample``
+    and ``train.lookup``); ``rows(shape, dtype)``: where the lookup
+    writes the rows, if given."""
     if key_words is None:
         key_words = sampler.draw_key_words()
     seeds = sampler.seed_tensor(seeds)
-    if not traced:
+    with (telemetry.span("train.sample") if hot else _OFF):
         n_id, _, _, blocks, _ = sampler.pipeline(seeds, key_words,
                                                  weighted=False)
-        return _lookup(feature, n_id, rows), blocks
-    with telemetry.span("train.sample"):
-        n_id, _, _, blocks, _ = sampler.pipeline(seeds, key_words,
-                                                 weighted=False)
-    with telemetry.span("train.lookup"):
+    with (telemetry.span("train.lookup") if hot else _OFF):
         return _lookup(feature, n_id, rows), blocks
 
 
@@ -108,30 +106,19 @@ def make_fused_train_step(sampler, feature, model, optimizer,
     """Build ``step(seeds, labels, label_mask, key_words=None, *,
     key=None) -> loss``: sample ``seeds`` (a device tensor or host ids),
     gather, train one step.  ``seed`` seeds the step's dropout
-    generator.  ``step.train`` is the model step it calls: a
-    :class:`~quiver_tpu_torch.parallel.train.GraphedStep` on the card,
-    :func:`make_train_step`'s eager step on the CPU."""
+    generator.  ``step.train`` is the model step it calls, a
+    :class:`~quiver_tpu_torch.parallel.train.GraphedStep`."""
     _check(feature)
-    if next(model.parameters()).device.type == "cuda":
-        train = GraphedStep(model, optimizer, loss_fn, seed=seed)
-        rows = train.rows_buffer
-    else:
-        train, rows = make_train_step(model, optimizer, loss_fn,
-                                      seed=seed), None
+    train = GraphedStep(model, optimizer, loss_fn, seed=seed)
+    rows = train.rows_buffer
 
     def step(seeds, labels, label_mask, key_words=None, *,
              key=None) -> torch.Tensor:
-        if _spans._HOT:
-            return traced(seeds, labels, label_mask, key_words, key)
-        words = _hop_words(sampler, key_words, key, split_first=True)
-        x, blocks = _sample_rows(sampler, feature, seeds, words, rows=rows)
-        return train(x, blocks, labels, label_mask)
-
-    def traced(seeds, labels, label_mask, key_words, key) -> torch.Tensor:
-        with telemetry.span("train.step"):
+        hot = _spans._HOT
+        with (telemetry.span("train.step") if hot else _OFF):
             words = _hop_words(sampler, key_words, key, split_first=True)
-            x, blocks = _sample_rows(sampler, feature, seeds, words,
-                                     traced=True, rows=rows)
+            x, blocks = _sample_rows(sampler, feature, seeds, words, hot,
+                                     rows)
             return train(x, blocks, labels, label_mask)
 
     step.train = train
@@ -147,7 +134,7 @@ def make_fused_eval_fn(sampler, feature, model):
         words = _hop_words(sampler, key_words, key, split_first=False)
         model.eval()
         with torch.no_grad():
-            x, blocks = _sample_rows(sampler, feature, seeds, words)
+            x, blocks = _sample_rows(sampler, feature, seeds, words, False)
             return model(x, blocks)
 
     return eval_fn

@@ -1701,7 +1701,27 @@ def _products_step_objects(card, topo, feat, base):
                                                      lr=3e-3)
 
 
-def test_graphed_fused_step_is_bitwise_the_eager_step(card, monkeypatch):
+@pytest.fixture(params=[False, True], ids=["spans_off", "spans_on"])
+def retained(request):
+    """The process tracer retaining span events, or not, with telemetry
+    on; both put back after."""
+    from quiver_tpu_torch import telemetry
+    from quiver_tpu_torch.telemetry import spans
+
+    tracer = telemetry.get_tracer()
+    was = (telemetry.enabled(), tracer.tracing)
+    telemetry.set_enabled(True)
+    tracer.set_tracing(request.param)
+    tracer.reset()
+    assert spans._HOT is request.param
+    yield request.param
+    tracer.reset()
+    tracer.set_tracing(was[1])
+    telemetry.set_enabled(was[0])
+
+
+def test_graphed_fused_step_is_bitwise_the_eager_step(card, monkeypatch,
+                                                      retained):
     """The fused step on the card (forward and backward replayed from CUDA
     graphs) against the eager step (``make_train_step`` over the same
     sampler's pipeline and lookup) from the same weights, dropout seed and
@@ -1711,7 +1731,9 @@ def test_graphed_fused_step_is_bitwise_the_eager_step(card, monkeypatch):
     are the dropout masks), and the returned losses are distinct tensors.
     The 5 steps run through one capture, 2 replays a step.  Then two
     batches of 512 (eager) and one of 1,024 (replayed) stay bitwise the
-    eager step's."""
+    eager step's.  All of it with span events retained and not; retained,
+    each of the 8 fused steps records one ``train.step``."""
+    from quiver_tpu_torch import telemetry
     from quiver_tpu_torch.parallel.train import make_train_step
 
     n = 20_000
@@ -1765,6 +1787,9 @@ def test_graphed_fused_step_is_bitwise_the_eager_step(card, monkeypatch):
         both(size, 5 + i)
     assert (graphed.train.captures, graphed.train.eager_calls) == (1, 2)
     assert replays[0] == 12
+    roots = [e for e in telemetry.get_tracer().events()
+             if e["name"] == "train.step"]
+    assert len(roots) == (8 if retained else 0)
 
 
 def test_sage_mean_refuses_bad_input(card):

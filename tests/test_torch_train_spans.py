@@ -6,8 +6,9 @@
   parent's name and the root's id; the Chrome export keeps both.
 - ``make_train_step`` alone (the two-stage lane) records its three.
 - Not retained, a step makes no ``Span`` and calls nothing of the
-  telemetry package: each site reads the one global ``spans._HOT``,
-  which follows retention and the telemetry switch.
+  telemetry package: each step function reads the one global
+  ``spans._HOT`` once (it follows retention and the telemetry switch)
+  and enters a shared no-op context in place of each span.
 - Under ``torch.profiler`` the spans appear as nested ``quiver.train.*``
   ranges.
 - Losses and parameters are bitwise the same with the spans on and off.
@@ -149,8 +150,11 @@ def test_model_step_records_three(data):
 
 
 def _site_functions(data):
+    """The step functions that read the gate: the fused step, its
+    ``GraphedStep``'s call and the eager model step."""
     sampler, feature, model, opt = _objects(data)
-    return [qt.make_fused_train_step(sampler, feature, model, opt),
+    fused = qt.make_fused_train_step(sampler, feature, model, opt)
+    return [fused, type(fused.train).__call__,
             qt.make_train_step(model, opt)]
 
 
@@ -176,7 +180,10 @@ def test_off_path_reads_one_global_and_does_nothing_else(data, monkeypatch):
     for fn in _site_functions(data):
         reads = [i for i in dis.get_instructions(fn.__code__)
                  if i.argval == "_HOT"]
-        assert len(reads) == 1 and reads[0].opname == "LOAD_ATTR"
+        assert len(reads) == 1 and reads[0].opname == "LOAD_ATTR", fn
+    # the sampling site takes its caller's read
+    assert not [i for i in dis.get_instructions(qt.pipeline._sample_rows)
+                if i.argval == "_HOT"]
     made = []
     init = pspans.Span.__init__
     monkeypatch.setattr(pspans.Span, "__init__",
@@ -189,6 +196,7 @@ def test_off_path_reads_one_global_and_does_nothing_else(data, monkeypatch):
     tel_dir = str(Path(pspans.__file__).parent)
     sites = {(str(Path(qt.pipeline.__file__)), "step"),
              (str(Path(qt.pipeline.__file__)), "_sample_rows"),
+             (str(Path(qt.parallel.train.__file__)), "__call__"),
              (str(Path(qt.parallel.train.__file__)), "step")}
     calls = []
 
