@@ -404,12 +404,14 @@ KERNEL_FAMILIES = {"B1": ("window_sample_kernel",),
                    "sage_mean_backward": ("sage_mean_bwd",),
                    "sage_act": ("sage_act_fwd",),
                    "sage_act_backward": ("sage_act_bwd",),
+                   "sage_act_mean": ("sage_act_mean_fwd",),
+                   "sage_act_mean_backward": ("sage_act_mean_bwd",),
                    "threshold_backward": ("threshold",)}
 BLOCKED_MODE = "blocked:3"
-# GraphSAGE's hand-written kernels, the mean's and the hidden layers'
-# activation's (launch counter names, profile families)
+# GraphSAGE's hand-written kernels, the mean's, the hidden layers'
+# activation's and the two fused (launch counter names, profile families)
 SAGE_KERNELS = ("sage_mean", "sage_mean_backward", "sage_act",
-                "sage_act_backward")
+                "sage_act_backward", "sage_act_mean", "sage_act_mean_backward")
 
 
 def fail(msg: str):
@@ -2050,13 +2052,12 @@ def fused_lane(torch, qt, topo, feature, labels_d, train, mode, steps,
     prof = device_profile(torch, profiled_step, summary["step_wall_ms"],
                           top=12, families=KERNEL_FAMILIES)
     if spec is SAGE_LANE:
-        # the replayed step runs the hand-written mean and its backward at
-        # every layer and the activation kernels at each hidden layer,
-        # though the host launches none: the profile must count each
-        # kernel per_step times (taken up to 8 times, since the card's
-        # profiler drops device events from some captures), and ReLU's
-        # threshold_backward, which the activation's backward replaced,
-        # not at all
+        # the replayed step runs the hand-written mean, activation and
+        # fused kernels per_step times, though the host launches none: the
+        # profile must count each kernel so (taken up to 8 times, since
+        # the card's profiler drops device events from some captures),
+        # and ReLU's threshold_backward, which the activation's backward
+        # replaced, not at all
         for _ in range(7):
             if all(family_count(prof, k) == per_step[k]
                    for k in SAGE_KERNELS):
@@ -2282,31 +2283,43 @@ def fused_training_phase(torch, qt, topo, feat, labels, train, b1, b2, b3):
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     b2_products = b2_products_case(torch, topo, feature, train, b2)
     from quiver_tpu_torch.ops.cuda import sage_act as sa
+    from quiver_tpu_torch.ops.cuda import sage_act_mean as sam
     from quiver_tpu_torch.ops.cuda import sage_mean as sm
 
     sage_records = (sage_mean_records(torch, topo, feature, train, sm)
-                    + sage_act_records(torch, sa))
+                    + sage_act_records(torch, sa)
+                    + sage_act_mean_records(torch, sam, sa, sm))
     counters = {"window_sample": b1.window_sample,
                 "element_gather": b3.element_gather,
                 "gather_rows": b2.gather_rows,
                 "sage_mean": sm.sage_mean,
                 "sage_mean_backward": sm.sage_mean_backward,
                 "sage_act": sa.sage_act,
-                "sage_act_backward": sa.sage_act_backward}
+                "sage_act_backward": sa.sage_act_backward,
+                "sage_act_mean": sam.sage_act_mean,
+                "sage_act_mean_backward": sam.sage_act_mean_backward}
     n_hops = len(P_FANOUTS)
-    # SAGE: the mean kernel once a layer, its backward at every layer but
-    # the first (B2's rows take no gradient), the activation kernels at
-    # each hidden layer (dropout 0.5); GAT and GCN launch none
+    # SAGE under dedup="hop": the mean kernel once a layer, its backward
+    # at every layer but the first (B2's rows take no gradient), the
+    # activation kernels at each hidden layer (dropout 0.5); under
+    # dedup="none" (positional blocks) the mean at layer 0 alone and each
+    # hidden layer's activation fused with the next layer's mean; GAT and
+    # GCN launch none
     sage = dict(sage_mean=n_hops, sage_mean_backward=n_hops - 1,
-                sage_act=n_hops - 1, sage_act_backward=n_hops - 1)
+                sage_act=n_hops - 1, sage_act_backward=n_hops - 1,
+                sage_act_mean=0, sage_act_mean_backward=0)
+    fused = dict(sage_mean=1, sage_mean_backward=0, sage_act=0,
+                 sage_act_backward=0, sage_act_mean=n_hops - 1,
+                 sage_act_mean_backward=n_hops - 1)
     other = dict.fromkeys(SAGE_KERNELS, 0)
     b1_lane = dict(window_sample=n_hops, element_gather=0, gather_rows=1)
     lanes = {}
     for label, mode, dedup, steps, per_step, spec in (
             ("pallas", "pallas", "none", FUSED_STEPS,
              dict(window_sample=0, element_gather=2 * n_hops,
-                  gather_rows=1, **sage), None),
-            ("auto", "auto", "none", AUTO_STEPS, dict(b1_lane, **sage), None),
+                  gather_rows=1, **fused), None),
+            ("auto", "auto", "none", AUTO_STEPS, dict(b1_lane, **fused),
+             None),
             ("auto hop", "auto", "hop", AUTO_STEPS, dict(b1_lane, **sage),
              None),
             # slice 7: GAT and GCN through the same fused step
@@ -2538,6 +2551,106 @@ def sage_act_records(torch, sa) -> list:
                    **{key: float(sum(c[key] for c in cases)) for key in (
                        "ms", "plain_ms", "bound_ms", "library_ms",
                        "host_ms")},
+                   bound_by="bytes", cases=cases)
+        rec["layer0_bound_share"] = cases[0]["bound_ms"] / cases[0]["ms"]
+        records.append(rec)
+    return records
+
+
+def sage_act_mean_records(torch, sam, sa, sm) -> list:
+    """A hidden layer's activation fused with the next layer's mean at the
+    products step's two positional blocks (0 to 1: 16,384 targets, k =
+    10, 180,224 rows; 1 to 2: 1,024 targets, k = 15, 16,384 rows; 256
+    wide, fp32, dropout 0.5; about one slot in eight masked), over seeded
+    addends, a keep draw and two gradients.  Outputs and the addends'
+    gradient bitwise the chain's kernels (``SageAct``, then ``SageMean``
+    over the positional ``nbr_local``) and the plain versions; timed beside
+    the bound (the forward reads ``a``, ``b`` and ``keep`` and writes the
+    code, ``x_self`` and the mean; the backward reads both gradients and
+    the code and writes ``dx``), the plain version and that chain.
+    Returns the forward's and the backward's kernel records."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    p, h = 0.5, P_HIDDEN
+    sizes = frontier_sizes(P_BATCH)
+    fanouts = P_FANOUTS[::-1]  # the blocks' k, outermost first
+    fwd, bwd = [], []
+    for layer in range(len(P_FANOUTS) - 1):
+        t, k = sizes[-3 - layer], fanouts[layer + 1]
+        n = t * (1 + k)
+        shape = f"layer {layer} to {layer + 1}: T={t}, k={k}, N={n}, H={h}"
+        a, b = (torch.randn((n, h), generator=g, device=dev)
+                for _ in range(2))
+        keep = torch.empty_like(a).bernoulli_(1.0 - p, generator=g)
+        mask = torch.rand((t, k), generator=g, device=dev) < 0.87
+        pos = (t + torch.arange(t * k, device=dev, dtype=torch.int32)
+               ).view(t, k)
+        nbr = torch.where(mask, pos, torch.zeros_like(pos))
+        gm, gs = (torch.randn((t, h), generator=g, device=dev)
+                  for _ in range(2))
+
+        def chain():
+            ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+            outs = sm.SageMean.apply(sa.SageAct.apply(ar, br, keep, p), nbr,
+                                     mask)
+            return outs + torch.autograd.grad(outs, (ar, br), (gm, gs))
+
+        def fused():
+            ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+            outs = sam.SageActMean.apply(ar, br, keep, p, mask)
+            return outs + torch.autograd.grad(outs, (ar, br), (gm, gs))
+
+        mean, x_self, code = sam.sage_act_mean(a, b, keep, p, mask)
+        dx = sam.sage_act_mean_backward(gm, gs, code, mask, p)
+        plain = sam.sage_act_mean_plain(a, b, keep, p, mask)
+        dx_p = sam.sage_act_mean_backward_plain(gm, gs, code, mask, p)
+        want, got = chain(), fused()
+        torch.cuda.synchronize()
+        bits = [torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for x, y in zip(got, want)]
+        check(all(bits), f"sage_act_mean {shape}: mean, self rows and both "
+              f"gradients against the chain's kernels: {bits}")
+        check(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in ((mean, plain[0]), (x_self, plain[1]),
+                               (dx, dx_p))) and torch.equal(code, plain[2]),
+              f"sage_act_mean {shape} differs from the plain version")
+        row, slots = h * 4, t * k
+        fwd.append(dict(
+            shape=shape, valid_slots=int(mask.sum()),
+            ms=cuda_ms(torch, lambda: sam.sage_act_mean(a, b, keep, p,
+                                                        mask)),
+            host_ms=host_ms(torch, lambda: sam.sage_act_mean(a, b, keep, p,
+                                                             mask)),
+            plain_ms=cuda_ms(torch, lambda: sam.sage_act_mean_plain(
+                a, b, keep, p, mask)),
+            chain_ms=cuda_ms(torch, lambda: sm.sage_mean(
+                sa.sage_act(a, b, keep, p)[0], nbr, mask)),
+            bound_ms=(n * (3 * row + h) + 2 * t * row + slots)
+            / HBM_BYTES_PER_S * 1e3))
+        print(f"sage_act_mean {shape}: exact; {json.dumps(fwd[-1])}",
+              flush=True)
+        bwd.append(dict(
+            shape=shape,
+            ms=cuda_ms(torch, lambda: sam.sage_act_mean_backward(
+                gm, gs, code, mask, p)),
+            host_ms=host_ms(torch, lambda: sam.sage_act_mean_backward(
+                gm, gs, code, mask, p)),
+            plain_ms=cuda_ms(torch, lambda: sam.sage_act_mean_backward_plain(
+                gm, gs, code, mask, p)),
+            chain_ms=cuda_ms(torch, lambda: sa.sage_act_backward(
+                sm.sage_mean_backward(gm, nbr, mask, n, gs), code, p)),
+            bound_ms=(2 * t * row + n * (h + row) + slots)
+            / HBM_BYTES_PER_S * 1e3))
+        print(f"sage_act_mean_backward {shape}: exact; "
+              f"{json.dumps(bwd[-1])}", flush=True)
+        del a, b, keep, code, dx, plain, dx_p, want, got
+    records = []
+    for name, cases in (("sage_act_mean", fwd),
+                        ("sage_act_mean_backward", bwd)):
+        rec = dict(name=name, route="cuda", source=sam.SOURCE,
+                   replaces=sam.REPLACES, max_abs_err=0.0,
+                   **{key: float(sum(c[key] for c in cases)) for key in (
+                       "ms", "plain_ms", "bound_ms", "chain_ms", "host_ms")},
                    bound_by="bytes", cases=cases)
         rec["layer0_bound_share"] = cases[0]["bound_ms"] / cases[0]["ms"]
         records.append(rec)
@@ -6985,6 +7098,7 @@ def main(argv=None) -> int:
     from quiver_tpu_torch.ops.cuda import lane_select as b4
     from quiver_tpu_torch.ops.cuda import page_gather as b5
     from quiver_tpu_torch.ops.cuda import sage_act as sa
+    from quiver_tpu_torch.ops.cuda import sage_act_mean as sam
     from quiver_tpu_torch.ops.cuda import sage_mean as sm
     from quiver_tpu_torch.ops.cuda import threefry as tf
     from quiver_tpu_torch.ops.cuda import window_sample as b1
@@ -7418,7 +7532,9 @@ def main(argv=None) -> int:
             "sage_mean": sm.sage_mean,
             "sage_mean_backward": sm.sage_mean_backward,
             "sage_act": sa.sage_act,
-            "sage_act_backward": sa.sage_act_backward}
+            "sage_act_backward": sa.sage_act_backward,
+            "sage_act_mean": sam.sage_act_mean,
+            "sage_act_mean_backward": sam.sage_act_mean_backward}
         examples = examples_phase(torch, qt, example_counters)
         examples["phase_s"] = time.perf_counter() - t0
         for name in example_counters:
@@ -7433,8 +7549,10 @@ def main(argv=None) -> int:
 
     # B1's threefry instance has its own record after B1's
     kernels = [recs[name] for name in ("window_sample", "window_sample_key",
-                                       *KERNELS[1:-1], "sage_mean_backward",
-                                       "sage_act", "sage_act_backward")
+                                       *KERNELS[1:-2], "sage_mean_backward",
+                                       "sage_act", "sage_act_backward",
+                                       "sage_act_mean",
+                                       "sage_act_mean_backward")
                if name in recs]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card_line()}", flush=True)

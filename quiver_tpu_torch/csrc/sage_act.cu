@@ -17,7 +17,8 @@
 // in fp32 and rounds to bf16, as PyTorch's bf16 ops do.  Each product is
 // one IEEE multiply (-fmad=false, and __fmul_rn besides), so the outputs are
 // the chain's bit for bit.  The byte holds all the backward needs: ReLU's
-// output and the keep mask are not kept for it.
+// output and the keep mask are not kept for it.  The element ops are
+// sage.cuh's, which sage_act_mean.cu shares.
 //
 // Replaces no TPU kernel: the JAX package leaves ReLU and dropout to XLA
 // (quiver_tpu/models/sage.py: nn.relu, nn.Dropout), which fuses them.  On
@@ -44,84 +45,17 @@
 // 0.151.  The loop stays for tensors past 2**20 blocks.  Inputs are read
 // through the non-coherent path (ld.global.nc).  No shared memory is used.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "sage.cuh"
 
 namespace {
 
+using namespace qtt::sage;
+
 constexpr int THREADS = 256;
 constexpr int64_t MAX_BLOCKS = int64_t{1} << 20;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v) {
-  if constexpr (std::is_same<T, float>::value) return v;
-  else return __float2bfloat16_rn(v);
-}
-
-// v rounded to T and back: what PyTorch holds after an op in T.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
-
-// The unsigned type of BYTES bytes: one load or store.
-template <int BYTES> struct Raw;
-template <> struct Raw<16> { typedef uint4 type; };
-template <> struct Raw<8> { typedef uint2 type; };
-template <> struct Raw<4> { typedef uint32_t type; };
-template <> struct Raw<2> { typedef uint16_t type; };
-template <> struct Raw<1> { typedef uint8_t type; };
-
-// E values of U at p, in one load.
-template <typename U, int E>
-__device__ __forceinline__ void load(const U* p, U (&out)[E]) {
-  typedef typename Raw<E * sizeof(U)>::type R;
-  const R r = __ldg(reinterpret_cast<const R*>(p));
-  const U* v = reinterpret_cast<const U*>(&r);
-#pragma unroll
-  for (int e = 0; e < E; ++e) out[e] = v[e];
-}
-
-// E values of U to p, in one store.
-template <typename U, int E>
-__device__ __forceinline__ void store(U* p, const U (&in)[E]) {
-  typedef typename Raw<E * sizeof(U)>::type R;
-  R r;
-  U* v = reinterpret_cast<U*>(&r);
-#pragma unroll
-  for (int e = 0; e < E; ++e) v[e] = in[e];
-  *reinterpret_cast<R*>(p) = r;
-}
-
-// One element forward: y and its byte.
-template <typename T>
-__device__ __forceinline__ void act(T a, T b, T k, float scale, T& y,
-                                    uint8_t& c) {
-  const float s = round_to<T>(__fadd_rn(to_float(a), to_float(b)));
-  const float r = isnan(s) ? s : fmaxf(s, 0.0f);  // clamp_min(s, 0)
-  const float kf = to_float(k);
-  const float m = round_to<T>(__fmul_rn(r, kf));
-  y = from_float<T>(__fmul_rn(m, scale));
-  c = static_cast<uint8_t>((r <= 0.0f ? 0 : 1) | (kf != 0.0f ? 2 : 0));
-}
-
-// One element backward.
-template <typename T>
-__device__ __forceinline__ T act_grad(T dy, uint8_t c, float scale) {
-  const float g = round_to<T>(__fmul_rn(to_float(dy), scale));
-  const float m = __fmul_rn(g, (c & 2) ? 1.0f : 0.0f);
-  return from_float<T>((c & 1) ? m : 0.0f);
-}
 
 // Elements [0, n), E at a time, then the last n mod E one at a time.
 template <typename T, int E>

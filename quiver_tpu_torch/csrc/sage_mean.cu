@@ -53,36 +53,19 @@
 //
 // Every size is a compile-time constant.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "sage.cuh"
+
 namespace {
+
+using namespace qtt::sage;
 
 constexpr int THREADS = 256;  // 8 warps a block, a target a warp
 constexpr int FLIGHT = 8;     // valid slots whose loads a lane issues at once
-constexpr unsigned FULL = 0xffffffffu;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v) {
-  if constexpr (std::is_same<T, float>::value) return v;
-  else return __float2bfloat16_rn(v);
-}
-
-// v rounded to T and back: what PyTorch holds after an op in T.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
 
 // Target t's slots j0 .. j0 + 31: the lane's slot's row (clamped to x's n
 // rows; 0 where masked) and the ballot of the valid slots.
@@ -110,13 +93,6 @@ struct Slots {
   }
 };
 
-// The warp's target, or -1 past the last.
-__device__ __forceinline__ int64_t warp_target(int64_t t) {
-  const int64_t w =
-      (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) >> 5;
-  return w < t ? w : -1;
-}
-
 // x's rows are nv units of V (E elements of T each); a lane owns units
 // base + lane + 32 s, s < S, of each row.
 template <typename T, typename V, int S>
@@ -124,7 +100,7 @@ __global__ void __launch_bounds__(THREADS)
     sage_mean_fwd(const V* __restrict__ x, Slots slots, V* __restrict__ out,
                   int64_t nv) {
   constexpr int E = sizeof(V) / sizeof(T);
-  const int64_t t = warp_target(slots.t);
+  const int64_t t = warp_target<THREADS>(slots.t);
   if (t < 0) return;  // the whole warp
   const int lane = threadIdx.x & 31;
   for (int64_t base = 0; base < nv; base += 32 * S) {
@@ -217,7 +193,7 @@ __global__ void __launch_bounds__(THREADS)
     sage_mean_bwd(const V* __restrict__ grad, Slots slots, V* __restrict__ gx,
                   int64_t nv) {
   constexpr int E = sizeof(V) / sizeof(T);
-  const int64_t t = warp_target(slots.t);
+  const int64_t t = warp_target<THREADS>(slots.t);
   if (t < 0) return;  // the whole warp
   const int lane = threadIdx.x & 31;
   int row0;
@@ -257,13 +233,6 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   }
-}
-
-int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-bool bad_unit(int unit, int bf, int64_t row_bytes) {
-  return (unit != 2 && unit != 4 && unit != 8 && unit != 16) ||
-         (!bf && unit == 2) || row_bytes % unit != 0;
 }
 
 bool misaligned(const void* p, int unit) {

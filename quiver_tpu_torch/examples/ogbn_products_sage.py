@@ -121,8 +121,10 @@ def parse_args(argv=None):
 
 def stack_layers(layers_list):
     """Per-replica block tuples stacked on a leading replica axis, as the
-    data-parallel step takes them."""
-    return tuple(type(bs[0])(*[None if f[0] is None else torch.stack(f)
+    data-parallel step takes them (a field that is not a tensor, such as
+    ``LayerBlock.positional`` or an absent ``eid``, the first replica's)."""
+    return tuple(type(bs[0])(*[torch.stack(f)
+                               if isinstance(f[0], torch.Tensor) else f[0]
                                for f in zip(*bs)])
                  for bs in zip(*layers_list))
 

@@ -77,22 +77,29 @@ class SAGEConv(nn.Module):
                                  bias=False, device=dev)
 
     def addends(self, x: torch.Tensor, block,
-                edge_feat: Optional[torch.Tensor] = None
+                edge_feat: Optional[torch.Tensor] = None,
+                aggregated: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The two terms :meth:`forward` adds: ``lin_self`` of the self
-        rows (bias included) and ``lin_nbr`` of the neighbour mean."""
-        mean_nbr, x_self = sage_aggregate(x, block.nbr_local, block.mask)
+        rows (bias included) and ``lin_nbr`` of the neighbour mean.
+        ``aggregated`` is ``(mean, self rows)`` where the caller took them
+        already (``x`` is then not read)."""
+        if aggregated is None:
+            aggregated = sage_aggregate(x, block.nbr_local, block.mask)
+        mean_nbr, x_self = aggregated
         if edge_feat is not None:
-            m = block.mask[..., None].to(x.dtype)
+            m = block.mask[..., None].to(mean_nbr.dtype)
             cnt = torch.clamp_min(m.sum(dim=1), 1.0)             # [T, 1]
-            mean_e = (edge_feat.to(x.dtype) * m).sum(dim=1) / cnt
+            mean_e = (edge_feat.to(mean_nbr.dtype) * m).sum(dim=1) / cnt
             mean_nbr = torch.cat([mean_nbr, mean_e], dim=-1)
         return (dense(self.lin_self, x_self, self.dtype),
                 dense(self.lin_nbr, mean_nbr, self.dtype))
 
     def forward(self, x: torch.Tensor, block,
-                edge_feat: Optional[torch.Tensor] = None) -> torch.Tensor:
-        a, b = self.addends(x, block, edge_feat)
+                edge_feat: Optional[torch.Tensor] = None,
+                aggregated: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        a, b = self.addends(x, block, edge_feat, aggregated)
         return a + b
 
 

@@ -230,7 +230,8 @@ class GraphedStep:
       be captured).
     - A call the graphs cannot take runs eagerly: an input off the card
       (every call on the CPU), tensors that differ in shape, dtype or
-      device from the captured ones, or parameters that moved.
+      device from the captured ones, blocks of another layout
+      (``LayerBlock.positional``), or parameters that moved.
       A capture that fails raises: the step never falls back to eager for
       any other reason.
 
@@ -267,7 +268,7 @@ class GraphedStep:
         leaves: List = []
         _tree_map(leaves.append, args)
         g = self._graphs
-        sig = self._signature(leaves)
+        sig = self._signature(leaves, blocks)
         if g is None and sig is not None and all(a.is_cuda for a in leaves):
             g = self._capture(sig, args, leaves)
         if g is None or sig != g.sig:
@@ -287,13 +288,15 @@ class GraphedStep:
             self.optimizer.step()
         return loss
 
-    def _signature(self, leaves):
-        """Shape, dtype and device of every input, and where each
-        parameter lives and whether it takes a gradient; ``None`` for
-        inputs the graphs cannot take."""
+    def _signature(self, leaves, blocks):
+        """Shape, dtype and device of every input, each block's layout
+        (the model's route may follow it), and where each parameter lives
+        and whether it takes a gradient; ``None`` for inputs the graphs
+        cannot take."""
         if not all(isinstance(a, torch.Tensor) for a in leaves):
             return None
         return (tuple((a.shape, a.dtype, a.device) for a in leaves),
+                tuple(getattr(b, "positional", None) for b in blocks),
                 tuple((p.data_ptr(), p.requires_grad) for p in self.params))
 
     @staticmethod

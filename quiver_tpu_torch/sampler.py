@@ -89,6 +89,10 @@ class LayerBlock(NamedTuple):
     mask: torch.Tensor         # [T, k] bool
     num_targets: torch.Tensor  # scalar int32 (valid targets; T is the pad)
     eid: Optional[torch.Tensor] = None  # [T, k] int32 edge ids (-1 pad)
+    # the producer's word that the block is positional: this layer's n_id
+    # is T * (1 + k) long and slot j of target b names row T + b*k + j
+    # where valid, so no two slots name one row (the no-dedup pipelines)
+    positional: bool = False
 
 
 class SampledBatch(NamedTuple):
@@ -163,6 +167,7 @@ def _sample_pipeline_nodedup(indptr, indices, seeds, key_words, sizes,
             mask=out.mask,
             num_targets=fmask.sum().to(torch.int32),
             eid=out.eid if return_eid else None,
+            positional=True,
         ))
         # masked slots enter the frontier as node 0 (nbrs holds -1 there)
         frontier = torch.cat(
@@ -207,7 +212,7 @@ def _pwindow_pipeline(indptr, indices, seeds, key_words, sizes, return_eid,
     live[:1] = 0  # a fill: a 0-d store would copy from pageable memory
     torch.cumsum(fmask, 0, dtype=torch.int32, out=live[1:])
     blocks = [LayerBlock(nbr_local=h.nbr_local, mask=h.mask,
-                         num_targets=live[s], eid=h.eid)
+                         num_targets=live[s], eid=h.eid, positional=True)
               for h, s in zip(hops, starts)]
     drops = torch.zeros((len(sizes),), dtype=torch.int32, device=dev)
     return frontier, fmask, live[total], tuple(blocks[::-1]), drops
@@ -259,6 +264,7 @@ def _sample_pipeline_overlay(indptr, indices, overlay, seeds, key_words,
             mask=out.mask,
             num_targets=fmask.sum().to(torch.int32),
             eid=out.eid if return_eid else None,
+            positional=True,
         ))
         frontier = torch.cat(
             [frontier, torch.where(out.mask, out.nbrs,

@@ -21,6 +21,7 @@ from quiver_tpu_torch.ops.cuda import gather_rows as b2
 from quiver_tpu_torch.ops.cuda import lane_select as b4
 from quiver_tpu_torch.ops.cuda import page_gather as b5
 from quiver_tpu_torch.ops.cuda import sage_act as sa
+from quiver_tpu_torch.ops.cuda import sage_act_mean as sam
 from quiver_tpu_torch.ops.cuda import sage_mean as sm
 from quiver_tpu_torch.ops.cuda import threefry as tf
 from quiver_tpu_torch.ops.cuda import window_sample as b1
@@ -1607,12 +1608,13 @@ def test_sage_mean_backward_kernel_equals_plain(card, dtype, shape):
                 assert bool(((rows.double() - exact).abs() <= bound).all())
 
 
-def _products_launches(card, dropout):
+def _products_launches(card, dropout, dedup="none"):
     """A three-layer GraphSAGE fused step on the card (small graph,
-    widths 24 -> 32 -> 32 -> 7) at ``dropout``: the four hand-written
-    kernels' launches added by each of 4 calls, and the kernels a replayed
-    step's profile holds (taken up to 8 times, until it holds the count
-    the model runs: the profiler may drop device events from a capture)."""
+    widths 24 -> 32 -> 32 -> 7) at ``dropout`` under ``dedup``: the six
+    hand-written kernels' launches added by each of 4 calls, and the
+    kernels a replayed step's profile holds (taken up to 8 times, until it
+    holds the count the model runs: the profiler may drop device events
+    from a capture)."""
     topo = _graph(4, n=2000)
     feat = np.random.default_rng(2).standard_normal(
         (2000, 24)).astype(np.float32)
@@ -1620,7 +1622,7 @@ def _products_launches(card, dropout):
     torch.manual_seed(0)
     model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=dropout,
                          device=card)
-    s = qt.GraphSageSampler(topo, [6, 4, 3], device=card)
+    s = qt.GraphSageSampler(topo, [6, 4, 3], device=card, dedup=dedup)
     f = qt.Feature(device_cache_size=feat.nbytes, csr_topo=topo,
                    device=card).from_cpu_tensor(feat)
     step = qt.make_fused_train_step(
@@ -1629,7 +1631,8 @@ def _products_launches(card, dropout):
     lab = labels[ids].to(card)
     ones = torch.ones(len(ids), dtype=torch.bool, device=card)
     fns = (sm.sage_mean, sm.sage_mean_backward, sa.sage_act,
-           sa.sage_act_backward)
+           sa.sage_act_backward, sam.sage_act_mean,
+           sam.sage_act_mean_backward)
     added = []
     for i in range(4):
         before = tuple(fn.launches for fn in fns)
@@ -1637,7 +1640,9 @@ def _products_launches(card, dropout):
         added.append(tuple(fn.launches - b for fn, b in zip(fns, before)))
     torch.cuda.synchronize()
     assert (step.train.captures, step.train.eager_calls) == (1, 0)
-    want = (3, 2) + ((2, 2) if dropout else (0, 0))
+    want = ((3, 2, 0, 0, 0, 0) if not dropout
+            else (3, 2, 2, 2, 0, 0) if dedup == "hop"
+            else (1, 0, 0, 0, 2, 2))
     for i in range(8):
         kernels = _replayed_kernels(
             lambda: step(ids, lab, ones,
@@ -1656,24 +1661,36 @@ def test_sage_conv_launches_per_products_step(card):
     many times a step.  Without dropout the activation kernels run
     nowhere."""
     added, kernels = _products_launches(card, 0.0)
-    assert added == [(6, 4, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0)]
-    assert kernels == (3, 2, 0, 0)
+    none = (0,) * 6
+    assert added == [(6, 4, 0, 0, 0, 0), none, none, none]
+    assert kernels == (3, 2, 0, 0, 0, 0)
 
 
-def test_sage_act_launches_per_products_step(card):
-    """With dropout 0.5 each hidden layer's activation is one
-    ``sage_act`` launch forward and one ``sage_act_backward`` in each of
-    the first call's two passes, none in a replay; a replayed step's
-    profile holds 2 and 2 of their kernels."""
-    added, kernels = _products_launches(card, 0.5)
-    assert added == [(6, 4, 4, 4), (0, 0, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0)]
-    assert kernels == (3, 2, 2, 2)
+@pytest.mark.parametrize("dedup", ["none", "hop"])
+def test_sage_act_launches_per_products_step(card, dedup):
+    """With dropout 0.5, under ``dedup="hop"`` each hidden layer's
+    activation is one ``sage_act`` launch forward and one
+    ``sage_act_backward`` in each of the first call's two passes, none in
+    a replay; a replayed step's profile holds 2 and 2 of their kernels.
+    Under ``dedup="none"`` (positional blocks) each hidden layer's
+    activation and the next layer's mean are one ``sage_act_mean`` launch
+    forward and one backward instead, and the mean kernel runs at layer 0
+    alone: no ``sage_act``, ``sage_act_backward`` or
+    ``sage_mean_backward``."""
+    added, kernels = _products_launches(card, 0.5, dedup)
+    none = (0,) * 6
+    if dedup == "hop":
+        assert added == [(6, 4, 4, 4, 0, 0), none, none, none]
+        assert kernels == (3, 2, 2, 2, 0, 0)
+    else:
+        assert added == [(2, 0, 0, 0, 4, 4), none, none, none]
+        assert kernels == (1, 0, 0, 0, 2, 2)
 
 
 def _replayed_kernels(run):
-    """The ``sage_mean_fwd``, ``sage_mean_bwd``, ``sage_act_fwd`` and
-    ``sage_act_bwd`` kernels the card ran in ``run()`` under
-    ``torch.profiler``."""
+    """The ``sage_mean_fwd``, ``sage_mean_bwd``, ``sage_act_fwd``,
+    ``sage_act_bwd``, ``sage_act_mean_fwd`` and ``sage_act_mean_bwd``
+    kernels the card ran in ``run()`` under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1685,7 +1702,8 @@ def _replayed_kernels(run):
              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     return tuple(sum(k in n for n in names)
                  for k in ("sage_mean_fwd", "sage_mean_bwd", "sage_act_fwd",
-                           "sage_act_bwd"))
+                           "sage_act_bwd", "sage_act_mean_fwd",
+                           "sage_act_mean_bwd"))
 
 
 def _products_step_objects(card, topo, feat, base):
@@ -1932,19 +1950,26 @@ def test_sage_act_in_a_cuda_graph(card, dtype):
             assert torch.equal(_b2_bits(got), _b2_bits(want))
 
 
-def test_graphed_step_with_sage_act_is_bitwise_the_chain(card, monkeypatch):
+@pytest.mark.parametrize("route", ["sage_act", "sage_act_mean"])
+def test_graphed_step_with_sage_act_is_bitwise_the_chain(card, monkeypatch,
+                                                         route):
     """The graphed fused step at products' widths (100 -> 256 -> 256 ->
     47, dropout 0.5, fanouts [15, 10, 5], batch 1,024), whose hidden layers
-    run ``sage_act``, against the eager step of a model that runs the
-    chain it replaced, from the same weights, dropout seed and feeds: over
-    5 steps every loss, the first gradients and the parameters after every
-    step are bitwise equal."""
+    run ``sage_act`` (the positional blocks' fusion turned off) or, as the
+    step runs them, ``sage_act_mean`` with the next layer's mean, against
+    the eager step of a model that runs the op chain both replaced, from
+    the same weights, dropout seed and feeds: over 5 steps every loss, the
+    first gradients and the parameters after every step are bitwise
+    equal."""
     from quiver_tpu_torch.models import sage as sage_mod
     from quiver_tpu_torch.parallel.train import make_train_step
 
     kernel = [True]
     monkeypatch.setattr(sage_mod, "_act_kernel_takes",
                         lambda t: kernel[0] and t.is_cuda)
+    if route == "sage_act":
+        monkeypatch.setattr(sage_mod, "_fuses", lambda *args: False)
+    counter = sa.sage_act if route == "sage_act" else sam.sage_act_mean
     n = 20_000
     indptr, indices = qt.synthetic_csr(n, 400_000, seed=8)
     topo = qt.CSRTopo(indptr=indptr, indices=indices)
@@ -1958,7 +1983,7 @@ def test_graphed_step_with_sage_act_is_bitwise_the_chain(card, monkeypatch):
     es, ef, em, eo = _products_step_objects(card, topo, feat, base)
     graphed = qt.make_fused_train_step(gs, gf, gm, go, seed=3)
     eager = make_train_step(em, eo, seed=3)
-    before = sa.sage_act.launches
+    before = (sa.sage_act.launches, sam.sage_act_mean.launches)
     for i in range(5):
         ids = rng.choice(n, 1024, replace=False).astype(np.int64)
         lab = labels[torch.from_numpy(ids).to(card)]
@@ -1977,7 +2002,10 @@ def test_graphed_step_with_sage_act_is_bitwise_the_chain(card, monkeypatch):
         for (name, p), q in zip(gm.named_parameters(), em.parameters()):
             assert torch.equal(p, q), f"step {i}: {name} differs"
     torch.cuda.synchronize()
-    assert sa.sage_act.launches - before == 4  # the first call's passes
+    ran = (sa.sage_act.launches - before[0],
+           sam.sage_act_mean.launches - before[1])
+    # the first call's two passes, both hidden layers
+    assert ran == ((4, 0) if route == "sage_act" else (0, 4))
     assert (graphed.train.captures, graphed.train.eager_calls) == (1, 0)
 
 
@@ -1998,3 +2026,192 @@ def test_sage_act_refuses_bad_input(card):
                  (a, code, 2.0)):
         with pytest.raises(KernelArgumentError):
             sa.sage_act_backward(*args)
+
+
+# A hidden layer's activation fused with the next layer's mean: products'
+# blocks at fewer targets (width at k: 100 at 5, 256 at 10 and 15), then
+# k over one warp's 32 slots at an odd width, and k = 1 at 257
+SAGE_ACT_MEAN_SHAPES = [(2_000, 5, 100), (1_024, 10, 256), (300, 15, 256),
+                        (257, 33, 9), (513, 1, 257)]
+
+
+def _sage_act_mean_inputs(card, dtype, t, k, d, seed, offset=0):
+    """The addends, keep mask, positional block (``_sage_block``'s: about
+    13% of slots masked, every 97th target with none valid) and both
+    gradients of one fused call, each value tensor a view ``offset``
+    elements into its storage.  The addends hold every pair of the special
+    values (NaN, +-Inf, +-0.0, tiny and huge) and NaN or +Inf in the rows
+    behind masked slots; the gradients hold -0.0 and NaN, and the mean's
+    gradient values whose quotient by the count is subnormal."""
+    nbr, mask, n = _sage_block(card, t, k, seed)
+    g = torch.Generator(device=card).manual_seed(seed)
+    s = torch.tensor(SAGE_ACT_SPECIAL, device=card)
+    pairs = torch.cartesian_prod(s, s)
+    a = torch.randn((n, d), generator=g, device=card)
+    b = torch.randn((n, d), generator=g, device=card)
+    m = min(pairs.shape[0], n * d)
+    a.view(-1)[:m], b.view(-1)[:m] = pairs[:m, 0], pairs[:m, 1]
+    rows = (t + torch.arange(t * k, device=card).view(t, k))[~mask][-16:]
+    a[rows] = float("nan")
+    b[rows[::2]] = float("inf")
+    keep = torch.empty((n, d), device=card).bernoulli_(0.6, generator=g)
+    gm = torch.randn((t, d), generator=g, device=card)
+    gs = torch.randn((t, d), generator=g, device=card)
+    special = torch.tensor([-0.0, 0.0, float("nan"), 1e-39, -2e-38, 3e-38,
+                            -1e-45, 1.2e-38], device=card)
+    tg = int(mask.any(1).nonzero()[0])  # a target with a valid slot
+    gm[tg, :min(d, 8)] = special[:d]
+    gs[tg, :2] = torch.tensor([-0.0, float("nan")], device=card)[:d]
+
+    def view(x):
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=card)
+        buf[offset:] = x.reshape(-1).to(dtype)
+        return buf[offset:].view(x.shape)
+
+    return (view(a), view(b), view(keep), nbr, mask, view(gm), view(gs))
+
+
+@pytest.mark.parametrize("p", [0.5, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SAGE_ACT_MEAN_SHAPES)
+def test_sage_act_mean_is_the_chain_bitwise(card, shape, dtype, p):
+    """The fused kernels against the chain's kernels they replace
+    (``sage_act``, ``sage_mean`` over the positional ``nbr_local`` and the
+    self rows; ``sage_mean_backward`` then ``sage_act_backward``): the
+    mean, the self rows, the code and the addends' gradient bitwise, on
+    aligned tensors and on views one element in (other units); then
+    ``SageActMean``'s outputs and both addends' gradients bitwise those of
+    ``SageAct`` then ``SageMean``.  One launch a call."""
+    t, k, d = shape
+    for offset in (0, 1):
+        a, b, keep, nbr, mask, gm, gs = _sage_act_mean_inputs(
+            card, dtype, t, k, d, d + k, offset)
+        n = a.shape[0]
+        before = (sam.sage_act_mean.launches,
+                  sam.sage_act_mean_backward.launches)
+        mean, x_self, code = sam.sage_act_mean(a, b, keep, p, mask)
+        dx = sam.sage_act_mean_backward(gm, gs, code, mask, p)
+        y, code_c = sa.sage_act(a, b, keep, p)
+        want = (sm.sage_mean(y, nbr, mask), y[:t], sa.sage_act_backward(
+            sm.sage_mean_backward(gm, nbr, mask, n, gs), code_c, p))
+        torch.cuda.synchronize()
+        assert (sam.sage_act_mean.launches - before[0],
+                sam.sage_act_mean_backward.launches - before[1]) == (1, 1)
+        assert torch.equal(code, code_c)
+        for name, got, w in zip(("mean", "x_self", "dx"),
+                                (mean, x_self, dx), want):
+            assert got.dtype == dtype and got.shape == w.shape
+            assert torch.equal(_b2_bits(got), _b2_bits(w)), \
+                f"{name}, offset {offset}: " + _first_difference(got, w)
+    ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+    outs = sam.SageActMean.apply(ar, br, keep, p, mask)
+    got = outs + torch.autograd.grad(outs, (ar, br), (gm, gs))
+    ac, bc = a.clone().requires_grad_(), b.clone().requires_grad_()
+    outs = sm.SageMean.apply(sa.SageAct.apply(ac, bc, keep, p), nbr, mask)
+    want = outs + torch.autograd.grad(outs, (ac, bc), (gm, gs))
+    for name, x, w in zip(("mean", "x_self", "grad a", "grad b"), got, want):
+        assert torch.equal(_b2_bits(x), _b2_bits(w)), \
+            f"{name}: " + _first_difference(x, w)
+
+
+def test_sage_eval_pass_takes_no_fused_kernel(card):
+    """Evaluation over positional blocks runs the mean kernel at every
+    layer and neither the activation's nor the fused kernels."""
+    topo = _graph(4, n=2000)
+    feat = torch.randn((2000, 24), device=card)
+    torch.manual_seed(0)
+    model = qt.GraphSAGE(24, 32, 7, num_layers=3, dropout=0.5,
+                         device=card).eval()
+    batch = qt.GraphSageSampler(topo, [6, 4, 3], device=card).sample(
+        np.arange(0, 2000, 7))
+    assert all(blk.positional for blk in batch.layers)
+    fns = (sm.sage_mean, sa.sage_act, sam.sage_act_mean)
+    before = [fn.launches for fn in fns]
+    with torch.no_grad():
+        model(feat[batch.n_id.long()], batch.layers)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [3, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("used", ["mean", "self"])
+def test_sage_act_mean_takes_one_output_gradient(card, dtype, used):
+    """Where only the mean or only the self rows reach the loss, the other
+    gradient arrives as ``None``: the fused backward treats it as zeros,
+    as ``SageMean``'s does, bitwise the chain."""
+    a, b, keep, nbr, mask, gm, gs = _sage_act_mean_inputs(
+        card, dtype, 1_024, 10, 256, 3)
+    g = gm if used == "mean" else gs
+    pick = 0 if used == "mean" else 1
+    grads = []
+    for fused in (True, False):
+        ar, br = a.clone().requires_grad_(), b.clone().requires_grad_()
+        outs = (sam.SageActMean.apply(ar, br, keep, 0.5, mask) if fused
+                else sm.SageMean.apply(sa.SageAct.apply(ar, br, keep, 0.5),
+                                       nbr, mask))
+        grads.append(torch.autograd.grad(outs[pick], (ar, br), g))
+    for x, w in zip(*grads):
+        assert torch.equal(_b2_bits(x), _b2_bits(w)), _first_difference(x, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sage_act_mean_in_a_cuda_graph(card, dtype):
+    """``SageActMean`` forward and backward captured in a CUDA graph: each
+    replay over new inputs gives the chain's outputs and gradient
+    bitwise."""
+    a, b, keep, nbr, mask, gm, gs = _sage_act_mean_inputs(
+        card, dtype, 1_024, 10, 256, 21)
+    a.requires_grad_()
+    b.requires_grad_()
+
+    def run():
+        outs = sam.SageActMean.apply(a, b, keep, 0.5, mask)
+        return outs + torch.autograd.grad(outs, (a, b), (gm, gs))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for seed in (22, 23):
+        na, nb, nk, nbr, nm, ngm, ngs = _sage_act_mean_inputs(
+            card, dtype, 1_024, 10, 256, seed)
+        with torch.no_grad():
+            for dst, src in ((a, na), (b, nb), (keep, nk), (mask, nm),
+                             (gm, ngm), (gs, ngs)):
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        y, code = sa.sage_act(na, nb, nk, 0.5)
+        dx = sa.sage_act_backward(sm.sage_mean_backward(
+            ngm, nbr, nm, y.shape[0], ngs), code, 0.5)
+        for got, want in zip(outs, (sm.sage_mean(y, nbr, nm), y[:1_024],
+                                    dx, dx)):
+            assert torch.equal(_b2_bits(got), _b2_bits(want))
+
+
+def test_sage_act_mean_refuses_bad_input(card):
+    a = torch.zeros((44, 8), device=card)
+    mask = torch.ones((4, 10), dtype=torch.bool, device=card)
+    for args in ((a.double(), a.double(), a.double(), 0.5, mask),
+                 (a, a.bfloat16(), a, 0.5, mask), (a, a, a[:, :4], 0.5, mask),
+                 (a[:, ::2], a[:, ::2], a[:, ::2], 0.5, mask),
+                 (a, a, a, 1.5, mask), (a, a, a, 0.5, mask[:3]),
+                 (a, a, a, 0.5, mask[:, :9]), (a, a, a, 0.5, mask.int()),
+                 (a, a, a, 0.5, mask.cpu()), (a, a, a, 0.5, mask.t()),
+                 (a[0], a[0], a[0], 0.5, mask)):
+        with pytest.raises(KernelArgumentError):
+            sam.sage_act_mean(*args)
+    g = torch.zeros((4, 8), device=card)
+    code = torch.zeros((44, 8), dtype=torch.uint8, device=card)
+    for args in ((g.double(), g.double(), code, mask, 0.5),
+                 (g, g.bfloat16(), code, mask, 0.5),
+                 (g, None, code.bool(), mask, 0.5),
+                 (g, g, code[:40], mask, 0.5), (g[:3], g[:3], code, mask, 0.5),
+                 (g, g, code, mask[:, :9], 0.5), (g, g, code, mask, -0.5),
+                 (None, None, code, mask, 0.5)):
+        with pytest.raises(KernelArgumentError):
+            sam.sage_act_mean_backward(*args)

@@ -168,9 +168,12 @@ def _nodes(y):
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
 def test_graph_sage_fused_route_is_the_chain_bitwise(monkeypatch, dtype):
     """A three-layer GraphSAGE in training, dropout 0.5, a seeded
-    generator: the fused route (both hidden layers through ``SageAct``)
-    gives the chain's logits and every parameter's gradient bit for bit,
-    and leaves the generator where the chain leaves it."""
+    generator: the fused route (both hidden layers' activations, here each
+    with the next layer's mean through ``SageActMean``, as the positional
+    blocks of the default sampler allow) gives the chain's logits and
+    every parameter's gradient bit for bit, and leaves the generator where
+    the chain leaves it.  ``tests/test_torch_sage_act_mean.py`` holds the
+    route through ``SageAct`` alone to the chain likewise."""
     batch, feat = _batch()
     torch.manual_seed(3)
     old = qt.GraphSAGE(12, 16, 5, num_layers=3, dropout=0.5, device="cpu",
@@ -182,7 +185,7 @@ def test_graph_sage_fused_route_is_the_chain_bitwise(monkeypatch, dtype):
     monkeypatch.setattr(sage_mod, "_act_kernel_takes", lambda t: True)
     gb = torch.Generator().manual_seed(11)
     y_new = new(feat, batch.layers, generator=gb)
-    assert _nodes(y_new).count("SageActBackward") == 2
+    assert _nodes(y_new).count("SageActMeanBackward") == 2
     assert torch.equal(_bits(y_new), _bits(y_old))
     assert torch.equal(ga.get_state(), gb.get_state())
     dy = torch.randn(y_old.shape, generator=torch.Generator().manual_seed(4))
@@ -209,7 +212,7 @@ def test_eval_and_no_dropout_take_no_kernel(monkeypatch, case):
     before = (sa.sage_act.launches, sa.sage_act_backward.launches)
     y = model(feat, batch.layers)
     y.sum().backward()
-    assert "SageActBackward" not in _nodes(y)
+    assert not {"SageActBackward", "SageActMeanBackward"} & set(_nodes(y))
     assert (sa.sage_act.launches, sa.sage_act_backward.launches) == before
     assert torch.equal(y, want)
 
@@ -220,7 +223,7 @@ def test_cpu_training_runs_the_chain():
     model = qt.GraphSAGE(12, 16, 5, num_layers=3, dropout=0.5, device="cpu")
     y = model(feat, batch.layers, generator=torch.Generator().manual_seed(1))
     names = _nodes(y)
-    assert "SageActBackward" not in names
+    assert not {"SageActBackward", "SageActMeanBackward"} & set(names)
     assert names.count("ReluBackward0") == 2
 
 
