@@ -1,0 +1,6 @@
+"""Card milliseconds a fused R-GAT step launched inside the program's ``train.optimizer`` span."""
+from portbench.phases_hetero import device_ms
+
+
+def read(run):
+    return device_ms(run, "optimizer")

@@ -26,15 +26,34 @@ Keys: JAX splits ``key, sub = split(key)`` once per sampled block; under
 ``sample(..., key=)`` derives the same words from the batch key; the
 pipeline takes them as ``[n_blocks, 2]`` words, one pair per sampled block
 in block order (``key_words=``).
+
+The sampler and the feature speak the fused step's protocol
+(``pipeline.make_fused_train_step``) as the homogeneous ones do:
+``seed_tensor``, ``words_of_key`` and ``draw_key_words`` without a batch
+size (the blocks a batch takes do not depend on its size),
+``pipeline(seeds, key_words, weighted=False)`` returning the five outputs
+with the whole :class:`HeteroSampledBatch` in the blocks' place, and on
+the feature ``cache_count``/``node_count`` (summed over the types),
+``lookup_device`` and ``_rows_into``.  So ``make_fused_train_step(
+HeteroGraphSageSampler, HeteroFeature, RGAT, ...)`` trains R-GAT with the
+same spans, graphs and key handling as GraphSAGE.
+
+Telemetry: each pipeline call counts ``hetero_blocks_total{relation}``
+(``src__name__dst``) once a sampled block and
+``hetero_frontier_rows_total{node_type}`` by each type's padded frontier
+length, both from the plan.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+import contextlib
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import telemetry
 from .config import resolve_sampling
 from .feature import Feature
 from .ops.sample import hop_key_words, key_words_pair, run_hop
@@ -123,6 +142,15 @@ class HeteroFeature:
         node_type, ids = key
         return self.features[node_type][ids]
 
+    @property
+    def cache_count(self) -> int:
+        """Rows on the device, over every type (the fused step's check)."""
+        return sum(f.cache_count for f in self.features.values())
+
+    @property
+    def node_count(self) -> int:
+        return sum(f.node_count for f in self.features.values())
+
     def lookup(self, batch: HeteroSampledBatch) -> Dict[str, torch.Tensor]:
         """Rows of every type's padded frontier, ``{type: [P_t, D_t]}``; an
         empty or absent frontier gives ``zeros((0, D_t))``.  The ids stay
@@ -130,15 +158,43 @@ class HeteroFeature:
         (``Feature.__getitem__`` -> ``lookup_device``), where JAX reads
         them back to the host first; a budgeted one reads them back once,
         as ``Feature.__getitem__`` does.  The rows are the same."""
+        return self._each(batch.n_id, lambda f, ids: f[ids])
+
+    def lookup_device(self, n_id: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """:meth:`lookup` of the frontiers ``n_id`` for features whose
+        whole tables are on the device: B2 once a type
+        (``Feature.lookup_device``), each into the buffer that
+        :meth:`_rows_into` gives it where it gives one."""
+        return self._each(n_id, lambda f, ids: f.lookup_device(ids))
+
+    def _each(self, n_id, rows_of) -> Dict[str, torch.Tensor]:
         out = {}
         for t, f in self.features.items():
-            n_id = batch.n_id.get(t)
-            if n_id is None or n_id.shape[0] == 0:
+            ids = n_id.get(t)
+            if ids is None or ids.shape[0] == 0:
                 out[t] = torch.zeros((0, f.dim), dtype=torch.float32,
                                      device=f.device)
             else:
-                out[t] = f[n_id]
+                out[t] = rows_of(f, ids)
         return out
+
+    @contextlib.contextmanager
+    def _rows_into(self, alloc):
+        """While the block runs, this thread's :meth:`lookup_device` writes
+        type ``i``'s rows (``i`` its place in ``features``) into
+        ``alloc(shape, dtype, i)`` where that returns a tensor
+        (``Feature._rows_into`` of each type).  The fused step passes its
+        graphs' ``rows_buffer``, whose ``i`` is the place of the rows among
+        the step's input tensors: the rows dict is the step's first
+        argument, so its tensors come first, in this order.  Each type
+        thus writes its own static rows, even where two types' frontiers
+        have the same shape."""
+        with contextlib.ExitStack() as stack:
+            for i, f in enumerate(self.features.values()):
+                stack.enter_context(f._rows_into(functools.partial(alloc,
+                                                                   at=i)))
+            yield
 
 
 class _Block(NamedTuple):
@@ -229,9 +285,9 @@ class HeteroGraphSageSampler:
     def num_blocks(self, batch_size: int) -> int:
         return sum(len(hop) for hop in self.plan(batch_size)[0])
 
-    def draw_key_words(self, batch_size: int) -> np.ndarray:
+    def draw_key_words(self, batch_size: int = 1) -> np.ndarray:
         """``[n_blocks, 2]`` uint32 key words from the sampler's own
-        generator."""
+        generator (a batch of any positive size takes the same blocks)."""
         return self._rng.integers(0, 2**32,
                                   size=(self.num_blocks(batch_size), 2),
                                   dtype=np.uint32)
@@ -245,11 +301,15 @@ class HeteroGraphSageSampler:
             raise ValueError(f"{self.seed_type} ids must lie in [0, {n})")
         return torch.from_numpy(ids.astype(np.int32)).to(self.device)
 
-    def words_of_key(self, key, n_blocks: int) -> np.ndarray:
+    def words_of_key(self, key, n_blocks: Optional[int] = None
+                     ) -> np.ndarray:
         """The ``[n_blocks, 2]`` words JAX's hetero pipeline derives from
         the batch ``key``: ``key, sub = split(key)`` before each sampled
         block, in block order (``quiver_tpu/hetero.py:188``), each ``sub``
-        folded under ``"hash"`` or taken raw under ``"key"``."""
+        folded under ``"hash"`` or taken raw under ``"key"``.  ``n_blocks``
+        defaults to a non-empty batch's."""
+        if n_blocks is None:
+            n_blocks = self.num_blocks(1)
         k = _rng.key_data(key)
         subs = []
         for _ in range(n_blocks):
@@ -267,14 +327,25 @@ class HeteroGraphSageSampler:
         in block order); words are drawn here when neither is given."""
         seeds = self.seed_tensor(input_nodes)
         B = int(seeds.shape[0])
-        hops, lens = self.plan(B)
-        n_blocks = sum(len(hop) for hop in hops)
         if key is not None:
             if key_words is not None:
                 raise ValueError("pass key or key_words, not both")
-            key_words = self.words_of_key(key, n_blocks)
+            key_words = self.words_of_key(key, self.num_blocks(B))
         if key_words is None:
             key_words = self.draw_key_words(B)
+        return self.pipeline(seeds, key_words)[3]
+
+    def pipeline(self, seeds: torch.Tensor, key_words, weighted: bool = False):
+        """Every hop from ``seeds`` (``seed_type`` ids on the device) under
+        ``key_words`` (``[n_blocks, 2]`` uint32), as the homogeneous
+        ``GraphSageSampler.pipeline`` returns its five outputs: ``(n_id,
+        n_id_mask, None, batch, None)``, the :class:`HeteroSampledBatch`
+        in the blocks' place (a model takes it whole).  Hetero sampling is
+        uniform: ``weighted`` is taken for the protocol and changes
+        nothing."""
+        B = int(seeds.shape[0])
+        hops, lens = self.plan(B)
+        n_blocks = sum(len(hop) for hop in hops)
         key_words = np.asarray(key_words, dtype=np.uint32).reshape(-1, 2)
         if key_words.shape[0] != n_blocks:
             raise ValueError(f"{key_words.shape[0]} key-word pairs for "
@@ -312,10 +383,16 @@ class HeteroGraphSageSampler:
                     mask=out.mask,
                     num_targets=dst_mask.sum().to(torch.int32),
                     relation=blk.relation))
+                telemetry.counter("hetero_blocks_total",
+                                  relation="__".join(blk.relation)).inc()
             layers.append(tuple(blocks))
-        return HeteroSampledBatch(n_id=n_id, n_id_mask=n_mask,
-                                  layers=tuple(layers[::-1]), batch_size=B,
-                                  seed_type=self.seed_type)
+        for t, n in lens.items():
+            telemetry.counter("hetero_frontier_rows_total",
+                              node_type=t).inc(float(n))
+        batch = HeteroSampledBatch(n_id=n_id, n_id_mask=n_mask,
+                                   layers=tuple(layers[::-1]), batch_size=B,
+                                   seed_type=self.seed_type)
+        return n_id, n_mask, None, batch, None
 
     def __repr__(self):
         return (f"HeteroGraphSageSampler(hops={len(self.hop_sizes)}, "

@@ -217,9 +217,14 @@ class GraphedStep:
       dropout generator's state and the model's buffers are put back, no
       ``.grad`` is written, the optimizer is not stepped.  The call then
       replays, as every later one does.
+    - The inputs are any tree of tensors (tuples, lists, dicts,
+      NamedTuples), with other leaves fixed at the capture: GraphSAGE's
+      rows and blocks, or R-GAT's dict of rows by node type and
+      its ``HeteroSampledBatch``, whose relations, batch size and seed
+      type come with its shapes.
     - Each call copies its tensors into the graphs' static inputs, except
-      rows written into the buffer that :meth:`rows_buffer` hands out,
-      which is the static input already.  The loss it returns is a copy,
+      rows written into the buffers that :meth:`rows_buffer` hands out,
+      which are the static inputs already.  The loss it returns is a copy,
       so no later replay overwrites it.
     - Dropout draws from the step's ``torch.Generator``, registered with
       the forward's graph: each replay draws the masks the eager step
@@ -253,14 +258,18 @@ class GraphedStep:
         self.captures = 0      # graphs captured
         self.eager_calls = 0   # calls that ran op by op
 
-    def rows_buffer(self, shape, dtype) -> Optional[torch.Tensor]:
-        """Where the next call's rows ``x`` of ``shape`` and ``dtype``
-        may be written so that no copy follows: the graphs' static rows;
-        ``None`` before the capture or where they do not fit."""
+    def rows_buffer(self, shape, dtype, at: int = 0
+                    ) -> Optional[torch.Tensor]:
+        """Where the next call's rows of ``shape`` and ``dtype`` may be
+        written so that no copy follows: the graphs' static input tensor
+        ``at`` (in the order the call's tensors are flattened: the rows
+        ``x`` first, and where ``x`` is a dict of rows, one a node type,
+        its tensors first in its order); ``None`` before the capture or
+        where that tensor does not fit."""
         g = self._graphs
         if g is None:
             return None
-        x = g.inputs[0]
+        x = g.inputs[at]
         return x if x.shape == shape and x.dtype == dtype else None
 
     def __call__(self, x, blocks, labels, label_mask) -> torch.Tensor:

@@ -22,6 +22,12 @@ its rows that way); and the optimizer, since a plain
 ``torch.optim.Adam`` cannot be captured.  On the CPU it runs its eager
 step and the lookup makes its own rows.
 
+The sampler and the feature are GraphSAGE's (``GraphSageSampler``,
+``Feature``) or R-GAT's (``HeteroGraphSageSampler``, ``HeteroFeature``,
+which speak the same protocol: ``hetero.py``); the step makes no choice
+between them.  A hetero step's rows are a dict by node type, each type's
+written by B2 into its own static input of the graphs.
+
 The step takes JAX's ``key`` (two uint32 words): ``ks, kd = split(key)``
 (``quiver_tpu/pipeline.py:61``) and ``ks`` drives the hops, as the
 sampler's ``sample(key=)`` splits its key; ``kd`` goes unused, since

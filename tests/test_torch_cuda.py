@@ -2215,3 +2215,84 @@ def test_sage_act_mean_refuses_bad_input(card):
                  (None, None, code, mask, 0.5)):
         with pytest.raises(KernelArgumentError):
             sam.sage_act_mean_backward(*args)
+
+
+_CITES = ("paper", "cites", "paper")
+_WRITES = ("author", "writes", "paper")
+_EMPLOYS = ("institution", "employs", "author")
+# papers' and authors' frontiers of one length (9 * B rows each), so a type
+# whose rows landed in another's static input would change the step
+_RGAT_SIZES = [{_CITES: 2, _WRITES: 3}, {_CITES: 2, _WRITES: 2, _EMPLOYS: 2}]
+
+
+def _rgat_step_objects(card, base, topo, tables):
+    sampler = qt.HeteroGraphSageSampler(topo, _RGAT_SIZES, seed_type="paper",
+                                        device=card)
+    feature = qt.HeteroFeature.from_cpu_tensors(
+        tables, device_cache_size="1G", device=card)
+    model = qt.RGAT({t: 32 for t in tables}, 64, 7, 2,
+                    sampler.layer_relations(), heads=4, dropout=0.5,
+                    device=card)
+    model.load_state_dict(base.state_dict())
+    return sampler, feature, model, torch.optim.Adam(model.parameters(),
+                                                     lr=1e-3)
+
+
+def test_graphed_rgat_step_is_bitwise_the_eager_step(card):
+    """R-GAT through the fused step on the card (the forward and backward
+    replayed from CUDA graphs, each node type's rows written by B2 into
+    its own static input, two of them of one shape) against
+    ``make_train_step`` over the same sampler's pipeline and lookup, from
+    the same weights and dropout seed: every loss, the first gradients and
+    the parameters after each of 5 steps bitwise equal.  One capture, no
+    eager call; each step launches B1's literal entry once a sampled block
+    (5) and B2 once a node type (3)."""
+    from quiver_tpu_torch.parallel.train import make_train_step
+
+    rng = np.random.default_rng(8)
+    counts = {"paper": 3000, "author": 2000, "institution": 200}
+
+    def edges(n_src, n_dst, avg):
+        deg = rng.poisson(avg, n_dst)
+        dst = np.repeat(np.arange(n_dst), deg)
+        return np.stack([rng.integers(0, n_src, len(dst)), dst])
+
+    topo = qt.HeteroCSRTopo.from_edge_index_dict(
+        {_CITES: edges(3000, 3000, 10.66), _WRITES: edges(2000, 3000, 3.17),
+         _EMPLOYS: edges(200, 2000, 0.364)}, counts)
+    tables = {t: rng.standard_normal((n, 32)).astype(np.float32)
+              for t, n in counts.items()}
+    labels = torch.from_numpy(rng.integers(0, 7, counts["paper"])).to(card)
+    rels = qt.HeteroGraphSageSampler(topo, _RGAT_SIZES,
+                                     device=card).layer_relations()
+    torch.manual_seed(0)
+    base = qt.RGAT({t: 32 for t in counts}, 64, 7, 2, rels, heads=4,
+                   device=card)
+    gs, gf, gm, go = _rgat_step_objects(card, base, topo, tables)
+    es, ef, em, eo = _rgat_step_objects(card, base, topo, tables)
+    graphed = qt.make_fused_train_step(gs, gf, gm, go, seed=7)
+    eager = make_train_step(em, eo, seed=7)
+    n_blocks = gs.num_blocks(64)
+    assert n_blocks == 5
+    for i in range(5):
+        ids = rng.choice(counts["paper"], 64, replace=False)
+        lab = labels[torch.from_numpy(ids).to(card)]
+        ones = torch.ones(64, dtype=torch.bool, device=card)
+        kw = rng.integers(0, 2**32, (n_blocks, 2), dtype=np.uint32)
+        before = (b1.window_sample.launches, b2.gather_rows.launches)
+        lg = graphed(ids, lab, ones, kw)
+        assert (b1.window_sample.launches - before[0],
+                b2.gather_rows.launches - before[1]) == (5, 3)
+        n_id, _, _, batch, _ = es.pipeline(es.seed_tensor(ids), kw)
+        assert batch.n_id["paper"].shape == batch.n_id["author"].shape
+        le = eager(ef.lookup_device(n_id), batch, lab, ones)
+        assert torch.equal(lg, le), f"step {i}: loss {lg} != {le}"
+        for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+            if i == 0:
+                assert torch.equal(p.grad, q.grad), f"gradient of {name}"
+            assert torch.equal(p, q), f"step {i}: {name} differs"
+    torch.cuda.synchronize()
+    assert (graphed.train.captures, graphed.train.eager_calls) == (1, 0)
+    static = graphed.train._graphs.inputs
+    assert static[0].shape == static[1].shape
+    assert static[0].data_ptr() != static[1].data_ptr()

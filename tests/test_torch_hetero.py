@@ -191,19 +191,22 @@ def test_sampler_draws_and_refusals(graph):
 
 
 def test_sample_path_never_syncs():
-    """No host read-back on the hetero sampling path: ``sample`` and the
-    lookup call none of these, and ``sample`` stores into no tensor by
-    subscript (a store from a Python scalar waits for the stream; it
-    fills and copies instead)."""
+    """No host read-back on the hetero sampling path: ``sample``, the
+    ``pipeline`` it and the fused step call, and the lookups call none of
+    these, and the sampling functions store into no tensor by subscript
+    (a store from a Python scalar waits for the stream; they fill and
+    copy instead)."""
     banned = {"item", "tolist", "unique", "nonzero", "masked_select", "cpu",
               "numpy", "cat"}
-    for obj in (qt.HeteroGraphSageSampler.sample, qt.HeteroFeature.lookup):
+    for obj in (qt.HeteroGraphSageSampler.sample,
+                qt.HeteroGraphSageSampler.pipeline, qt.HeteroFeature.lookup,
+                qt.HeteroFeature.lookup_device, qt.HeteroFeature._each):
         tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
         called = {n.func.attr for n in ast.walk(tree)
                   if isinstance(n, ast.Call)
                   and isinstance(n.func, ast.Attribute)}
         assert not called & banned, (obj, called & banned)
-        if obj.__name__ == "sample":
+        if obj.__name__ in ("sample", "pipeline"):
             assert not [n for n in ast.walk(tree)
                         if isinstance(n, ast.Assign) and any(
                             isinstance(t, ast.Subscript) for t in n.targets)]
